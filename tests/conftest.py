@@ -35,6 +35,10 @@ def pytest_configure(config):
         "slow: excluded from the tier-1 gate (-m 'not slow'); run "
         "explicitly or via the dedicated CI stage",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA GPU (the PyTorch port's kernels); skips without one",
+    )
 
 
 @pytest.fixture(scope="session")
