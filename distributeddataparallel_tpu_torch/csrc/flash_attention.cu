@@ -94,6 +94,15 @@ __device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
   h[1] = __floats2bfloat162_rn(v.z, v.w);
 }
 
+// An f32 operand rounded to the inputs' dtype before its product, as the
+// Pallas kernels do (p.astype(v.dtype), ds.astype(k.dtype)).
+template <typename T>
+__device__ __forceinline__ float as_input(float x) { return x; }
+template <>
+__device__ __forceinline__ float as_input<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
 // Stage rows [row0, row0 + rows) x [0, D) of a (S, D) slice into a float
 // tile with row stride ld; rows at or past rows_valid read as zeros (the
 // ragged sequence edge).
@@ -251,7 +260,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Params p) 
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const float e = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * ldp + tx + 16 * j] = e;
+        Ps[(ty + 16 * i) * ldp + tx + 16 * j] = as_input<T>(e);  // p.astype(v.dtype)
         sum += e;
       }
       sum = row_sum16(sum);

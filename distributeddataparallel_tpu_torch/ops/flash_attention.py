@@ -211,16 +211,24 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
     return s
 
 
+def _as_input(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Round an f32 operand to the inputs' dtype before its product, as the
+    Pallas kernels do (``p.astype(v.dtype)``, ``ds.astype(k.dtype)``); the
+    identity for f32 inputs."""
+    return x.to(like.dtype).float()
+
+
 def flash_fwd_plain(q, k, v, causal: bool = True):
     """K1's function in plain PyTorch: ``(out, lse)`` with out in q's dtype
-    and lse f32 (B, H, Sq), computed in f32."""
+    and lse f32 (B, H, Sq), computed in f32 with p rounded to q's dtype
+    before the product with v (``l`` sums the f32 p)."""
     H = q.shape[2]
     s = _scores(q, k, causal)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, _expand_kv(v, H).float())
+    out = torch.einsum("bhqk,bkhd->bqhd", _as_input(p, q), _expand_kv(v, H).float())
     out = out / l_safe.transpose(1, 2)[..., None]
     return out.to(q.dtype), m + torch.log(l_safe)
 
@@ -241,19 +249,21 @@ def _group_sum(x: torch.Tensor, Hkv: int) -> torch.Tensor:
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True):
-    """K2's function in plain PyTorch: dq in q's dtype."""
+    """K2's function in plain PyTorch: dq in q's dtype (ds rounded to it
+    before the product with k)."""
     _, ds = _p_ds(q, k, v, do, lse, delta, causal)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _expand_kv(k, q.shape[2]).float())
+    dq = torch.einsum("bhqk,bkhd->bqhd", _as_input(ds, q), _expand_kv(k, q.shape[2]).float())
     return (dq * (1.0 / math.sqrt(q.shape[3]))).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True):
     """K3's function in plain PyTorch: (dk, dv) in k's and v's dtypes, the
-    GQA group's query heads summed into their shared kv head."""
+    GQA group's query heads summed into their shared kv head (ds and p
+    rounded to the inputs' dtype before their products)."""
     p, ds = _p_ds(q, k, v, do, lse, delta, causal)
     Hkv = k.shape[2]
-    dk = _group_sum(torch.einsum("bhqk,bqhd->bkhd", ds, q.float()), Hkv)
-    dv = _group_sum(torch.einsum("bhqk,bqhd->bkhd", p, do.float()), Hkv)
+    dk = _group_sum(torch.einsum("bhqk,bqhd->bkhd", _as_input(ds, q), q.float()), Hkv)
+    dv = _group_sum(torch.einsum("bhqk,bqhd->bkhd", _as_input(p, do), do.float()), Hkv)
     return (dk * (1.0 / math.sqrt(q.shape[3]))).to(k.dtype), dv.to(v.dtype)
 
 
