@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; nothing is caught):
    version on the card, in f32 and bf16, causal and not, GQA, ragged and
    ``Sq < Skv`` shapes; then each timed at the GPT-2 124M training shapes
    beside its plain version, a PyTorch library call
-   (``scaled_dot_product_attention``, a yardstick only) and its bound;
+   (``scaled_dot_product_attention``, a yardstick only) and its bound, and
+   K2/K3 again at a bf16 GQA shape (B=2, S=1024, H=32, Hkv=8, D=128);
 4. the main path: ``dpp.main`` trains full-width GPT-2 124M (f32) for 10
    steps and one eval pass in an NCCL group of one, with the kernels'
    launch counters set to 0 just before and read just after.
@@ -28,32 +29,49 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
-# bf16 tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM peaks (NVIDIA data sheet, dense), HBM3 bandwidth.  The f32 bound
+# is the fastest f32-accurate rate the card has: 3xTF32 on the tensor cores
+# (each f32 product as three TF32 products, as PyTorch's own f32 attention
+# does), 495 / 3 TFLOP/s.  The 67 TFLOP/s of f32 on the CUDA cores is kept
+# as a second bound (``bound_cuda_core_ms``), the one PR 1's shares used.
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+PEAK_F32_CUDA_CORES = 67e12
 PEAK_BYTES = 3.35e12
 
-# GPT-2 124M attention at the main path's shapes.
+# GPT-2 124M attention at the main path's shapes, and a bf16 GQA shape.
 GPT2 = dict(B=8, Sq=1024, Skv=1024, H=12, Hkv=12, D=64, dtype="float32", causal=True)
+GQA_BF16 = dict(B=2, Sq=1024, Skv=1024, H=32, Hkv=8, D=128, dtype="bfloat16", causal=True)
 CHECK_CASES = [
     ("gpt2_f32_causal", GPT2),
     ("noncausal_ragged_f32", dict(B=2, Sq=1000, Skv=1000, H=4, Hkv=4, D=64, dtype="float32", causal=False)),
     ("sq_lt_skv_f32_causal", dict(B=2, Sq=384, Skv=1024, H=4, Hkv=4, D=128, dtype="float32", causal=True)),
-    ("gqa_bf16_causal", dict(B=2, Sq=1024, Skv=1024, H=32, Hkv=8, D=128, dtype="bfloat16", causal=True)),
+    ("gqa_bf16_causal", GQA_BF16),
     ("d256_gqa_ragged_f32", dict(B=1, Sq=77, Skv=300, H=6, Hkv=2, D=256, dtype="float32", causal=True)),
     ("d40_gqa_ragged_bf16", dict(B=2, Sq=200, Skv=200, H=6, Hkv=3, D=40, dtype="bfloat16", causal=False)),
 ]
-# Stated tolerances, |kernel - plain| <= atol + rtol * |plain|.  Both
-# versions compute in f32, so f32 results differ only by summation order
-# and the online softmax's rescaling.  bf16 outputs are each rounded to
-# bf16 once at the end: rtol 1e-2 covers the one bf16 ulp (2^-7 relative,
-# at most) that two f32 values a few f32 ulps apart may round to, and atol
-# the f32 differences before rounding.  lse is f32 in every case.
-TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 1e-2)}
+# Stated tolerances, |kernel - plain| <= atol + rtol * |plain|.  f32: both
+# versions are f32-accurate (the kernels' 3xTF32 products keep ~2^-22 of
+# each operand), so results differ by summation order and the online
+# softmax's rescaling.  bf16: every output is rounded to bf16 once at the
+# end, and rtol 1e-2 covers the one bf16 ulp (2^-7 relative, at most) two
+# nearby f32 values may round apart.  Before that rounding, p (and ds) are
+# rounded to bf16 ahead of their second product, as the reference does: K1
+# rounds p = exp(s - m) against the running max of each 64-key tile, the
+# plain version against the row's max, so one p may land one bf16 ulp
+# (2^-8 relative) apart and an output moves by up to 2^-8 sum p|v| / l,
+# about 1e-3 on average over the 65+ keys a row crossing tiles sees, with
+# tails to ~2e-3 across the millions of entries checked: atol 2e-3.  K2/K3
+# round the same f32 p and ds as the plain version when both get the same
+# (out, lse), so they differ only where f32 summation order tips a
+# rounding; fed the plain forward's (out, lse) instead, a one-ulp change of
+# out would shift delta and tip many ds roundings, each worth one bf16 ulp
+# of ds times |k| in dq.  lse is f32 in every case.
+TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-3, 1e-2)}
 
 MAIN_ARGS = [
     "--model", "gpt2", "--dataset", "synthetic-lm", "--seq-len", "1024",
@@ -74,6 +92,26 @@ def log(*a):
     print(*a, flush=True)
 
 
+def ptxas_report(build_log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` output:
+    template arguments, registers and spills."""
+    out, name = [], None
+    for line in build_log.splitlines():
+        if line.startswith("#"):
+            out.append(line.strip())
+        m = re.search(r"Compiling entry function '.*\d(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(.*?)EEvNS", line)
+        if m:
+            args = m.group(2).replace("13__nv_bfloat16", "bf16").replace("Li", ",").replace("E", "")
+            name = f"{m.group(1)}<{args.replace('f,', 'float,', 1) if args.startswith('f') else args}>"
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers; {spill}")
+            name = None
+    return out
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -90,14 +128,15 @@ def inputs(torch, c, seed):
 
 def check_case(torch, fa, name, c, seed):
     """K1 (out, lse) and K2/K3 (dq, dk, dv through FlashAttention's backward)
-    against the plain versions on the same inputs; returns max abs errors."""
+    against the plain versions on the same inputs: the plain backward gets
+    the (out, lse) that K1 gave the kernels.  Returns max abs errors."""
     q, k, v, do = inputs(torch, c, seed)
     causal = c["causal"]
     out, lse = fa.flash_fwd(q, k, v, causal)
     ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     fa.flash_attention(qg, kg, vg, causal).backward(do)
-    ref = dict(zip(("dq", "dk", "dv"), fa.flash_bwd_plain(q, k, v, ref_out, ref_lse, do, causal)))
+    ref = dict(zip(("dq", "dk", "dv"), fa.flash_bwd_plain(q, k, v, out, lse, do, causal)))
     got = {"out": out, "lse": lse, "dq": qg.grad, "dk": kg.grad, "dv": vg.grad}
     ref.update(out=ref_out, lse=ref_lse)
     torch.cuda.synchronize()
@@ -141,15 +180,17 @@ def visible_pairs(c) -> int:
     return sum(min(off + i + 1, Skv) for i in range(Sq))
 
 
-def bound(c, matmuls, bytes_moved):
+def bound(c, matmuls, bytes_moved, peak_flops=None):
+    """Least time (ms) for the work and what sets it: the visible pairs'
+    operations at the dtype's peak, or the bytes at the memory rate."""
     flops = 2 * c["D"] * visible_pairs(c) * c["B"] * c["H"] * matmuls
-    t_ops = flops / PEAK_FLOPS[c["dtype"]] * 1e3
+    t_ops = flops / (peak_flops or PEAK_FLOPS[c["dtype"]]) * 1e3
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def measure(torch, fa, c, seed):
-    """Kernel, plain and library times at the main path's shapes."""
+def measure(torch, fa, c, seed, names):
+    """Kernel, plain and library times of the named kernels at shapes c."""
     import torch.nn.functional as F
 
     q, k, v, do = inputs(torch, c, seed)
@@ -161,8 +202,9 @@ def measure(torch, fa, c, seed):
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
 
     # Library yardstick: SDPA on (B, H, S, D) views, forward and backward.
+    gqa = c["Hkv"] != c["H"]
     ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    lib_fwd = lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+    lib_fwd = lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=gqa)
     o_lib = lib_fwd()
     do_l = do.transpose(1, 2)
     lib_bwd = lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do_l, retain_graph=True)
@@ -191,6 +233,8 @@ def measure(torch, fa, c, seed):
     }
     res = {}
     for name, replaces, matmuls in KERNELS:
+        if name not in names:
+            continue
         kern, plain, nb, lib_ms, lib_call = runs[name]
         b_ms, b_by = bound(c, matmuls, nb)
         res[name] = {
@@ -202,6 +246,8 @@ def measure(torch, fa, c, seed):
             "library_call": lib_call,
             "bytes": nb,
         }
+        if c["dtype"] == "float32":
+            res[name]["bound_cuda_core_ms"] = bound(c, matmuls, nb, PEAK_F32_CUDA_CORES)[0]
         log(f"  {name}: {res[name]['ms']:.3f} ms (plain {res[name]['plain_ms']:.3f}, "
             f"library {lib_ms:.3f}, bound {b_ms:.3f} by {b_by})")
     return res
@@ -224,9 +270,8 @@ def main() -> int:
     t0 = time.perf_counter()
     so = fa.build()
     log(f"[2] build: {so.name} in {time.perf_counter() - t0:.1f} s")
-    for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("#"):
-            log("    " + line.strip())
+    for line in ptxas_report(so.with_suffix(".log").read_text()):
+        log("    " + line)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 plain versions
     torch.backends.cudnn.allow_tf32 = False
@@ -235,7 +280,9 @@ def main() -> int:
     for i, (name, c) in enumerate(CHECK_CASES):
         errs[name] = check_case(torch, fa, name, c, seed=i)
     log(f"    timing at the GPT-2 shapes {GPT2} ({smi})")
-    timing = measure(torch, fa, GPT2, seed=100)
+    timing = measure(torch, fa, GPT2, 100, [name for name, _, _ in KERNELS])
+    log(f"    timing at the bf16 GQA shapes {GQA_BF16}")
+    timing_bf16 = measure(torch, fa, GQA_BF16, 101, ["flash_bwd_dq", "flash_bwd_dkv"])
 
     log("[4] main path: dpp.main " + " ".join(MAIN_ARGS))
     fa.reset_launches()
@@ -265,15 +312,20 @@ def main() -> int:
     kernels = []
     for name, replaces, _ in KERNELS:
         t = timing[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in (
                 ("out", "lse") if name == "flash_fwd" else ("dq",) if name == "flash_bwd_dq" else ("dk", "dv"))),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "library_call": t["library_call"], "shapes": GPT2,
-        })
+            "bound_by": t["bound_by"], "bound_cuda_core_ms": t["bound_cuda_core_ms"],
+            "library_ms": t["library_ms"], "library_call": t["library_call"], "shapes": GPT2,
+        }
+        if name in timing_bf16:
+            tb = timing_bf16[name]
+            entry["bf16"] = {k: tb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            entry["bf16"]["shapes"] = GQA_BF16
+        kernels.append(entry)
     main_path = {
         "step_ms": summary["step_time_s"] * 1e3, "tokens_per_s": summary["tokens_per_s"],
         "peak_memory_bytes": summary["peak_memory_bytes"], "losses": losses,

@@ -12,40 +12,63 @@
 // What each computes is what its TPU kernel computes: scale 1/sqrt(D),
 // queries aligned to the END of kv (q_offset = Skv - Sq), causal entries
 // above the diagonal masked with the finite NEG_INF (-1e30, not -inf), the
-// l == 0 row guard, and GQA query head h reading kv head h / (H / Hkv).
+// l == 0 row guard, GQA query head h reading kv head h / (H / Hkv), and for
+// bf16 inputs p and ds rounded to bf16 before their second product.
 // Layouts: q/k/v/dout/out/dq/dk/dv are (B, S, H, D) read through element
 // strides (last dim contiguous), lse and delta are plain (B, H, Sq) f32 —
 // the TPU's (B*H, 8, Sq) sublane broadcast is not carried over.
 //
 // Bound on an H100 SXM at the GPT-2 124M training shapes (B=8, S=1024,
-// H=12, D=64, causal, f32): the work is f32 arithmetic on CUDA cores
-// (67 TFLOP/s peak; 3.35 TB/s memory).  K1 does 2*B*H*S^2*D = 12.9 GFLOP
-// over ~101 MB (0.19 ms, compute-bound), K2 3*B*H*S^2*D = 19.3 GFLOP
-// (0.29 ms), K3 4*B*H*S^2*D = 25.8 GFLOP (0.38 ms).  All three are bound by
-// operations, not bytes.
+// H=12, D=64, causal, f32): K1 does 2*B*H*S^2*D/2 = 6.5 GFLOP of visible
+// work, K2 3/2 of that, K3 twice that, over ~100 MB each: all three are
+// bound by operations.  f32 at f32 accuracy runs at 67 TFLOP/s on the CUDA
+// cores, or at 495/3 = 165 TFLOP/s on the tensor cores as 3xTF32 (each
+// product split into three TF32 products); bf16 at 989 TFLOP/s.
 //
-// What this simple design does about that bound: every tile product is a
-// register-blocked FMA loop over shared-memory tiles (each thread holds a
-// (TILE/16) x (TILE/16) block of scores and a (TILE/16) x (DMAX/16) block
-// of the output), with 16-byte shared-memory loads on padded rows (row
-// stride D + 4 floats, conflict-free across a quarter warp).  The (S, S)
-// score matrix never leaves the block; HBM traffic is one read of each
-// input tile per block pass.  The causal loop stops at the diagonal, so
-// the work is the visible half of the square.  Tensor cores (wgmma), TMA
-// pipelining and warp specialisation are not used: that is the later
-// step toward the bound.  bf16 inputs are widened to f32 in shared memory
-// and every product and sum is f32.
+// K1 (the simple design): every tile product is a register-blocked FMA
+// loop over shared-memory tiles (each thread holds a (TILE/16) x (TILE/16)
+// block of scores and a (TILE/16) x (DMAX/16) block of the output),
+// 16-byte shared-memory loads on padded rows (row stride D + 4 floats),
+// tiles loaded synchronously.  bf16 inputs are widened to f32 in shared
+// memory.  Tiles: 64 x 64 for D <= 128, 32 x 32 for D <= 256; 256 threads.
 //
-// Tiles: 64 query rows x 64 kv rows for D <= 128, 32 x 32 for D <= 256;
-// 256 threads per block as a 16 x 16 grid.  One block per (b*h, q tile)
-// for K1/K2, one per (b*Hkv, kv tile) for K3 — the TPU's sequential grid
-// axis and its VMEM scratch accumulator become a loop inside the block
-// with the accumulator in registers, so no atomics are needed.
+// K2 and K3 (tensor cores): every product is mma.sync — m16n8k8 TF32 for
+// f32 with the 3xTF32 split (big = tf32(x), small = tf32(x - big); the
+// products small*big' + big*small' + big*big' accumulate in f32, smallest
+// first, which keeps f32 accuracy), m16n8k16 bf16 for bf16, f32
+// accumulators.  wgmma is not used: with TF32 operands it needs both
+// operands K-major in shared memory, and three of the five products (dq =
+// ds k, dk = ds^T q, dv = p^T do) contract over a sequence axis; mma.sync
+// fragments load thread by thread from any layout (ldmatrix / ldmatrix.trans
+// for bf16, scalar loads for TF32).  Four warps per block (two for f32 at
+// D > 128), each owning 16 of the block's rows — q rows in K2, kv rows in
+// K3 — so recompute, masking and p * (dp - delta) stay inside a warp; p
+// and ds go from the accumulators into the next product's A operand through
+// registers for bf16 (k16 fragments line up with the accumulator's) and
+// through a per-warp shared-memory slab for TF32 (k8 fragments do not).
+// f32 tiles are XOR-swizzled so that both row and column fragment reads are
+// free of bank conflicts.  The streamed tiles (K/V in K2; Q/dO with their
+// lse/delta rows in K3) go through a two-stage ring filled by 16-byte
+// cp.async copies, so tile j+1 is in flight while tile j is computed; rows
+// past the ragged edge and the head-dim pad (D rounded up to 64, 128 or
+// 256) are zero-filled.  Block barriers only guard the ring.  The causal
+// mask is applied only on tiles that cross the diagonal (or a ragged edge);
+// warps with no visible entry in a tile skip it.  One block per (b*h, q
+// tile, output column chunk) for K2, per (b*Hkv, kv tile, column chunk)
+// for K3, with the tile index as the grid's slow axis and the longest
+// causal tiles first, so the last wave is not left with the longest
+// blocks; for D > 128 each chunk of 128 output columns recomputes the
+// scores, so the accumulators fit in registers.  The TPU's sequential grid
+// axis and its VMEM scratch become a loop inside the block with the
+// accumulator in registers: no atomics, so the gradients are the same bits
+// from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -292,223 +315,613 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Params p) 
   }
 }
 
+// ------------------------------------------------- tensor-core tools ----
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// 3xTF32 split: x ~= big + small with both TF32, |x - big - small| ~ 2^-22 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Operand fragments of one mma.sync (lane = threadIdx.x % 32, g = lane / 4,
+// t = lane % 4).  TF32 m16n8k8: A holds (g, t), (g+8, t), (g, t+4),
+// (g+8, t+4); B holds (k=t, n=g), (k=t+4, n=g) — each as a big and a small
+// part.  bf16 m16n8k16: A holds pairs (g, 2t..), (g+8, 2t..), (g, 2t+8..),
+// (g+8, 2t+8..); B pairs (k=2t.., n=g), (k=2t+8.., n=g).  The f32
+// accumulator of both holds (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
+struct FragA32 { uint32_t big[4], small[4]; };
+struct FragB32 { uint32_t big[2], small[2]; };
+struct FragA16 { uint32_t x[4]; };
+struct FragB16 { uint32_t x[2]; };
+
+template <typename T> struct Mma;
+template <> struct Mma<float> {
+  using A = FragA32;
+  using B = FragB32;
+  static constexpr int kK = 8;    // contraction depth of one mma
+  static constexpr int kPad = 8;  // row pad (elements): ld = 8 (mod 32), see load_a
+  static constexpr int kSwz = 4;
+};
+template <> struct Mma<__nv_bfloat16> {
+  using A = FragA16;
+  using B = FragB16;
+  static constexpr int kK = 16;
+  static constexpr int kPad = 8;  // 16 bytes: ldmatrix rows in distinct banks
+  static constexpr int kSwz = 0;
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const FragA32& a, const FragB32& b) {
+  mma_tf32(d, a.small, b.big);
+  mma_tf32(d, a.big, b.small);
+  mma_tf32(d, a.big, b.big);
+}
+
+// 3xTF32 with the two correction terms into their own accumulator.
+__device__ __forceinline__ void mma_split(float (&d)[4], float (&c)[4], const FragA32& a,
+                                          const FragB32& b) {
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(d, a.big, b.big);
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const FragA16& a, const FragB16& b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x[0]), "r"(a.x[1]), "r"(a.x[2]), "r"(a.x[3]), "r"(b.x[0]), "r"(b.x[1]));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
+                                            const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                                  uint32_t& r3, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(smem_addr(p)));
+}
+
+// A fragment: rows [0, 16) x columns [k0, k0 + kK) of a row-major tile.
+// f32 tiles are stored with element (r, c) at r * ld + (c ^ (r & sw)): with
+// ld = 8 (mod 32) and sw = 4 both the row reads (rows g, columns t) and the
+// column reads (rows t, columns g) of a fragment hit 32 distinct banks.
+__device__ __forceinline__ void load_a(FragA32& a, const float* s, int ld, int k0, int lane,
+                                       int sw = Mma<float>::kSwz) {
+  const int g = lane >> 2, o = g & sw;
+  const float* p = s + g * ld + k0 + (lane & 3);
+  split_tf32(p[o], a.big[0], a.small[0]);
+  split_tf32(p[8 * ld + o], a.big[1], a.small[1]);
+  split_tf32(p[4 - o], a.big[2], a.small[2]);
+  split_tf32(p[8 * ld + 4 - o], a.big[3], a.small[3]);
+}
+
+__device__ __forceinline__ void load_a(FragA16& a, const __nv_bfloat16* s, int ld, int k0, int lane) {
+  ldmatrix_x4(a.x[0], a.x[1], a.x[2], a.x[3], s + (lane & 15) * ld + k0 + 8 * (lane >> 4));
+}
+
+// B fragments of the n-tiles [n0, n0 + 8) and [n0 + 8, n0 + 16) at depth
+// [k0, k0 + kK), from a row-major tile X stored as X[n][k] (B = X^T: the
+// score products, whose operands both keep the head dim contiguous).
+__device__ __forceinline__ void load_b_nk(FragB32 (&b)[2], const float* X, int ld, int n0, int k0,
+                                          int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int o = (lane >> 2) & Mma<float>::kSwz;
+    const float* p = X + (n0 + 8 * i + (lane >> 2)) * ld + k0 + (lane & 3);
+    split_tf32(p[o], b[i].big[0], b[i].small[0]);
+    split_tf32(p[4 - o], b[i].big[1], b[i].small[1]);
+  }
+}
+
+__device__ __forceinline__ void load_b_nk(FragB16 (&b)[2], const __nv_bfloat16* X, int ld, int n0,
+                                          int k0, int lane) {
+  const __nv_bfloat16* p =
+      X + (n0 + (lane & 7) + 8 * (lane >> 4)) * ld + k0 + 8 * ((lane >> 3) & 1);
+  ldmatrix_x4(b[0].x[0], b[0].x[1], b[1].x[0], b[1].x[1], p);
+}
+
+// The same from a tile stored as X[k][n] (the products that contract over
+// a sequence axis: dq = ds k, dk = ds^T q, dv = p^T do).
+__device__ __forceinline__ void load_b_kn(FragB32 (&b)[2], const float* X, int ld, int n0, int k0,
+                                          int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int g = lane >> 2;
+    const float* p = X + (k0 + (lane & 3)) * ld + n0 + 8 * i + g;
+    split_tf32(p[0], b[i].big[0], b[i].small[0]);
+    split_tf32(p[4 * ld + ((g ^ Mma<float>::kSwz) - g)], b[i].big[1], b[i].small[1]);
+  }
+}
+
+__device__ __forceinline__ void load_b_kn(FragB16 (&b)[2], const __nv_bfloat16* X, int ld, int n0,
+                                          int k0, int lane) {
+  const __nv_bfloat16* p =
+      X + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + n0 + 8 * (lane >> 4);
+  ldmatrix_x4_trans(b[0].x[0], b[0].x[1], b[1].x[0], b[1].x[1], p);
+}
+
+// acc[j] += A[0:16, 0:DP] . X[8j:8j+8, 0:DP]^T: a warp's 16 rows against the
+// NT*8 rows of a streamed tile (S = Q K^T, dP = dO V^T, and their
+// transposes in K3).  For TF32 the two correction terms of 3xTF32 go to
+// their own accumulators, so the three products of one step do not wait on
+// each other along the long contraction over the head dim.
+template <typename T, int NT, int DP>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const T* A, const T* X, int ld,
+                                        int lane) {
+  using M = Mma<T>;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  float corr[kSplit ? NT : 1][4] = {};
+#pragma unroll
+  for (int k0 = 0; k0 < DP; k0 += M::kK) {
+    typename M::A a;
+    load_a(a, A, ld, k0, lane);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      typename M::B b[2];
+      load_b_nk(b, X, ld, 8 * j, k0, lane);
+      if constexpr (kSplit) {
+        mma_split(acc[j], corr[j], a, b[0]);
+        mma_split(acc[j + 1], corr[j + 1], a, b[1]);
+      } else {
+        mma(acc[j], a, b[0]);
+        mma(acc[j + 1], a, b[1]);
+      }
+    }
+  }
+  if constexpr (kSplit) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += corr[j][e];
+  }
+}
+
+// acc[j] += P[0:16, 0:NS*8] . X[0:NS*8, c0+8j : c0+8j+8], P in accumulator
+// layout (p or ds of this tile), X a streamed or resident tile whose
+// columns past D are zero.  TF32 stages P through the warp's slab, bf16
+// packs it from registers, rounding to bf16 as the reference does.  The
+// TF32 corrections get their own accumulators only for narrow outputs
+// (NO <= 8): for wider ones the NO independent accumulators already keep
+// the tensor cores busy, and the extra registers would spill.
+template <typename T, int NS, int NO>
+__device__ __forceinline__ void mma_pv(float (&acc)[NO][4], const float (&pm)[NS][4], float* slab,
+                                       const T* X, int ld, int c0, int lane) {
+  using M = Mma<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr bool kSplit = kF32 && NO <= 8;
+  constexpr int kLds = NS * 8 + 4;  // slab row stride: A loads conflict-free
+  if constexpr (kF32) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      *reinterpret_cast<float2*>(slab + g * kLds + 8 * j + 2 * t) = make_float2(pm[j][0], pm[j][1]);
+      *reinterpret_cast<float2*>(slab + (g + 8) * kLds + 8 * j + 2 * t) = make_float2(pm[j][2], pm[j][3]);
+    }
+    __syncwarp();
+  }
+  float corr[kSplit ? NO : 1][4] = {};
+#pragma unroll
+  for (int kc = 0; kc < NS * 8 / M::kK; ++kc) {
+    typename M::A a;
+    if constexpr (kF32) {
+      load_a(a, slab, kLds, 8 * kc, lane, 0);
+    } else {
+      a.x[0] = pack_bf16(pm[2 * kc][0], pm[2 * kc][1]);
+      a.x[1] = pack_bf16(pm[2 * kc][2], pm[2 * kc][3]);
+      a.x[2] = pack_bf16(pm[2 * kc + 1][0], pm[2 * kc + 1][1]);
+      a.x[3] = pack_bf16(pm[2 * kc + 1][2], pm[2 * kc + 1][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < NO; j += 2) {
+      typename M::B b[2];
+      load_b_kn(b, X, ld, c0 + 8 * j, kc * M::kK, lane);
+      if constexpr (kSplit) {
+        mma_split(acc[j], corr[j], a, b[0]);
+        mma_split(acc[j + 1], corr[j + 1], a, b[1]);
+      } else {
+        mma(acc[j], a, b[0]);
+        mma(acc[j + 1], a, b[1]);
+      }
+    }
+  }
+  if constexpr (kSplit) {
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += corr[j][e];
+  }
+  if constexpr (kF32) __syncwarp();  // the slab is rewritten by the next product
+}
+
+// Start copying rows [row0, row0 + ROWS) x [0, DP) of a (S, D) slice into a
+// tile with row stride ld; rows at or past rows_valid and the pad columns
+// [D, DP) are zero-filled.
+template <typename T, int ROWS, int DP, int NTHREADS>
+__device__ __forceinline__ void copy_tile_async(T* tile, int ld, const T* base, long long row_stride,
+                                                int row0, int rows_valid, int D) {
+  constexpr int E = 16 / sizeof(T), PER_ROW = DP / E;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += NTHREADS) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * E;
+    const bool ok = row0 + r < rows_valid && c < D;
+    cp_async16(tile + r * ld + (c ^ (r & Mma<T>::kSwz)),
+               ok ? base + (long long)(row0 + r) * row_stride + c : base,
+               ok ? 16 : 0);
+  }
+}
+
+// The same for ROWS entries of an f32 row vector (lse or delta).
+template <int ROWS, int NTHREADS>
+__device__ __forceinline__ void copy_rows_async(float* dst, const float* src, int row0,
+                                                int rows_valid) {
+  for (int i = threadIdx.x; i < ROWS; i += NTHREADS) {
+    const bool ok = row0 + i < rows_valid;
+    cp_async4(dst + i, ok ? src + row0 + i : src, ok ? 4 : 0);
+  }
+}
+
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Store a warp's accumulator block (rows row0 + [0, 16), columns
+// c0 + [0, NO*8)) times mul; rows at or past rows_valid and columns at or
+// past D are left out.
+template <typename T, int NO>
+__device__ __forceinline__ void store_acc(T* base, long long row_stride, const float (&acc)[NO][4],
+                                          float mul, int row0, int rows_valid, int c0, int D,
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int c = c0 + 8 * j + 2 * t;
+    if (c >= D) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + g + 8 * half;
+      if (row < rows_valid)
+        st2(base + (long long)row * row_stride + c, acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
+    }
+  }
+}
+
+// p = exp(s * scale - lse) is computed in the plain version's order with
+// the same expf: for bf16 the kernel then rounds the same f32 p and ds as
+// the plain version, and only summation order can tip a rounding.
+
+// Shared-memory plan of K2 and K3: two resident tiles of BM rows (Q, dO in
+// K2; K, V in K3), a two-stage ring of two streamed tiles of BN rows
+// (K, V in K2; Q, dO in K3), in K3 a two-stage ring of the streamed rows'
+// lse and delta, and for TF32 one 16 x (BN + 4) f32 slab per warp.  Rows
+// hold DP (the head dim padded to 64, 128 or 256) plus a pad.
+template <typename T, int WARPS, int BN, int DP>
+struct BwdPlan {
+  static constexpr int kBM = 16 * WARPS;
+  static constexpr int kThreadsPerBlock = 32 * WARPS;
+  static constexpr int kLd = DP + Mma<T>::kPad;
+  static constexpr int kSlab = std::is_same<T, float>::value ? 16 * (BN + 4) : 0;
+  static constexpr size_t bytes(bool row_ring) {
+    return sizeof(T) * (size_t)kLd * (2 * kBM + 4 * BN) +
+           sizeof(float) * ((row_ring ? 4 * BN : 0) + WARPS * kSlab);
+  }
+};
+
 // ---------------------------------------------------------------- K2 ----
-template <typename T, int TILE, int DMAX>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(const Params p) {
-  constexpr int R = TILE / 16;
-  constexpr int NV = DMAX / 64;
-  extern __shared__ __align__(16) float smem[];
-  const int D = p.D, ld = D + 4, ldp = TILE + 4;
-  float* Qs = smem;
-  float* Os = Qs + TILE * ld;  // dout
-  float* Ks = Os + TILE * ld;
-  float* Vs = Ks + TILE * ld;
-  float* Ss = Vs + TILE * ld;  // ds
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+// One block per (b*h, q tile of BM rows, chunk of DC output columns); the
+// kv tiles stream through the ring.
+template <typename T, int WARPS, int BN, int DC, int DP>
+__global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(const Params p) {
+  using Plan = BwdPlan<T, WARPS, BN, DP>;
+  constexpr int BM = Plan::kBM, NTH = Plan::kThreadsPerBlock, NS = BN / 8, NO = DC / 8;
+  constexpr int ld = Plan::kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = p.D;
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Os = Qs + BM * ld;    // dout
+  T* ring = Os + BM * ld;  // stage s: K at ring + 2 s BN ld, V after it
+  float* slabs = reinterpret_cast<float*>(ring + 4 * BN * ld);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* slab = slabs + warp * Plan::kSlab;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int hk = h / (p.H / p.Hkv);
-  const int q0 = blockIdx.x * TILE;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest causal rows first
+  const int c0 = blockIdx.z * DC;
+  const int qw = q0 + 16 * warp;  // this warp's first q row
   const int q_offset = p.Skv - p.Sq;
   const T* qb = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
   const T* dob = static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
   const T* kb = static_cast<const T*>(p.k) + b * p.sk.b + hk * p.sk.h;
   const T* vb = static_cast<const T*>(p.v) + b * p.sv.b + hk * p.sv.h;
+  copy_tile_async<T, BM, DP, NTH>(Qs, ld, qb, p.sq.s, q0, p.Sq, D);
+  copy_tile_async<T, BM, DP, NTH>(Os, ld, dob, p.sdo.s, q0, p.Sq, D);
+  cp_async_commit();
+
   const long long row_base = ((long long)b * p.H + h) * p.Sq;
-  load_tile(Qs, ld, qb, p.sq.s, q0, p.Sq, D, TILE);
-  load_tile(Os, ld, dob, p.sdo.s, q0, p.Sq, D, TILE);
-
-  float lse_r[R], delta_r[R], dq[R][NV * 4];
+  float lse_r[2], delta_r[2];
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse_r[i] = row < p.Sq ? p.lse[row_base + row] : 0.f;
-    delta_r[i] = row < p.Sq ? p.delta[row_base + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NV * 4; ++c) dq[i][c] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw + g + 8 * r;
+    lse_r[r] = row < p.Sq ? p.lse[row_base + row] : 0.f;
+    delta_r[r] = row < p.Sq ? p.delta[row_base + row] : 0.f;
   }
+  float dq[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
 
-  const int kv_end = kv_limit(p, q0, TILE);
-  for (int k0 = 0; k0 < kv_end; k0 += TILE) {
+  const int n_kv = (kv_limit(p, q0, BM) + BN - 1) / BN;
+  auto issue = [&](int it) {
+    T* Kt = ring + 2 * (it & 1) * BN * ld;
+    copy_tile_async<T, BN, DP, NTH>(Kt, ld, kb, p.sk.s, it * BN, p.Skv, D);
+    copy_tile_async<T, BN, DP, NTH>(Kt + BN * ld, ld, vb, p.sv.s, it * BN, p.Skv, D);
+  };
+  if (n_kv > 0) issue(0);
+  cp_async_commit();
+  for (int it = 0; it < n_kv; ++it) {
+    if (it + 1 < n_kv) issue(it + 1);  // in flight while this tile is computed
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    load_tile(Ks, ld, kb, p.sk.s, k0, p.Skv, D, TILE);
-    load_tile(Vs, ld, vb, p.sv.s, k0, p.Skv, D, TILE);
-    __syncthreads();
-    float s[R][R], dp[R][R];
+    const int k0 = it * BN;
+    const T* Kt = ring + 2 * (it & 1) * BN * ld;
+    const T* Vt = Kt + BN * ld;
+    // A warp whose rows all lie before this tile's first visible key (or
+    // past Sq) has nothing to add.
+    if (qw < p.Sq && !(p.causal && k0 > q_offset + qw + 15)) {
+      float s[NS][4] = {}, dp[NS][4] = {};
+      mma_abt<T, NS, DP>(s, Qs + 16 * warp * ld, Kt, ld, lane);
+      mma_abt<T, NS, DP>(dp, Os + 16 * warp * ld, Vt, ld, lane);
+      if ((p.causal && k0 + BN - 1 > q_offset + qw) || k0 + BN > p.Skv) {
+        // The tile crosses the diagonal or the ragged edge: mask.  Masked
+        // entries get p = 0, as exp(NEG_INF - lse) is exactly 0 in the
+        // reference.
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+        for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_dot(s, Qs, Ks, ld, D, ty, tx);
-    tile_dot(dp, Os, Vs, ld, D, ty, tx);
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+            const int qpos = q_offset + qw + g + 8 * (e >> 1);
+            const bool live = kpos < p.Skv && !(p.causal && kpos > qpos);
+            const float pr = live ? expf(s[j][e] * p.scale - lse_r[e >> 1]) : 0.f;
+            s[j][e] = pr * (dp[j][e] - delta_r[e >> 1]);  // ds
+          }
+      } else {
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qpos = q_offset + q0 + ty + 16 * i;
+        for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool live = kpos < p.Skv && !(p.causal && kpos > qpos);
-        // Masked entries: exp(NEG_INF - lse) is exactly 0 in the reference.
-        const float pr = live ? expf(s[i][j] * p.scale - lse_r[i]) : 0.f;
-        Ss[(ty + 16 * i) * ldp + tx + 16 * j] = pr * (dp[i][j] - delta_r[i]);
+          for (int e = 0; e < 4; ++e) {
+            const float pr = expf(s[j][e] * p.scale - lse_r[e >> 1]);
+            s[j][e] = pr * (dp[j][e] - delta_r[e >> 1]);
+          }
       }
+      mma_pv<T, NS, NO>(dq, s, slab, Kt, ld, c0, lane);
     }
-    __syncthreads();
-    tile_pv<R, NV>(dq, Ss, ldp, Ks, ld, TILE, D, ty, tx);
+    __syncthreads();  // the next issue overwrites this stage
   }
-
+  cp_async_wait<0>();
   T* dqb = static_cast<T*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= p.Sq) continue;
-#pragma unroll
-    for (int g = 0; g < NV; ++g) {
-      const int c = tx * 4 + 64 * g;
-      if (c < D) {
-        const float* a = &dq[i][4 * g];
-        st4(dqb + (long long)row * p.sdq.s + c,
-            make_float4(a[0] * p.scale, a[1] * p.scale, a[2] * p.scale, a[3] * p.scale));
-      }
-    }
-  }
+  store_acc<T, NO>(dqb, p.sdq.s, dq, p.scale, qw, p.Sq, c0, D, lane);
 }
 
 // ---------------------------------------------------------------- K3 ----
-template <typename T, int TILE, int DMAX>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(const Params p) {
-  constexpr int R = TILE / 16;
-  constexpr int NV = DMAX / 64;
-  extern __shared__ __align__(16) float smem[];
-  const int D = p.D, ld = D + 4, ldp = TILE + 4;
-  float* Ks = smem;
-  float* Vs = Ks + TILE * ld;
-  float* Qs = Vs + TILE * ld;
-  float* Os = Qs + TILE * ld;  // dout
-  float* Ps = Os + TILE * ld;  // p transposed: [kv row][q row]
-  float* Ss = Ps + TILE * ldp; // ds transposed
-  float* Ls = Ss + TILE * ldp; // lse of the staged q rows
-  float* Dl = Ls + TILE;       // delta of the staged q rows
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
+// One block per (b*Hkv, kv tile of BM rows, chunk of DC output columns);
+// the (group member, q tile) pairs stream through the ring.  Each warp
+// computes the transposed scores of its 16 kv rows, so p^T and ds^T come
+// out of the accumulators as the A operands of dv and dk.
+template <typename T, int WARPS, int BN, int DC, int DP>
+__global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkv_kernel(const Params p) {
+  using Plan = BwdPlan<T, WARPS, BN, DP>;
+  constexpr int BM = Plan::kBM, NTH = Plan::kThreadsPerBlock, NS = BN / 8, NO = DC / 8;
+  constexpr int ld = Plan::kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = p.D;
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + BM * ld;
+  T* ring = Vs + BM * ld;  // stage s: Q at ring + 2 s BN ld, dO after it
+  float* rows = reinterpret_cast<float*>(ring + 4 * BN * ld);  // stage s: lse, delta
+  float* slabs = rows + 4 * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* slab = slabs + warp * Plan::kSlab;
+  const int b = blockIdx.x / p.Hkv, hk = blockIdx.x % p.Hkv;
   const int group = p.H / p.Hkv;
-  const int k0 = blockIdx.x * TILE;
+  const int k0 = blockIdx.y * BM;  // longest causal column first
+  const int c0 = blockIdx.z * DC;
+  const int kw = k0 + 16 * warp;  // this warp's first kv row
   const int q_offset = p.Skv - p.Sq;
   const T* kb = static_cast<const T*>(p.k) + b * p.sk.b + hk * p.sk.h;
   const T* vb = static_cast<const T*>(p.v) + b * p.sv.b + hk * p.sv.h;
-  load_tile(Ks, ld, kb, p.sk.s, k0, p.Skv, D, TILE);
-  load_tile(Vs, ld, vb, p.sv.s, k0, p.Skv, D, TILE);
+  copy_tile_async<T, BM, DP, NTH>(Ks, ld, kb, p.sk.s, k0, p.Skv, D);
+  copy_tile_async<T, BM, DP, NTH>(Vs, ld, vb, p.sv.s, k0, p.Skv, D);
+  cp_async_commit();
 
-  float dk[R][NV * 4], dv[R][NV * 4];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < NV * 4; ++c) dk[i][c] = dv[i][c] = 0.f;
+  float dk[NO][4] = {}, dv[NO][4] = {};
 
-  // Causal: q row r sees this tile only if q_offset + r >= k0.
-  const int q_begin = p.causal ? (max(0, k0 - q_offset) / TILE) * TILE : 0;
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
+  // Causal: q row r sees kv row k0 only if q_offset + r >= k0.
+  const int q_begin = p.causal ? max(0, k0 - q_offset) : 0;
+  const int n_qt = q_begin < p.Sq ? (p.Sq - q_begin + BN - 1) / BN : 0;
+  const int n_it = group * n_qt;
+  auto q_start = [&](int it) { return q_begin + (it % n_qt) * BN; };
+  auto issue = [&](int it) {
+    const int h = hk * group + it / n_qt, q0 = q_start(it), st = it & 1;
     const T* qb = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
     const T* dob = static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
     const long long row_base = ((long long)b * p.H + h) * p.Sq;
-    for (int q0 = q_begin; q0 < p.Sq; q0 += TILE) {
-      __syncthreads();
-      load_tile(Qs, ld, qb, p.sq.s, q0, p.Sq, D, TILE);
-      load_tile(Os, ld, dob, p.sdo.s, q0, p.Sq, D, TILE);
-      for (int i = threadIdx.x; i < TILE; i += kThreads) {
-        const int row = q0 + i;
-        Ls[i] = row < p.Sq ? p.lse[row_base + row] : 0.f;
-        Dl[i] = row < p.Sq ? p.delta[row_base + row] : 0.f;
+    T* Qt = ring + 2 * st * BN * ld;
+    copy_tile_async<T, BN, DP, NTH>(Qt, ld, qb, p.sq.s, q0, p.Sq, D);
+    copy_tile_async<T, BN, DP, NTH>(Qt + BN * ld, ld, dob, p.sdo.s, q0, p.Sq, D);
+    copy_rows_async<BN, NTH>(rows + 2 * st * BN, p.lse + row_base, q0, p.Sq);
+    copy_rows_async<BN, NTH>(rows + 2 * st * BN + BN, p.delta + row_base, q0, p.Sq);
+  };
+  if (n_it > 0) issue(0);
+  cp_async_commit();
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) issue(it + 1);  // in flight while this tile is computed
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = q_start(it), st = it & 1;
+    const T* Qt = ring + 2 * st * BN * ld;
+    const T* Ot = Qt + BN * ld;
+    const float* Ls = rows + 2 * st * BN;
+    const float* Dl = Ls + BN;
+    // A warp whose kv rows all lie after this tile's last visible query (or
+    // past Skv) has nothing to add.
+    if (kw < p.Skv && !(p.causal && kw > q_offset + q0 + BN - 1)) {
+      float s[NS][4] = {}, dp[NS][4] = {};
+      mma_abt<T, NS, DP>(s, Ks + 16 * warp * ld, Qt, ld, lane);   // s^T
+      mma_abt<T, NS, DP>(dp, Vs + 16 * warp * ld, Ot, ld, lane);  // dp^T
+      if ((p.causal && kw + 15 > q_offset + q0) || q0 + BN > p.Sq || kw + 16 > p.Skv) {
+        // The tile crosses the diagonal or a ragged edge: mask.
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t + (e & 1);
+            const int qrow = q0 + col;
+            const int krow = kw + g + 8 * (e >> 1);
+            const bool live = qrow < p.Sq && krow < p.Skv && !(p.causal && krow > q_offset + qrow);
+            const float pr = live ? expf(s[j][e] * p.scale - Ls[col]) : 0.f;
+            s[j][e] = pr;                         // p^T
+            dp[j][e] = pr * (dp[j][e] - Dl[col]);  // ds^T
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t + (e & 1);
+            const float pr = expf(s[j][e] * p.scale - Ls[col]);
+            s[j][e] = pr;
+            dp[j][e] = pr * (dp[j][e] - Dl[col]);
+          }
       }
-      __syncthreads();
-      // Transposed tiles: this thread's rows are kv rows, its columns q rows.
-      float s[R][R], dp[R][R];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-      tile_dot(s, Ks, Qs, ld, D, ty, tx);
-      tile_dot(dp, Vs, Os, ld, D, ty, tx);
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int kpos = k0 + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const int qr = tx + 16 * j;
-          const int qrow = q0 + qr;
-          const bool live = kpos < p.Skv && qrow < p.Sq &&
-                            !(p.causal && kpos > q_offset + qrow);
-          const float pr = live ? expf(s[i][j] * p.scale - Ls[qr]) : 0.f;
-          Ps[(ty + 16 * i) * ldp + qr] = pr;
-          Ss[(ty + 16 * i) * ldp + qr] = pr * (dp[i][j] - Dl[qr]);
-        }
-      }
-      __syncthreads();
-      tile_pv<R, NV>(dv, Ps, ldp, Os, ld, TILE, D, ty, tx);
-      tile_pv<R, NV>(dk, Ss, ldp, Qs, ld, TILE, D, ty, tx);
+      mma_pv<T, NS, NO>(dv, s, slab, Ot, ld, c0, lane);
+      mma_pv<T, NS, NO>(dk, dp, slab, Qt, ld, c0, lane);
     }
+    __syncthreads();  // the next issue overwrites this stage
   }
-
+  cp_async_wait<0>();
   T* dkb = static_cast<T*>(p.dk) + b * p.sdk.b + hk * p.sdk.h;
   T* dvb = static_cast<T*>(p.dv) + b * p.sdv.b + hk * p.sdv.h;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= p.Skv) continue;
-#pragma unroll
-    for (int g = 0; g < NV; ++g) {
-      const int c = tx * 4 + 64 * g;
-      if (c < D) {
-        const float* a = &dk[i][4 * g];
-        st4(dkb + (long long)row * p.sdk.s + c,
-            make_float4(a[0] * p.scale, a[1] * p.scale, a[2] * p.scale, a[3] * p.scale));
-        const float* e = &dv[i][4 * g];
-        st4(dvb + (long long)row * p.sdv.s + c, make_float4(e[0], e[1], e[2], e[3]));
-      }
-    }
-  }
+  store_acc<T, NO>(dkb, p.sdk.s, dk, p.scale, kw, p.Skv, c0, D, lane);
+  store_acc<T, NO>(dvb, p.sdv.s, dv, 1.f, kw, p.Skv, c0, D, lane);
 }
 
 // ------------------------------------------------------------ launch ----
 enum Kind { kFwd = 0, kBwdDq = 1, kBwdDkv = 2 };
 
-template <int TILE>
-size_t smem_bytes(Kind kind, int D) {
-  const size_t tile = (size_t)TILE * (D + 4), ptile = (size_t)TILE * (TILE + 4);
-  switch (kind) {
-    case kFwd: return sizeof(float) * (3 * tile + ptile);
-    case kBwdDq: return sizeof(float) * (4 * tile + ptile);
-    default: return sizeof(float) * (4 * tile + 2 * ptile + 2 * TILE);
-  }
+// Allow a kernel its dynamic shared memory and ask for the largest shared
+// memory carveout, so as many blocks fit on an SM as the plan allows.
+int configure(void (*kern)(const Params), size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return (int)err;
 }
 
 template <typename T, int TILE, int DMAX>
-int launch(Kind kind, const Params& p, cudaStream_t stream) {
-  void (*kern)(const Params);
-  dim3 grid;
-  if (kind == kFwd) {
-    kern = flash_fwd_kernel<T, TILE, DMAX>;
-    grid = dim3((p.Sq + TILE - 1) / TILE, p.B * p.H);
-  } else if (kind == kBwdDq) {
-    kern = flash_bwd_dq_kernel<T, TILE, DMAX>;
-    grid = dim3((p.Sq + TILE - 1) / TILE, p.B * p.H);
-  } else {
-    kern = flash_bwd_dkv_kernel<T, TILE, DMAX>;
-    grid = dim3((p.Skv + TILE - 1) / TILE, p.B * p.Hkv);
-  }
-  const size_t smem = smem_bytes<TILE>(kind, p.D);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kThreads, smem, stream>>>(p);
+int launch_fwd(const Params& p, cudaStream_t stream) {
+  const auto kern = flash_fwd_kernel<T, TILE, DMAX>;
+  auto smem = [](int D) { return sizeof(float) * TILE * (3 * (D + 4) + TILE + 4); };
+  static const int configured = configure(kern, smem(DMAX));  // once per kernel
+  if (configured) return configured;
+  kern<<<dim3((p.Sq + TILE - 1) / TILE, p.B * p.H), kThreads, smem(p.D), stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int WARPS, int BN, int DC, int DP>
+int launch_dq(const Params& p, cudaStream_t stream) {
+  using Plan = BwdPlan<T, WARPS, BN, DP>;
+  const auto kern = flash_bwd_dq_kernel<T, WARPS, BN, DC, DP>;
+  static const int configured = configure(kern, Plan::bytes(false));
+  if (configured) return configured;
+  const dim3 grid(p.B * p.H, (p.Sq + Plan::kBM - 1) / Plan::kBM, (p.D + DC - 1) / DC);
+  kern<<<grid, Plan::kThreadsPerBlock, Plan::bytes(false), stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int WARPS, int BN, int DC, int DP>
+int launch_dkv(const Params& p, cudaStream_t stream) {
+  using Plan = BwdPlan<T, WARPS, BN, DP>;
+  const auto kern = flash_bwd_dkv_kernel<T, WARPS, BN, DC, DP>;
+  static const int configured = configure(kern, Plan::bytes(true));
+  if (configured) return configured;
+  const dim3 grid(p.B * p.Hkv, (p.Skv + Plan::kBM - 1) / Plan::kBM, (p.D + DC - 1) / DC);
+  kern<<<grid, Plan::kThreadsPerBlock, Plan::bytes(true), stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Tiles per head dim.  K1: 64 x 64 up to D = 128, 32 x 32 above.  K2/K3:
+// the head dim padded to DP = 64, 128 or 256 (a compile-time trip count for
+// every product); BN = 32 streamed rows for TF32 and for bf16 K3 above
+// D = 64 (registers), 64 otherwise (on the card, 16 and 64 were slower for
+// TF32); DC output columns per block, so the accumulators live in
+// registers; two warps for f32 at D > 128 so the resident and streamed
+// tiles fit in 227 KB.
 template <typename T>
-int dispatch_d(Kind kind, const Params& p, cudaStream_t stream) {
-  if (p.D <= 64) return launch<T, 64, 64>(kind, p, stream);
-  if (p.D <= 128) return launch<T, 64, 128>(kind, p, stream);
-  return launch<T, 32, 256>(kind, p, stream);
+int dispatch_d(Kind kind, const Params& p, cudaStream_t st) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  if (kind == kFwd) {
+    if (p.D <= 64) return launch_fwd<T, 64, 64>(p, st);
+    if (p.D <= 128) return launch_fwd<T, 64, 128>(p, st);
+    return launch_fwd<T, 32, 256>(p, st);
+  }
+  if (kind == kBwdDq) {
+    if (p.D <= 64) return launch_dq<T, 4, kF32 ? 32 : 64, 64, 64>(p, st);
+    if (p.D <= 128) return launch_dq<T, 4, kF32 ? 32 : 64, 128, 128>(p, st);
+    return launch_dq<T, kF32 ? 2 : 4, 32, 128, 256>(p, st);
+  }
+  if (p.D <= 64) return launch_dkv<T, 4, kF32 ? 32 : 64, 64, 64>(p, st);
+  if (p.D <= 128) return launch_dkv<T, 4, 32, 128, 128>(p, st);
+  return launch_dkv<T, kF32 ? 2 : 4, 32, 128, 256>(p, st);
 }
 
 int run(Kind kind, int dtype, Params& p, void* stream) {

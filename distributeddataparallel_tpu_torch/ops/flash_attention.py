@@ -164,11 +164,12 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
 
 def _strides(*ts: torch.Tensor):
     """(b, s, h) element strides of each (B, S, H, D) tensor, checked for
-    what the kernels' 16-byte loads need: a contiguous head dim, the other
-    strides a multiple of 4 elements, and a 16-byte aligned base."""
+    what the kernels' 16-byte copies need: a contiguous head dim, the other
+    strides whole multiples of 16 bytes, and a 16-byte aligned base."""
     flat = []
     for t in ts:
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        row_bytes = [s * t.element_size() for s in t.stride()[:3]]
+        if t.stride(3) != 1 or any(b % 16 for b in row_bytes) or t.data_ptr() % 16:
             raise ValueError(
                 f"tensor of shape {tuple(t.shape)} strides {t.stride()} is not "
                 f"laid out for the kernel (contiguous head dim, 16-byte rows)"

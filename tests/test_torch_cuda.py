@@ -6,10 +6,11 @@ JAX it runs without the repository's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances as in ``chip_smoke.py``: f32 |kernel - plain| <= 1e-4 +
-1e-4 |plain| (summation order, online softmax); bf16 1e-4 + 1e-2 |plain|
-(both versions compute in f32 and round to bf16 once: at most one bf16
-ulp, 2^-7 relative, apart).
+Tolerances as in ``chip_smoke.py``, which says why: f32 |kernel - plain|
+<= 1e-4 + 1e-4 |plain| (summation order, online softmax; the kernels' 3xTF32
+products are f32-accurate); bf16 2e-3 + 1e-2 |plain| (one bf16 ulp of the
+result, plus p rounded to bf16 per 64-key tile in the kernel and per row in
+the plain version).
 """
 
 import pytest
@@ -20,7 +21,7 @@ from distributeddataparallel_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-4, 1e-2)}
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 1e-2)}
 
 
 @pytest.fixture
@@ -41,6 +42,11 @@ def _close(a, b, dtype):
     (1, 64, 200, 8, 2, 128, torch.bfloat16, True),
     (2, 33, 33, 3, 1, 24, torch.float32, False),
     (1, 100, 180, 2, 1, 256, torch.float32, True),
+    # S not a multiple of the 64-row tiles, GQA group 4, and D = 24, which
+    # the bf16 kernels pad to 32 in shared memory.
+    (2, 130, 130, 8, 2, 64, torch.float32, True),
+    (2, 130, 130, 8, 2, 64, torch.bfloat16, True),
+    (2, 33, 70, 4, 1, 24, torch.bfloat16, True),
 ])
 def test_kernels_match_plain_versions(cuda, B, Sq, Skv, H, Hkv, D, dtype, causal):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -50,13 +56,27 @@ def test_kernels_match_plain_versions(cuda, B, Sq, Skv, H, Hkv, D, dtype, causal
     out, lse = fa.flash_fwd(q, k, v, causal)
     ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
     dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, causal)
-    ref = fa.flash_bwd_plain(q, k, v, ref_out, ref_lse, do, causal)
+    ref = fa.flash_bwd_plain(q, k, v, out, lse, do, causal)  # the same inputs
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     _close(out, ref_out, dtype)
     _close(lse, ref_lse, torch.float32)
     for got, want in zip((dq, dk, dv), ref):
         _close(got, want, dtype)
+
+
+def test_dkv_kernel_is_deterministic(cuda):
+    """K3 sums each GQA group's gradients inside one block, with no atomics:
+    two launches on the same inputs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    mk = lambda S, h: torch.randn(2, S, h, 64, generator=g, device=cuda)
+    q, k, v, do = mk(300, 8), mk(300, 2), mk(300, 2), mk(300, 8)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.attention_delta(out, do)
+    first = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    second = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_kernel_rejects_bad_layout(cuda):
