@@ -38,7 +38,7 @@ import time
 # is the fastest f32-accurate rate the card has: 3xTF32 on the tensor cores
 # (each f32 product as three TF32 products, as PyTorch's own f32 attention
 # does), 495 / 3 TFLOP/s.  The 67 TFLOP/s of f32 on the CUDA cores is kept
-# as a second bound (``bound_cuda_core_ms``), the one PR 1's shares used.
+# as a second bound (``bound_cuda_core_ms``), the ceiling of FMA-loop kernels.
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_F32_CUDA_CORES = 67e12
 PEAK_BYTES = 3.35e12

@@ -46,12 +46,10 @@
 // and ds go from the accumulators into the next product's A operand through
 // registers for bf16 (k16 fragments line up with the accumulator's) and
 // through a per-warp shared-memory slab for TF32 (k8 fragments do not).
-// f32 tiles are XOR-swizzled so that both row and column fragment reads are
-// free of bank conflicts.  The streamed tiles (K/V in K2; Q/dO with their
-// lse/delta rows in K3) go through a two-stage ring filled by 16-byte
-// cp.async copies, so tile j+1 is in flight while tile j is computed; rows
-// past the ragged edge and the head-dim pad (D rounded up to 64, 128 or
-// 256) are zero-filled.  Block barriers only guard the ring.  The causal
+// The streamed tiles (K/V in K2; Q/dO with their lse/delta rows in K3) go
+// through a two-stage ring filled by 16-byte cp.async copies, so tile j+1
+// is in flight while tile j is computed; rows past the ragged edge and the
+// head-dim pad (D rounded up to 64, 128 or 256) are zero-filled.  Block barriers only guard the ring.  The causal
 // mask is applied only on tiles that cross the diagonal (or a ragged edge);
 // warps with no visible entry in a tile skip it.  One block per (b*h, q
 // tile, output column chunk) for K2, per (b*Hkv, kv tile, column chunk)
@@ -374,15 +372,13 @@ template <> struct Mma<float> {
   using A = FragA32;
   using B = FragB32;
   static constexpr int kK = 8;    // contraction depth of one mma
-  static constexpr int kPad = 8;  // row pad (elements): ld = 8 (mod 32), see load_a
-  static constexpr int kSwz = 4;
+  static constexpr int kPad = 4;  // row pad (elements): ld = 4 (mod 32), see load_a
 };
 template <> struct Mma<__nv_bfloat16> {
   using A = FragA16;
   using B = FragB16;
   static constexpr int kK = 16;
   static constexpr int kPad = 8;  // 16 bytes: ldmatrix rows in distinct banks
-  static constexpr int kSwz = 0;
 };
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
@@ -426,17 +422,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, ui
 }
 
 // A fragment: rows [0, 16) x columns [k0, k0 + kK) of a row-major tile.
-// f32 tiles are stored with element (r, c) at r * ld + (c ^ (r & sw)): with
-// ld = 8 (mod 32) and sw = 4 both the row reads (rows g, columns t) and the
-// column reads (rows t, columns g) of a fragment hit 32 distinct banks.
-__device__ __forceinline__ void load_a(FragA32& a, const float* s, int ld, int k0, int lane,
-                                       int sw = Mma<float>::kSwz) {
-  const int g = lane >> 2, o = g & sw;
-  const float* p = s + g * ld + k0 + (lane & 3);
-  split_tf32(p[o], a.big[0], a.small[0]);
-  split_tf32(p[8 * ld + o], a.big[1], a.small[1]);
-  split_tf32(p[4 - o], a.big[2], a.small[2]);
-  split_tf32(p[8 * ld + 4 - o], a.big[3], a.small[3]);
+// With ld = 4 (mod 32) the row reads of a TF32 fragment (rows g, columns t)
+// hit 32 distinct banks; the column reads of load_b_kn (rows t, columns g)
+// meet at most 2-way conflicts.
+__device__ __forceinline__ void load_a(FragA32& a, const float* s, int ld, int k0, int lane) {
+  const float* p = s + (lane >> 2) * ld + k0 + (lane & 3);
+  split_tf32(p[0], a.big[0], a.small[0]);
+  split_tf32(p[8 * ld], a.big[1], a.small[1]);
+  split_tf32(p[4], a.big[2], a.small[2]);
+  split_tf32(p[8 * ld + 4], a.big[3], a.small[3]);
 }
 
 __device__ __forceinline__ void load_a(FragA16& a, const __nv_bfloat16* s, int ld, int k0, int lane) {
@@ -450,10 +444,9 @@ __device__ __forceinline__ void load_b_nk(FragB32 (&b)[2], const float* X, int l
                                           int lane) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int o = (lane >> 2) & Mma<float>::kSwz;
     const float* p = X + (n0 + 8 * i + (lane >> 2)) * ld + k0 + (lane & 3);
-    split_tf32(p[o], b[i].big[0], b[i].small[0]);
-    split_tf32(p[4 - o], b[i].big[1], b[i].small[1]);
+    split_tf32(p[0], b[i].big[0], b[i].small[0]);
+    split_tf32(p[4], b[i].big[1], b[i].small[1]);
   }
 }
 
@@ -470,10 +463,9 @@ __device__ __forceinline__ void load_b_kn(FragB32 (&b)[2], const float* X, int l
                                           int lane) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int g = lane >> 2;
-    const float* p = X + (k0 + (lane & 3)) * ld + n0 + 8 * i + g;
+    const float* p = X + (k0 + (lane & 3)) * ld + n0 + 8 * i + (lane >> 2);
     split_tf32(p[0], b[i].big[0], b[i].small[0]);
-    split_tf32(p[4 * ld + ((g ^ Mma<float>::kSwz) - g)], b[i].big[1], b[i].small[1]);
+    split_tf32(p[4 * ld], b[i].big[1], b[i].small[1]);
   }
 }
 
@@ -548,7 +540,7 @@ __device__ __forceinline__ void mma_pv(float (&acc)[NO][4], const float (&pm)[NS
   for (int kc = 0; kc < NS * 8 / M::kK; ++kc) {
     typename M::A a;
     if constexpr (kF32) {
-      load_a(a, slab, kLds, 8 * kc, lane, 0);
+      load_a(a, slab, kLds, 8 * kc, lane);
     } else {
       a.x[0] = pack_bf16(pm[2 * kc][0], pm[2 * kc][1]);
       a.x[1] = pack_bf16(pm[2 * kc][2], pm[2 * kc][3]);
@@ -588,8 +580,7 @@ __device__ __forceinline__ void copy_tile_async(T* tile, int ld, const T* base, 
   for (int i = threadIdx.x; i < ROWS * PER_ROW; i += NTHREADS) {
     const int r = i / PER_ROW, c = (i % PER_ROW) * E;
     const bool ok = row0 + r < rows_valid && c < D;
-    cp_async16(tile + r * ld + (c ^ (r & Mma<T>::kSwz)),
-               ok ? base + (long long)(row0 + r) * row_stride + c : base,
+    cp_async16(tile + r * ld + c, ok ? base + (long long)(row0 + r) * row_stride + c : base,
                ok ? 16 : 0);
   }
 }
@@ -697,15 +688,15 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(const Params p
   for (int j = 0; j < NO; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
 
   const int n_kv = (kv_limit(p, q0, BM) + BN - 1) / BN;
-  auto issue = [&](int it) {
+  auto prefetch = [&](int it) {
     T* Kt = ring + 2 * (it & 1) * BN * ld;
     copy_tile_async<T, BN, DP, NTH>(Kt, ld, kb, p.sk.s, it * BN, p.Skv, D);
     copy_tile_async<T, BN, DP, NTH>(Kt + BN * ld, ld, vb, p.sv.s, it * BN, p.Skv, D);
   };
-  if (n_kv > 0) issue(0);
+  if (n_kv > 0) prefetch(0);
   cp_async_commit();
   for (int it = 0; it < n_kv; ++it) {
-    if (it + 1 < n_kv) issue(it + 1);  // in flight while this tile is computed
+    if (it + 1 < n_kv) prefetch(it + 1);  // in flight while this tile is computed
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -743,7 +734,7 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(const Params p
       }
       mma_pv<T, NS, NO>(dq, s, slab, Kt, ld, c0, lane);
     }
-    __syncthreads();  // the next issue overwrites this stage
+    __syncthreads();  // the next prefetch overwrites this stage
   }
   cp_async_wait<0>();
   T* dqb = static_cast<T*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
@@ -788,7 +779,7 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkv_kernel(const Params 
   const int n_qt = q_begin < p.Sq ? (p.Sq - q_begin + BN - 1) / BN : 0;
   const int n_it = group * n_qt;
   auto q_start = [&](int it) { return q_begin + (it % n_qt) * BN; };
-  auto issue = [&](int it) {
+  auto prefetch = [&](int it) {
     const int h = hk * group + it / n_qt, q0 = q_start(it), st = it & 1;
     const T* qb = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
     const T* dob = static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
@@ -799,10 +790,10 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkv_kernel(const Params 
     copy_rows_async<BN, NTH>(rows + 2 * st * BN, p.lse + row_base, q0, p.Sq);
     copy_rows_async<BN, NTH>(rows + 2 * st * BN + BN, p.delta + row_base, q0, p.Sq);
   };
-  if (n_it > 0) issue(0);
+  if (n_it > 0) prefetch(0);
   cp_async_commit();
   for (int it = 0; it < n_it; ++it) {
-    if (it + 1 < n_it) issue(it + 1);  // in flight while this tile is computed
+    if (it + 1 < n_it) prefetch(it + 1);  // in flight while this tile is computed
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -845,7 +836,7 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkv_kernel(const Params 
       mma_pv<T, NS, NO>(dv, s, slab, Ot, ld, c0, lane);
       mma_pv<T, NS, NO>(dk, dp, slab, Qt, ld, c0, lane);
     }
-    __syncthreads();  // the next issue overwrites this stage
+    __syncthreads();  // the next prefetch overwrites this stage
   }
   cp_async_wait<0>();
   T* dkb = static_cast<T*>(p.dk) + b * p.sdk.b + hk * p.sdk.h;
@@ -857,46 +848,35 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkv_kernel(const Params 
 // ------------------------------------------------------------ launch ----
 enum Kind { kFwd = 0, kBwdDq = 1, kBwdDkv = 2 };
 
-// Allow a kernel its dynamic shared memory and ask for the largest shared
-// memory carveout, so as many blocks fit on an SM as the plan allows.
-int configure(void (*kern)(const Params), size_t smem) {
+int launch_kernel(void (*kern)(const Params), dim3 grid, int threads, size_t smem,
+                  const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  return (int)err;
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, threads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int TILE, int DMAX>
 int launch_fwd(const Params& p, cudaStream_t stream) {
-  const auto kern = flash_fwd_kernel<T, TILE, DMAX>;
-  auto smem = [](int D) { return sizeof(float) * TILE * (3 * (D + 4) + TILE + 4); };
-  static const int configured = configure(kern, smem(DMAX));  // once per kernel
-  if (configured) return configured;
-  kern<<<dim3((p.Sq + TILE - 1) / TILE, p.B * p.H), kThreads, smem(p.D), stream>>>(p);
-  return (int)cudaGetLastError();
+  const size_t tile = (size_t)TILE * (p.D + 4), ptile = (size_t)TILE * (TILE + 4);
+  return launch_kernel(flash_fwd_kernel<T, TILE, DMAX>, dim3((p.Sq + TILE - 1) / TILE, p.B * p.H),
+                       kThreads, sizeof(float) * (3 * tile + ptile), p, stream);
 }
 
 template <typename T, int WARPS, int BN, int DC, int DP>
 int launch_dq(const Params& p, cudaStream_t stream) {
   using Plan = BwdPlan<T, WARPS, BN, DP>;
-  const auto kern = flash_bwd_dq_kernel<T, WARPS, BN, DC, DP>;
-  static const int configured = configure(kern, Plan::bytes(false));
-  if (configured) return configured;
   const dim3 grid(p.B * p.H, (p.Sq + Plan::kBM - 1) / Plan::kBM, (p.D + DC - 1) / DC);
-  kern<<<grid, Plan::kThreadsPerBlock, Plan::bytes(false), stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_kernel(flash_bwd_dq_kernel<T, WARPS, BN, DC, DP>, grid, Plan::kThreadsPerBlock,
+                       Plan::bytes(false), p, stream);
 }
 
 template <typename T, int WARPS, int BN, int DC, int DP>
 int launch_dkv(const Params& p, cudaStream_t stream) {
   using Plan = BwdPlan<T, WARPS, BN, DP>;
-  const auto kern = flash_bwd_dkv_kernel<T, WARPS, BN, DC, DP>;
-  static const int configured = configure(kern, Plan::bytes(true));
-  if (configured) return configured;
   const dim3 grid(p.B * p.Hkv, (p.Skv + Plan::kBM - 1) / Plan::kBM, (p.D + DC - 1) / DC);
-  kern<<<grid, Plan::kThreadsPerBlock, Plan::bytes(true), stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_kernel(flash_bwd_dkv_kernel<T, WARPS, BN, DC, DP>, grid, Plan::kThreadsPerBlock,
+                       Plan::bytes(true), p, stream);
 }
 
 // Tiles per head dim.  K1: 64 x 64 up to D = 128, 32 x 32 above.  K2/K3:
