@@ -47,19 +47,19 @@
 // registers for bf16 (k16 fragments line up with the accumulator's) and
 // through a per-warp shared-memory slab for TF32 (k8 fragments do not).
 // The streamed tiles (K/V in K2; Q/dO with their lse/delta rows in K3) go
-// through a two-stage ring filled by 16-byte cp.async copies, so tile j+1
-// is in flight while tile j is computed; rows past the ragged edge and the
-// head-dim pad (D rounded up to 64, 128 or 256) are zero-filled.  Block barriers only guard the ring.  The causal
-// mask is applied only on tiles that cross the diagonal (or a ragged edge);
-// warps with no visible entry in a tile skip it.  One block per (b*h, q
-// tile, output column chunk) for K2, per (b*Hkv, kv tile, column chunk)
-// for K3, with the tile index as the grid's slow axis and the longest
-// causal tiles first, so the last wave is not left with the longest
-// blocks; for D > 128 each chunk of 128 output columns recomputes the
-// scores, so the accumulators fit in registers.  The TPU's sequential grid
-// axis and its VMEM scratch become a loop inside the block with the
-// accumulator in registers: no atomics, so the gradients are the same bits
-// from run to run.
+// through a two-stage ring filled by 16-byte cp.async copies, so tile j+1 is
+// in flight while tile j is computed; rows past the ragged edge and the
+// head-dim pad (D rounded up to 64, 128 or 256) are zero-filled.  Block
+// barriers only guard the ring.  The causal mask is applied only on tiles
+// that cross the diagonal (or a ragged edge); warps with no visible entry in
+// a tile skip it.  One block per (b*h, q tile, output column chunk) for K2,
+// per (b*Hkv, kv tile, column chunk) for K3, with the tile index as the
+// grid's slow axis and the longest causal tiles first, so the last wave is
+// not left with the longest blocks; for D > 128 each chunk of 128 output
+// columns recomputes the scores, so the accumulators fit in registers.  The
+// TPU's sequential grid axis and its VMEM scratch become a loop inside the
+// block with the accumulator in registers: no atomics, so the gradients are
+// the same bits from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
