@@ -15,7 +15,7 @@ Phases (any failure exits non-zero; nothing is caught):
    ``Sq < Skv`` shapes; then each timed at the GPT-2 124M training shapes
    beside its plain version, a PyTorch library call
    (``scaled_dot_product_attention``, a yardstick only) and its bound, and
-   K2/K3 again at a bf16 GQA shape (B=2, S=1024, H=32, Hkv=8, D=128);
+   all three again at a bf16 GQA shape (B=2, S=1024, H=32, Hkv=8, D=128);
 4. the main path: ``dpp.main`` trains full-width GPT-2 124M (f32) for 10
    steps and one eval pass in an NCCL group of one, with the kernels'
    launch counters set to 0 just before and read just after.
@@ -38,7 +38,8 @@ import time
 # is the fastest f32-accurate rate the card has: 3xTF32 on the tensor cores
 # (each f32 product as three TF32 products, as PyTorch's own f32 attention
 # does), 495 / 3 TFLOP/s.  The 67 TFLOP/s of f32 on the CUDA cores is kept
-# as a second bound (``bound_cuda_core_ms``), the ceiling of FMA-loop kernels.
+# as a second bound (``bound_cuda_core_ms``), the ceiling of a kernel that
+# leaves the tensor cores idle.
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_F32_CUDA_CORES = 67e12
 PEAK_BYTES = 3.35e12
@@ -61,11 +62,12 @@ CHECK_CASES = [
 # end, and rtol 1e-2 covers the one bf16 ulp (2^-7 relative, at most) two
 # nearby f32 values may round apart.  Before that rounding, p (and ds) are
 # rounded to bf16 ahead of their second product, as the reference does: K1
-# rounds p = exp(s - m) against the running max of each 64-key tile, the
-# plain version against the row's max, so one p may land one bf16 ulp
-# (2^-8 relative) apart and an output moves by up to 2^-8 sum p|v| / l,
-# about 1e-3 on average over the 65+ keys a row crossing tiles sees, with
-# tails to ~2e-3 across the millions of entries checked: atol 2e-3.  K2/K3
+# rounds p = exp(s - m) against the running max of each 64-key tile (its
+# bf16 tile), the plain version against the row's max, so one p may land
+# one bf16 ulp (2^-8 relative) apart and an output moves by up to
+# 2^-8 sum p|v| / l, about 1e-3 on average over the 65+ keys a row crossing
+# tiles sees, with tails to ~2e-3 across the millions of entries checked:
+# atol 2e-3.  K2/K3
 # round the same f32 p and ds as the plain version when both get the same
 # (out, lse), so they differ only where f32 summation order tips a
 # rounding; fed the plain forward's (out, lse) instead, a one-ulp change of
@@ -282,7 +284,7 @@ def main() -> int:
     log(f"    timing at the GPT-2 shapes {GPT2} ({smi})")
     timing = measure(torch, fa, GPT2, 100, [name for name, _, _ in KERNELS])
     log(f"    timing at the bf16 GQA shapes {GQA_BF16}")
-    timing_bf16 = measure(torch, fa, GQA_BF16, 101, ["flash_bwd_dq", "flash_bwd_dkv"])
+    timing_bf16 = measure(torch, fa, GQA_BF16, 101, [name for name, _, _ in KERNELS])
 
     log("[4] main path: dpp.main " + " ".join(MAIN_ARGS))
     fa.reset_launches()

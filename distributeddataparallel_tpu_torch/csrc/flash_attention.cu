@@ -23,43 +23,44 @@
 // work, K2 3/2 of that, K3 twice that, over ~100 MB each: all three are
 // bound by operations.  f32 at f32 accuracy runs at 67 TFLOP/s on the CUDA
 // cores, or at 495/3 = 165 TFLOP/s on the tensor cores as 3xTF32 (each
-// product split into three TF32 products); bf16 at 989 TFLOP/s.
+// product split into three TF32 products); bf16 at 989 TFLOP/s.  So every
+// product of the three kernels runs on the tensor cores.
 //
-// K1 (the simple design): every tile product is a register-blocked FMA
-// loop over shared-memory tiles (each thread holds a (TILE/16) x (TILE/16)
-// block of scores and a (TILE/16) x (DMAX/16) block of the output),
-// 16-byte shared-memory loads on padded rows (row stride D + 4 floats),
-// tiles loaded synchronously.  bf16 inputs are widened to f32 in shared
-// memory.  Tiles: 64 x 64 for D <= 128, 32 x 32 for D <= 256; 256 threads.
-//
-// K2 and K3 (tensor cores): every product is mma.sync — m16n8k8 TF32 for
-// f32 with the 3xTF32 split (big = tf32(x), small = tf32(x - big); the
-// products small*big' + big*small' + big*big' accumulate in f32, smallest
-// first, which keeps f32 accuracy), m16n8k16 bf16 for bf16, f32
-// accumulators.  wgmma is not used: with TF32 operands it needs both
-// operands K-major in shared memory, and three of the five products (dq =
-// ds k, dk = ds^T q, dv = p^T do) contract over a sequence axis; mma.sync
-// fragments load thread by thread from any layout (ldmatrix / ldmatrix.trans
-// for bf16, scalar loads for TF32).  Four warps per block (two for f32 at
-// D > 128), each owning 16 of the block's rows — q rows in K2, kv rows in
-// K3 — so recompute, masking and p * (dp - delta) stay inside a warp; p
-// and ds go from the accumulators into the next product's A operand through
-// registers for bf16 (k16 fragments line up with the accumulator's) and
-// through a per-warp shared-memory slab for TF32 (k8 fragments do not).
-// The streamed tiles (K/V in K2; Q/dO with their lse/delta rows in K3) go
-// through a two-stage ring filled by 16-byte cp.async copies, so tile j+1 is
-// in flight while tile j is computed; rows past the ragged edge and the
+// Design: every product is mma.sync — m16n8k8 TF32 for f32 with the 3xTF32
+// split (big = tf32(x), small = tf32(x - big); the products small*big' +
+// big*small' + big*big' accumulate in f32, smallest first, which keeps f32
+// accuracy), m16n8k16 bf16 for bf16, f32 accumulators.  wgmma is not used:
+// with TF32 operands it needs both operands K-major in shared memory, and
+// four of the nine products (out = p v, dq = ds k, dk = ds^T q, dv = p^T do)
+// contract over a sequence axis; mma.sync fragments load thread by thread
+// from any layout (ldmatrix / ldmatrix.trans for bf16, scalar loads for
+// TF32).  Four warps per block (two for K2/K3 in f32 at D > 128), each
+// owning 16 of the block's rows — q rows in K1 and K2, kv rows in K3 — so
+// recompute, masking, the softmax and p * (dp - delta) stay inside a warp;
+// p and ds go from the accumulators into the next product's A operand
+// through registers for bf16 (k16 fragments line up with the accumulator's,
+// and packing rounds them to bf16 as the reference does) and through a
+// per-warp shared-memory slab for TF32 (k8 fragments do not).  K1 keeps its
+// online softmax in the accumulator layout: each lane holds rows g and
+// g + 8 of its warp's 16, reduces their max and sum over the 4 lanes of its
+// quad, keeps m and l in registers and rescales its output accumulators by
+// exp(m_old - m_new) before each P V product.  The block's resident rows (Q
+// in K1; Q, dO in K2; K, V in K3) are copied once; the streamed tiles (K/V
+// in K1 and K2; Q/dO with their lse/delta rows in K3) go through a
+// two-stage ring filled by 16-byte cp.async copies, so tile j+1 is in
+// flight while tile j is computed; rows past the ragged edge and the
 // head-dim pad (D rounded up to 64, 128 or 256) are zero-filled.  Block
 // barriers only guard the ring.  The causal mask is applied only on tiles
 // that cross the diagonal (or a ragged edge); warps with no visible entry in
-// a tile skip it.  One block per (b*h, q tile, output column chunk) for K2,
-// per (b*Hkv, kv tile, column chunk) for K3, with the tile index as the
-// grid's slow axis and the longest causal tiles first, so the last wave is
-// not left with the longest blocks; for D > 128 each chunk of 128 output
-// columns recomputes the scores, so the accumulators fit in registers.  The
-// TPU's sequential grid axis and its VMEM scratch become a loop inside the
-// block with the accumulator in registers: no atomics, so the gradients are
-// the same bits from run to run.
+// a tile skip it.  One block per (b*h, q tile, output column chunk) for K1
+// and K2, per (b*Hkv, kv tile, column chunk) for K3, with the tile index as
+// the grid's slow axis and the longest causal tiles first, so the last wave
+// is not left with the longest blocks; for D > 128 each chunk of 128 output
+// columns recomputes the scores (in K1 the same m and l bits in every
+// chunk), so the accumulators fit in registers.  The TPU's sequential grid
+// axis and its VMEM scratch become a loop inside the block with the
+// accumulator in registers: no atomics, so every output is the same bits
+// from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,7 +71,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;  // ops/attention.py NEG_INF
 
 struct Strides {
@@ -94,223 +94,11 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(p);
-  h[0] = __floats2bfloat162_rn(v.x, v.y);
-  h[1] = __floats2bfloat162_rn(v.z, v.w);
-}
-
-// An f32 operand rounded to the inputs' dtype before its product, as the
-// Pallas kernels do (p.astype(v.dtype), ds.astype(k.dtype)).
-template <typename T>
-__device__ __forceinline__ float as_input(float x) { return x; }
-template <>
-__device__ __forceinline__ float as_input<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// Stage rows [row0, row0 + rows) x [0, D) of a (S, D) slice into a float
-// tile with row stride ld; rows at or past rows_valid read as zeros (the
-// ragged sequence edge).
-template <typename T>
-__device__ __forceinline__ void load_tile(float* tile, int ld, const T* base,
-                                          long long row_stride, int row0,
-                                          int rows_valid, int D, int rows) {
-  const int per_row = D >> 2;
-  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
-    const int r = i / per_row;
-    const int c = (i - r * per_row) << 2;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows_valid) x = ld4(base + (long long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<float4*>(tile + r * ld + c) = x;
-  }
-}
-
-// acc[i][j] += dot(A[ty + 16 i, :D], B[tx + 16 j, :D]).
-template <int R>
-__device__ __forceinline__ void tile_dot(float (&acc)[R][R], const float* A,
-                                         const float* Bm, int ld, int D,
-                                         int ty, int tx) {
-  for (int d = 0; d < D; d += 4) {
-    float4 a[R], b[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) a[i] = ld4(A + (ty + 16 * i) * ld + d);
-#pragma unroll
-    for (int j = 0; j < R; ++j) b[j] = ld4(Bm + (tx + 16 * j) * ld + d);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        float s = acc[i][j];
-        s = fmaf(a[i].x, b[j].x, s);
-        s = fmaf(a[i].y, b[j].y, s);
-        s = fmaf(a[i].z, b[j].z, s);
-        s = fmaf(a[i].w, b[j].w, s);
-        acc[i][j] = s;
-      }
-    }
-  }
-}
-
-// acc[i][4 g + e] += sum_kk P[ty + 16 i, kk] * M[kk, tx * 4 + 64 g + e]
-// over kk in [0, K): the (TILE x TILE) x (TILE x D) product into this
-// thread's rows and its float4 column groups.
-template <int R, int NV>
-__device__ __forceinline__ void tile_pv(float (&acc)[R][NV * 4], const float* P,
-                                        int ldp, const float* M, int ld, int K,
-                                        int D, int ty, int tx) {
-  for (int kk = 0; kk < K; kk += 4) {
-    float4 p[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) p[i] = ld4(P + (ty + 16 * i) * ldp + kk);
-#pragma unroll
-    for (int g = 0; g < NV; ++g) {
-      const int c = tx * 4 + 64 * g;
-      if (c < D) {
-        const float4 m0 = ld4(M + (kk + 0) * ld + c);
-        const float4 m1 = ld4(M + (kk + 1) * ld + c);
-        const float4 m2 = ld4(M + (kk + 2) * ld + c);
-        const float4 m3 = ld4(M + (kk + 3) * ld + c);
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          float* a = &acc[i][4 * g];
-          a[0] = fmaf(p[i].x, m0.x, fmaf(p[i].y, m1.x, fmaf(p[i].z, m2.x, fmaf(p[i].w, m3.x, a[0]))));
-          a[1] = fmaf(p[i].x, m0.y, fmaf(p[i].y, m1.y, fmaf(p[i].z, m2.y, fmaf(p[i].w, m3.y, a[1]))));
-          a[2] = fmaf(p[i].x, m0.z, fmaf(p[i].y, m1.z, fmaf(p[i].z, m2.z, fmaf(p[i].w, m3.z, a[2]))));
-          a[3] = fmaf(p[i].x, m0.w, fmaf(p[i].y, m1.w, fmaf(p[i].z, m2.w, fmaf(p[i].w, m3.w, a[3]))));
-        }
-      }
-    }
-  }
-}
-
-// Reductions over the 16 threads (one half warp) that share a tile row.
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // One past the last kv position any row of the q tile [q0, q0 + TILE) sees.
 __device__ __forceinline__ int kv_limit(const Params& p, int q0, int tile) {
   if (!p.causal) return p.Skv;
   const int q_offset = p.Skv - p.Sq;
   return min(p.Skv, q_offset + min(q0 + tile, p.Sq));
-}
-
-// ---------------------------------------------------------------- K1 ----
-template <typename T, int TILE, int DMAX>
-__global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Params p) {
-  constexpr int R = TILE / 16;
-  constexpr int NV = DMAX / 64;
-  extern __shared__ __align__(16) float smem[];
-  const int D = p.D, ld = D + 4, ldp = TILE + 4;
-  float* Qs = smem;
-  float* Ks = Qs + TILE * ld;
-  float* Vs = Ks + TILE * ld;
-  float* Ps = Vs + TILE * ld;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int hk = h / (p.H / p.Hkv);
-  const int q0 = blockIdx.x * TILE;
-  const int q_offset = p.Skv - p.Sq;
-  const T* qb = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const T* kb = static_cast<const T*>(p.k) + b * p.sk.b + hk * p.sk.h;
-  const T* vb = static_cast<const T*>(p.v) + b * p.sv.b + hk * p.sv.h;
-  load_tile(Qs, ld, qb, p.sq.s, q0, p.Sq, D, TILE);
-
-  float m[R], l[R], acc[R][NV * 4];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NV * 4; ++c) acc[i][c] = 0.f;
-  }
-
-  const int kv_end = kv_limit(p, q0, TILE);
-  for (int k0 = 0; k0 < kv_end; k0 += TILE) {
-    __syncthreads();  // the previous tile's readers are done with Ks/Vs/Ps
-    load_tile(Ks, ld, kb, p.sk.s, k0, p.Skv, D, TILE);
-    load_tile(Vs, ld, vb, p.sv.s, k0, p.Skv, D, TILE);
-    __syncthreads();
-    float s[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = 0.f;
-    tile_dot(s, Qs, Ks, ld, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qpos = q_offset + q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * p.scale;
-        if (p.causal && kpos > qpos) x = kNegInf;
-        if (kpos >= p.Skv) x = -INFINITY;  // past the ragged edge: no key
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = row_max16(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float e = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * ldp + tx + 16 * j] = as_input<T>(e);  // p.astype(v.dtype)
-        sum += e;
-      }
-      sum = row_sum16(sum);
-      l[i] = corr * l[i] + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NV * 4; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-    tile_pv<R, NV>(acc, Ps, ldp, Vs, ld, TILE, D, ty, tx);
-  }
-
-  T* ob = static_cast<T*>(p.out) + b * p.so.b + h * p.so.h;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= p.Sq) continue;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int g = 0; g < NV; ++g) {
-      const int c = tx * 4 + 64 * g;
-      if (c < D) {
-        const float* a = &acc[i][4 * g];
-        st4(ob + (long long)row * p.so.s + c,
-            make_float4(a[0] / l_safe, a[1] / l_safe, a[2] / l_safe, a[3] / l_safe));
-      }
-    }
-    if (tx == 0) p.lse_out[((long long)b * p.H + h) * p.Sq + row] = m[i] + logf(l_safe);
-  }
 }
 
 // ------------------------------------------------- tensor-core tools ----
@@ -628,29 +416,158 @@ __device__ __forceinline__ void store_acc(T* base, long long row_stride, const f
 // the same expf: for bf16 the kernel then rounds the same f32 p and ds as
 // the plain version, and only summation order can tip a rounding.
 
-// Shared-memory plan of K2 and K3: two resident tiles of BM rows (Q, dO in
-// K2; K, V in K3), a two-stage ring of two streamed tiles of BN rows
-// (K, V in K2; Q, dO in K3), in K3 a two-stage ring of the streamed rows'
-// lse and delta, and for TF32 one 16 x (BN + 4) f32 slab per warp.  Rows
-// hold DP (the head dim padded to 64, 128 or 256) plus a pad.
+// Shared-memory plan of the three kernels: R resident tiles of BM rows (Q in
+// K1; Q, dO in K2; K, V in K3), a two-stage ring of two streamed tiles of BN
+// rows (K, V in K1 and K2; Q, dO in K3), in K3 a two-stage ring of the
+// streamed rows' lse and delta, and for TF32 one 16 x (BN + 4) f32 slab per
+// warp.  Rows hold DP (the head dim padded to 64, 128 or 256) plus a pad.
 template <typename T, int WARPS, int BN, int DP>
-struct BwdPlan {
+struct TilePlan {
   static constexpr int kBM = 16 * WARPS;
   static constexpr int kThreadsPerBlock = 32 * WARPS;
   static constexpr int kLd = DP + Mma<T>::kPad;
   static constexpr int kSlab = std::is_same<T, float>::value ? 16 * (BN + 4) : 0;
-  static constexpr size_t bytes(bool row_ring) {
-    return sizeof(T) * (size_t)kLd * (2 * kBM + 4 * BN) +
+  static constexpr size_t bytes(int resident, bool row_ring) {
+    return sizeof(T) * (size_t)kLd * (resident * kBM + 4 * BN) +
            sizeof(float) * ((row_ring ? 4 * BN : 0) + WARPS * kSlab);
   }
 };
+
+// ---------------------------------------------------------------- K1 ----
+// One block per (b*h, q tile of BM rows, chunk of DC output columns); the
+// kv tiles stream through the ring.  As in the reference: scale applied to
+// the f32 scores, causal entries NEG_INF and keys past the ragged edge -inf
+// (p = 0), m from NEG_INF, l summing the f32 p, p rounded to the inputs'
+// dtype before P V, the l == 0 guard.  For f32 a register cap of three
+// blocks per SM made the GPT-2 shapes faster on the card, without spills;
+// for bf16 it spills at D = 128, so bf16 has none.
+template <typename T, int WARPS, int BN, int DC, int DP>
+__global__ void __launch_bounds__(32 * WARPS, std::is_same<T, float>::value ? 3 : 1)
+    flash_fwd_kernel(const Params p) {
+  using Plan = TilePlan<T, WARPS, BN, DP>;
+  constexpr int BM = Plan::kBM, NTH = Plan::kThreadsPerBlock, NS = BN / 8, NO = DC / 8;
+  constexpr int ld = Plan::kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = p.D;
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* ring = Qs + BM * ld;  // stage s: K at ring + 2 s BN ld, V after it
+  float* slabs = reinterpret_cast<float*>(ring + 4 * BN * ld);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* slab = slabs + warp * Plan::kSlab;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest causal rows first
+  const int c0 = blockIdx.z * DC;
+  const int qw = q0 + 16 * warp;  // this warp's first q row
+  const int q_offset = p.Skv - p.Sq;
+  const T* qb = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const T* kb = static_cast<const T*>(p.k) + b * p.sk.b + hk * p.sk.h;
+  const T* vb = static_cast<const T*>(p.v) + b * p.sv.b + hk * p.sv.h;
+  copy_tile_async<T, BM, DP, NTH>(Qs, ld, qb, p.sq.s, q0, p.Sq, D);
+  cp_async_commit();
+
+  // Rows g (index 0) and g + 8 (index 1) of the warp's 16.
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  const int n_kv = (kv_limit(p, q0, BM) + BN - 1) / BN;
+  auto prefetch = [&](int it) {
+    T* Kt = ring + 2 * (it & 1) * BN * ld;
+    copy_tile_async<T, BN, DP, NTH>(Kt, ld, kb, p.sk.s, it * BN, p.Skv, D);
+    copy_tile_async<T, BN, DP, NTH>(Kt + BN * ld, ld, vb, p.sv.s, it * BN, p.Skv, D);
+  };
+  if (n_kv > 0) prefetch(0);
+  cp_async_commit();
+  for (int it = 0; it < n_kv; ++it) {
+    if (it + 1 < n_kv) prefetch(it + 1);  // in flight while this tile is computed
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = it * BN;
+    const T* Kt = ring + 2 * (it & 1) * BN * ld;
+    const T* Vt = Kt + BN * ld;
+    // A warp whose rows all lie before this tile's first visible key (or
+    // past Sq) has nothing to add: every row has seen key 0 by then, so the
+    // tile's p would all be exp(NEG_INF - m) = 0 and its corr 1.
+    if (qw < p.Sq && !(p.causal && k0 > q_offset + qw + 15)) {
+      float s[NS][4] = {};
+      mma_abt<T, NS, DP>(s, Qs + 16 * warp * ld, Kt, ld, lane);
+      const bool edge = (p.causal && k0 + BN - 1 > q_offset + qw) || k0 + BN > p.Skv;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * p.scale;
+          if (edge) {  // the tile crosses the diagonal or the ragged edge: mask
+            const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+            const int qpos = q_offset + qw + g + 8 * (e >> 1);
+            if (p.causal && kpos > qpos) x = kNegInf;
+            if (kpos >= p.Skv) x = -INFINITY;  // no key: p = 0
+          }
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        corr[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - m[e >> 1]);  // p, f32
+          sum[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = corr[r] * l[r] + sum[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        o[j][0] *= corr[0];
+        o[j][1] *= corr[0];
+        o[j][2] *= corr[1];
+        o[j][3] *= corr[1];
+      }
+      mma_pv<T, NS, NO>(o, s, slab, Vt, ld, c0, lane);  // p.astype(v.dtype) @ v
+    }
+    __syncthreads();  // the next prefetch overwrites this stage
+  }
+  cp_async_wait<0>();
+  float l_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_safe[r] = l[r] == 0.f ? 1.f : l[r];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] /= l_safe[e >> 1];
+  T* ob = static_cast<T*>(p.out) + b * p.so.b + h * p.so.h;
+  store_acc<T, NO>(ob, p.so.s, o, 1.f, qw, p.Sq, c0, D, lane);
+  if (blockIdx.z == 0 && t == 0) {  // every chunk has the same m and l
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qw + g + 8 * r;
+      if (row < p.Sq) p.lse_out[((long long)b * p.H + h) * p.Sq + row] = m[r] + logf(l_safe[r]);
+    }
+  }
+}
 
 // ---------------------------------------------------------------- K2 ----
 // One block per (b*h, q tile of BM rows, chunk of DC output columns); the
 // kv tiles stream through the ring.
 template <typename T, int WARPS, int BN, int DC, int DP>
 __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(const Params p) {
-  using Plan = BwdPlan<T, WARPS, BN, DP>;
+  using Plan = TilePlan<T, WARPS, BN, DP>;
   constexpr int BM = Plan::kBM, NTH = Plan::kThreadsPerBlock, NS = BN / 8, NO = DC / 8;
   constexpr int ld = Plan::kLd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -748,7 +665,7 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(const Params p
 // out of the accumulators as the A operands of dv and dk.
 template <typename T, int WARPS, int BN, int DC, int DP>
 __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkv_kernel(const Params p) {
-  using Plan = BwdPlan<T, WARPS, BN, DP>;
+  using Plan = TilePlan<T, WARPS, BN, DP>;
   constexpr int BM = Plan::kBM, NTH = Plan::kThreadsPerBlock, NS = BN / 8, NO = DC / 8;
   constexpr int ld = Plan::kLd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -856,58 +773,61 @@ int launch_kernel(void (*kern)(const Params), dim3 grid, int threads, size_t sme
   return (int)cudaGetLastError();
 }
 
-template <typename T, int TILE, int DMAX>
+template <typename T, int WARPS, int BN, int DC, int DP>
 int launch_fwd(const Params& p, cudaStream_t stream) {
-  const size_t tile = (size_t)TILE * (p.D + 4), ptile = (size_t)TILE * (TILE + 4);
-  return launch_kernel(flash_fwd_kernel<T, TILE, DMAX>, dim3((p.Sq + TILE - 1) / TILE, p.B * p.H),
-                       kThreads, sizeof(float) * (3 * tile + ptile), p, stream);
+  using Plan = TilePlan<T, WARPS, BN, DP>;
+  const dim3 grid(p.B * p.H, (p.Sq + Plan::kBM - 1) / Plan::kBM, (p.D + DC - 1) / DC);
+  return launch_kernel(flash_fwd_kernel<T, WARPS, BN, DC, DP>, grid, Plan::kThreadsPerBlock,
+                       Plan::bytes(1, false), p, stream);
 }
 
 template <typename T, int WARPS, int BN, int DC, int DP>
 int launch_dq(const Params& p, cudaStream_t stream) {
-  using Plan = BwdPlan<T, WARPS, BN, DP>;
+  using Plan = TilePlan<T, WARPS, BN, DP>;
   const dim3 grid(p.B * p.H, (p.Sq + Plan::kBM - 1) / Plan::kBM, (p.D + DC - 1) / DC);
   return launch_kernel(flash_bwd_dq_kernel<T, WARPS, BN, DC, DP>, grid, Plan::kThreadsPerBlock,
-                       Plan::bytes(false), p, stream);
+                       Plan::bytes(2, false), p, stream);
 }
 
 template <typename T, int WARPS, int BN, int DC, int DP>
 int launch_dkv(const Params& p, cudaStream_t stream) {
-  using Plan = BwdPlan<T, WARPS, BN, DP>;
+  using Plan = TilePlan<T, WARPS, BN, DP>;
   const dim3 grid(p.B * p.Hkv, (p.Skv + Plan::kBM - 1) / Plan::kBM, (p.D + DC - 1) / DC);
   return launch_kernel(flash_bwd_dkv_kernel<T, WARPS, BN, DC, DP>, grid, Plan::kThreadsPerBlock,
-                       Plan::bytes(true), p, stream);
+                       Plan::bytes(2, true), p, stream);
 }
 
-// Tiles per head dim.  K1: 64 x 64 up to D = 128, 32 x 32 above.  K2/K3:
-// the head dim padded to DP = 64, 128 or 256 (a compile-time trip count for
-// every product); BN = 32 streamed rows for TF32 and for bf16 K3 above
-// D = 64 (registers), 64 otherwise (on the card, 16 and 64 were slower for
-// TF32); DC output columns per block, so the accumulators live in
-// registers; two warps for f32 at D > 128 so the resident and streamed
-// tiles fit in 227 KB.
+// Tiles per head dim: the head dim padded to DP = 64, 128 or 256 (a
+// compile-time trip count for every product); BN streamed rows: 32 for TF32
+// (on the card, 16 and 64 were slower for K2/K3), 64 for bf16 but 32 for
+// K3 above D = 64 (registers); DC output columns per block, so the
+// accumulators live in registers; for K2/K3 two warps in f32 at D > 128 so
+// their two resident tiles and the ring fit in 227 KB (K1 has one resident
+// tile and keeps four).
 template <typename T>
 int dispatch_d(Kind kind, const Params& p, cudaStream_t st) {
   constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kBN = kF32 ? 32 : 64;
   if (kind == kFwd) {
-    if (p.D <= 64) return launch_fwd<T, 64, 64>(p, st);
-    if (p.D <= 128) return launch_fwd<T, 64, 128>(p, st);
-    return launch_fwd<T, 32, 256>(p, st);
+    if (p.D <= 64) return launch_fwd<T, 4, kBN, 64, 64>(p, st);
+    if (p.D <= 128) return launch_fwd<T, 4, kBN, 128, 128>(p, st);
+    return launch_fwd<T, 4, kBN, 128, 256>(p, st);
   }
   if (kind == kBwdDq) {
-    if (p.D <= 64) return launch_dq<T, 4, kF32 ? 32 : 64, 64, 64>(p, st);
-    if (p.D <= 128) return launch_dq<T, 4, kF32 ? 32 : 64, 128, 128>(p, st);
+    if (p.D <= 64) return launch_dq<T, 4, kBN, 64, 64>(p, st);
+    if (p.D <= 128) return launch_dq<T, 4, kBN, 128, 128>(p, st);
     return launch_dq<T, kF32 ? 2 : 4, 32, 128, 256>(p, st);
   }
-  if (p.D <= 64) return launch_dkv<T, 4, kF32 ? 32 : 64, 64, 64>(p, st);
+  if (p.D <= 64) return launch_dkv<T, 4, kBN, 64, 64>(p, st);
   if (p.D <= 128) return launch_dkv<T, 4, 32, 128, 128>(p, st);
   return launch_dkv<T, kF32 ? 2 : 4, 32, 128, 256>(p, st);
 }
 
 int run(Kind kind, int dtype, Params& p, void* stream) {
-  // B * H indexes gridDim.y, which holds at most 65535.
+  // The tile index (tiles of 32 or 64 rows) is gridDim.y, which holds at
+  // most 65535.
   if (p.D <= 0 || p.D % 8 || p.D > 256 || p.Sq <= 0 || p.Sq > p.Skv ||
-      p.Hkv <= 0 || p.H % p.Hkv || p.B <= 0 || (long long)p.B * p.H > 65535)
+      p.Hkv <= 0 || p.H % p.Hkv || p.B <= 0 || (long long)p.Skv > 32LL * 65535)
     return (int)cudaErrorInvalidValue;
   p.scale = 1.0f / sqrtf((float)p.D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

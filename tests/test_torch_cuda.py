@@ -9,8 +9,8 @@ JAX it runs without the repository's conftest:
 Tolerances as in ``chip_smoke.py``, which says why: f32 |kernel - plain|
 <= 1e-4 + 1e-4 |plain| (summation order, online softmax; the kernels' 3xTF32
 products are f32-accurate); bf16 2e-3 + 1e-2 |plain| (one bf16 ulp of the
-result, plus p rounded to bf16 per 64-key tile in the kernel and per row in
-the plain version).
+result, plus p rounded to bf16 per 64-key tile in K1 and per row in the
+plain version).
 """
 
 import pytest
@@ -47,6 +47,9 @@ def _close(a, b, dtype):
     (2, 130, 130, 8, 2, 64, torch.float32, True),
     (2, 130, 130, 8, 2, 64, torch.bfloat16, True),
     (2, 33, 70, 4, 1, 24, torch.bfloat16, True),
+    # bf16 at D = 256: two column chunks of 128 that each recompute the
+    # scores (K1's chunks must agree on m and l; only chunk 0 writes lse).
+    (1, 200, 333, 4, 2, 256, torch.bfloat16, True),
 ])
 def test_kernels_match_plain_versions(cuda, B, Sq, Skv, H, Hkv, D, dtype, causal):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -63,6 +66,18 @@ def test_kernels_match_plain_versions(cuda, B, Sq, Skv, H, Hkv, D, dtype, causal
     _close(lse, ref_lse, torch.float32)
     for got, want in zip((dq, dk, dv), ref):
         _close(got, want, dtype)
+
+
+def test_fwd_kernel_is_deterministic(cuda):
+    """K1 keeps each row's softmax and output inside one warp, with no
+    atomics: two launches on the same inputs give the same out and lse."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    mk = lambda S, h: torch.randn(2, S, h, 64, generator=g, device=cuda)
+    q, k, v = mk(300, 8), mk(300, 2), mk(300, 2)
+    first = fa.flash_fwd(q, k, v, True)
+    second = fa.flash_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_dkv_kernel_is_deterministic(cuda):
