@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; nothing is caught):
    ``Sq < Skv`` shapes; then each timed at the GPT-2 124M training shapes
    beside its plain version, a PyTorch library call
    (``scaled_dot_product_attention``, a yardstick only) and its bound, and
-   all three again at a bf16 GQA shape (B=2, S=1024, H=32, Hkv=8, D=128);
+   all three again at a bf16 GQA shape (B=2, S=1024, H=32, Hkv=8, D=128),
+   each time the device's and the host's ms per call;
 4. the main path: ``dpp.main`` trains full-width GPT-2 124M (f32) for 10
    steps and one eval pass in an NCCL group of one, with the kernels'
    launch counters set to 0 just before and read just after.
@@ -43,6 +44,8 @@ import time
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_F32_CUDA_CORES = 67e12
 PEAK_BYTES = 3.35e12
+# The spin kernel ahead of each timed run: ~25 ms at the H100's 1.98 GHz.
+SPIN_CYCLES = 50_000_000
 
 # GPT-2 124M attention at the main path's shapes, and a bf16 GQA shape.
 GPT2 = dict(B=8, Sq=1024, Skv=1024, H=12, Hkv=12, D=64, dtype="float32", causal=True)
@@ -67,12 +70,11 @@ CHECK_CASES = [
 # one bf16 ulp (2^-8 relative) apart and an output moves by up to
 # 2^-8 sum p|v| / l, about 1e-3 on average over the 65+ keys a row crossing
 # tiles sees, with tails to ~2e-3 across the millions of entries checked:
-# atol 2e-3.  K2/K3
-# round the same f32 p and ds as the plain version when both get the same
-# (out, lse), so they differ only where f32 summation order tips a
-# rounding; fed the plain forward's (out, lse) instead, a one-ulp change of
-# out would shift delta and tip many ds roundings, each worth one bf16 ulp
-# of ds times |k| in dq.  lse is f32 in every case.
+# atol 2e-3.  K2/K3 round the same f32 p and ds as the plain version when
+# both get the same (out, lse), so they differ only where f32 summation
+# order tips a rounding; fed the plain forward's (out, lse) instead, a
+# one-ulp change of out would shift delta and tip many ds roundings, each
+# worth one bf16 ulp of ds times |k| in dq.  lse is f32 in every case.
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-3, 1e-2)}
 
 MAIN_ARGS = [
@@ -160,17 +162,31 @@ def check_case(torch, fa, name, c, seed):
 
 
 def time_ms(torch, fn, iters, warmup=3):
-    """Mean ms per call over ``iters`` calls, CUDA events, after warm-up."""
+    """(device ms, host ms) per call over ``iters`` calls after warm-up.
+
+    The timed calls are enqueued behind a spin kernel, so the CUDA events
+    around them time the device's work back to back: without it, a host
+    slower than the device (Python and launch cost per call, a CPU shared
+    with other jobs) leaves gaps that the events count.  The host's time to
+    enqueue a call is returned beside; a spin that ends before the host is
+    done is lengthened and the timing taken again."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    for cycles in (SPIN_CYCLES, 8 * SPIN_CYCLES):
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / iters
+        end.record()
+        covered = not start.query()  # the spin still held the stream
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters, host_ms
+    raise RuntimeError(f"time_ms: the host took {host_ms:.3f} ms per call, longer than the spin")
 
 
 def visible_pairs(c) -> int:
@@ -210,26 +226,26 @@ def measure(torch, fa, c, seed, names):
     o_lib = lib_fwd()
     do_l = do.transpose(1, 2)
     lib_bwd = lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do_l, retain_graph=True)
-    lib_fwd_ms = time_ms(torch, lib_fwd, 20)
-    lib_bwd_ms = time_ms(torch, lib_bwd, 20)
+    lib_fwd_times = time_ms(torch, lib_fwd, 20)  # (device ms, host ms)
+    lib_bwd_times = time_ms(torch, lib_bwd, 20)
 
     runs = {
         "flash_fwd": (
             lambda: fa.flash_fwd(q, k, v, causal),
             lambda: fa.flash_fwd_plain(q, k, v, causal),
-            nbytes(q, k, v, out, lse), lib_fwd_ms,
+            nbytes(q, k, v, out, lse), lib_fwd_times,
             "F.scaled_dot_product_attention forward",
         ),
         "flash_bwd_dq": (
             lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
             lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal),
-            nbytes(q, k, v, do, lse, delta, dq), lib_bwd_ms,
+            nbytes(q, k, v, do, lse, delta, dq), lib_bwd_times,
             "F.scaled_dot_product_attention backward (dq, dk and dv together)",
         ),
         "flash_bwd_dkv": (
             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal),
             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal),
-            nbytes(q, k, v, do, lse, delta, dk, dv), lib_bwd_ms,
+            nbytes(q, k, v, do, lse, delta, dk, dv), lib_bwd_times,
             "F.scaled_dot_product_attention backward (dq, dk and dv together)",
         ),
     }
@@ -237,21 +253,24 @@ def measure(torch, fa, c, seed, names):
     for name, replaces, matmuls in KERNELS:
         if name not in names:
             continue
-        kern, plain, nb, lib_ms, lib_call = runs[name]
+        kern, plain, nb, (lib_ms, lib_host_ms), lib_call = runs[name]
         b_ms, b_by = bound(c, matmuls, nb)
+        ms, host_ms = time_ms(torch, kern, 20)
         res[name] = {
-            "ms": time_ms(torch, kern, 20),
-            "plain_ms": time_ms(torch, plain, 5),
+            "ms": ms,
+            "host_ms": host_ms,
+            "plain_ms": time_ms(torch, plain, 5)[0],
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": lib_ms,
+            "library_host_ms": lib_host_ms,
             "library_call": lib_call,
             "bytes": nb,
         }
         if c["dtype"] == "float32":
             res[name]["bound_cuda_core_ms"] = bound(c, matmuls, nb, PEAK_F32_CUDA_CORES)[0]
-        log(f"  {name}: {res[name]['ms']:.3f} ms (plain {res[name]['plain_ms']:.3f}, "
-            f"library {lib_ms:.3f}, bound {b_ms:.3f} by {b_by})")
+        log(f"  {name}: {ms:.3f} ms (host {host_ms:.3f}; plain {res[name]['plain_ms']:.3f}, "
+            f"library {lib_ms:.3f} (host {lib_host_ms:.3f}), bound {b_ms:.3f} by {b_by})")
     return res
 
 
@@ -319,13 +338,16 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in (
                 ("out", "lse") if name == "flash_fwd" else ("dq",) if name == "flash_bwd_dq" else ("dk", "dv"))),
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "bound_cuda_core_ms": t["bound_cuda_core_ms"],
-            "library_ms": t["library_ms"], "library_call": t["library_call"], "shapes": GPT2,
+            "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "bound_cuda_core_ms": t["bound_cuda_core_ms"], "library_ms": t["library_ms"],
+            "library_host_ms": t["library_host_ms"], "library_call": t["library_call"],
+            "shapes": GPT2,
         }
         if name in timing_bf16:
             tb = timing_bf16[name]
-            entry["bf16"] = {k: tb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            entry["bf16"] = {k: tb[k] for k in (
+                "ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_host_ms")}
             entry["bf16"]["shapes"] = GQA_BF16
         kernels.append(entry)
     main_path = {

@@ -438,11 +438,13 @@ struct TilePlan {
 // kv tiles stream through the ring.  As in the reference: scale applied to
 // the f32 scores, causal entries NEG_INF and keys past the ragged edge -inf
 // (p = 0), m from NEG_INF, l summing the f32 p, p rounded to the inputs'
-// dtype before P V, the l == 0 guard.  For f32 a register cap of three
-// blocks per SM made the GPT-2 shapes faster on the card, without spills;
-// for bf16 it spills at D = 128, so bf16 has none.
+// dtype before P V, the l == 0 guard.  For f32 at D <= 64 a register cap
+// of three blocks per SM, which shared memory also fits, made the GPT-2
+// shapes faster on the card, without spills.  Above D = 64 shared memory
+// holds at most two f32 blocks, and bf16 spills under the cap at D = 128,
+// so those builds have none.
 template <typename T, int WARPS, int BN, int DC, int DP>
-__global__ void __launch_bounds__(32 * WARPS, std::is_same<T, float>::value ? 3 : 1)
+__global__ void __launch_bounds__(32 * WARPS, std::is_same<T, float>::value && DP == 64 ? 3 : 1)
     flash_fwd_kernel(const Params p) {
   using Plan = TilePlan<T, WARPS, BN, DP>;
   constexpr int BM = Plan::kBM, NTH = Plan::kThreadsPerBlock, NS = BN / 8, NO = DC / 8;

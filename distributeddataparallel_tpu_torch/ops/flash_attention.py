@@ -27,7 +27,6 @@ by the source's hash, and an up-to-date library is reused.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import math
@@ -78,25 +77,24 @@ def _nvcc() -> str:
     )
 
 
-def library_path(source: Path = SOURCE) -> Path:
+def library_path() -> Path:
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"libflash_attention_{digest}.so"
 
 
-def build(source: Path = SOURCE) -> Path:
-    """Compile the kernels of ``source`` (this package's by default) unless
-    an up-to-date library exists; return it.
+def build() -> Path:
+    """Compile the kernels unless an up-to-date library exists; return it.
 
     The compiler's per-kernel register and shared-memory report (``ptxas
     -v``) is kept beside the library as ``<name>.log``."""
-    so = library_path(source)
+    so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = so.with_suffix(".log")
@@ -106,47 +104,27 @@ def build(source: Path = SOURCE) -> Path:
     )
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {source}:\n"
+            f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
             f"{proc.stderr[-4000:]}"
         )
     os.replace(tmp, so)  # atomic: concurrent builds each publish a whole file
     return so
 
 
-def _bind(path: Path):
-    lib = ctypes.CDLL(str(path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    shape = [i32] * 7 + [ptr]  # B, Sq, Skv, H, Hkv, D, causal, stream
-    lib.ddp_flash_fwd.argtypes = [i32] + [ptr] * 6 + shape
-    lib.ddp_flash_bwd_dq.argtypes = [i32] + [ptr] * 8 + shape
-    lib.ddp_flash_bwd_dkv.argtypes = [i32] + [ptr] * 9 + shape
-    for fn in (lib.ddp_flash_fwd, lib.ddp_flash_bwd_dq, lib.ddp_flash_bwd_dkv):
-        fn.restype = i32
-    return lib
-
-
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            _lib = _bind(build())
+            lib = ctypes.CDLL(str(build()))
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            shape = [i32] * 7 + [ptr]  # B, Sq, Skv, H, Hkv, D, causal, stream
+            lib.ddp_flash_fwd.argtypes = [i32] + [ptr] * 6 + shape
+            lib.ddp_flash_bwd_dq.argtypes = [i32] + [ptr] * 8 + shape
+            lib.ddp_flash_bwd_dkv.argtypes = [i32] + [ptr] * 9 + shape
+            for fn in (lib.ddp_flash_fwd, lib.ddp_flash_bwd_dq, lib.ddp_flash_bwd_dkv):
+                fn.restype = i32
+            _lib = lib
         return _lib
-
-
-@contextlib.contextmanager
-def library(path: Path):
-    """Inside the block the wrappers launch the kernels of the library at
-    ``path`` (another ``build(source)``), so two builds can be timed in one
-    process; the package's own library is back afterwards."""
-    global _lib
-    lib = _bind(path)
-    with _lib_lock:
-        saved, _lib = _lib, lib
-    try:
-        yield
-    finally:
-        with _lib_lock:
-            _lib = saved
 
 
 # ------------------------------------------------------------ checking ----
