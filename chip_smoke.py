@@ -19,10 +19,23 @@ Phases (any failure exits non-zero; nothing is caught):
    each time the device's and the host's ms per call;
 4. the main path: ``dpp.main`` trains full-width GPT-2 124M (f32) for 10
    steps and one eval pass in an NCCL group of one, with the kernels'
-   launch counters set to 0 just before and read just after.
+   launch counters set to 0 just before and read just after;
+5. the image path at the ImageNet shape: ``dpp.main`` trains full-width
+   ResNet-50 (224x224x3, 1000 classes, f32 with TF32 off) for 10 steps of
+   batch 64 on synthetic shards written to a temporary directory, then
+   evaluates; the losses must be finite and fall, and the attention
+   kernels must be launched 0 times; then the port's BatchNorm, in train
+   mode at a ResNet-50 layer's shape and at a small batch, must leave its
+   running buffers where flax's biased statistics and momentum put them;
+6. the reference's own workload: ResNet-18 with the CIFAR stem at the
+   reference's defaults (batch 32, SGD, lr 0.01) with augmentation and
+   eval, 2 epochs of 10 steps with checkpoints, then ``--resume`` to 3
+   epochs beside an uninterrupted 3-epoch run: the resumed run starts at
+   epoch 2 and its losses match the uninterrupted run's epoch 2.
 
-It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
-limit, and as its last line
+It prints one ``image_paths`` JSON line (phases 5 and 6), one
+``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
+its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -30,9 +43,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense), HBM3 bandwidth.  The f32 bound
@@ -82,6 +97,44 @@ MAIN_ARGS = [
     "--vocab-size", "50257", "--batch-size", "8", "--optimizer", "adamw",
     "--lr", "3e-4", "--steps-per-epoch", "10", "--epochs", "1", "--eval",
 ]
+
+# Phase 5: ResNet-50 at the ImageNet shape, SGD with momentum 0.9.  Over 10
+# steps on these 1000 synthetic classes lr 0.03 lowers the loss steadily
+# (7.15 -> 6.59 on an H100); lr 0.1, the ImageNet recipe's rate for batch
+# 256, is four times the linearly scaled rate for batch 64 and made the
+# loss climb to 7.41 at step 7 before it came back to 7.10.
+R50_ROWS = dict(train=640, val=192)
+R50_ARGS = [
+    "--model", "resnet50", "--dataset", "shards:{root}", "--batch-size", "64",
+    "--optimizer", "sgd", "--momentum", "0.9", "--lr", "0.03", "--steps-per-epoch", "10",
+    "--epochs", "1", "--eval",
+]
+# Phase 5's BatchNorm check: the running buffers after one train-mode call,
+# against torch.var_mean (biased) in f64 through flax's update 0.9 * old +
+# 0.1 * batch.  The buffers come from the statistics that the normalize op
+# (cuDNN's kernel on the card) returns; a backend whose third output meant
+# something other than 1 / sqrt(var + eps) would miss by far more than the
+# tolerance.  Shapes: ResNet-50's first 56x56 BatchNorm at batch 64, and 16
+# values a channel, at which the unbiased variance is 1/15 larger (rtol 1e-5
+# cannot tell them apart at 200704 values a channel).  Inputs have
+# |mean| <= 1 and std 0.5-2 per channel, as activations do; f32 sums over
+# 200704 values and the invstd round trip (a few ulps) keep the error near
+# 1e-6 relative: |got - want| <= 1e-5 * |want| + 1e-6.
+BN_SHAPES = [(64, 256, 56, 56), (4, 64, 2, 2)]
+BN_RTOL, BN_ATOL = 1e-5, 1e-6
+# Phase 6: ResNet-18 (CIFAR stem) at the reference's defaults, batch 32, SGD,
+# lr 0.01, on the synthetic CIFAR-shaped set.
+R18_ARGS = [
+    "--model", "resnet18", "--dataset", "synthetic", "--batch-size", "32", "--optimizer", "sgd",
+    "--lr", "0.01", "--augment", "--eval", "--steps-per-epoch", "10", "--log-every", "1000",
+]
+# The resumed run starts from the saved state bit for bit, but cuDNN may
+# pick weight-gradient kernels that sum with atomics, so each later step's
+# gradient can differ in its last bits and the two runs drift apart by float
+# rounding: ~1e-6 in loss over 10 steps of SGD at lr 0.01.  A resume at the
+# wrong epoch, step, learning rate or augmentation draw moves the losses by
+# more than 1e-2.
+RESUME_ATOL = 1e-4
 
 KERNELS = [
     # name, replaces, matmuls per visible (q, k) pair
@@ -274,6 +327,136 @@ def measure(torch, fa, c, seed, names):
     return res
 
 
+def step_flops(torch, model, batch_shape) -> int:
+    """FLOPs of one forward and backward (the convolutions and matmuls), as
+    ``torch.utils.flop_counter`` counts them, on the meta device."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        model(torch.empty(batch_shape, device="meta")).sum().backward()
+    return counter.get_total_flops()
+
+
+def bn_buffer_check(torch) -> dict:
+    """The port's BatchNorm buffers after one train-mode call on the card,
+    against the biased statistics (``BN_SHAPES``); max error over the
+    tolerance's scale, per shape."""
+    from distributeddataparallel_tpu_torch.models.layers import BatchNorm
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    errs = {}
+    for shape in BN_SHAPES:
+        c = shape[1]
+        bn = BatchNorm(c, device="cuda")
+        bn.reset_parameters()
+        bn.running_mean.uniform_(-1.0, 1.0, generator=g)
+        bn.running_var.uniform_(0.5, 2.0, generator=g)
+        old = (bn.running_mean.double(), bn.running_var.double())
+        std = torch.rand(c, 1, 1, device="cuda", generator=g) * 1.5 + 0.5
+        mean = torch.rand(c, 1, 1, device="cuda", generator=g) * 2.0 - 1.0
+        x = torch.randn(shape, device="cuda", generator=g) * std + mean
+        bn.train()
+        bn(x.contiguous(memory_format=torch.channels_last))
+        var, mu = torch.var_mean(x.double(), dim=(0, 2, 3), unbiased=False)
+        worst = 0.0
+        for got, o, batch in ((bn.running_mean, old[0], mu), (bn.running_var, old[1], var)):
+            want = 0.9 * o + 0.1 * batch
+            worst = max(worst, float(((got.double() - want).abs() / (BN_RTOL * want.abs() + BN_ATOL)).max()))
+        errs["x".join(map(str, shape))] = worst
+        if not worst <= 1.0:
+            raise AssertionError(f"BatchNorm buffers at {shape}: error {worst:.2f} x the tolerance")
+    return errs
+
+
+def resnet50_phase(torch, dpp, fa, smi):
+    """[5] ResNet-50 at the ImageNet shape on synthetic shards."""
+    from distributeddataparallel_tpu_torch.data.sharded import write_synthetic_image_shards
+    from distributeddataparallel_tpu_torch.models.resnet import ResNet50
+
+    with tempfile.TemporaryDirectory(prefix="r50_shards_") as root:
+        t0 = time.perf_counter()
+        for split, rows in R50_ROWS.items():
+            write_synthetic_image_shards(os.path.join(root, split), rows, (224, 224, 3), 1000,
+                                         seed=0 if split == "train" else 1)
+        log(f"[5] resnet50: shards {R50_ROWS} of 224x224x3 written in {time.perf_counter() - t0:.1f} s")
+        args = [a.format(root=root) for a in R50_ARGS]
+        log("    dpp.main " + " ".join(args))
+        fa.reset_launches()
+        summary = dpp.main(args)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+    losses, batch = summary["losses"], 64
+    flops = step_flops(torch, ResNet50(num_classes=1000, device="meta"), (batch, 224, 224, 3))
+    bound_ms = flops / PEAK_F32_CUDA_CORES * 1e3
+    step_ms = summary["step_time_s"] * 1e3
+    log(f"    losses {['%.4f' % x for x in losses]}; eval {summary['eval']}; attention launches {launches}")
+    if summary["train_steps"] != 10 or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"resnet50: {summary['train_steps']} steps, losses {losses}")
+    if summary["eval"] is None or not math.isfinite(summary["eval"]["loss"]):
+        raise AssertionError(f"resnet50: eval {summary['eval']}")
+    if any(launches.values()):
+        raise AssertionError(f"resnet50: attention kernels launched {launches}")
+    bn_err = bn_buffer_check(torch)
+    log(f"    BatchNorm buffers vs biased var_mean, error / tolerance: {bn_err}")
+    log(f"    step {step_ms:.1f} ms (first {summary['first_step_time_s']:.2f} s), "
+        f"{summary['images_per_s']:.0f} images/s; with the loader, "
+        f"{summary['wall_step_time_s'] * 1e3:.1f} ms and {summary['images_per_s_wall']:.0f} images/s; peak memory "
+        f"{summary['peak_memory_bytes'] / 2**30:.2f} GiB; {flops / 1e9:.1f} GFLOP a step, "
+        f"bound {bound_ms:.2f} ms at 67 TFLOP/s f32 ({bound_ms / step_ms:.1%} of it reached) on {smi}")
+    return {
+        "args": R50_ARGS, "train_steps": summary["train_steps"], "losses": losses,
+        "eval": summary["eval"], "eval_batches": summary["eval_batches"], "step_ms": step_ms,
+        "first_step_s": summary["first_step_time_s"], "images_per_s": summary["images_per_s"],
+        "wall_step_ms": summary["wall_step_time_s"] * 1e3, "images_per_s_wall": summary["images_per_s_wall"],
+        "peak_memory_bytes": summary["peak_memory_bytes"], "step_flops": flops,
+        "bn_buffers_err_over_tol": bn_err, "bn_tol": {"rtol": BN_RTOL, "atol": BN_ATOL},
+        "bound_ms_f32_cuda_cores": bound_ms, "bound_share": bound_ms / step_ms,
+        "attention_launches": launches, "num_params": summary["num_params"],
+    }
+
+
+def resnet18_resume_phase(torch, dpp, fa, smi):
+    """[6] ResNet-18 CIFAR: 2 epochs with checkpoints, --resume to 3, and an
+    uninterrupted 3-epoch run."""
+    with tempfile.TemporaryDirectory(prefix="r18_ckpt_") as ckpt:
+        fa.reset_launches()
+        runs = {}
+        for name, extra in (
+            ("first", ["--epochs", "2", "--checkpoint-dir", ckpt]),
+            ("resumed", ["--epochs", "3", "--checkpoint-dir", ckpt, "--resume"]),
+            ("straight", ["--epochs", "3"]),
+        ):
+            log(f"[6] resnet18 {name}: dpp.main " + " ".join(R18_ARGS + extra))
+            runs[name] = dpp.main(R18_ARGS + extra)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+    first, resumed, straight = runs["first"], runs["resumed"], runs["straight"]
+    epoch2 = straight["losses"][20:]
+    diff = max(abs(a - b) for a, b in zip(resumed["losses"], epoch2))
+    log(f"    resumed at epoch {resumed['start_epoch']}: losses {['%.4f' % x for x in resumed['losses']]}")
+    log(f"    uninterrupted epoch 2:  {['%.4f' % x for x in epoch2]}; max |diff| {diff:.2e} "
+        f"(atol {RESUME_ATOL}); attention launches {launches}")
+    if (first["train_steps"], resumed["train_steps"], straight["train_steps"]) != (20, 10, 30):
+        raise AssertionError(f"resnet18 steps {first['train_steps']}, {resumed['train_steps']}, "
+                             f"{straight['train_steps']}")
+    if resumed["start_epoch"] != 2 or not diff <= RESUME_ATOL:
+        raise AssertionError(f"resnet18 resume: start epoch {resumed['start_epoch']}, max diff {diff}")
+    if not all(math.isfinite(x) for x in straight["losses"]) or not math.isfinite(straight["eval"]["loss"]):
+        raise AssertionError(f"resnet18: losses {straight['losses']}, eval {straight['eval']}")
+    if any(launches.values()):
+        raise AssertionError(f"resnet18: attention kernels launched {launches}")
+    log(f"    uninterrupted: step {straight['step_time_s'] * 1e3:.2f} ms, "
+        f"{straight['images_per_s']:.0f} images/s, eval {straight['eval']} on {smi}")
+    return {
+        "args": R18_ARGS, "start_epoch": resumed["start_epoch"], "resumed_losses": resumed["losses"],
+        "uninterrupted_epoch2_losses": epoch2, "max_abs_diff": diff, "atol": RESUME_ATOL,
+        "step_ms": straight["step_time_s"] * 1e3, "images_per_s": straight["images_per_s"],
+        "wall_step_ms": straight["wall_step_time_s"] * 1e3, "images_per_s_wall": straight["images_per_s_wall"],
+        "peak_memory_bytes": straight["peak_memory_bytes"], "eval": straight["eval"],
+        "attention_launches": launches,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -330,12 +513,18 @@ def main() -> int:
         f"{summary['tokens_per_s']:.0f} tokens/s, peak memory "
         f"{summary['peak_memory_bytes'] / 2**30:.2f} GiB on {smi}")
 
+    image_paths = {
+        "resnet50_imagenet_shape": resnet50_phase(torch, dpp, fa, smi),
+        "resnet18_cifar_resume": resnet18_resume_phase(torch, dpp, fa, smi),
+    }
+
     kernels = []
     for name, replaces, _ in KERNELS:
         t = timing[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[name],
+            "launches_image_paths": sum(p["attention_launches"][name] for p in image_paths.values()),
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in (
                 ("out", "lse") if name == "flash_fwd" else ("dq",) if name == "flash_bwd_dq" else ("dk", "dv"))),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
@@ -357,6 +546,7 @@ def main() -> int:
     }
     log(json.dumps({"checks": {"tolerance": TOL, "max_abs_err": errs}, "card": smi}))
     log(json.dumps({"main_path": main_path, "card": smi}))
+    log(json.dumps({"image_paths": image_paths, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(nvidia_smi())  # the card's name and power limit, as nvidia-smi gives them

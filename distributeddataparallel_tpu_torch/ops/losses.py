@@ -35,6 +35,11 @@ def per_example_accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Te
     return _row_mean((logits.argmax(dim=-1) == labels).float())
 
 
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax CE with integer labels; logits (B, C), labels (B,)."""
+    return per_example_cross_entropy(logits, labels).mean()
+
+
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return per_example_accuracy(logits, labels).mean()
 

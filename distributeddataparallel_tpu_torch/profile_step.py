@@ -3,13 +3,15 @@
     python -m distributeddataparallel_tpu_torch.profile_step [dpp flags] \\
         [--profile-steps 3]
 
-Builds the trainer exactly as ``dpp`` does (same flags and defaults; give
-the main path's, e.g. ``--seq-len 1024 --vocab-size 50257 --batch-size 8
---optimizer adamw``), runs two warm-up steps, then profiles
+Builds the trainer exactly as ``dpp`` does (same flags and defaults: give
+GPT-2's ``--model gpt2 --seq-len 1024 --vocab-size 50257 --batch-size 8
+--optimizer adamw``, or the image paths' ``--model resnet50 --dataset
+shards:DIR --batch-size 64 ...``), runs two warm-up steps, then profiles
 ``--profile-steps`` steps on one GPU.  It prints one JSON line: wall time per
 step, device busy time per step and the idle share, and device time per
-step by kernel group (the three flash-attention kernels, GEMMs, the
-rest) with the ten largest kernels.
+step by kernel group (the three flash-attention kernels, convolutions,
+GEMMs, BatchNorm / elementwise / reductions, the optimizer's, the rest)
+with the ten largest kernels.
 """
 
 from __future__ import annotations
@@ -34,8 +36,18 @@ def _group(name: str) -> str:
         return "flash_bwd_dq (K2)"
     if "flash_bwd_dkv_kernel" in name:
         return "flash_bwd_dkv (K3)"
+    # cuDNN's convolution kernels (fprop / dgrad / wgrad engines and their
+    # layout transforms) before GEMMs: implicit-GEMM conv kernels say "gemm".
+    if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn", "winograd",
+                              "nchwtonhwc", "nhwctonchw")):
+        return "conv (cuDNN)"
     if "gemm" in low or "cutlass" in low or "matmul" in low:
         return "gemm"
+    if any(k in low for k in ("batch_norm", "bn_fw", "bn_bw", "welford", "reduce_kernel",
+                              "elementwise")):
+        return "batchnorm/elementwise/reductions"
+    if "multi_tensor_apply" in low:
+        return "optimizer (foreach)"
     if "nccl" in low:
         return "nccl"
     if "memcpy" in low or "memset" in low:

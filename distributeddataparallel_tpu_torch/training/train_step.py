@@ -10,7 +10,11 @@ replica (one process per device):
 2. one all-reduce per accumulation boundary: the mean over ranks, per leaf
    or in ~``bucket_bytes`` buckets (``parallel.data_parallel``);
 3. ``grad_clip``: the synced gradient scaled to that global L2 norm;
-4. the optimizer step and the schedule's advance.
+4. the optimizer step and the schedule's advance;
+5. the model's buffers (BatchNorm running statistics, which each rank
+   updated from its own batch) made equal across ranks: ``buffer_sync=
+   "mean"`` averages them, ``"broadcast"`` adopts rank 0's (DDP's
+   ``broadcast_buffers``); either way in one coalesced collective.
 
 The reported metrics (loss and the loss_fn's aux values) are averaged over
 the microbatches and over ranks.
@@ -30,6 +34,7 @@ from distributeddataparallel_tpu_torch.parallel.data_parallel import (
     masked_tree_mean,
     sumsq_f32,
 )
+from distributeddataparallel_tpu_torch.runtime.distributed import get_world_size
 from distributeddataparallel_tpu_torch.training.state import TrainState
 
 # loss_fn(model, batch) -> (scalar loss, aux dict of scalars)
@@ -43,6 +48,33 @@ def _mean_over_ranks(values: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]
         dist.all_reduce(vec, op=dist.ReduceOp.SUM)
         vec = vec / dist.get_world_size()
     return dict(zip(keys, vec.unbind()))
+
+
+def model_buffers(model: nn.Module) -> list[torch.Tensor]:
+    """The model's state outside its parameters: every floating-point buffer
+    saved in its ``state_dict`` (BatchNorm running statistics; not the
+    derived non-persistent ones such as rotary tables)."""
+    names = {name for name, _ in model.named_buffers()}
+    return [t for k, t in model.state_dict(keep_vars=True).items()
+            if k in names and t.is_floating_point()]
+
+
+@torch.no_grad()
+def sync_buffers(buffers: list[torch.Tensor], mode: str) -> None:
+    """Make ``buffers`` equal on every rank, in place, with one collective:
+    ``"mean"`` averages them, ``"broadcast"`` copies rank 0's."""
+    if not buffers:
+        return
+    flat = torch.cat([b.reshape(-1).float() for b in buffers])
+    if mode == "mean":
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        flat.div_(dist.get_world_size())
+    else:
+        dist.broadcast(flat, src=0)
+    offset = 0
+    for b in buffers:
+        b.copy_(flat[offset : offset + b.numel()].view_as(b))
+        offset += b.numel()
 
 
 def _split(batch: dict, n: int) -> list[dict]:
@@ -63,6 +95,7 @@ def make_train_step(
     accum_steps: int = 1,
     bucket_bytes: int | None = None,
     grad_clip: float | None = None,
+    buffer_sync: str = "mean",
     overlap: bool = False,
     zero: bool | int = False,
     grad_compress: str | None = None,
@@ -85,6 +118,8 @@ def make_train_step(
             )
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if buffer_sync not in ("mean", "broadcast"):
+        raise ValueError(f"buffer_sync must be 'mean' or 'broadcast'; got {buffer_sync!r}")
 
     def step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         model = state.model
@@ -117,13 +152,16 @@ def make_train_step(
             for g in grads:
                 g.mul_(scale.to(g.dtype))
         state.apply_gradients()
+        if get_world_size() > 1:  # one rank's buffers are already its own
+            sync_buffers(model_buffers(model), buffer_sync)
         return _mean_over_ranks(totals)
 
     return step
 
 
 def make_eval_step(metric_fn: Callable[[nn.Module, dict], dict]):
-    """``eval_step(model, batch) -> (means, count)`` without gradients.
+    """``eval_step(model, batch) -> (means, count)`` without gradients, in
+    eval mode (BatchNorm normalizes with its running statistics).
 
     ``metric_fn(model, batch)`` returns per-row metric vectors; the batch
     carries ``"valid"`` (``DataLoader(with_mask=True)``), 0 on the sampler's

@@ -45,7 +45,7 @@ from distributeddataparallel_tpu_torch.training.train_step import (  # noqa: E40
 )
 
 TOL = dict(atol=2e-5, rtol=1e-4)
-TINY = ["--layers", "2", "--d-model", "32", "--seq-len", "16", "--vocab-size", "64",
+TINY = ["--model", "gpt2", "--layers", "2", "--d-model", "32", "--seq-len", "16", "--vocab-size", "64",
         "--num-examples", "48", "--epochs", "1", "--log-every", "1000"]
 
 
