@@ -31,11 +31,22 @@ Phases (any failure exits non-zero; nothing is caught):
    reference's defaults (batch 32, SGD, lr 0.01) with augmentation and
    eval, 2 epochs of 10 steps with checkpoints, then ``--resume`` to 3
    epochs beside an uninterrupted 3-epoch run: the resumed run starts at
-   epoch 2 and its losses match the uninterrupted run's epoch 2.
+   epoch 2 and its losses match the uninterrupted run's epoch 2;
+7. Llama-3 8B at full width (d_model 4096, 32 heads / 8 kv heads of 128,
+   SwiGLU 14336, vocab 128256, untied head, bf16 activations on f32
+   params, activation checkpointing), cut from 32 layers to 8:
+   ``dpp.main`` trains 10 steps of 2 x 2048 tokens with AdamW and
+   evaluates; the losses must be finite and fall, K1 must be launched
+   twice per layer per train step (forward and recompute) and once per
+   layer per eval batch, K2 and K3 once per layer per train step; the LM
+   head's logits must be f32 and not bf16 values, and its forward and
+   backward must match its CPU formula.  Phase 3 also checks and times
+   the kernels at this phase's attention shape (B=2, S=2048, H=32, Hkv=8,
+   D=128, bf16, causal).
 
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
-``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
-its last line
+``llama_path`` line (phase 7), one ``{"kernels": [...]}`` JSON line, the
+card's name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -65,6 +76,7 @@ SPIN_CYCLES = 50_000_000
 # GPT-2 124M attention at the main path's shapes, and a bf16 GQA shape.
 GPT2 = dict(B=8, Sq=1024, Skv=1024, H=12, Hkv=12, D=64, dtype="float32", causal=True)
 GQA_BF16 = dict(B=2, Sq=1024, Skv=1024, H=32, Hkv=8, D=128, dtype="bfloat16", causal=True)
+LLAMA = dict(B=2, Sq=2048, Skv=2048, H=32, Hkv=8, D=128, dtype="bfloat16", causal=True)
 CHECK_CASES = [
     ("gpt2_f32_causal", GPT2),
     ("noncausal_ragged_f32", dict(B=2, Sq=1000, Skv=1000, H=4, Hkv=4, D=64, dtype="float32", causal=False)),
@@ -72,6 +84,7 @@ CHECK_CASES = [
     ("gqa_bf16_causal", GQA_BF16),
     ("d256_gqa_ragged_f32", dict(B=1, Sq=77, Skv=300, H=6, Hkv=2, D=256, dtype="float32", causal=True)),
     ("d40_gqa_ragged_bf16", dict(B=2, Sq=200, Skv=200, H=6, Hkv=3, D=40, dtype="bfloat16", causal=False)),
+    ("llama_bf16_s2048", LLAMA),
 ]
 # Stated tolerances, |kernel - plain| <= atol + rtol * |plain|.  f32: both
 # versions are f32-accurate (the kernels' 3xTF32 products keep ~2^-22 of
@@ -135,6 +148,27 @@ R18_ARGS = [
 # wrong epoch, step, learning rate or augmentation draw moves the losses by
 # more than 1e-2.
 RESUME_ATOL = 1e-4
+# Phase 7: Llama-3 8B width, 8 of its 32 layers.  Plain DP holds f32 params,
+# gradients and two AdamW moments, 16 bytes a parameter: 32 layers (8.03 B
+# parameters, ~128 GB) do not fit one 80 GB card until ZeRO/FSDP are ported;
+# 8 layers are 2.80 B parameters, ~45 GB of state.  64 synthetic rows give
+# 10 train steps and 32 eval batches of 2 x 2048 tokens.
+LLAMA_LAYERS, LLAMA_EXAMPLES = 8, 64
+LLAMA_ARGS = [
+    "--model", "llama", "--dataset", "synthetic-lm", "--vocab-size", "128256",
+    "--layers", str(LLAMA_LAYERS), "--seq-len", "2048", "--batch-size", "2",
+    "--optimizer", "adamw", "--lr", "3e-4", "--steps-per-epoch", "10", "--epochs", "1",
+    "--eval", "--num-examples", str(LLAMA_EXAMPLES),
+]
+# The head check: rows of the final norm's output against the f32 master
+# weight, on the card and by the CPU formula (f32 products of the bf16
+# operands; TF32 off).  Forward: both are f32 sums of the same bf16
+# products, in another order: |diff| <= 1e-4 + 1e-4 |logit|.  Backward: the
+# card rounds the f32 cotangent to bf16 before its bf16 products (2^-9
+# relative per element) and rounds each result to bf16 (2^-8), so dx and
+# dw are held to 2e-2 of the largest |value| of each.
+HEAD_ROWS = 256
+HEAD_FWD_TOL, HEAD_BWD_RTOL = (1e-4, 1e-4), 2e-2
 
 KERNELS = [
     # name, replaces, matmuls per visible (q, k) pair
@@ -457,6 +491,104 @@ def resnet18_resume_phase(torch, dpp, fa, smi):
     }
 
 
+def lm_step_flops(cfg, B: int, S: int) -> tuple[int, int]:
+    """(FLOPs of one train step as the port runs it, the same without the
+    recompute): the matmuls, 2 per multiply-add; forward 1, backward 2 and,
+    under remat, the layers' recompute 1 more.  Attention counts each
+    kernel's products per visible pair as ``KERNELS`` does (K1 2, K2 3,
+    K3 4), K1 twice under remat."""
+    d, H, Hkv, D, F, V, L = (cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.dims_per_head,
+                             cfg.d_ff, cfg.vocab_size, cfg.num_layers)
+    layer = 2 * d * H * D + 2 * d * Hkv * D + (3 if cfg.activation == "swiglu" else 2) * d * F
+    tokens = B * S
+    pairs = visible_pairs(dict(Sq=S, Skv=S, causal=True)) * B * H * 2 * D * L
+    passes = 4 if cfg.remat else 3
+    run = 2 * tokens * (layer * L * passes + d * V * 3) + pairs * (2 * (passes - 2) + 3 + 4)
+    model = 2 * tokens * (layer * L + d * V) * 3 + pairs * (2 + 3 + 4)
+    return run, model
+
+
+def head_check(torch, tfm) -> dict:
+    """The LM head of a full-width Llama (one layer) on the card: its logits
+    are f32 and not bf16 values; then ``f32_logits``' forward and backward
+    at the head's shapes against the CPU formula (``HEAD_*`` above)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cfg = tfm.llama3_8b(num_layers=1, max_seq_len=HEAD_ROWS)
+    model = tfm.TransformerLM(cfg, device="cuda", generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (1, HEAD_ROWS), device="cuda", generator=g)
+    with torch.no_grad():
+        logits = model(tokens)
+    off_bf16 = float((logits != logits.to(torch.bfloat16).float()).float().mean())
+    if logits.dtype != torch.float32 or not off_bf16 > 0.5:
+        raise AssertionError(f"LM head: logits {logits.dtype}, {off_bf16:.1%} of them not bf16 values")
+    w = model.lm_head.weight.detach().clone().requires_grad_()
+    del model, logits
+    x = torch.randn(HEAD_ROWS, cfg.d_model, device="cuda", generator=g).to(torch.bfloat16).requires_grad_()
+    out = tfm.f32_logits(x, w, torch.bfloat16)
+    gout = torch.randn(out.shape, device="cuda", generator=g) / out.shape[1] ** 0.5
+    out.backward(gout)
+    wb = w.detach().to(torch.bfloat16).float()
+    ref = x.detach().float() @ wb.t()
+    errs = {"logits": float((out.detach() - ref).abs().max())}
+    atol, rtol = HEAD_FWD_TOL
+    if out.dtype != torch.float32 or ((out.detach() - ref).abs() > atol + rtol * ref.abs()).any():
+        raise AssertionError(f"LM head forward: {out.dtype}, max abs err {errs['logits']:.3e}")
+    for name, got, want in (("dx", x.grad, (gout @ wb).to(torch.bfloat16)),
+                            ("dw", w.grad, (gout.t() @ x.detach().float()).to(torch.bfloat16))):
+        err = float((got.float() - want.float()).abs().max())
+        errs[name] = err
+        if not err <= HEAD_BWD_RTOL * float(want.float().abs().max()):
+            raise AssertionError(f"LM head backward {name}: max abs err {err:.3e}")
+    return {"logits_not_bf16_share": off_bf16, "max_abs_err": errs, "rows": HEAD_ROWS}
+
+
+def llama_phase(torch, dpp, fa, tfm, smi) -> dict:
+    """[7] Llama-3 8B width, LLAMA_LAYERS layers, bf16, remat."""
+    torch.cuda.empty_cache()
+    cfg = dpp.build_config(dpp.parse_args(LLAMA_ARGS))
+    width = dict(d_model=4096, num_heads=32, kv_heads=8, dims_per_head=128, d_ff=14336,
+                 vocab_size=128256, num_layers=LLAMA_LAYERS, dtype=torch.bfloat16, remat=True,
+                 tie_embeddings=False)
+    if any(getattr(cfg, k) != v for k, v in width.items()):
+        raise AssertionError(f"llama config {cfg} is not Llama-3 8B's width")
+    log("[7] llama-3 8B width: dpp.main " + " ".join(LLAMA_ARGS))
+    fa.reset_launches()
+    summary = dpp.main(LLAMA_ARGS)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    losses, steps, evals = summary["losses"], summary["train_steps"], summary["eval_batches"]
+    L = LLAMA_LAYERS
+    expect = {"flash_fwd": L * (2 * steps + evals), "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps}
+    log(f"    losses {['%.4f' % x for x in losses]}; eval {summary['eval']}")
+    log(f"    launches {launches}, expected {expect}")
+    if steps != 10 or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"llama: {steps} steps, losses {losses}")
+    if summary["eval"] is None or not math.isfinite(summary["eval"]["loss"]):
+        raise AssertionError(f"llama: eval {summary['eval']}")
+    if launches != expect:
+        raise AssertionError(f"llama launches {launches} != expected {expect}")
+    head = head_check(torch, tfm)
+    log(f"    LM head: {head}")
+    flops, model_flops = lm_step_flops(cfg, 2, 2048)
+    step_ms = summary["step_time_s"] * 1e3
+    bound_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    log(f"    step {step_ms:.1f} ms (first {summary['first_step_time_s']:.2f} s), "
+        f"{summary['tokens_per_s']:.0f} tokens/s, peak memory {summary['peak_memory_bytes'] / 2**30:.2f} GiB, "
+        f"{summary['num_params'] / 1e9:.3f} B params; {flops / 1e12:.2f} TFLOP a step "
+        f"({model_flops / 1e12:.2f} without the recompute), bound {bound_ms:.2f} ms at 989 TFLOP/s "
+        f"bf16 ({bound_ms / step_ms:.1%} of it reached) on {smi}")
+    return {
+        "args": LLAMA_ARGS, "num_params": summary["num_params"], "train_steps": steps, "losses": losses,
+        "eval": summary["eval"], "eval_batches": evals, "step_ms": step_ms,
+        "first_step_s": summary["first_step_time_s"], "tokens_per_s": summary["tokens_per_s"],
+        "wall_step_ms": summary["wall_step_time_s"] * 1e3, "tokens_per_s_wall": summary["tokens_per_s_wall"],
+        "peak_memory_bytes": summary["peak_memory_bytes"], "step_flops": flops,
+        "model_flops": model_flops, "bound_ms_bf16": bound_ms, "bound_share": bound_ms / step_ms,
+        "model_flops_share": model_flops / PEAK_FLOPS["bfloat16"] * 1e3 / step_ms,
+        "attention_launches": launches, "head": head,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -464,6 +596,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs a GPU", file=sys.stderr)
         return 1
     from distributeddataparallel_tpu_torch import dpp
+    from distributeddataparallel_tpu_torch.models import transformer as tfm
     from distributeddataparallel_tpu_torch.ops import flash_attention as fa
 
     t_all = time.perf_counter()
@@ -487,6 +620,8 @@ def main() -> int:
     timing = measure(torch, fa, GPT2, 100, [name for name, _, _ in KERNELS])
     log(f"    timing at the bf16 GQA shapes {GQA_BF16}")
     timing_bf16 = measure(torch, fa, GQA_BF16, 101, [name for name, _, _ in KERNELS])
+    log(f"    timing at phase 7's attention shapes {LLAMA}")
+    timing_llama = measure(torch, fa, LLAMA, 102, [name for name, _, _ in KERNELS])
 
     log("[4] main path: dpp.main " + " ".join(MAIN_ARGS))
     fa.reset_launches()
@@ -517,16 +652,18 @@ def main() -> int:
         "resnet50_imagenet_shape": resnet50_phase(torch, dpp, fa, smi),
         "resnet18_cifar_resume": resnet18_resume_phase(torch, dpp, fa, smi),
     }
+    llama = llama_phase(torch, dpp, fa, tfm, smi)
 
     kernels = []
     for name, replaces, _ in KERNELS:
         t = timing[name]
+        outputs = ("out", "lse") if name == "flash_fwd" else ("dq",) if name == "flash_bwd_dq" else ("dk", "dv")
         entry = {
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[name],
             "launches_image_paths": sum(p["attention_launches"][name] for p in image_paths.values()),
-            "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in (
-                ("out", "lse") if name == "flash_fwd" else ("dq",) if name == "flash_bwd_dq" else ("dk", "dv"))),
+            "launches_llama": llama["attention_launches"][name],
+            "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "bound_cuda_core_ms": t["bound_cuda_core_ms"], "library_ms": t["library_ms"],
@@ -538,6 +675,10 @@ def main() -> int:
             entry["bf16"] = {k: tb[k] for k in (
                 "ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_host_ms")}
             entry["bf16"]["shapes"] = GQA_BF16
+        tl = timing_llama[name]
+        entry["llama"] = {k: tl[k] for k in (
+            "ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_host_ms")}
+        entry["llama"].update(shapes=LLAMA, max_abs_err=max(errs["llama_bf16_s2048"][k] for k in outputs))
         kernels.append(entry)
     main_path = {
         "step_ms": summary["step_time_s"] * 1e3, "tokens_per_s": summary["tokens_per_s"],
@@ -547,6 +688,7 @@ def main() -> int:
     log(json.dumps({"checks": {"tolerance": TOL, "max_abs_err": errs}, "card": smi}))
     log(json.dumps({"main_path": main_path, "card": smi}))
     log(json.dumps({"image_paths": image_paths, "card": smi}))
+    log(json.dumps({"llama_path": llama, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(nvidia_smi())  # the card's name and power limit, as nvidia-smi gives them

@@ -5,11 +5,11 @@ Each rank iterates its own ``DistributedSampler`` shard, ``per_replica_batch``
 rows per step, gathered from the dataset and moved to ``device``.  Rank r
 therefore receives exactly the rows the reference's replica r does.
 
-Datasets give rows through ``gather(idx) -> dict`` (``data.sharded``) or
-``arrays() -> dict`` of columns (``data.datasets``); a dataset marked
-``normalize_u8`` has its uint8 image column normalized on the host.  uint8
-columns that reach the device stay uint8 (the train step normalizes them);
-smaller integer columns (token ids, labels) become int64.
+Datasets give rows through ``gather(idx) -> dict`` (``data.sharded``,
+``data.tokens``) or ``arrays() -> dict`` of columns (``data.datasets``); a
+dataset marked ``normalize_u8`` has its uint8 image column normalized on the
+host.  uint8 columns that reach the device stay uint8 (the train step
+normalizes them); smaller integer columns (token ids, labels) become int64.
 
 Batches bound for a GPU are copied from pinned host memory without
 blocking, so the host gathers the next batch while the device works (a

@@ -7,10 +7,16 @@
     python -m distributeddataparallel_tpu_torch.dpp --model gpt2 \\
         --dataset synthetic-lm --seq-len 1024 --vocab-size 50257 \\
         --batch-size 8 --optimizer adamw --lr 3e-4 --steps-per-epoch 10 --eval
+    python -m distributeddataparallel_tpu_torch.dpp --model llama --layers 8 \\
+        --dataset tokens:train.npy --seq-len 2048 --batch-size 2 \\
+        --optimizer adamw --lr 3e-4 [--dropout 0.1] [--pretrained FILE]
 
 Counterpart of the plain data-parallel subset of the reference's ``dpp.py``
 (image models ``mlp``, ``cnn`` (the default), ``resnet18`` (CIFAR stem) and
-``resnet50``; the ``gpt2`` LM), with the same flag names and defaults.
+``resnet50``; the LMs ``gpt2`` and ``llama`` (Llama-3 8B: bf16 activations
+on f32 params, activation checkpointing, GQA)), with the same flag names and
+defaults.  LMs train on ``synthetic-lm`` or on a token file (``tokens:FILE``,
+``data.tokens``; eval reads its sibling val split).
 ``--checkpoint-dir`` saves every epoch and ``--resume`` continues at the
 epoch after the newest one saved.  It runs on the GPU unless ``--device cpu``
 is given; ``--device cuda`` (the default) raises when no GPU is present.
@@ -38,10 +44,13 @@ from distributeddataparallel_tpu_torch.data.datasets import (
 )
 from distributeddataparallel_tpu_torch.data.loader import DataLoader
 from distributeddataparallel_tpu_torch.data.sharded import ShardedImageDataset
+from distributeddataparallel_tpu_torch.data.tokens import TokenFileDataset
 from distributeddataparallel_tpu_torch.data.transforms import CifarAugment
 from distributeddataparallel_tpu_torch.models import transformer as tfm
+from distributeddataparallel_tpu_torch.models.io import load_pretrained
 from distributeddataparallel_tpu_torch.models.resnet import ResNet18, ResNet50
 from distributeddataparallel_tpu_torch.models.simple_cnn import SimpleCNN, TinyMLP
+from distributeddataparallel_tpu_torch.ops.dropout import fold_seed
 from distributeddataparallel_tpu_torch.ops.losses import (
     accuracy,
     cross_entropy_loss,
@@ -61,14 +70,14 @@ from distributeddataparallel_tpu_torch.training.train_step import (
 )
 
 
-LM_MODELS = ("gpt2",)
+LM_MODELS = ("gpt2", "llama")
 
 
 def _dataset_arg(v: str) -> str:
-    if v in ("synthetic", "cifar10", "synthetic-lm") or v.startswith("shards:"):
+    if v in ("synthetic", "cifar10", "synthetic-lm") or v.startswith(("shards:", "tokens:")):
         return v
     raise argparse.ArgumentTypeError(
-        f"{v!r} is not one of synthetic | cifar10 | synthetic-lm | shards:DIR"
+        f"{v!r} is not one of synthetic | cifar10 | synthetic-lm | shards:DIR | tokens:FILE"
     )
 
 
@@ -80,8 +89,9 @@ def parse_args(argv=None):
                    default="cnn", help="model family (resnet18 has the CIFAR stem)")
     p.add_argument("--dataset", type=_dataset_arg, default=None,
                    help="synthetic | cifar10 | synthetic-lm | shards:DIR (memory-mapped "
-                        "image shards, DIR or DIR/{train,val}); default synthetic-lm "
-                        "for LMs, synthetic otherwise")
+                        "image shards, DIR or DIR/{train,val}) | tokens:FILE (memory-mapped "
+                        ".npy token stream or rows; eval reads the sibling val split); "
+                        "default synthetic-lm for LMs, synthetic otherwise")
     p.add_argument("--data-root", default="data", help="where cifar10 looks for its batches")
     p.add_argument("--workers", type=int, default=0,
                    help="background input-pipeline threads (0 = inline; any other "
@@ -90,13 +100,25 @@ def parse_args(argv=None):
                    help="CIFAR training augmentation (random crop pad 4 + horizontal "
                         "flip), deterministic per (seed, epoch, step); image datasets only")
     p.add_argument("--seq-len", type=int, default=128, help="LM sequence length")
+    p.add_argument("--token-stride", type=int, default=None,
+                   help="window-start spacing for tokens:FILE flat streams (< seq-len "
+                        "overlaps windows; default seq-len); train split only")
+    p.add_argument("--dropout", type=float, default=0.0,
+                   help="LM embedding and residual dropout rate, in (0, 1)")
+    p.add_argument("--remat", choices=["auto", "on", "off"], default="auto",
+                   help="activation checkpointing for LMs: auto keeps the family's "
+                        "default (llama on, gpt2 off)")
+    p.add_argument("--pretrained", default=None, metavar="FILE",
+                   help="initialize an LM from HF GPT-2 / Llama tensors or this "
+                        "framework's save_params safetensors (format sniffed from the keys)")
     p.add_argument("--vocab-size", type=int, default=256,
-                   help="LM vocab size (synthetic data)")
+                   help="LM vocab size (synthetic data; a token file's sidecar overrides it)")
     p.add_argument("--num-examples", type=int, default=2048)
     p.add_argument("--layers", type=int, default=None,
                    help="override the model family's layer count")
     p.add_argument("--d-model", type=int, default=None,
-                   help="override the model family's width (heads = d_model // 16)")
+                   help="override the model family's width (heads = d_model // 16; "
+                        "llama's kv heads the largest divisor of heads up to heads // 4)")
     p.add_argument("--epochs", type=int, default=5)
     p.add_argument("--batch-size", type=int, default=32,
                    help="per-replica batch (global = batch x replicas)")
@@ -131,10 +153,17 @@ def parse_args(argv=None):
     lm = is_lm(args)
     if args.dataset is None:
         args.dataset = "synthetic-lm" if lm else "synthetic"
-    if lm != (args.dataset == "synthetic-lm"):
+    if lm != (args.dataset == "synthetic-lm" or args.dataset.startswith("tokens:")):
         p.error(f"--model {args.model} cannot train on --dataset {args.dataset}")
     if args.augment and lm:
         p.error("--augment is for image datasets only")
+    if args.dropout:
+        if not lm:
+            p.error("--dropout applies to LM models (--model gpt2|llama)")
+        if not 0.0 < args.dropout < 1.0:
+            p.error("--dropout must be in (0, 1)")
+    if args.remat != "auto" and not lm:
+        p.error("--remat applies to LM models (--model gpt2|llama)")
     if args.resume and not args.checkpoint_dir:
         p.error("--resume needs --checkpoint-dir")
     return args
@@ -144,24 +173,54 @@ def is_lm(args) -> bool:
     return args.model in LM_MODELS
 
 
-def build_config(args) -> tfm.TransformerConfig:
-    overrides = dict(vocab_size=args.vocab_size, max_seq_len=args.seq_len)
+def build_config(args, vocab_size: int | None = None) -> tfm.TransformerConfig:
+    """The LM config for these flags (``vocab_size``: a token file's
+    sidecar, which overrides ``--vocab-size``), as the reference's
+    ``build_model`` makes it (``dpp.py:918-973``, plain DP)."""
+    family = tfm.gpt2_124m if args.model == "gpt2" else tfm.llama3_8b
+    overrides = dict(vocab_size=vocab_size or args.vocab_size, max_seq_len=args.seq_len)
+    if args.dropout:
+        overrides["dropout_rate"] = args.dropout
     if args.layers:
         overrides["num_layers"] = args.layers
+    if args.remat != "auto":
+        overrides["remat"] = args.remat == "on"
     if args.d_model:
         # Scale heads with width (head_dim 16) instead of keeping the
         # family's head count — the reference's rule (dpp.py:946-955).
         if args.d_model % 16:
             raise SystemExit("--d-model must be a multiple of 16")
-        overrides.update(d_model=args.d_model, d_ff=4 * args.d_model,
-                         num_heads=max(1, args.d_model // 16))
-    return tfm.gpt2_124m(**overrides)
+        heads = max(1, args.d_model // 16)
+        overrides.update(d_model=args.d_model, d_ff=4 * args.d_model, num_heads=heads)
+        if args.model == "llama":
+            # The largest kv-head count <= heads / 4 that divides heads
+            # (dpp.py:956-973 at a TP degree of 1).
+            overrides["num_kv_heads"] = max(d for d in range(1, max(heads // 4, 1) + 1) if heads % d == 0)
+    return family(**overrides)
+
+
+def _token_path(args, train: bool) -> str:
+    """tokens:FILE's path; eval reads the sibling val split: DIR/val.npy
+    beside DIR/train.npy, else STEM.val.npy beside STEM.npy."""
+    path = args.dataset.split(":", 1)[1]
+    if train:
+        return path
+    if os.path.basename(path) in ("train.npy", "train"):
+        val = os.path.join(os.path.dirname(path), "val.npy")
+    else:
+        val = (path[:-4] if path.endswith(".npy") else path) + ".val.npy"
+    if not os.path.exists(val):
+        raise SystemExit(f"--eval with --dataset tokens: needs a val split at {val}")
+    return val
 
 
 def build_dataset(args, train: bool = True):
     """The training (or eval) split for these flags, as the reference's
     ``build_dataset`` builds it."""
     seed = args.seed if train else args.seed + 1
+    if args.dataset.startswith("tokens:"):
+        return TokenFileDataset(_token_path(args, train), seq_len=args.seq_len,
+                                stride=args.token_stride if train else None)
     if is_lm(args):
         return SyntheticLM(num_examples=args.num_examples, seq_len=args.seq_len,
                            vocab_size=args.vocab_size, seed=seed)
@@ -217,10 +276,10 @@ def _image_metric_fn(model, batch):
     }
 
 
-def _loss_fn(model, batch):
+def _loss_fn(model, batch, seed=None):
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits = model(inputs)
+    logits = model(inputs, dropout_seed=seed)
     return lm_cross_entropy(logits, targets), {"accuracy": accuracy(logits, targets)}
 
 
@@ -232,6 +291,14 @@ def _metric_fn(model, batch):
         "loss": per_example_cross_entropy(logits, targets),
         "accuracy": per_example_accuracy(logits, targets),
     }
+
+
+def step_seed(args, epoch: int, step: int) -> int | None:
+    """The train step's dropout seed: a function of (seed + 1, epoch, step
+    of the epoch), as the reference folds its step rng (``dpp.py:2367-2396``),
+    so a resumed run continues the uninterrupted run's masks; None without
+    dropout."""
+    return fold_seed(args.seed + 1, epoch, step) if args.dropout else None
 
 
 def _sync(device: torch.device) -> None:
@@ -279,9 +346,14 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
     gen = torch.Generator(device=device).manual_seed(args.seed)
     dataset = build_dataset(args, train=True)
     if lm:
-        model = tfm.TransformerLM(build_config(args), device=device, generator=gen)
+        cfg = build_config(args, getattr(dataset, "vocab_size", None))
+        model = tfm.TransformerLM(cfg, device=device, generator=gen)
     else:
         model = build_model(args, dataset, device, gen)
+    if args.pretrained:
+        model.load_state_dict(load_pretrained(args.pretrained, model))
+        if rank == 0:
+            print(f"loaded pretrained weights from {args.pretrained}", flush=True)
     broadcast_params(model)  # DDP constructor broadcast
 
     loader = DataLoader(dataset, per_replica_batch=args.batch_size, rank=rank,
@@ -340,7 +412,7 @@ def _train(args, trainer: Trainer, device: torch.device, rank: int, world_size: 
             if i >= spe:
                 break
             t0 = time.perf_counter()
-            metrics = step_fn(state, batch)
+            metrics = step_fn(state, batch, step_seed(args, epoch, i))
             _sync(device)
             step_times.append(time.perf_counter() - t0)
             ends.append(time.perf_counter())

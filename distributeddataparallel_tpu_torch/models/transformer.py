@@ -14,8 +14,21 @@ embeddings      tied in/out            untied
 ==============  =====================  =========================
 
 Params are f32; activations and matmuls run in ``cfg.dtype``; norms are
-computed in f32 and the logits are f32.  Attention goes through
-``ops.attention.attention`` (the flash kernels for CUDA tensors).
+computed in f32.  The logits are the f32 product of ``cfg.dtype`` operands
+(the reference's ``preferred_element_type=float32``), not a ``cfg.dtype``
+product cast up.  Attention goes through ``ops.attention.attention`` (the
+flash kernels for CUDA tensors).
+
+- ``remat``: each block runs under ``torch.utils.checkpoint`` while
+  gradients are recorded (the reference's ``nn.remat``), so its
+  activations are recomputed in the backward; the forward runs twice.
+- ``dropout_rate``: the embedding output and each residual branch are
+  dropped in training (``ops.dropout``), from a seed that the caller
+  passes per step (``forward(dropout_seed=...)``) and that is folded per
+  layer and site; a checkpointed block's recompute draws the same masks.
+- ``scan_layers``: PyTorch has no scan, so the layers are a loop either
+  way; the flag selects the reference's stacked ``layers/block`` parameter
+  layout in ``models.io``.
 
 Config fields of the reference that this port does not run yet are kept so
 configs carry over, and raise ``NotImplementedError`` naming the ROADMAP
@@ -30,12 +43,14 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from distributeddataparallel_tpu_torch.ops.attention import (
     apply_rope,
     attention,
     rope_frequencies,
 )
+from distributeddataparallel_tpu_torch.ops.dropout import dropout, fold_seed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,11 +136,8 @@ _NOT_PORTED = (
     ("moe_experts", "mixture of experts, parallel/expert_parallel.py + ops/moe.py"),
     ("ep_axis", "expert parallelism, parallel/expert_parallel.py"),
     ("decode", "KV-cache decoding, models/generate.py"),
-    ("scan_layers", "stacked-layer layout, models/transformer.py (LM remainder)"),
-    ("remat", "activation checkpointing, models/transformer.py (LM remainder)"),
     ("grad_sync_axis", "in-backward gradient sync, parallel/overlap.py"),
     ("quant_serving", "int8 weight-only serving, ops/quant.py"),
-    ("dropout_rate", "residual dropout, models/transformer.py (LM remainder)"),
 )
 
 
@@ -143,6 +155,47 @@ def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     """Linear with cfg.dtype operands (f32 params cast per use)."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+class _F32Product(torch.autograd.Function):
+    """``x @ w.T`` for ``x`` (N, d) and ``w`` (V, d) of one low-precision
+    dtype, with f32 accumulation and an f32 result (the reference's
+    ``dot_general(..., preferred_element_type=float32)``).
+
+    CUDA: ``torch.mm(out_dtype=float32)`` (bf16 tensor cores, f32 output).
+    Its backward rounds the f32 cotangent to the operands' dtype and runs
+    the two products in that dtype with f32 accumulation, each result
+    rounded to the operand dtype once, as the reference's transposed
+    products are.  On the TPU the reference's f32 x bf16 products take bf16
+    operands too; an f32 product here would make the vocab-sized head's
+    backward an f32 GEMM.  CPU: the same formulas with the cotangent kept in
+    f32 (the exact f32 products of the rounded operands, as XLA computes
+    them on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda:
+            return torch.mm(x, w.t(), out_dtype=torch.float32)
+        return x.float() @ w.float().t()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if g.is_cuda:
+            g = g.to(x.dtype)
+            return g @ w, g.t() @ x
+        return (g @ w.float()).to(x.dtype), (g.t() @ x.float()).to(w.dtype)
+
+
+def f32_logits(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(..., d) x (V, d) -> (..., V) f32: the f32 product of ``dtype``
+    operands (the casts of the f32 params are differentiable)."""
+    if dtype == torch.float32:
+        return F.linear(x.float(), w.float())
+    lead = x.shape[:-1]
+    out = _F32Product.apply(x.to(dtype).reshape(-1, x.shape[-1]), w.to(dtype))
+    return out.view(*lead, w.shape[0])
 
 
 class RMSNorm(nn.Module):
@@ -232,14 +285,22 @@ class MLP(nn.Module):
 class DecoderBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, *, device=None):
         super().__init__()
+        self.rate = cfg.dropout_rate
         self.attn_norm = _make_norm(cfg, device)
         self.attn = Attention(cfg, device=device)
         self.mlp_norm = _make_norm(cfg, device)
         self.mlp = MLP(cfg, device=device)
 
-    def forward(self, x, rope=None):
-        x = x + self.attn(self.attn_norm(x), rope)
-        return x + self.mlp(self.mlp_norm(x))
+    def forward(self, x, rope=None, seed=None):
+        """``seed`` (an int) turns on dropout of both residual branches."""
+        h = self.attn(self.attn_norm(x), rope)
+        if seed is not None:
+            h = dropout(h, self.rate, fold_seed(seed, 0))
+        x = x + h
+        h = self.mlp(self.mlp_norm(x))
+        if seed is not None:
+            h = dropout(h, self.rate, fold_seed(seed, 1))
+        return x + h
 
 
 class TransformerLM(nn.Module):
@@ -287,20 +348,31 @@ class TransformerLM(nn.Module):
             else:
                 normal(p, o_std if name.endswith("o_proj.weight") else 0.02)
 
-    def forward(self, tokens: torch.Tensor):
+    def forward(self, tokens: torch.Tensor, *, dropout_seed: int | None = None):
+        """Logits for ``tokens``.  In training mode with ``dropout_rate > 0``
+        the masks are functions of ``dropout_seed``, which is then required
+        (the trainer derives it per step, ``ops.dropout.fold_seed``)."""
         cfg = self.cfg
         B, S = tokens.shape
         if S > cfg.max_seq_len:
             raise ValueError(f"seq len {S} > max_seq_len {cfg.max_seq_len}")
+        drop = self.training and cfg.dropout_rate > 0
+        if drop and dropout_seed is None:
+            raise ValueError("training with dropout_rate > 0 needs forward(dropout_seed=...)")
         x = self.token_embed(tokens).to(cfg.dtype)
         rope = None
         if cfg.positional == "learned":
             x = x + self.pos_embed[:S].to(cfg.dtype)
         else:
             rope = (self.rope_cos, self.rope_sin)
-        for layer in self.layers:
-            x = layer(x, rope)
+        if drop:
+            x = dropout(x, cfg.dropout_rate, fold_seed(dropout_seed, 0))
+        for i, layer in enumerate(self.layers):
+            seed = fold_seed(dropout_seed, i + 1) if drop else None
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, rope, seed, use_reentrant=False)
+            else:
+                x = layer(x, rope, seed)
         x = self.final_norm(x)
-        # f32 logits; cfg.dtype operands (a no-op under float32).
         w = self.token_embed.weight if cfg.tie_embeddings else self.lm_head.weight
-        return F.linear(x.to(cfg.dtype), w.to(cfg.dtype)).float()
+        return f32_logits(x, w, cfg.dtype)

@@ -5,13 +5,15 @@
 
 Builds the trainer exactly as ``dpp`` does (same flags and defaults: give
 GPT-2's ``--model gpt2 --seq-len 1024 --vocab-size 50257 --batch-size 8
---optimizer adamw``, or the image paths' ``--model resnet50 --dataset
-shards:DIR --batch-size 64 ...``), runs two warm-up steps, then profiles
-``--profile-steps`` steps on one GPU.  It prints one JSON line: wall time per
-step, device busy time per step and the idle share, and device time per
-step by kernel group (the three flash-attention kernels, convolutions,
-GEMMs, BatchNorm / elementwise / reductions, the optimizer's, the rest)
-with the ten largest kernels.
+--optimizer adamw``, Llama-3's ``--model llama --layers 8 --seq-len 2048
+--vocab-size 128256 --batch-size 2 --optimizer adamw``, or the image paths'
+``--model resnet50 --dataset shards:DIR --batch-size 64 ...``), runs two
+warm-up steps, then profiles ``--profile-steps`` steps on one GPU.  It
+prints one JSON line: wall time per step, device busy time per step and
+the idle share, and device time per step by kernel group (the three
+flash-attention kernels, convolutions, GEMMs, dtype casts and copies,
+BatchNorm / elementwise / reductions, the optimizer's, the rest) with the
+ten largest kernels.
 """
 
 from __future__ import annotations
@@ -41,8 +43,10 @@ def _group(name: str) -> str:
     if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn", "winograd",
                               "nchwtonhwc", "nhwctonchw")):
         return "conv (cuDNN)"
-    if "gemm" in low or "cutlass" in low or "matmul" in low:
+    if any(k in low for k in ("gemm", "cutlass", "matmul", "nvjet")):  # nvjet: cuBLAS's Hopper GEMMs
         return "gemm"
+    if "copy_kernel" in low:  # dtype casts (f32 params to bf16 per use) and copies
+        return "casts/copies"
     if any(k in low for k in ("batch_norm", "bn_fw", "bn_bw", "welford", "reduce_kernel",
                               "elementwise")):
         return "batchnorm/elementwise/reductions"
@@ -67,14 +71,14 @@ def main(argv=None) -> dict:
     try:
         tr = dpp.build_trainer(args, device)
         batches = iter(tr.loader)
-        for _ in range(2):  # warm-up: kernel build/load, allocator, cuBLAS handles
-            tr.step_fn(tr.state, next(batches))
+        for i in range(2):  # warm-up: kernel build/load, allocator, cuBLAS handles
+            tr.step_fn(tr.state, next(batches), dpp.step_seed(args, 0, i))
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            for _ in range(own.profile_steps):
-                tr.step_fn(tr.state, next(batches))
+            for i in range(2, 2 + own.profile_steps):
+                tr.step_fn(tr.state, next(batches), dpp.step_seed(args, 0, i))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:

@@ -8,7 +8,9 @@ temporary file and renames it into place, so a partial file is never
 visible under a checkpoint's name; a barrier follows.  Every rank restores
 from the same file, mapped onto its own device, so a resume may use another
 number of processes.  The directory must be one filesystem that every rank
-sees.
+sees.  Nothing of the dropout stream is saved: each step's masks are a
+function of the run's seed, the epoch and the step (``dpp.step_seed``), so
+a resumed run draws the masks the uninterrupted run would have.
 """
 
 from __future__ import annotations

@@ -18,6 +18,14 @@ replica (one process per device):
 
 The reported metrics (loss and the loss_fn's aux values) are averaged over
 the microbatches and over ranks.
+
+``step(state, batch, seed)`` with an integer ``seed`` (the trainer's per-step
+seed, a function of the run's seed, the epoch and the step) calls
+``loss_fn(model, microbatch, seed=...)`` with the seed folded with this
+rank and the microbatch's index, as the reference folds its step rng per
+replica and microbatch (``train_step.py:457,520``): dropout masks differ
+across ranks and microbatches and are the same on a rerun or a resume.
+Without ``seed`` the loss_fn is called as ``loss_fn(model, microbatch)``.
 """
 
 from __future__ import annotations
@@ -34,10 +42,11 @@ from distributeddataparallel_tpu_torch.parallel.data_parallel import (
     masked_tree_mean,
     sumsq_f32,
 )
-from distributeddataparallel_tpu_torch.runtime.distributed import get_world_size
+from distributeddataparallel_tpu_torch.ops.dropout import fold_seed
+from distributeddataparallel_tpu_torch.runtime.distributed import get_rank, get_world_size
 from distributeddataparallel_tpu_torch.training.state import TrainState
 
-# loss_fn(model, batch) -> (scalar loss, aux dict of scalars)
+# loss_fn(model, batch[, seed=int]) -> (scalar loss, aux dict of scalars)
 LossFn = Callable[[nn.Module, dict], tuple[torch.Tensor, dict]]
 
 
@@ -121,7 +130,7 @@ def make_train_step(
     if buffer_sync not in ("mean", "broadcast"):
         raise ValueError(f"buffer_sync must be 'mean' or 'broadcast'; got {buffer_sync!r}")
 
-    def step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+    def step(state: TrainState, batch: dict, seed: int | None = None) -> dict[str, torch.Tensor]:
         model = state.model
         model.train()
         params = [p for p in model.parameters() if p.requires_grad]
@@ -129,8 +138,9 @@ def make_train_step(
             p.grad = None
         micro = [batch] if accum_steps == 1 else _split(batch, accum_steps)
         totals: dict[str, torch.Tensor] = {}
-        for mb in micro:
-            loss, aux = loss_fn(model, mb)
+        for i, mb in enumerate(micro):
+            kw = {} if seed is None else {"seed": fold_seed(seed, get_rank(), i)}
+            loss, aux = loss_fn(model, mb, **kw)
             loss.backward()  # .grad accumulates over microbatches
             for k, v in {"loss": loss, **aux}.items():
                 totals[k] = totals.get(k, 0.0) + v.detach()

@@ -33,7 +33,6 @@ def test_gpt2_124m_is_full_width():
 @pytest.mark.parametrize(
     "override",
     [dict(cp_axis="seq"), dict(tp_axis="model"), dict(moe_experts=4), dict(decode=True),
-     dict(scan_layers=True), dict(remat=True), dict(dropout_rate=0.1),
      dict(grad_sync_axis="data"), dict(quant_serving=True)],
 )
 def test_features_outside_the_slice_raise(override):
