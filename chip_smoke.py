@@ -42,11 +42,28 @@ Phases (any failure exits non-zero; nothing is caught):
    head's logits must be f32 and not bf16 values, and its forward and
    backward must match its CPU formula.  Phase 3 also checks and times
    the kernels at this phase's attention shape (B=2, S=2048, H=32, Hkv=8,
-   D=128, bf16, causal).
+   D=128, bf16, causal);
+8. the reference's own workload with telemetry: a torchvision-format
+   ResNet-18 state dict (10 classes, CIFAR stem, BatchNorm running
+   statistics off 0 and 1) from a seeded port model, as ``.pth`` and
+   ``.safetensors``; ``dpp.main`` fine-tunes it (``--pretrained``) on
+   CIFAR-10 python batches of synthetic uint8 images written to a temporary
+   directory, with ``--augment --eval`` for 2 epochs at phase 6's batch and
+   every telemetry flag.  It checks that the loaded state equals the file,
+   that the native host kernels ran (the fused augment once a train step,
+   the fused normalize once an eval batch), that the events validate
+   against the port's schema, that there is one ``metrics`` snapshot every
+   5 steps, a trace under ``EVENTS_DIR/xprof`` and one run record under
+   ``--runs-dir``.  Then phase 6's step and wall-clock step with the native
+   augment and with the plain (numpy) augment, from two loaders built here,
+   whose batches must be bit-equal; the host kernels' ms per batch beside
+   their numpy versions; and phase 4 once more with ``--mfu``, its MFU and
+   HFU beside this script's own share of the bound.
 
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
-``llama_path`` line (phase 7), one ``{"kernels": [...]}`` JSON line, the
-card's name and power limit, and as its last line
+``llama_path`` line (phase 7), one ``reference_workload`` line (phase 8),
+one ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
+as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -169,6 +186,26 @@ LLAMA_ARGS = [
 # dw are held to 2e-2 of the largest |value| of each.
 HEAD_ROWS = 256
 HEAD_FWD_TOL, HEAD_BWD_RTOL = (1e-4, 1e-4), 2e-2
+
+# Phase 8: the reference's workload (ResNet-18 CIFAR, batch 32, SGD, lr
+# 0.01, augment, eval) fine-tuned from a torchvision-format file, with
+# every telemetry flag.  25 steps an epoch: a throughput window (20 steps,
+# --log-every 20; the run's first step is kept apart) closes in each epoch,
+# so the memory and alert paths run; 1000 train rows give 31 batches,
+# 320 test rows 10 eval batches.
+CIFAR_ROWS = dict(train=1000, test=320)
+R18_TELEMETRY_ARGS = [
+    "--model", "resnet18", "--dataset", "cifar10", "--data-root", "{root}", "--batch-size", "32",
+    "--optimizer", "sgd", "--lr", "0.01", "--augment", "--eval", "--epochs", "2",
+    "--steps-per-epoch", "25", "--log-every", "20", "--pretrained", "{weights}",
+    "--events-dir", "{events}", "--metrics-every", "5", "--memory-telemetry", "--alerts",
+    "--runs-dir", "{runs}", "--profile-steps", "3:5",
+]
+# Phase 4 again with --mfu: 25 steps, so one throughput window (20 steps
+# after the first; --log-every sets it, at least 20) closes.
+MFU_ARGS = [a for a in MAIN_ARGS if a != "--eval"]
+MFU_ARGS[MFU_ARGS.index("--steps-per-epoch") + 1] = "25"
+MFU_ARGS += ["--log-every", "20", "--mfu", "--events-dir", "{events}"]
 
 KERNELS = [
     # name, replaces, matmuls per visible (q, k) pair
@@ -589,6 +626,271 @@ def llama_phase(torch, dpp, fa, tfm, smi) -> dict:
     }
 
 
+def write_cifar_batches(root: str) -> None:
+    """CIFAR-10 python batches (``cifar-10-batches-py``: five train batches
+    and ``test_batch`` of (N, 3072) uint8 CHW planes) holding the port's
+    class-conditional synthetic uint8 images."""
+    import pickle
+
+    import numpy as np
+
+    from distributeddataparallel_tpu_torch.data.datasets import SyntheticClassification
+
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d)
+    splits = {"train": [f"data_batch_{i}" for i in range(1, 6)], "test": ["test_batch"]}
+    for split, names in splits.items():
+        ds = SyntheticClassification(CIFAR_ROWS[split], keep_u8=True, seed=0 if split == "train" else 1)
+        planes = ds.images.transpose(0, 3, 1, 2).reshape(len(ds), 3072)
+        for name, rows in zip(names, np.array_split(np.arange(len(ds)), len(names))):
+            with open(os.path.join(d, name), "wb") as fh:
+                pickle.dump({b"data": planes[rows], b"labels": ds.labels[rows].tolist()}, fh)
+
+
+def torchvision_weights(torch, tio, root: str) -> tuple[dict, list[str]]:
+    """A torchvision-format ResNet-18 state dict (10 classes, CIFAR stem)
+    from a seeded port model, BatchNorm running statistics off 0 and 1 and
+    torchvision's ``num_batches_tracked``, saved as .pth and .safetensors."""
+    from distributeddataparallel_tpu_torch.models.resnet import ResNet18
+
+    g = torch.Generator().manual_seed(8)
+    model = ResNet18(num_classes=10, stem="cifar", generator=g)
+    sd = {}
+    for k, v in model.state_dict().items():
+        if k.endswith("running_mean"):
+            v = torch.rand(v.shape, generator=g) - 0.5
+        elif k.endswith("running_var"):
+            v = torch.rand(v.shape, generator=g) + 0.5
+        sd[k] = v.clone()
+        if k.endswith("running_var"):
+            sd[k.replace("running_var", "num_batches_tracked")] = torch.tensor(100)
+    paths = [os.path.join(root, "resnet18.pth"), os.path.join(root, "resnet18.safetensors")]
+    torch.save(sd, paths[0])
+    tio.save_safetensors({k: v.numpy() for k, v in sd.items()}, paths[1])
+    return sd, paths
+
+
+def host_kernel_times(native, images) -> dict:
+    """ms per call of each native host kernel at phase 6's batch (32 rows of
+    the uint8 CIFAR images), on the host: with the threads ``threads_for``
+    gives it (``ms``), with the reference's up to 8 a call
+    (``ms_threads8``), and its numpy version (``numpy_ms``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    idx = rng.permutation(len(images))[:32]
+    f32 = native.gather_normalize_u8_numpy(images, np.arange(len(images)))
+    oy, ox, flip = rng.integers(0, 9, 32), rng.integers(0, 9, 32), rng.random(32) < 0.5
+    chw = np.ascontiguousarray(f32[idx].transpose(0, 3, 1, 2))
+    runs = {
+        "gather_rows": ((f32, idx), {}),
+        "gather_normalize_u8": ((images, idx), {}),
+        "gather_augment_u8": ((images, idx, oy, ox, flip), {"padding": 4}),
+        "chw_to_hwc": ((chw,), {}),
+    }
+
+    def per_call(fn, a, kw, n=200):
+        for _ in range(5):
+            fn(*a, **kw)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(*a, **kw)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    out, sized = {}, native.BYTES_PER_THREAD
+    for name, (a, kw) in runs.items():
+        fn, plain = getattr(native, name), getattr(native, name + "_numpy")
+        if fn(*a, **kw).tobytes() != plain(*a, **kw).tobytes():
+            raise AssertionError(f"native {name} is not bit-equal to its numpy version")
+        res = {"ms": per_call(fn, a, kw), "numpy_ms": per_call(plain, a, kw),
+               "threads": native.threads_for(fn(*a, **kw).nbytes)}
+        native.BYTES_PER_THREAD = 1
+        try:
+            res["ms_threads8"] = per_call(fn, a, kw)
+        finally:
+            native.BYTES_PER_THREAD = sized
+        out[name] = res
+    return out
+
+
+def augment_timing(torch, dpp, root: str) -> dict:
+    """Phase 6's step and wall-clock step with loaders built here over the
+    same uint8 CIFAR rows: the fused native augment (``CifarAugment``, one
+    native pass) with the threads ``threads_for`` gives it (``native``) and
+    with the reference's up to 8 a call (``native_threads8``), and the plain
+    one (the rows normalized once into float32, then numpy's gather, crop
+    and flip, as phase 6 runs), in the order plain, native_threads8,
+    native, native, native_threads8, plain.  Their first batches must be
+    bit-equal."""
+    import numpy as np
+
+    from distributeddataparallel_tpu_torch import native
+    from distributeddataparallel_tpu_torch.data.datasets import ArrayDataset, load_cifar10
+    from distributeddataparallel_tpu_torch.data.loader import DataLoader
+    from distributeddataparallel_tpu_torch.data.transforms import CifarAugment, cifar_augment
+
+    args = dpp.parse_args(["--model", "resnet18", "--dataset", "cifar10", "--data-root", root,
+                           "--batch-size", "32", "--optimizer", "sgd", "--lr", "0.01", "--epochs", "1",
+                           "--steps-per-epoch", "25", "--log-every", "1000"])
+    u8 = load_cifar10(root, keep_u8=True, synthetic_fallback=False)
+    f32 = ArrayDataset(native.gather_normalize_u8_numpy(u8.images, np.arange(len(u8))), u8.labels)
+    native_loader = lambda: DataLoader(u8, per_replica_batch=32, device="cuda", seed=0,
+                                       augment=CifarAugment())
+    loaders = {
+        "native": native_loader, "native_threads8": native_loader,
+        "plain": lambda: DataLoader(f32, per_replica_batch=32, device="cuda", seed=0,
+                                    augment=lambda b, rng, rows: cifar_augment(b, rng, rows)),
+    }
+    first = {k: next(iter(loaders[k]()))["image"].cpu().numpy() for k in ("native", "plain")}
+    if first["native"].tobytes() != first["plain"].tobytes():
+        raise AssertionError("the fused native augment's batch differs from the numpy augment's")
+    runs, sized = {k: [] for k in loaders}, native.BYTES_PER_THREAD
+    for which in ("plain", "native_threads8", "native", "native", "native_threads8", "plain"):
+        trainer = dpp.build_trainer(args, torch.device("cuda"))
+        trainer.loader = loaders[which]()
+        native.BYTES_PER_THREAD = 1 if which == "native_threads8" else sized
+        try:
+            s = dpp.train(args, trainer, torch.device("cuda"))
+        finally:
+            native.BYTES_PER_THREAD = sized
+        runs[which].append({"step_ms": s["step_time_s"] * 1e3, "wall_step_ms": s["wall_step_time_s"] * 1e3})
+    out = {k: {m: sum(r[m] for r in v) / len(v) for m in ("step_ms", "wall_step_ms")}
+           for k, v in runs.items()}
+    for k, v in out.items():
+        v["runs"] = runs[k]
+        v["host_share_of_wall"] = 1 - v["step_ms"] / v["wall_step_ms"]
+    out["batches_bit_equal"] = True
+    return out
+
+
+def mfu_run(torch, dpp, fa, smi) -> dict:
+    """Phase 4 again with ``--mfu``: the port's MFU and HFU (cost model:
+    full S x S attention, 3x / 4x the forward, peak 67 TFLOP/s f32 with TF32
+    off) beside this script's share of the bound (``lm_step_flops``: the
+    causal pairs each kernel computes, at the same 67 TFLOP/s)."""
+    from distributeddataparallel_tpu_torch.observability import read_events
+
+    with tempfile.TemporaryDirectory(prefix="mfu_events_") as events:
+        args = [a.format(events=events) for a in MFU_ARGS]
+        log("    dpp.main " + " ".join(args))
+        fa.reset_launches()
+        summary = dpp.main(args)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        mfu = [r for r in read_events(os.path.join(events, "events-p0.jsonl")) if r["kind"] == "mfu"]
+    steps = summary["train_steps"]
+    expect = {"flash_fwd": 12 * steps, "flash_bwd_dq": 12 * steps, "flash_bwd_dkv": 12 * steps}
+    if launches != expect or not mfu or mfu[-1]["mfu"] is None:
+        raise AssertionError(f"--mfu run: launches {launches} (expected {expect}), mfu events {mfu}")
+    cfg = dpp.build_config(dpp.parse_args(args))
+    flops, model_flops = lm_step_flops(cfg, 8, 1024)
+    window_ms = 1e3 / summary["throughput_windows"][-1]["steps_per_s"]
+    out = {
+        "mfu": mfu[-1]["mfu"], "hfu": mfu[-1]["hfu"], "peak_flops": mfu[-1]["peak_flops_per_chip"],
+        "model_flops_per_s": mfu[-1]["model_flops_per_s"], "window_step_ms": window_ms,
+        "step_ms": summary["step_time_s"] * 1e3, "smoke_step_flops": flops,
+        "smoke_bound_share": flops / PEAK_F32_CUDA_CORES * 1e3 / window_ms,
+        "smoke_model_flops_share": model_flops / PEAK_F32_CUDA_CORES * 1e3 / window_ms,
+        "launches": launches,
+    }
+    log(f"    MFU {out['mfu']:.2%} HFU {out['hfu']:.2%} (cost model) vs this script's share of the "
+        f"bound {out['smoke_bound_share']:.2%} at 67 TFLOP/s; window step {window_ms:.1f} ms on {smi}")
+    return out
+
+
+def reference_workload_phase(torch, dpp, fa, smi) -> dict:
+    """[8] ResNet-18 CIFAR fine-tuned from torchvision-format weights, with
+    the native input kernels and every telemetry flag."""
+    import glob
+
+    import numpy as np
+
+    from distributeddataparallel_tpu_torch import native
+    from distributeddataparallel_tpu_torch.data.datasets import load_cifar10
+    from distributeddataparallel_tpu_torch.data.transforms import CifarAugment
+    from distributeddataparallel_tpu_torch.models import io as tio
+    from distributeddataparallel_tpu_torch.observability import validate_file
+
+    with tempfile.TemporaryDirectory(prefix="r18_reference_") as root:
+        write_cifar_batches(root)
+        sd, paths = torchvision_weights(torch, tio, root)
+        want = {k: v for k, v in sd.items() if "num_batches" not in k}
+        for path in paths:  # the loaded state equals the file, both formats
+            cfg = [a.format(root=root, weights=path, events=os.path.join(root, "ev"),
+                            runs=os.path.join(root, "runs")) for a in R18_TELEMETRY_ARGS]
+            model = dpp.build_trainer(dpp.parse_args(cfg), torch.device("cuda")).state.model
+            got = model.state_dict()
+            if set(got) != set(want) or any(not torch.equal(got[k].cpu(), v) for k, v in want.items()):
+                raise AssertionError(f"--pretrained {path}: the model's state differs from the file")
+            del model, got
+        events, runs = os.path.join(root, "events"), os.path.join(root, "runs")
+        args = [a.format(root=root, weights=paths[1], events=events, runs=runs) for a in R18_TELEMETRY_ARGS]
+        log("[8] reference workload: dpp.main " + " ".join(args))
+        fa.reset_launches()
+        native.reset_calls()
+        summary = dpp.main(args)
+        torch.cuda.synchronize()
+        launches, calls = dict(fa.LAUNCHES), dict(native.CALLS)
+
+        steps, evals = summary["train_steps"], summary["eval_batches"]
+        losses = summary["losses"]
+        if steps != 50 or not all(math.isfinite(x) for x in losses) or not math.isfinite(summary["eval"]["loss"]):
+            raise AssertionError(f"reference workload: {steps} steps, losses {losses}, eval {summary['eval']}")
+        if any(launches.values()):
+            raise AssertionError(f"reference workload: attention kernels launched {launches}")
+        if calls["gather_augment_u8"] != steps or calls["gather_normalize_u8"] != evals:
+            raise AssertionError(f"native calls {calls}: expected {steps} fused augments and "
+                                 f"{evals} fused normalizes")
+        files = sorted(glob.glob(os.path.join(events, "*.jsonl")))
+        problems = {f: validate_file(f) for f in files}
+        if len(files) != 2 or any(problems.values()):
+            raise AssertionError(f"events: {problems}")
+        records = [json.loads(x) for x in open(os.path.join(events, "timeline.jsonl"))]
+        kinds = [r["kind"] for r in records]
+        periodic = [r for r in records if r["kind"] == "metrics" and "step" in r]
+        if len(periodic) != steps // 5:
+            raise AssertionError(f"{len(periodic)} metrics snapshots for {steps} steps every 5")
+        traces = glob.glob(os.path.join(events, "xprof", "*.json"))
+        if not traces:
+            raise AssertionError("no trace under EVENTS_DIR/xprof")
+        trace = json.load(open(traces[0]))
+        device_events = sum(1 for e in trace.get("traceEvents", []) if e.get("cat") == "kernel")
+        index = open(os.path.join(runs, "index.jsonl")).read().splitlines()
+        if len(index) != 1:
+            raise AssertionError(f"{len(index)} run records under --runs-dir")
+        run_summary = json.loads(index[0])
+
+        # One augmented batch against its numpy version on this machine.
+        images = load_cifar10(root, keep_u8=True, synthetic_fallback=False).images
+        idx = np.random.default_rng(1).permutation(len(images))[:32]
+        fused = CifarAugment().gather_u8(images, idx, np.random.default_rng(2))
+        g = np.random.default_rng(2)
+        oy, ox, flip = g.integers(0, 9, 32), g.integers(0, 9, 32), g.random(32) < 0.5
+        plain = native.gather_augment_u8_numpy(images, idx, oy, ox, flip, padding=4)
+        if fused.tobytes() != plain.tobytes():
+            raise AssertionError("the fused augment's batch is not bit-equal to its numpy version")
+        host = host_kernel_times(native, images)
+        log("    phase 6 with the native and the plain augment:")
+        augment = augment_timing(torch, dpp, root)
+    mems = [r for r in records if r["kind"] == "memory"]
+    out = {
+        "args": R18_TELEMETRY_ARGS, "train_steps": steps, "eval_batches": evals, "losses": losses,
+        "eval": summary["eval"], "step_ms": summary["step_time_s"] * 1e3,
+        "wall_step_ms": summary["wall_step_time_s"] * 1e3, "native_calls": calls,
+        "attention_launches": launches, "event_kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
+        "metrics_snapshots": len(periodic), "trace_files": [os.path.basename(t) for t in traces],
+        "trace_device_kernel_events": device_events, "run_summary": run_summary,
+        "memory_last": mems[-1] if mems else None, "augment_batch_bit_equal": True,
+        "host_kernels_ms_per_batch": host, "phase6_augment": augment,
+    }
+    log(f"    {steps} steps, losses {losses[0]:.4f} -> {losses[-1]:.4f}, eval {summary['eval']}; native "
+        f"calls {calls}; events {out['event_kinds']}; trace {out['trace_files']} "
+        f"({device_events} kernel events); host kernels {host}; augment {augment} on {smi}")
+    log("    --mfu on phase 4's GPT-2:")
+    out["mfu"] = mfu_run(torch, dpp, fa, smi)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -653,6 +955,7 @@ def main() -> int:
         "resnet18_cifar_resume": resnet18_resume_phase(torch, dpp, fa, smi),
     }
     llama = llama_phase(torch, dpp, fa, tfm, smi)
+    reference = reference_workload_phase(torch, dpp, fa, smi)
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -663,6 +966,7 @@ def main() -> int:
             "launches": launches[name],
             "launches_image_paths": sum(p["attention_launches"][name] for p in image_paths.values()),
             "launches_llama": llama["attention_launches"][name],
+            "launches_reference_workload": reference["attention_launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -689,6 +993,7 @@ def main() -> int:
     log(json.dumps({"main_path": main_path, "card": smi}))
     log(json.dumps({"image_paths": image_paths, "card": smi}))
     log(json.dumps({"llama_path": llama, "card": smi}))
+    log(json.dumps({"reference_workload": reference, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(nvidia_smi())  # the card's name and power limit, as nvidia-smi gives them

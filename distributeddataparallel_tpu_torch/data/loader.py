@@ -8,7 +8,10 @@ therefore receives exactly the rows the reference's replica r does.
 Datasets give rows through ``gather(idx) -> dict`` (``data.sharded``,
 ``data.tokens``) or ``arrays() -> dict`` of columns (``data.datasets``); a
 dataset marked ``normalize_u8`` has its uint8 image column normalized on the
-host.  uint8 columns that reach the device stay uint8 (the train step
+host, by the native gather (``native.gather_normalize_u8``), as the
+reference's loader does.  An augment hook with a ``gather_u8`` method
+(``transforms.CifarAugment``) on such a dataset takes the fused path: one
+native pass gathers, crops, flips and normalizes the uint8 rows.  uint8 columns that reach the device stay uint8 (the train step
 normalizes them); smaller integer columns (token ids, labels) become int64.
 
 Batches bound for a GPU are copied from pinned host memory without
@@ -26,7 +29,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from distributeddataparallel_tpu_torch.data.datasets import normalize_images
+from distributeddataparallel_tpu_torch import native
 from distributeddataparallel_tpu_torch.parallel.sampler import DistributedSampler
 
 
@@ -83,6 +86,12 @@ class DataLoader:
             shuffle=shuffle, seed=seed, drop_last=False,
         )
         n = self.sampler.num_samples
+        arrays = getattr(dataset, "arrays", None)
+        self._fused_augment = bool(
+            augment is not None and hasattr(augment, "gather_u8")
+            and getattr(dataset, "normalize_u8", False) and callable(arrays)
+            and getattr(arrays().get("image"), "dtype", None) == np.uint8
+        )
         self.steps_per_epoch = n // per_replica_batch if drop_last else -(-n // per_replica_batch)
 
     def set_epoch(self, epoch: int) -> None:
@@ -92,15 +101,22 @@ class DataLoader:
     def __len__(self) -> int:
         return self.steps_per_epoch
 
-    def _gather(self, idx: np.ndarray) -> dict:
+    def _gather(self, idx: np.ndarray, image_gather=None) -> dict:
+        """Rows ``idx`` as a dict of columns; ``image_gather(column, idx)``
+        replaces the uint8 image column's gather (the fused augment)."""
         gather = getattr(self.dataset, "gather", None)
         if callable(gather):
             return gather(idx)
         norm = getattr(self.dataset, "normalize_u8", False)
-        return {
-            k: normalize_images(v[idx]) if norm and v.dtype == np.uint8 and v.ndim >= 2 else v[idx]
-            for k, v in self.dataset.arrays().items()
-        }
+        out = {}
+        for k, v in self.dataset.arrays().items():
+            if image_gather is not None and k == "image":
+                out[k] = image_gather(v, idx)
+            elif norm and v.dtype == np.uint8 and v.ndim >= 2:
+                out[k] = native.gather_normalize_u8(v, idx)
+            else:
+                out[k] = v[idx]
+        return out
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(arr))
@@ -122,11 +138,16 @@ class DataLoader:
         own = smp.local_indices()
         for step in range(self.steps_per_epoch):
             idx = own[step * B : (step + 1) * B]
-            host = self._gather(idx)
-            if self.augment is not None:
+            if self.augment is None:
+                host = self._gather(idx)
+            else:
                 # Every replica's slice at this step has len(idx) rows.
                 rng = np.random.default_rng((self.seed, 0xA06, smp.epoch, step, 0))
-                host = self.augment(host, rng, (smp.rank * len(idx), smp.num_replicas * len(idx)))
+                rows = (smp.rank * len(idx), smp.num_replicas * len(idx))
+                if self._fused_augment:
+                    host = self._gather(idx, lambda v, i: self.augment.gather_u8(v, i, rng, rows))
+                else:
+                    host = self.augment(self._gather(idx), rng, rows)
             if self.with_mask:
                 p = np.arange(step * B, step * B + len(idx))
                 host["valid"] = (smp.rank + p * smp.num_replicas < smp.dataset_len).astype(np.float32)

@@ -19,7 +19,7 @@ from typing import Callable
 
 import numpy as np
 
-from distributeddataparallel_tpu_torch.data.datasets import normalize_images
+from distributeddataparallel_tpu_torch import native
 
 _MANIFEST = "index.json"
 
@@ -90,7 +90,8 @@ class ShardedImageDataset:
 
     ``gather(idx)`` gives a batch of global rows in the order asked for;
     labels (4 bytes a row) are loaded at construction, image pages are read
-    per gather.  Images come out normalized float32, or with
+    per gather.  Images come out normalized float32 (the native gather and
+normalize, ``native.gather_normalize_u8``), or with
     ``device_normalize`` as raw uint8 for the train step to normalize on
     the device (``ops.preprocess.normalize_u8_images``)."""
 
@@ -140,8 +141,8 @@ class ShardedImageDataset:
                        np.uint8 if self.device_normalize else np.float32)
         for s in np.unique(shard_ids):
             sel = shard_ids == s
-            rows = self._shard(int(s))[local[sel]]
-            out[sel] = rows if self.device_normalize else normalize_images(rows)
+            mm = self._shard(int(s))
+            out[sel] = mm[local[sel]] if self.device_normalize else native.gather_normalize_u8(mm, local[sel])
         return {"image": out, "label": self.labels[idx]}
 
     def __getitem__(self, idx):

@@ -7,11 +7,18 @@ that the loader derives from (seed, epoch, step): augmentation is a pure
 function of those, across reruns and ``--resume``.  The generator is drawn
 in the reference's order (crop ``oy``, then ``ox``, then the flips), so
 both packages augment a batch identically.
+
+``CifarAugment.gather_u8`` is the loader's fused path for uint8-stored
+datasets: the gather, the crop, the flip and the normalize in one native
+pass (``native.gather_augment_u8``), with the same draws, so it gives the
+same batch as the gather, normalize and ``cifar_augment`` in turn.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from distributeddataparallel_tpu_torch import native
 
 
 def _flip(images: np.ndarray, flip: np.ndarray) -> np.ndarray:
@@ -53,6 +60,17 @@ def random_crop(images: np.ndarray, rng: np.random.Generator, padding: int = 4,
     return _crop_at(images, oy, ox, padding, fill)
 
 
+def _draws(rng: np.random.Generator, n: int, rows: tuple[int, int] | None):
+    """(oy, ox, flip) of the ``n`` rows ``rows=(first, total)`` stands for:
+    drawn for all ``total`` rows in the reference's order, then sliced."""
+    first, total = rows if rows is not None else (0, n)
+    own = slice(first, first + n)
+    oy = rng.integers(0, 9, total)[own]
+    ox = rng.integers(0, 9, total)[own]
+    flip = (rng.random(total) < 0.5)[own]
+    return oy, ox, flip
+
+
 def cifar_augment(batch: dict, rng: np.random.Generator, rows: tuple[int, int] | None = None) -> dict:
     """Random crop (pad 4, black fill) + horizontal flip on the ``image``
     column.
@@ -62,17 +80,20 @@ def cifar_augment(batch: dict, rng: np.random.Generator, rows: tuple[int, int] |
     in the reference's order, and ``batch`` takes its slice of them.  So one
     rank augments only its own rows, and exactly as the whole batch would."""
     img = batch["image"]
-    n = img.shape[0]
-    first, total = rows if rows is not None else (0, n)
-    own = slice(first, first + n)
-    oy = rng.integers(0, 9, total)[own]
-    ox = rng.integers(0, 9, total)[own]
-    flip = (rng.random(total) < 0.5)[own]
+    oy, ox, flip = _draws(rng, img.shape[0], rows)
     return {**batch, "image": _flip(_crop_at(img, oy, ox, 4, -1.0), flip)}
 
 
 class CifarAugment:
-    """The loader's ``augment(batch, rng, rows)`` hook for the CIFAR recipe."""
+    """The loader's ``augment(batch, rng, rows)`` hook for the CIFAR recipe,
+    with the fused uint8 path ``gather_u8``."""
 
     def __call__(self, batch: dict, rng: np.random.Generator, rows: tuple[int, int] | None = None) -> dict:
         return cifar_augment(batch, rng, rows)
+
+    def gather_u8(self, src: np.ndarray, idx: np.ndarray, rng: np.random.Generator,
+                  rows: tuple[int, int] | None = None) -> np.ndarray:
+        """Rows ``idx`` of the (N, H, W, C) uint8 ``src``, normalized,
+        cropped and flipped in one native pass: the draws of ``__call__``."""
+        oy, ox, flip = _draws(rng, len(idx), rows)
+        return native.gather_augment_u8(src, idx, oy, ox, flip, padding=4, fill=-1.0)

@@ -23,12 +23,25 @@ is given; ``--device cuda`` (the default) raises when no GPU is present.
 ``--num-processes N`` starts one process per device (``cuda:0`` ..
 ``cuda:N-1``, or N CPU processes on gloo); rank 0's summary is returned by
 ``main`` and printed as the last line of output.
+
+Image models take ``--pretrained`` torchvision ResNet state dicts (``.pth``
+or safetensors).  Telemetry, with the reference's flags
+(``training.telemetry``): ``--events-dir DIR`` writes schema-versioned
+JSONL events (spans, metrics snapshots every ``--metrics-every`` steps,
+goodput, the run summary) and rank 0 merges them into
+``DIR/timeline.jsonl``; ``--mfu`` and ``--memory-telemetry`` report MFU/HFU
+and the allocator's bytes at every throughput window; ``--alerts [SPEC]``
+evaluates the SLO rules there; ``--runs-dir DIR`` appends the run summary
+to ``DIR/index.jsonl``; ``--profile-steps A:B`` writes a ``torch.profiler``
+Chrome trace of steps [A, B) to ``--profile-dir`` or ``DIR/xprof``, and
+``--profile-dir`` alone traces the first epoch.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -50,6 +63,14 @@ from distributeddataparallel_tpu_torch.models import transformer as tfm
 from distributeddataparallel_tpu_torch.models.io import load_pretrained
 from distributeddataparallel_tpu_torch.models.resnet import ResNet18, ResNet50
 from distributeddataparallel_tpu_torch.models.simple_cnn import SimpleCNN, TinyMLP
+from distributeddataparallel_tpu_torch.observability import (
+    mlp_fwd_flops,
+    parse_alert_spec,
+    parse_profile_steps,
+    simple_cnn_fwd_flops,
+    train_step_flops,
+    transformer_fwd_flops,
+)
 from distributeddataparallel_tpu_torch.ops.dropout import fold_seed
 from distributeddataparallel_tpu_torch.ops.losses import (
     accuracy,
@@ -64,6 +85,7 @@ from distributeddataparallel_tpu_torch.runtime import distributed as rt
 from distributeddataparallel_tpu_torch.training.checkpoint import Checkpointer
 from distributeddataparallel_tpu_torch.training.optim import build_optimizer
 from distributeddataparallel_tpu_torch.training.state import TrainState
+from distributeddataparallel_tpu_torch.training.telemetry import Telemetry
 from distributeddataparallel_tpu_torch.training.train_step import (
     make_eval_step,
     make_train_step,
@@ -109,8 +131,9 @@ def parse_args(argv=None):
                    help="activation checkpointing for LMs: auto keeps the family's "
                         "default (llama on, gpt2 off)")
     p.add_argument("--pretrained", default=None, metavar="FILE",
-                   help="initialize an LM from HF GPT-2 / Llama tensors or this "
-                        "framework's save_params safetensors (format sniffed from the keys)")
+                   help="initialize from a torchvision ResNet state_dict (image "
+                        "models), HF GPT-2 / Llama tensors (LMs) or this framework's "
+                        "save_params safetensors (format sniffed from the keys)")
     p.add_argument("--vocab-size", type=int, default=256,
                    help="LM vocab size (synthetic data; a token file's sidecar overrides it)")
     p.add_argument("--num-examples", type=int, default=2048)
@@ -149,7 +172,60 @@ def parse_args(argv=None):
                    help="continue at the epoch after the newest checkpoint")
     p.add_argument("--num-processes", type=int, default=None,
                    help="processes to start, one per device (default 1, in this process)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the first epoch here "
+                        "(legacy whole-epoch capture; --profile-steps supersedes it "
+                        "when both are given)")
+    p.add_argument("--events-dir", default=None, metavar="DIR",
+                   help="observability: write schema-versioned JSONL events (spans, "
+                        "metrics snapshots, goodput, run summary) to DIR, one file per "
+                        "rank, merged into DIR/timeline.jsonl at exit (env: DDP_EVENTS_DIR)")
+    p.add_argument("--metrics-every", type=int, default=100,
+                   help="export a metrics-registry snapshot every N steps into the "
+                        "event log (host-only work).  0 disables periodic export; "
+                        "end-of-run export always happens")
+    p.add_argument("--mfu", action="store_true",
+                   help="report MFU/HFU per throughput window from the analytic cost "
+                        "model (observability.cost_model) over the card's peak for the "
+                        "step's matmul dtype; cnn/mlp and the LM models")
+    p.add_argument("--memory-telemetry", action="store_true",
+                   help="sample the CUDA allocator's live and reserved bytes at "
+                        "throughput-window boundaries (observability.memory)")
+    p.add_argument("--alerts", nargs="?", const="", default=None, metavar="SPEC",
+                   help="evaluate SLO alert rules at throughput-window boundaries and "
+                        "emit `alert` events.  Bare --alerts enables every rule at "
+                        "defaults; SPEC overrides thresholds, e.g. "
+                        "--alerts mfu_floor=0.3,step_spike=2.5 (rules: step_spike, "
+                        "mfu_floor, goodput_floor, restart_storm, sdc_storm, "
+                        "loader_starved, mem_growth, gang_suspect)")
+    p.add_argument("--runs-dir", default=None, metavar="DIR",
+                   help="longitudinal run store: append this run's run_summary to "
+                        "DIR/index.jsonl at run end (env: DDP_RUNS_DIR); gate later "
+                        "runs with scripts/perf_gate.py")
+    p.add_argument("--profile-steps", default=None, metavar="A:B",
+                   help="capture a torch.profiler trace of global steps [A, B) into "
+                        "--profile-dir if set, else EVENTS_DIR/xprof")
     args = p.parse_args(argv)
+    if args.events_dir is None:
+        args.events_dir = os.environ.get("DDP_EVENTS_DIR") or None
+    if args.runs_dir is None:
+        args.runs_dir = os.environ.get("DDP_RUNS_DIR") or None
+    if args.alerts is None and os.environ.get("DDP_ALERTS") is not None:
+        args.alerts = os.environ.get("DDP_ALERTS")
+    if args.alerts is not None:
+        try:
+            parse_alert_spec(args.alerts)
+        except ValueError as e:
+            raise SystemExit(f"--alerts: {e}") from None
+    if args.mfu and args.model in ("resnet18", "resnet50"):
+        raise SystemExit(
+            "--mfu: no analytic cost model for resnet yet (supported: cnn, mlp, gpt2, "
+            "llama) — a wrong FLOP count would report a confidently wrong MFU")
+    if args.profile_steps is not None:
+        try:
+            parse_profile_steps(args.profile_steps)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     lm = is_lm(args)
     if args.dataset is None:
         args.dataset = "synthetic-lm" if lm else "synthetic"
@@ -321,7 +397,7 @@ def run(args, *, rank: int = 0, world_size: int = 1, init_method: str | None = N
     device = device_for(args, rank)
     rt.init_process_group(init_method=init_method, world_size=world_size, rank=rank, device=device)
     try:
-        return _train(args, build_trainer(args, device, rank, world_size), device, rank, world_size)
+        return train(args, build_trainer(args, device, rank, world_size), device, rank, world_size)
     finally:
         rt.destroy_process_group()
 
@@ -391,10 +467,91 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
     return trainer
 
 
-def _train(args, trainer: Trainer, device: torch.device, rank: int, world_size: int) -> dict:
-    log = (lambda *a: print(*a, flush=True)) if rank == 0 else (lambda *a: None)
+def build_telemetry(args, trainer: Trainer, device: torch.device, rank: int,
+                    world_size: int) -> Telemetry:
+    """The telemetry these flags ask for (``training.telemetry``), with the
+    analytic FLOP count of a step for ``--mfu`` (the reference's cost model,
+    ``dpp.py:2126-2186``)."""
+    rows = args.batch_size * world_size
+    lm = is_lm(args)
+    tel = Telemetry(args, rank=rank, world_size=world_size,
+                    items_per_step=rows * args.seq_len if lm else rows,
+                    unit="tok" if lm else "img", sync=lambda: _sync(device))
+    if args.mfu:
+        model, dataset = trainer.state.model, trainer.loader.dataset
+        remat = False
+        if lm:
+            # The LM step trains on the shifted sequence: seq_len - 1
+            # positions, as the reference counts them.
+            fwd = transformer_fwd_flops(model.cfg, batch=rows, seq_len=args.seq_len - 1)
+            remat = bool(model.cfg.remat)
+        else:
+            shape = tuple(getattr(dataset, "image_shape", None) or dataset.images.shape[1:])
+            classes = getattr(dataset, "num_classes", None) or 10
+            if args.model == "cnn":
+                fwd = simple_cnn_fwd_flops(batch=rows, image_shape=shape, num_classes=classes)
+            else:  # mlp (resnet is refused in parse_args)
+                fwd = mlp_fwd_flops(batch=rows, in_features=math.prod(shape), num_classes=classes)
+        tel.arm_mfu(train_step_flops(fwd, remat=remat), device=device,
+                    dtype=model.cfg.dtype if lm else torch.float32, n_chips=world_size)
+    if args.memory_telemetry:
+        tel.arm_memory(device)
+    return tel
+
+
+def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log):
+    """The epochs: train steps, eval and checkpoint, under telemetry."""
     state, step_fn, loader, spe = trainer.state, trainer.step_fn, trainer.loader, trainer.steps_per_epoch
     eval_step, eval_loader, model = trainer.eval_step, trainer.eval_loader, trainer.state.model
+    losses, step_times, eval_batches, evals = [], [], 0, []
+    wall, wall_steps = 0.0, 0
+    for epoch in range(trainer.start_epoch, args.epochs):
+        loader.set_epoch(epoch)
+        ends = []
+        with tel.span("epoch", epoch=epoch), tel.epoch_trace(epoch == trainer.start_epoch):
+            # islice: the loader gathers no batch past the cap.
+            for i, batch in enumerate(itertools.islice(loader, spe)):
+                gstep = epoch * spe + i
+                tel.step_start(gstep)
+                t0 = time.perf_counter()
+                with tel.span("step", step=gstep):
+                    metrics = step_fn(state, batch, step_seed(args, epoch, i))
+                    _sync(device)
+                step_times.append(time.perf_counter() - t0)
+                ends.append(time.perf_counter())
+                losses.append(metrics["loss"])
+                tel.step_end(gstep)
+                if (state.step % args.log_every == 0) or i == spe - 1:
+                    log(f"epoch {epoch} step {state.step} loss {float(metrics['loss']):.4f} "
+                        f"acc {float(metrics['accuracy']):.4f} {step_times[-1] * 1e3:.1f} ms")
+        # Steps 2.. of the epoch on the wall clock, the loader's time included.
+        wall, wall_steps = wall + ends[-1] - ends[0], wall_steps + len(ends) - 1
+        if eval_step is not None:
+            t_ev = time.perf_counter()
+            with tel.span("eval", epoch=epoch):
+                parts = []
+                for batch in eval_loader:
+                    parts.append(eval_step(model, batch))
+                    eval_batches += 1
+                total = sum(float(n) for _, n in parts)
+            tel.add_goodput("eval", time.perf_counter() - t_ev)
+            mean = {k: sum(float(m[k]) * float(n) for m, n in parts) / total for k in parts[0][0]}
+            evals.append(mean)
+            log(f"epoch {epoch} eval: {mean}")
+        if trainer.checkpointer is not None:
+            t_ck = time.perf_counter()
+            with tel.span("ckpt_save", epoch=epoch):
+                trainer.checkpointer.save(state, epoch)
+            tel.add_goodput("checkpoint", time.perf_counter() - t_ck)
+        if eval_step is not None or trainer.checkpointer is not None:
+            tel.reset_window()  # eval and saves stay out of the throughput window
+    return losses, step_times, eval_batches, evals, wall, wall_steps
+
+
+def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_size: int = 1) -> dict:
+    """Run ``trainer`` for these flags on this rank; returns the run summary."""
+    log = (lambda *a: print(*a, flush=True)) if rank == 0 else (lambda *a: None)
+    state, model = trainer.state, trainer.state.model
     if trainer.start_epoch >= args.epochs:
         raise SystemExit(f"the newest checkpoint is of epoch {trainer.start_epoch - 1}: "
                          f"nothing left to train for --epochs {args.epochs}")
@@ -403,36 +560,16 @@ def _train(args, trainer: Trainer, device: torch.device, rank: int, world_size: 
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    losses, step_times, eval_batches, evals = [], [], 0, []
-    wall, wall_steps = 0.0, 0
-    for epoch in range(trainer.start_epoch, args.epochs):
-        loader.set_epoch(epoch)
-        ends = []
-        for i, batch in enumerate(loader):
-            if i >= spe:
-                break
-            t0 = time.perf_counter()
-            metrics = step_fn(state, batch, step_seed(args, epoch, i))
-            _sync(device)
-            step_times.append(time.perf_counter() - t0)
-            ends.append(time.perf_counter())
-            losses.append(metrics["loss"])
-            if (state.step % args.log_every == 0) or i == spe - 1:
-                log(f"epoch {epoch} step {state.step} loss {float(metrics['loss']):.4f} "
-                    f"acc {float(metrics['accuracy']):.4f} {step_times[-1] * 1e3:.1f} ms")
-        # Steps 2.. of the epoch on the wall clock, the loader's time included.
-        wall, wall_steps = wall + ends[-1] - ends[0], wall_steps + len(ends) - 1
-        if eval_step is not None:
-            parts = []
-            for batch in eval_loader:
-                parts.append(eval_step(model, batch))
-                eval_batches += 1
-            total = sum(float(n) for _, n in parts)
-            mean = {k: sum(float(m[k]) * float(n) for m, n in parts) / total for k in parts[0][0]}
-            evals.append(mean)
-            log(f"epoch {epoch} eval: {mean}")
-        if trainer.checkpointer is not None:
-            trainer.checkpointer.save(state, epoch)
+    tel = build_telemetry(args, trainer, device, rank, world_size)
+    status = "ok"
+    try:
+        losses, step_times, eval_batches, evals, wall, wall_steps = _loop(
+            args, trainer, device, tel, log)
+    except BaseException as e:
+        status = type(e).__name__
+        raise
+    finally:
+        tel.close(status)
 
     losses = [float(x) for x in losses]
     # Step 1 pays the one-time costs (kernel build and load, allocator
@@ -462,6 +599,7 @@ def _train(args, trainer: Trainer, device: torch.device, rank: int, world_size: 
         f"{rate[0]}_wall": rate[1] / wall_step_time if wall_steps else None,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
         "param_norm": param_norm,
+        "throughput_windows": tel.readings,
     }
     log(f"train: {len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
         f"{step_time * 1e3:.1f} ms/step, {summary[rate[0]]:.0f} {rate[0]}")

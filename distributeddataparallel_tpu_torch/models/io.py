@@ -38,8 +38,10 @@ Storage and other sources, the numpy counterparts of the reference's
   no ``safetensors`` package is needed; ``BF16`` tensors are read as f32.
 - ``convert_gpt2_hf`` / ``convert_llama_hf``: HuggingFace GPT-2 / Llama
   tensors -> the flax tree; ``export_llama_hf`` is the Llama inverse.
+- ``convert_resnet_torch`` / ``export_resnet_torch``: a torchvision ResNet
+  ``state_dict`` to and from the port's ResNet (the same names).
 - ``load_pretrained``: the format sniffed from the key names, converted to
-  this port's ``state_dict`` for an LM.
+  this port's ``state_dict``.
 """
 
 from __future__ import annotations
@@ -499,20 +501,71 @@ def export_llama_hf(params: Mapping, cfg: TransformerConfig) -> dict[str, np.nda
     return {k: np.ascontiguousarray(v) for k, v in sd.items()}
 
 
+# ------------------------------------------------------ ResNet (torch) ----
+
+def convert_resnet_torch(sd: Mapping[str, np.ndarray], model: ResNet) -> dict[str, torch.Tensor]:
+    """A torchvision ResNet ``state_dict`` -> ``model``'s state_dict.
+
+    The port's ResNets carry torchvision's submodule names, so every
+    parameter and BatchNorm running statistic maps to the key of the same
+    name, shape-checked (a class-count mismatch fails at ``fc``).  Keys the
+    model does not hold (torchvision's ``num_batches_tracked``) are not
+    read, as the reference's ``convert_resnet_torch`` reads only the keys it
+    maps."""
+    out = {}
+    for key, like in model.state_dict().items():
+        if key not in sd:
+            raise KeyError(f"missing weight {key!r}")
+        arr = np.asarray(sd[key])
+        if arr.shape != tuple(like.shape):
+            raise ValueError(f"{key}: shape {arr.shape} != expected {tuple(like.shape)}")
+        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+    return out
+
+
+def export_resnet_torch(model_or_state_dict) -> dict[str, np.ndarray]:
+    """Inverse of ``convert_resnet_torch``: the torchvision layout (conv
+    weights OIHW; BatchNorm ``weight``/``bias``/``running_mean``/
+    ``running_var``; ``fc``), C-contiguous float32 numpy arrays."""
+    sd = model_or_state_dict
+    if isinstance(sd, nn.Module):
+        sd = sd.state_dict()
+    return {k: np.ascontiguousarray(v.detach().float().cpu().numpy()) for k, v in sd.items()}
+
+
 def load_pretrained(path: str, model: nn.Module) -> dict[str, torch.Tensor]:
     """``model``'s state_dict from a pretrained checkpoint, the format
-    sniffed from its key names (the reference's ``load_pretrained`` for
-    LMs): HF GPT-2 (``wte.weight``), HF Llama (``model.embed_tokens.weight``),
-    or this framework's flat safetensors (``save_params`` of the flax
-    ``params`` tree, bare or under ``params/``).  Shapes are checked against
-    the model's; the layer layout of a framework file must be the
-    config's."""
+    sniffed from its key names, as the reference's ``load_pretrained``:
+
+    - a torchvision ResNet state_dict (``conv1.weight`` and ``fc.weight``)
+      -> ``convert_resnet_torch`` (parameters and BatchNorm buffers);
+    - HF GPT-2 (``wte.weight``) or HF Llama (``model.embed_tokens.weight``)
+      tensors, for an LM only: an image model raises ``ValueError``;
+    - otherwise this framework's flat safetensors (``save_params`` of the
+      flax ``params`` tree, bare or under ``params/``; an image model's
+      full variables dump keyed ``params/...`` and ``batch_stats/...``).
+
+    Shapes are checked against the model's; the layer layout of an LM's
+    framework file must be the config's."""
     flat = load_checkpoint_tensors(path)
+    if "conv1.weight" in flat and "fc.weight" in flat:
+        if not isinstance(model, ResNet):
+            raise ValueError(f"{path!r} is a torchvision ResNet state_dict, but the target "
+                             f"model is a {type(model).__name__} - pass --model resnet18|resnet50")
+        return convert_resnet_torch(flat, model)
     cfg = getattr(model, "cfg", None)
+    lm_ckpt = any(k in flat for k in ("wte.weight", "transformer.wte.weight", "model.embed_tokens.weight"))
     if not isinstance(cfg, TransformerConfig):
-        raise NotImplementedError(
-            "--pretrained for image models (the torchvision ResNet converter) is not "
-            "ported yet: ROADMAP.md Queue 1, item 8b")
+        if lm_ckpt:
+            # e.g. --model resnet18 --pretrained gpt2.safetensors: a clear
+            # format mismatch beats an error deep in the conversion.
+            raise ValueError(
+                f"{path!r} looks like a GPT-2/Llama LM checkpoint, but the target model "
+                f"({type(model).__name__}) has no TransformerConfig - pass a matching --model")
+        like = to_jax_params(model.state_dict(), model)
+        if not (flat and all(k.split(SEP, 1)[0] in like for k in flat)):
+            flat = {"params" + SEP + k: v for k, v in flat.items()}
+        return from_jax_params(unflatten_into(like, flat), model)
     like = to_jax_params(model.state_dict(), cfg)
     tree = None
     if "wte.weight" in flat or "transformer.wte.weight" in flat:

@@ -233,5 +233,5 @@ def test_load_pretrained_rejects_a_mismatch(tmp_path):
     unstacked = ttfm.llama3_8b(**LLAMA, dtype=torch.float32, scan_layers=False)
     with pytest.raises(KeyError, match="missing"):
         tio.load_pretrained(path, ttfm.TransformerLM(unstacked))
-    with pytest.raises(NotImplementedError, match="8b"):
+    with pytest.raises(KeyError, match="missing"):  # an LM's tree on a ResNet, as the reference
         tio.load_pretrained(path, ResNet18(num_classes=10))

@@ -5,11 +5,9 @@ Everything here is numpy on both sides, so it is held to exact equality:
 batches the test writes (a directory and a tar.gz), the device normalize,
 the crop / flip / ``CifarAugment`` draws, the shard format (files written
 by either package are byte-identical and read the same through both), and
-the rows each of two replicas receives, augmented or not.  The one
-exception is the reference's host-side u8 normalize, which runs its native
-kernel: ``x * (1/255)`` where numpy divides by 255 may round once
-differently, 2^-24 at most for a quotient in [0.5, 1), and the exact ``- 0.5``
-and ``/ 0.5`` that follow double it: ``NATIVE_ATOL`` = 2^-23.
+the rows each of two replicas receives, augmented or not.  The host-side
+u8 normalize runs each package's copy of the same native kernel
+(``x * f32(1/255)``), so it too is held to exact equality.
 """
 
 import os
@@ -34,7 +32,6 @@ from distributeddataparallel_tpu_torch.data import transforms as ttr
 from distributeddataparallel_tpu_torch.data.loader import DataLoader
 from distributeddataparallel_tpu_torch.ops.preprocess import normalize_u8_images
 
-NATIVE_ATOL = 2.0**-23
 
 
 def _same(a, b):
@@ -145,10 +142,7 @@ def test_shards_byte_identical_and_read_by_both_packages(tmp_path):
             assert (len(a), a.num_classes, a.image_shape) == (len(b), b.num_classes, b.image_shape)
             ga, gb = a.gather(idx), b.gather(idx)
             _same(ga["label"], gb["label"])
-            if dn:
-                _same(ga["image"], gb["image"])
-            else:  # the reference normalizes with its native kernel
-                np.testing.assert_allclose(ga["image"], gb["image"], rtol=0, atol=NATIVE_ATOL)
+            _same(ga["image"], gb["image"])
             _same(a[3][0], ga["image"][2])
             assert a[3][1] == b[3][1]
 
@@ -185,11 +179,7 @@ def test_two_replica_rows_match_jax_replica_slices(kind, augment, tmp_path):
             for r, batch in enumerate(got):
                 rows = slice(r * B, (r + 1) * B)
                 _same(batch["label"].numpy(), want["label"][rows].astype(np.int64))
-                if kind == "u8":
-                    np.testing.assert_allclose(batch["image"].numpy(), want["image"][rows],
-                                               rtol=0, atol=NATIVE_ATOL)
-                else:
-                    _same(batch["image"].numpy(), want["image"][rows])
+                _same(batch["image"].numpy(), want["image"][rows])
 
 
 def test_u8_images_stay_uint8_on_the_way_to_the_device(tmp_path):
