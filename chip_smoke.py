@@ -58,12 +58,40 @@ Phases (any failure exits non-zero; nothing is caught):
    augment and with the plain (numpy) augment, from two loaders built here,
    whose batches must be bit-equal; the host kernels' ms per batch beside
    their numpy versions; and phase 4 once more with ``--mfu``, its MFU and
-   HFU beside this script's own share of the bound.
+   HFU beside this script's own share of the bound;
+9. the fault path at GPT-2 124M's full width (phase 4's model and batch, so
+   K1-K3 run on it) and with phase 6's ResNet-18, each check in a fresh
+   process of the port's entry point
+   (``python -m distributeddataparallel_tpu_torch.dpp``); 9b's resumed run,
+   9c's two runs and 9e, which time nothing, run side by side:
+   a. supervised chaos replay: ``--max-restarts 2`` with
+      ``DDP_CHAOS=ckpt-io@0,preempt@6``, 3 epochs of 4 steps, beside the
+      same run uninterrupted: it exits 0 after one restart and one IO
+      retry, its merged timeline validates against the port's schema, its
+      final loss is within ``REPLAY_ATOL`` of the uninterrupted run's, and
+      the last incarnation's K1-K3 launches are those of its 8 steps; the
+      seconds from the injected death to the next incarnation's first step;
+   b. a real SIGTERM once the events show step 3: exit 0 with
+      ``epoch_0.pt`` and its hash sidecar, then ``--resume`` starts at
+      epoch 1 and ends with a finite loss;
+   c. the guard: ResNet-18 with ``--nan-guard --chaos nan-grad@2``, 3
+      one-step epochs with checkpoints, then ``--resume`` to 5: one step
+      skipped, the state after step 2 bitwise the state after step 1, the
+      other losses finite; then the guard's cost, phase 4's step and phase
+      6's step timed with and without ``--nan-guard`` (in this process,
+      off, on, on, off), and a checkpoint save at GPT-2's AdamW state with
+      and without its content hash;
+   d. the watchdog: ResNet-18 with ``--step-timeout 5 --max-restarts 1
+      --chaos slow-step@3:30``: the worker exits 75 after ``watchdog_fire``
+      and the restart completes the run; the seconds from the fire to the
+      next incarnation's first step;
+   e. ``--coordinator 127.0.0.1:PORT --num-processes 1 --process-id 0`` on
+      NCCL: 2 steps whose losses equal phase 4's first two.
 
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
 ``llama_path`` line (phase 7), one ``reference_workload`` line (phase 8),
-one ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
-as its last line
+one ``fault_path`` line (phase 9), one ``{"kernels": [...]}`` JSON line,
+the card's name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -206,6 +234,22 @@ R18_TELEMETRY_ARGS = [
 MFU_ARGS = [a for a in MAIN_ARGS if a != "--eval"]
 MFU_ARGS[MFU_ARGS.index("--steps-per-epoch") + 1] = "25"
 MFU_ARGS += ["--log-every", "20", "--mfu", "--events-dir", "{events}"]
+
+# Phase 9: the fault path.  GPT-2 at phase 4's model and batch without eval,
+# and phase 6's ResNet-18 without eval (its augment on the f32 set).
+FAULT_LM_ARGS = [a for a in MAIN_ARGS if a != "--eval"]
+FAULT_R18_ARGS = [a for a in R18_ARGS if a != "--eval"]
+# 9a: three epochs of four steps, preempted at step 6 (epoch 1).
+REPLAY_ARGS = FAULT_LM_ARGS + ["--epochs", "3", "--steps-per-epoch", "4"]
+# 9a: a resume from a bitwise checkpoint replays the same steps with the same
+# kernels, and cuBLAS and K1-K3 sum in a fixed order, so the losses could
+# differ only by run-to-run nondeterminism of a library kernel: 1e-3 is far
+# below the 1e-2 that a resume at a wrong epoch, step or learning rate moves
+# GPT-2's loss by.
+REPLAY_ATOL = 1e-3
+# 9e: the same program as phase 4, one NCCL rank either way: its first two
+# losses to f32 rounding of a reordered sum at most.
+COORDINATOR_ATOL = 1e-6
 
 KERNELS = [
     # name, replaces, matmuls per visible (q, k) pair
@@ -891,6 +935,318 @@ def reference_workload_phase(torch, dpp, fa, smi) -> dict:
     return out
 
 
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _entry_env(extra: dict | None = None) -> dict:
+    """The environment of an entry-point process: this one's, without the
+    variables that would turn on telemetry or chaos it was not asked for."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("DDP_", "_DDP_"))}
+    env.update(extra or {})
+    return env
+
+
+def start_entry(args, env=None) -> subprocess.Popen:
+    """The port's entry point in a fresh process."""
+    return subprocess.Popen([sys.executable, "-m", "distributeddataparallel_tpu_torch.dpp", *args], cwd=HERE,
+                            env=_entry_env(env), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_entry(proc: subprocess.Popen, what: str, timeout: float = 600) -> dict:
+    """Wait for an entry-point process; its summary (the last line of its
+    output).  A non-zero exit fails the phase."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def run_entry(args, what: str, env=None) -> dict:
+    log(f"    {what}: python -m distributeddataparallel_tpu_torch.dpp " + " ".join(args))
+    return finish_entry(start_entry(args, env), what)
+
+
+def timeline(events_dir: str) -> list[dict]:
+    """The merged timeline, validated against the port's copy of the event
+    schema: the check ``scripts/check_events.py`` makes, without that
+    script's import of the JAX package."""
+    from distributeddataparallel_tpu_torch.observability import read_events, validate_file
+
+    path = os.path.join(events_dir, "timeline.jsonl")
+    problems = validate_file(path)
+    if problems:
+        raise AssertionError(f"{path}: {problems}")
+    return read_events(path)
+
+
+def expect_launches(summary: dict, what: str, layers: int = 12) -> dict:
+    """A GPT-2 run's K1-K3 launches, which must be one per layer per train
+    step (K1 also per eval batch)."""
+    steps, got = summary["train_steps"], summary["attention_launches"]
+    want = {"flash_fwd": layers * (steps + summary["eval_batches"]), "flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want} for {steps} steps")
+    return got
+
+
+def fault_replay(smi) -> tuple[dict, list[dict]]:
+    """[9a] The supervised chaos replay, alone on the card (its restart is
+    timed); its summary and merged timeline."""
+    with tempfile.TemporaryDirectory(prefix="fault_9a_") as d:
+        sup = REPLAY_ARGS + ["--checkpoint-dir", os.path.join(d, "ck"), "--events-dir", os.path.join(d, "ev"),
+                             "--max-restarts", "2"]
+        chaotic = run_entry(sup, "9a supervised, DDP_CHAOS=ckpt-io@0,preempt@6",
+                            env={"DDP_CHAOS": "ckpt-io@0,preempt@6"})
+        return chaotic, timeline(os.path.join(d, "ev"))
+
+
+def check_replay(chaotic, records, straight, smi) -> dict:
+    """[9a] The replay against the uninterrupted run (which ran beside 9b's
+    resume, 9c and 9e)."""
+    kinds = [r["kind"] for r in records]
+    diff = abs(chaotic["losses"][-1] - straight["losses"][-1])
+    death = [r["ts"] for r in records if r["kind"] == "chaos_inject" and r["entry"] == "preempt@6"]
+    first = [r["ts"] for r in records if r["kind"] == "warm_start" and r["attempt"] == 1]
+    if (kinds.count("restart_attempt"), kinds.count("ckpt_retry"), chaotic["faults"]["restarts"]) != (1, 1, 1):
+        raise AssertionError(f"9a: {kinds.count('restart_attempt')} restarts, {kinds.count('ckpt_retry')} "
+                             f"IO retries, summary faults {chaotic['faults']}")
+    if (chaotic["start_epoch"], chaotic["train_steps"]) != (1, 8) or not diff <= REPLAY_ATOL:
+        raise AssertionError(f"9a: resumed at epoch {chaotic['start_epoch']} for {chaotic['train_steps']} "
+                             f"steps, final loss {chaotic['losses'][-1]} vs {straight['losses'][-1]}")
+    launches = expect_launches(chaotic, "9a last incarnation")
+    out = {
+        "final_loss": chaotic["losses"][-1], "uninterrupted_final_loss": straight["losses"][-1],
+        "final_loss_abs_diff": diff, "atol": REPLAY_ATOL, "restarts": 1, "io_retries": 1,
+        "death_to_first_step_s": first[0] - death[0], "last_incarnation_launches": launches,
+        "last_incarnation_step_ms": chaotic["step_time_s"] * 1e3,
+    }
+    log(f"    9a: exit 0 after 1 restart and 1 IO retry; final loss {chaotic['losses'][-1]:.6f} vs "
+        f"{straight['losses'][-1]:.6f} (|diff| {diff:.2e}, atol {REPLAY_ATOL}); death to the next "
+        f"incarnation's first step {out['death_to_first_step_s']:.2f} s; launches {launches} on {smi}")
+    return out
+
+
+def fault_sigterm(smi, beside) -> tuple[dict, object]:
+    """[9b] A real SIGTERM once the events show step 3, then --resume; the
+    checks that time nothing (``beside()``) run while the resumed run
+    trains.  Returns this check's result and ``beside()``'s."""
+    import signal
+
+    from distributeddataparallel_tpu_torch.observability import read_events
+
+    with tempfile.TemporaryDirectory(prefix="fault_9b_") as d:
+        run = FAULT_LM_ARGS + ["--epochs", "2", "--checkpoint-dir", os.path.join(d, "ck")]
+        args = run + ["--events-dir", os.path.join(d, "ev")]
+        log("    9b: python -m distributeddataparallel_tpu_torch.dpp " + " ".join(args))
+        proc, events = start_entry(args), os.path.join(d, "ev", "events-p0.jsonl")
+        deadline = time.monotonic() + 300
+        while proc.poll() is None and time.monotonic() < deadline:
+            if os.path.exists(events) and any(r["kind"] == "span" and r["name"] == "step" and r["step"] == 3
+                                              for r in read_events(events)):
+                break
+            time.sleep(0.02)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        stopped = finish_entry(proc, "9b SIGTERM")
+        t_exit = time.perf_counter()
+        files = sorted(f for f in os.listdir(os.path.join(d, "ck")) if not f.startswith("."))
+        if stopped["preempted_epoch"] != 0 or files != ["epoch_0.pt", "hash_0.json"]:
+            raise AssertionError(f"9b: preempted epoch {stopped['preempted_epoch']}, files {files}")
+        log("    9b --resume: " + " ".join(run + ["--resume"]))
+        resumed = start_entry(run + ["--resume"])
+        others = beside()
+        resumed = finish_entry(resumed, "9b --resume")
+    if resumed["start_epoch"] != 1 or resumed["train_steps"] != 10 or not math.isfinite(resumed["losses"][-1]):
+        raise AssertionError(f"9b resume: epoch {resumed['start_epoch']}, {resumed['train_steps']} steps, "
+                             f"losses {resumed['losses']}")
+    out = {
+        "steps_before_stop": stopped["train_steps"], "signal_to_exit_s": t_exit - t_sig,
+        "resumed_start_epoch": 1, "resumed_final_loss": resumed["losses"][-1],
+        "launches": {"preempted": expect_launches(stopped, "9b preempted run"),
+                     "resumed": expect_launches(resumed, "9b resumed run")},
+    }
+    log(f"    9b: stopped after {stopped['train_steps']} steps, exit 0 {out['signal_to_exit_s']:.2f} s after "
+        f"the signal with epoch_0.pt + hash_0.json; --resume from epoch 1, final loss "
+        f"{resumed['losses'][-1]:.4f} on {smi}")
+    return out, others
+
+
+def fault_guard(torch) -> dict:
+    """[9c] The skip-step guard on ResNet-18: steps 0-2 with one-step epochs
+    and checkpoints, then --resume for steps 3-4."""
+    from distributeddataparallel_tpu_torch.training import checkpoint as ck
+
+    with tempfile.TemporaryDirectory(prefix="fault_9c_") as d:
+        run = FAULT_R18_ARGS + ["--nan-guard", "--chaos", "nan-grad@2", "--steps-per-epoch", "1",
+                                "--checkpoint-dir", d]
+        first = run_entry(run + ["--epochs", "3"], "9c steps 0-2")
+        one, two = (torch.load(os.path.join(d, f"epoch_{e}.pt"), weights_only=True) for e in (1, 2))
+        rest = run_entry(run + ["--epochs", "5", "--resume"], "9c --resume, steps 3-4")
+    same = {
+        "model": one["model"].keys() == two["model"].keys()
+        and all(torch.equal(one["model"][k], two["model"][k]) for k in one["model"]),
+        "optimizer": ck.state_content_hash(one["optimizer"]) == ck.state_content_hash(two["optimizer"]),
+        "scheduler": one["scheduler"] == two["scheduler"],
+    }
+    losses = first["losses"] + rest["losses"]
+    if first["faults"]["nonfinite_steps"] != 1 or not all(same.values()) or two["step"] != one["step"] + 1:
+        raise AssertionError(f"9c: faults {first['faults']}, equal after the skipped step {same}")
+    if [math.isfinite(x) for x in losses] != [True, True, False, True, True]:
+        raise AssertionError(f"9c: losses {losses}")
+    log(f"    9c: 1 step skipped; params, optimizer and BN buffers after step 2 bitwise those after "
+        f"step 1 ({same}); losses {['%.4f' % x for x in losses]}")
+    return {"nonfinite_steps": 1, "state_equal_after_skip": same,
+            "losses": [x if math.isfinite(x) else None for x in losses]}
+
+
+def guard_cost(dpp, smi) -> dict:
+    """Phase 4's GPT-2 step and phase 6's ResNet-18 step (20 steps) with and
+    without --nan-guard, in this process, in the order off, on, on, off."""
+    out = {}
+    for name, args in (("gpt2_phase4", FAULT_LM_ARGS),
+                       ("resnet18_phase6", FAULT_R18_ARGS + ["--epochs", "1", "--steps-per-epoch", "20"])):
+        runs = {"off": [], "on": []}
+        for which in ("off", "on", "on", "off"):
+            s = dpp.main(args + (["--nan-guard"] if which == "on" else []))
+            runs[which].append(s["step_time_s"] * 1e3)
+        mean = {k: sum(v) / len(v) for k, v in runs.items()}
+        out[name] = {"step_ms_off": mean["off"], "step_ms_on": mean["on"], "runs_ms": runs,
+                     "cost_ms": mean["on"] - mean["off"]}
+        log(f"    guard cost {name}: {mean['off']:.2f} ms off, {mean['on']:.2f} ms on (runs {runs}) on {smi}")
+    return out
+
+
+def checkpoint_cost(torch, dpp, smi) -> dict:
+    """A save of GPT-2 124M's AdamW state (after one step) without the
+    content hash (the host copy and ``torch.save``) and with it
+    (``CheckpointFiles.write``: the copy, the hash and its sidecar, the file),
+    in the order without, with, with, without; the hash alone; and the read
+    with its verification."""
+    from distributeddataparallel_tpu_torch.training import checkpoint as ck
+
+    trainer = dpp.build_trainer(dpp.parse_args(FAULT_LM_ARGS), torch.device("cuda"))
+    trainer.step_fn(trainer.state, next(iter(trainer.loader)))
+    torch.cuda.synchronize()
+    runs = {"without": [], "with": []}
+    with tempfile.TemporaryDirectory(prefix="fault_ckpt_") as d:
+        saver = ck.CheckpointFiles(d)
+        for which in ("without", "with", "with", "without"):
+            t0 = time.perf_counter()
+            if which == "with":
+                saver.write(trainer.state, 0)
+            else:
+                torch.save(ck.host_payload(trainer.state, 0), os.path.join(d, "plain.pt"))
+            runs[which].append(time.perf_counter() - t0)
+        payload = ck.host_payload(trainer.state, 0)
+        t0 = time.perf_counter()
+        ck.state_content_hash(payload)
+        t1 = time.perf_counter()
+        saver.read(0)
+        t2 = time.perf_counter()
+    tensors = [*payload["model"].values(), *(t for st in payload["optimizer"]["state"].values()
+                                             for t in st.values() if torch.is_tensor(t))]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    del trainer, payload
+    torch.cuda.empty_cache()
+    mean = {k: sum(v) / len(v) for k, v in runs.items()}
+    out = {"payload_bytes": nbytes, "runs_s": runs, "save_without_hash_s": mean["without"],
+           "save_with_hash_s": mean["with"], "hash_s": t1 - t0, "read_verified_s": t2 - t1}
+    log(f"    checkpoint of {nbytes / 1e9:.3f} GB (GPT-2's AdamW state): save {mean['with']:.2f} s with the "
+        f"hash, {mean['without']:.2f} s without (runs {runs}); the hash alone {t1 - t0:.2f} s; read and "
+        f"verify {t2 - t1:.2f} s on {smi}")
+    return out
+
+
+def fault_watchdog(smi) -> dict:
+    """[9d] The step watchdog under supervision."""
+    with tempfile.TemporaryDirectory(prefix="fault_9d_") as d:
+        summary = run_entry(FAULT_R18_ARGS + [
+            "--epochs", "2", "--steps-per-epoch", "5", "--step-timeout", "5", "--max-restarts", "1",
+            "--chaos", "slow-step@3:30", "--checkpoint-dir", os.path.join(d, "ck"),
+            "--events-dir", os.path.join(d, "ev")], "9d watchdog")
+        records = timeline(os.path.join(d, "ev"))
+    fires = [r for r in records if r["kind"] == "watchdog_fire"]
+    restarts = [r["failed"] for r in records if r["kind"] == "restart_attempt"]
+    first = [r["ts"] for r in records if r["kind"] == "warm_start" and r["attempt"] == 1]
+    if len(fires) != 1 or restarts != [[[0, 75]]] or summary["train_steps"] != 5:
+        raise AssertionError(f"9d: fires {fires}, restarts {restarts}, {summary['train_steps']} steps after it")
+    out = {"exit_code": 75, "seconds_since_heartbeat": fires[0]["seconds_since_heartbeat"],
+           "fire_to_first_step_s": first[0] - fires[0]["ts"], "resumed_start_epoch": summary["start_epoch"]}
+    log(f"    9d: watchdog fired {out['seconds_since_heartbeat']:.2f} s after the last heartbeat, exit 75, "
+        f"the restart completed; fire to the next incarnation's first step {out['fire_to_first_step_s']:.2f} s "
+        f"on {smi}")
+    return out
+
+
+def start_coordinator() -> subprocess.Popen:
+    """[9e] The multi-host flags on one host of one card: 2 steps, on a
+    port outside the ephemeral ranges (``free_port``)."""
+    from distributeddataparallel_tpu_torch.runtime.distributed import free_port
+
+    port = free_port()
+    args = FAULT_LM_ARGS + ["--steps-per-epoch", "2", "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                            "1", "--process-id", "0"]
+    log("    9e coordinator: python -m distributeddataparallel_tpu_torch.dpp " + " ".join(args))
+    return start_entry(args)
+
+
+def finish_coordinator(proc, phase4_losses, smi) -> dict:
+    summary = finish_entry(proc, "9e coordinator")
+    diff = max(abs(a - b) for a, b in zip(summary["losses"], phase4_losses[:2]))
+    if summary["train_steps"] != 2 or not diff <= COORDINATOR_ATOL:
+        raise AssertionError(f"9e: losses {summary['losses']} vs phase 4's {phase4_losses[:2]}")
+    launches = expect_launches(summary, "9e")
+    log(f"    9e: losses {summary['losses']} vs phase 4's first two {phase4_losses[:2]} (|diff| {diff:.1e}) "
+        f"on {smi}")
+    return {"losses": summary["losses"], "phase4_losses": phase4_losses[:2], "max_abs_diff": diff,
+            "atol": COORDINATOR_ATOL, "launches": launches}
+
+
+def fault_path_phase(torch, dpp, phase4_losses, smi) -> dict:
+    """[9] The fault path.  Checks that time something (9a's restart, 9b's
+    stop, 9d's restart, the guard's and the hash's cost) run alone; 9b's
+    resumed run, 9c, 9e and 9a's uninterrupted run, which only check, run
+    side by side."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the entry-point processes need the card's memory
+    t0 = time.perf_counter()
+    log("[9] fault path")
+    out, seconds = {}, {}
+
+    def beside():
+        coordinator = start_coordinator()
+        log("    9a uninterrupted: python -m distributeddataparallel_tpu_torch.dpp " + " ".join(REPLAY_ARGS))
+        straight = start_entry(REPLAY_ARGS)
+        guard = fault_guard(torch)
+        coordinated = finish_coordinator(coordinator, phase4_losses, smi)
+        return guard, coordinated, finish_entry(straight, "9a uninterrupted")
+
+    t = time.perf_counter()
+    chaotic, records = fault_replay(smi)
+    seconds["9a"] = time.perf_counter() - t
+    out["sigterm"], (out["guard"], out["coordinator"], straight) = fault_sigterm(smi, beside)
+    out["replay"] = check_replay(chaotic, records, straight, smi)
+    seconds["9b_9c_9e_9a_uninterrupted"] = time.perf_counter() - t - seconds["9a"]
+    t = time.perf_counter()
+    out["watchdog"] = fault_watchdog(smi)
+    seconds["9d"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["guard"]["guard_cost"] = guard_cost(dpp, smi)
+    out["guard"]["checkpoint_cost"] = checkpoint_cost(torch, dpp, smi)
+    seconds["costs"] = time.perf_counter() - t
+    out["check_seconds"] = seconds
+    runs = [out["replay"]["last_incarnation_launches"], *out["sigterm"]["launches"].values(),
+            out["coordinator"]["launches"]]
+    out["launches"] = {k: sum(r[k] for r in runs) for k in runs[0]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"    phase 9 in {out['seconds']:.1f} s ({seconds}); K1-K3 launches in its checked GPT-2 runs "
+        f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -956,6 +1312,7 @@ def main() -> int:
     }
     llama = llama_phase(torch, dpp, fa, tfm, smi)
     reference = reference_workload_phase(torch, dpp, fa, smi)
+    fault = fault_path_phase(torch, dpp, losses, smi)
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -967,6 +1324,7 @@ def main() -> int:
             "launches_image_paths": sum(p["attention_launches"][name] for p in image_paths.values()),
             "launches_llama": llama["attention_launches"][name],
             "launches_reference_workload": reference["attention_launches"][name],
+            "launches_fault_path": fault["launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -994,6 +1352,7 @@ def main() -> int:
     log(json.dumps({"image_paths": image_paths, "card": smi}))
     log(json.dumps({"llama_path": llama, "card": smi}))
     log(json.dumps({"reference_workload": reference, "card": smi}))
+    log(json.dumps({"fault_path": fault, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(nvidia_smi())  # the card's name and power limit, as nvidia-smi gives them

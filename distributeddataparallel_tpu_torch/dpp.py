@@ -21,8 +21,22 @@ defaults.  LMs train on ``synthetic-lm`` or on a token file (``tokens:FILE``,
 epoch after the newest one saved.  It runs on the GPU unless ``--device cpu``
 is given; ``--device cuda`` (the default) raises when no GPU is present.
 ``--num-processes N`` starts one process per device (``cuda:0`` ..
-``cuda:N-1``, or N CPU processes on gloo); rank 0's summary is returned by
-``main`` and printed as the last line of output.
+``cuda:N-1``, or N CPU processes on gloo; ``--fake-devices N`` on the CPU
+too); rank 0's summary is returned by ``main`` and printed as the last line
+of output.  A multi-host job gives every host the same ``--coordinator
+HOST:PORT`` and ``--num-processes`` (hosts) and its own ``--process-id``;
+each host starts one process per local device (all visible GPUs, or
+``--fake-devices`` CPU ranks).
+
+Fault tolerance, with the reference's flags (``training.fault_tolerance``,
+``utils.chaos``, ``runtime.launcher``): ``--nan-guard`` skips a step whose
+gradients are not finite (``--max-bad-steps`` in a row stop the run);
+``--checkpoint-dir`` saves hash-checked checkpoints with retry, falls back
+past a corrupt one on ``--resume``, and on SIGTERM saves the interrupted
+epoch and exits 0; ``--step-timeout`` exits 75 from a wedged step after a
+best-effort save; ``--max-restarts N`` runs the trainer under a supervisor
+that restarts it with ``--resume``; ``--chaos SPEC`` (or ``DDP_CHAOS``)
+injects faults to prove it.
 
 Image models take ``--pretrained`` torchvision ResNet state dicts (``.pth``
 or safetensors).  Telemetry, with the reference's flags
@@ -40,12 +54,15 @@ Chrome trace of steps [A, B) to ``--profile-dir`` or ``DIR/xprof``, and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
 import math
 import os
+import signal
 import sys
+import tempfile
 import time
 
 import torch
@@ -71,6 +88,7 @@ from distributeddataparallel_tpu_torch.observability import (
     train_step_flops,
     transformer_fwd_flops,
 )
+from distributeddataparallel_tpu_torch.ops import flash_attention
 from distributeddataparallel_tpu_torch.ops.dropout import fold_seed
 from distributeddataparallel_tpu_torch.ops.losses import (
     accuracy,
@@ -82,7 +100,12 @@ from distributeddataparallel_tpu_torch.ops.losses import (
 from distributeddataparallel_tpu_torch.ops.preprocess import normalize_u8_images
 from distributeddataparallel_tpu_torch.parallel.data_parallel import broadcast_params
 from distributeddataparallel_tpu_torch.runtime import distributed as rt
-from distributeddataparallel_tpu_torch.training.checkpoint import Checkpointer
+from distributeddataparallel_tpu_torch.runtime import launcher
+from distributeddataparallel_tpu_torch.training.fault_tolerance import (
+    NonFiniteBreaker,
+    ResilientCheckpointer,
+    StepWatchdog,
+)
 from distributeddataparallel_tpu_torch.training.optim import build_optimizer
 from distributeddataparallel_tpu_torch.training.state import TrainState
 from distributeddataparallel_tpu_torch.training.telemetry import Telemetry
@@ -90,6 +113,13 @@ from distributeddataparallel_tpu_torch.training.train_step import (
     make_eval_step,
     make_train_step,
 )
+from distributeddataparallel_tpu_torch.utils.chaos import (
+    FaultInjector,
+    SimulatedPreemption,
+    check_ported,
+    parse_chaos_spec,
+)
+from distributeddataparallel_tpu_torch.utils.logging import log0, warn_all
 
 
 LM_MODELS = ("gpt2", "llama")
@@ -171,7 +201,42 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="continue at the epoch after the newest checkpoint")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="processes to start, one per device (default 1, in this process)")
+                   help="with --coordinator: the number of hosts.  Otherwise the processes "
+                        "to start on this host, one per device, on a localhost rendezvous "
+                        "(default --fake-devices or 1; 1 runs in this process)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-host rendezvous (TCP store on global rank 0): every host "
+                        "passes the same address and --num-processes, and its own "
+                        "--process-id; each host runs one process per local device")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this host's index in [0, --num-processes) (with --coordinator)")
+    p.add_argument("--fake-devices", type=int, default=0,
+                   help="with --device cpu: CPU ranks on this host (the reference's N-device "
+                        "CPU simulation): the local device count of a --coordinator host, "
+                        "else the processes to start when --num-processes is not given")
+    p.add_argument("--max-restarts", type=int, default=0,
+                   help="supervise the trainer and restart it up to N times on any crash "
+                        "(preemption, watchdog exit, injected chaos), torchrun "
+                        "--max-restarts style.  Requires --checkpoint-dir; each restart "
+                        "resumes from the newest intact checkpoint")
+    p.add_argument("--step-timeout", type=float, default=None,
+                   help="wall-clock deadline in seconds per train step (armed after the "
+                        "first step, which builds the kernels): a wedged step logs a "
+                        "diagnostic, best-effort checkpoints the last completed state and "
+                        "exits 75 instead of hanging; with --max-restarts the supervisor "
+                        "then restarts")
+    p.add_argument("--chaos", default=None, metavar="SPEC",
+                   help="deterministic fault injection for testing the recovery paths "
+                        "(utils.chaos; also via the DDP_CHAOS env var): comma-separated "
+                        "ckpt-io@N[:K] | nan-grad@S | slow-step@S[:SEC] | preempt@S")
+    p.add_argument("--nan-guard", action="store_true",
+                   help="skip-step numerical guard: a step whose gradients contain NaN/Inf "
+                        "applies NO update (params, optimizer state and BatchNorm buffers "
+                        "keep their values) and is counted; --max-bad-steps consecutive bad "
+                        "steps abort the run.  Reads one agreed flag on the host per step")
+    p.add_argument("--max-bad-steps", type=int, default=5,
+                   help="with --nan-guard: consecutive non-finite-gradient steps tolerated "
+                        "before the run aborts as diverged")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the first epoch here "
                         "(legacy whole-epoch capture; --profile-steps supersedes it "
@@ -242,7 +307,41 @@ def parse_args(argv=None):
         p.error("--remat applies to LM models (--model gpt2|llama)")
     if args.resume and not args.checkpoint_dir:
         p.error("--resume needs --checkpoint-dir")
+    _validate_faults(p, args)
     return args
+
+
+def _validate_faults(p, args) -> None:
+    """The fault-tolerance and multi-host flags, as the reference checks
+    them (``dpp.py:654-716``); chaos entries this port cannot inject yet are
+    refused with their ROADMAP item."""
+    if args.fake_devices < 0:
+        p.error("--fake-devices must be >= 0")
+    if args.fake_devices and args.device != "cpu":
+        p.error("--fake-devices requires --device cpu")
+    if args.coordinator:
+        if args.num_processes is None or args.process_id is None:
+            p.error("--coordinator needs --num-processes (hosts) and --process-id")
+        if not 0 <= args.process_id < args.num_processes:
+            p.error(f"--process-id must be in [0, {args.num_processes})")
+    elif args.process_id is not None:
+        p.error("--process-id needs --coordinator")
+    if args.max_restarts < 0:
+        p.error("--max-restarts must be >= 0")
+    if args.max_restarts and not args.checkpoint_dir:
+        # A restart without a checkpoint replays the run from zero: a retry
+        # loop, not fault tolerance.
+        p.error("--max-restarts requires --checkpoint-dir (restarts resume from the last checkpoint)")
+    if args.step_timeout is not None and args.step_timeout <= 0:
+        p.error("--step-timeout must be > 0 seconds")
+    if args.nan_guard and args.max_bad_steps < 1:
+        p.error("--max-bad-steps must be >= 1")
+    for name, spec in (("--chaos", args.chaos), ("DDP_CHAOS", os.environ.get("DDP_CHAOS"))):
+        if spec:
+            try:
+                check_ported(parse_chaos_spec(spec))
+            except (ValueError, NotImplementedError) as e:
+                raise SystemExit(f"{name}: {e}") from None
 
 
 def is_lm(args) -> bool:
@@ -392,14 +491,29 @@ def device_for(args, rank: int = 0) -> torch.device:
     return torch.device("cuda", rank)
 
 
-def run(args, *, rank: int = 0, world_size: int = 1, init_method: str | None = None) -> dict:
-    """Train (and evaluate) on this rank's device; returns the run summary."""
-    device = device_for(args, rank)
-    rt.init_process_group(init_method=init_method, world_size=world_size, rank=rank, device=device)
+def run(args, *, local_rank: int = 0, nprocs: int = 1, store_address: str | None = None,
+        result_file: str | None = None) -> dict:
+    """Train (and evaluate) as local rank ``local_rank`` of ``nprocs`` on
+    this host, on its device; returns the run summary, which global rank 0
+    also writes to ``result_file`` as JSON.  A chaos preemption exits 1
+    without a parting checkpoint, as a real one that sends no SIGTERM
+    (ref ``dpp.py:2966-2980``)."""
+    device = device_for(args, local_rank)
+    rank, world_size = rt.init_process_group(
+        store_address=store_address, world_size=nprocs, rank=local_rank, device=device,
+        coordinator_address=args.coordinator, num_processes=args.num_processes,
+        process_id=args.process_id)
     try:
-        return train(args, build_trainer(args, device, rank, world_size), device, rank, world_size)
+        summary = train(args, build_trainer(args, device, rank, world_size), device, rank, world_size)
+    except SimulatedPreemption as pe:
+        warn_all("%s", pe)
+        raise SystemExit(1) from pe
     finally:
         rt.destroy_process_group()
+    if rank == 0 and result_file:
+        with open(result_file, "w") as fh:
+            json.dump(summary, fh)
+    return summary
 
 
 @dataclasses.dataclass
@@ -410,14 +524,12 @@ class Trainer:
     steps_per_epoch: int
     eval_step: object = None
     eval_loader: DataLoader | None = None
-    checkpointer: Checkpointer | None = None
-    start_epoch: int = 0
 
 
 def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1) -> Trainer:
-    """Model (rank 0's weights on every rank), optimizer, step functions,
-    loaders and checkpointer for these flags, restored from the newest
-    checkpoint with ``--resume``; the process group, if any, is formed."""
+    """Model (rank 0's weights on every rank), optimizer, step functions and
+    loaders for these flags; the process group, if any, is formed.
+    ``train`` restores the newest checkpoint with ``--resume``."""
     lm = is_lm(args)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     dataset = build_dataset(args, train=True)
@@ -448,7 +560,7 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
         step_fn=make_train_step(
             _loss_fn if lm else _image_loss_fn, accum_steps=args.accum_steps,
             bucket_bytes=int(args.bucket_mb * 1024 * 1024) if args.bucket_mb else None,
-            grad_clip=args.grad_clip, buffer_sync=args.buffer_sync,
+            grad_clip=args.grad_clip, buffer_sync=args.buffer_sync, nonfinite_guard=args.nan_guard,
         ),
         loader=loader,
         steps_per_epoch=spe,
@@ -460,10 +572,6 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
             per_replica_batch=args.batch_size, rank=rank, num_replicas=world_size,
             device=device, shuffle=False, seed=args.seed, drop_last=False, with_mask=True,
         )
-    if args.checkpoint_dir:
-        trainer.checkpointer = Checkpointer(args.checkpoint_dir)
-        if args.resume:
-            _, trainer.start_epoch = trainer.checkpointer.restore_latest(trainer.state)
     return trainer
 
 
@@ -499,20 +607,75 @@ def build_telemetry(args, trainer: Trainer, device: torch.device, rank: int,
     return tel
 
 
-def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log):
-    """The epochs: train steps, eval and checkpoint, under telemetry."""
+#: Multi-rank preemption agreement cadence: the flag's all-reduce is a
+#: collective and a host sync, so it runs every k batches, not every batch
+#: (a bounded k-step response to the signal at 1/k the cost).
+PREEMPT_CHECK_EVERY = 8
+
+
+@dataclasses.dataclass
+class Faults:
+    """The loop's fault-tolerance wiring (ref ``dpp.py:1770-1809``,
+    ``:1886-1980``, ``:2271-2309``): the injector, the guard's breaker, the
+    checkpointer, the step watchdog and the SIGTERM flag."""
+    injector: FaultInjector
+    breaker: NonFiniteBreaker | None = None
+    checkpointer: ResilientCheckpointer | None = None
+    watchdog: StepWatchdog | None = None
+    signal: int | None = None  # set by the SIGTERM handler
+
+
+def build_injector(args, rank: int, world_size: int, events=None) -> FaultInjector:
+    """The fault injector of ``--chaos`` or ``DDP_CHAOS``.  Its once-markers
+    live in ``DDP_CHAOS_STATE`` or ``<checkpoint-dir>/.chaos``, one
+    directory per rank when there are several: each rank's injector fires
+    each entry once, as the reference's one process does for all of its
+    devices."""
+    state_dir = os.environ.get("DDP_CHAOS_STATE") or (
+        os.path.join(args.checkpoint_dir, ".chaos") if args.checkpoint_dir else None)
+    if state_dir and world_size > 1:
+        state_dir = os.path.join(state_dir, f"rank{rank}")
+    return FaultInjector(args.chaos or os.environ.get("DDP_CHAOS", ""), state_dir, events=events)
+
+
+def _preempt_agreed(faults: Faults, batch_idx: int, world_size: int) -> bool:
+    """Do ALL ranks agree to stop after this batch?  A SIGTERM can reach
+    the ranks on either side of a batch boundary; acting on the local flag
+    alone would send them into mismatched collectives.  So every rank joins
+    one all-reduce of the flag at the same batch indices, and any signalled
+    rank stops everyone (one rank acts at the next boundary)."""
+    if world_size == 1:
+        return faults.signal is not None
+    if batch_idx % PREEMPT_CHECK_EVERY:
+        return False
+    return rt.any_rank(faults.signal is not None)
+
+
+def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, faults: Faults,
+          start_epoch: int, rank: int, world_size: int):
+    """The epochs: train steps, eval and checkpoint, under telemetry and the
+    fault-tolerance wiring.  Returns early, with the epoch, when a SIGTERM
+    was agreed and its checkpoint saved."""
     state, step_fn, loader, spe = trainer.state, trainer.step_fn, trainer.loader, trainer.steps_per_epoch
     eval_step, eval_loader, model = trainer.eval_step, trainer.eval_loader, trainer.state.model
+    injector, ckpt, watchdog = faults.injector, faults.checkpointer, faults.watchdog
     losses, step_times, eval_batches, evals = [], [], 0, []
-    wall, wall_steps = 0.0, 0
-    for epoch in range(trainer.start_epoch, args.epochs):
+    wall, wall_steps, preempted = 0.0, 0, None
+    for epoch in range(start_epoch, args.epochs):
         loader.set_epoch(epoch)
         ends = []
-        with tel.span("epoch", epoch=epoch), tel.epoch_trace(epoch == trainer.start_epoch):
+        with tel.span("epoch", epoch=epoch), tel.epoch_trace(epoch == start_epoch):
             # islice: the loader gathers no batch past the cap.
             for i, batch in enumerate(itertools.islice(loader, spe)):
+                # Stable across restarts: (epoch, batch)-derived.
                 gstep = epoch * spe + i
                 tel.step_start(gstep)
+                if injector.enabled:
+                    injector.before_step(gstep)  # slow-step / preempt
+                    if rank == 0:
+                        # The reference poisons row 0 of the global batch,
+                        # which is data rank 0's.
+                        batch = injector.corrupt_batch(batch, gstep)
                 t0 = time.perf_counter()
                 with tel.span("step", step=gstep):
                     metrics = step_fn(state, batch, step_seed(args, epoch, i))
@@ -520,12 +683,37 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log):
                 step_times.append(time.perf_counter() - t0)
                 ends.append(time.perf_counter())
                 losses.append(metrics["loss"])
+                if faults.breaker is not None:
+                    bad = metrics["nonfinite_grad"]  # a host float: the step read the flag
+                    if bad:
+                        tel.nan_skip(gstep, epoch, i)
+                    faults.breaker.observe(bad)
                 tel.step_end(gstep)
+                if watchdog is not None:
+                    # Armed after the first step, which builds the kernels.
+                    if watchdog.running:
+                        watchdog.beat(epoch=epoch, batch=i, gstep=gstep)
+                    else:
+                        watchdog.start(epoch=epoch, batch=i, gstep=gstep)
                 if (state.step % args.log_every == 0) or i == spe - 1:
                     log(f"epoch {epoch} step {state.step} loss {float(metrics['loss']):.4f} "
                         f"acc {float(metrics['accuracy']):.4f} {step_times[-1] * 1e3:.1f} ms")
+                if ckpt is not None and _preempt_agreed(faults, i, world_size):
+                    t_ck = time.perf_counter()
+                    with tel.span("ckpt_save", epoch=epoch):
+                        ckpt.save(state, epoch)
+                    tel.add_goodput("checkpoint", time.perf_counter() - t_ck)
+                    # Epoch granularity, as the reference: --resume continues
+                    # at the NEXT epoch and the rest of this one is skipped
+                    # (no batch is ever applied twice).
+                    log(f"preempted: checkpoint saved mid-epoch {epoch}; --resume continues "
+                        f"from epoch {epoch + 1}")
+                    preempted = epoch
+                    break
         # Steps 2.. of the epoch on the wall clock, the loader's time included.
         wall, wall_steps = wall + ends[-1] - ends[0], wall_steps + len(ends) - 1
+        if preempted is not None:
+            break
         if eval_step is not None:
             t_ev = time.perf_counter()
             with tel.span("eval", epoch=epoch):
@@ -538,37 +726,95 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log):
             mean = {k: sum(float(m[k]) * float(n) for m, n in parts) / total for k in parts[0][0]}
             evals.append(mean)
             log(f"epoch {epoch} eval: {mean}")
-        if trainer.checkpointer is not None:
+        if ckpt is not None:
             t_ck = time.perf_counter()
             with tel.span("ckpt_save", epoch=epoch):
-                trainer.checkpointer.save(state, epoch)
+                ckpt.save(state, epoch)
             tel.add_goodput("checkpoint", time.perf_counter() - t_ck)
-        if eval_step is not None or trainer.checkpointer is not None:
+        if eval_step is not None or ckpt is not None:
             tel.reset_window()  # eval and saves stay out of the throughput window
-    return losses, step_times, eval_batches, evals, wall, wall_steps
+    return losses, step_times, eval_batches, evals, wall, wall_steps, preempted
+
+
+def build_faults(args, state: TrainState, tel: Telemetry, rank: int, world_size: int) -> Faults:
+    """The injector, the breaker, the resilient checkpointer and the step
+    watchdog these flags ask for, reporting into ``tel``."""
+    faults = Faults(injector=build_injector(args, rank, world_size, tel.events))
+    if args.nan_guard:
+        faults.breaker = NonFiniteBreaker(args.max_bad_steps)
+    if args.checkpoint_dir:
+        faults.checkpointer = ResilientCheckpointer(
+            args.checkpoint_dir, injector=faults.injector, counters=tel.counters, events=tel.events)
+    if args.step_timeout:
+        ckpt = faults.checkpointer
+
+        def on_wedge(diag: dict) -> None:
+            tel.watchdog_fire(diag)
+            if ckpt is None or rank != 0:
+                return
+            # Best-effort, rank 0's write alone (a collective would wait on
+            # the wedged ranks): the watchdog's grace timer ends the process
+            # even if the save itself wedges.
+            try:
+                ckpt.write(state, int(diag["last_known_state"].get("epoch", 0)))
+            except Exception:  # noqa: BLE001 — the process is exiting
+                warn_all("watchdog: emergency checkpoint failed")
+
+        faults.watchdog = StepWatchdog(args.step_timeout, on_timeout=on_wedge)
+    return faults
+
+
+@contextlib.contextmanager
+def _sigterm_sets(faults: Faults, enabled: bool):
+    """While the loop runs, SIGTERM only sets ``faults.signal``: the loop
+    finishes the step, checkpoints and exits 0 (cloud preemption notices
+    arrive as SIGTERM).  The previous handler is put back afterwards."""
+    def on_term(signum, frame):
+        faults.signal = signum
+        log0("signal %d: will checkpoint at the current epoch and exit", signum)
+
+    prev = None
+    if enabled:
+        try:
+            prev = signal.signal(signal.SIGTERM, on_term)
+        except ValueError:  # not the main thread (library use): no handler
+            enabled = False
+    try:
+        yield
+    finally:
+        if enabled:
+            signal.signal(signal.SIGTERM, prev if prev is not None else signal.SIG_DFL)
 
 
 def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_size: int = 1) -> dict:
-    """Run ``trainer`` for these flags on this rank; returns the run summary."""
+    """Run ``trainer`` for these flags on this rank, from the newest
+    checkpoint with ``--resume``; returns the run summary."""
     log = (lambda *a: print(*a, flush=True)) if rank == 0 else (lambda *a: None)
     state, model = trainer.state, trainer.state.model
-    if trainer.start_epoch >= args.epochs:
-        raise SystemExit(f"the newest checkpoint is of epoch {trainer.start_epoch - 1}: "
-                         f"nothing left to train for --epochs {args.epochs}")
-    if trainer.start_epoch:
-        log(f"resumed at epoch {trainer.start_epoch} (step {state.step})")
-
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     tel = build_telemetry(args, trainer, device, rank, world_size)
-    status = "ok"
+    launches0 = dict(flash_attention.LAUNCHES)
+    status, faults = "ok", None
     try:
-        losses, step_times, eval_batches, evals, wall, wall_steps = _loop(
-            args, trainer, device, tel, log)
+        faults = build_faults(args, state, tel, rank, world_size)
+        start_epoch = 0
+        if args.resume:
+            _, start_epoch = faults.checkpointer.restore_latest(state)
+        if start_epoch >= args.epochs:
+            raise SystemExit(f"the newest checkpoint is of epoch {start_epoch - 1}: "
+                             f"nothing left to train for --epochs {args.epochs}")
+        if start_epoch:
+            log(f"resumed at epoch {start_epoch} (step {state.step})")
+        with _sigterm_sets(faults, enabled=faults.checkpointer is not None):
+            losses, step_times, eval_batches, evals, wall, wall_steps, preempted = _loop(
+                args, trainer, device, tel, log, faults, start_epoch, rank, world_size)
     except BaseException as e:
         status = type(e).__name__
         raise
     finally:
+        if faults is not None and faults.watchdog is not None:
+            faults.watchdog.stop()
         tel.close(status)
 
     losses = [float(x) for x in losses]
@@ -587,7 +833,8 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "world_size": world_size,
         "num_params": sum(p.numel() for p in model.parameters()),
-        "start_epoch": trainer.start_epoch,
+        "start_epoch": start_epoch,
+        "preempted_epoch": preempted,
         "train_steps": len(losses),
         "losses": losses,
         "eval_batches": eval_batches,
@@ -600,36 +847,45 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
         "param_norm": param_norm,
         "throughput_windows": tel.readings,
+        "faults": tel.counters.summary(),
+        # This run's flash-attention kernel launches.
+        "attention_launches": {k: n - launches0[k] for k, n in flash_attention.LAUNCHES.items()},
     }
     log(f"train: {len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
         f"{step_time * 1e3:.1f} ms/step, {summary[rate[0]]:.0f} {rate[0]}")
     return summary
 
 
-def _worker(rank: int, args, world_size: int, init_method: str, results) -> None:
+def _worker(local_rank: int, nprocs: int, store_address: str | None, argv: list[str],
+            result_file: str) -> None:
+    """One rank of this host's gang (``runtime.launcher.spawn``)."""
+    args = parse_args(argv)
     if args.device == "cpu":
         # Share the cores between the ranks instead of oversubscribing them.
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
-    summary = run(args, rank=rank, world_size=world_size, init_method=init_method)
-    if rank == 0:
-        results["summary"] = summary
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // nprocs))
+    run(args, local_rank=local_rank, nprocs=nprocs, store_address=store_address, result_file=result_file)
 
 
-def _spawn(args, n: int) -> dict:
-    """One process per device, each a rank of an n-way group; returns rank
-    0's summary.  ``mp.spawn`` raises if any rank fails and ends the others."""
-    import torch.multiprocessing as mp
-
-    init_method = f"tcp://localhost:{rt.free_port()}"
-    with mp.get_context("spawn").Manager() as manager:
-        results = manager.dict()
-        mp.spawn(_worker, args=(args, n, init_method, results), nprocs=n, join=True)
-        return dict(results["summary"])
+def local_ranks(args) -> int:
+    """The processes this host starts: one per local device with
+    ``--coordinator`` (all visible GPUs, or ``--fake-devices`` CPU ranks),
+    else ``--num-processes`` (default ``--fake-devices`` or 1)."""
+    if args.coordinator:
+        return torch.cuda.device_count() if args.device == "cuda" else args.fake_devices or 1
+    return args.num_processes or args.fake_devices or 1
 
 
-def main(argv=None) -> dict:
+def main(argv=None) -> dict | None:
+    """Run the trainer for ``argv``; returns global rank 0's summary (None
+    on a host of a multi-host job that does not hold rank 0).
+
+    With ``--max-restarts N`` (and not already supervised) the trainer runs
+    under ``runtime.launcher.spawn``'s supervisor with ``--resume`` added to
+    its argv, so every restart continues from the newest intact checkpoint;
+    the budget spent, it raises (ref ``dpp.py:3120-3160``)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    n = args.num_processes or 1
+    n = local_ranks(args)
     if args.device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -638,10 +894,27 @@ def main(argv=None) -> dict:
             )
         if n > torch.cuda.device_count():
             raise RuntimeError(f"--num-processes {n} > {torch.cuda.device_count()} CUDA devices")
-    if n > 1:
-        return _spawn(args, n)
-    return run(args)
+    supervised = args.max_restarts > 0 and not os.environ.get("_DDP_SUPERVISED")
+    if n == 1 and not supervised:
+        return run(args)
+    if supervised and "--resume" not in argv:
+        argv.append("--resume")
+    with tempfile.TemporaryDirectory(prefix="ddp_summary_") as d:
+        result = os.path.join(d, "summary.json")
+        launcher.spawn(
+            _worker, args=(argv, result), nprocs=n,
+            env={"_DDP_SUPERVISED": "1"} if supervised else None,
+            max_restarts=args.max_restarts if supervised else 0,
+            # The supervisor writes the gang timeline and the runs-store
+            # record: only its view spans every incarnation.
+            events_dir=args.events_dir if supervised else None,
+            runs_dir=args.runs_dir if supervised else None,
+        )
+        if not os.path.exists(result):
+            return None
+        with open(result) as fh:
+            return json.load(fh)
 
 
 if __name__ == "__main__":
-    print(json.dumps(main(sys.argv[1:])))
+    print(json.dumps(main()))

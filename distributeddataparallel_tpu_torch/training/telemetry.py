@@ -10,11 +10,20 @@ goodput, run summary and profiler windows, wired as the reference's
   profiler window, the ``steps_total`` counter, the StepTimer and, where
   its window closes, the MFU meter, the memory sampler, the run summary's
   sample and the alert rules, then the periodic metrics snapshot;
+- ``nan_skip(...)`` after a step the non-finite guard skipped, and
+  ``watchdog_fire(diagnostic)`` from the step watchdog's thread: the fault
+  counters and their events, as the reference emits them;
 - ``add_goodput(bucket, seconds)`` and ``reset_window()`` around eval and
   checkpoints; ``close(status)`` at the end, which writes the final
   snapshot, the ``goodput``, ``run_summary`` and ``run_end`` events,
   merges the per-writer files into ``timeline.jsonl`` (rank 0) and appends
-  the run to ``--runs-dir``.
+  the run to ``--runs-dir``.  Under supervision (``_DDP_SUPERVISED``) the
+  launcher does those two after the last incarnation instead, so the merge
+  sees every attempt's events.
+
+The checkpointer (``ckpt_save``, ``ckpt_retry``, ``ckpt_fallback``), the
+fault injector (``chaos_inject``) and the supervisor (``restart_attempt``,
+``restart_exhausted``) write their records into the same event logs.
 
 Nothing here reads a device value per step: the loop already drains the
 device after every step, and the meters run only where the StepTimer's
@@ -182,6 +191,30 @@ class Telemetry:
         log0("throughput: %.0f %s/s (%.1f %s/s/chip)", reading["items_per_s"], self.unit,
              reading["items_per_s_per_chip"], self.unit)
 
+    def nan_skip(self, gstep: int, epoch: int, batch: int) -> None:
+        """A step whose gradients were not finite: its update was skipped."""
+        self.counters.nonfinite_steps += 1
+        if self.events is not None:
+            self.events.emit("nan_skip", step=gstep, epoch=epoch, batch=batch)
+        if self.prof is not None:
+            # The first anomaly grabs a short trace of the steps right after
+            # the blow-up, while it is still happening.
+            self.prof.trigger_anomaly("nan_grad", gstep)
+        warn0("non-finite gradients at epoch %d batch %d: update skipped", epoch, batch)
+
+    def watchdog_fire(self, diag: dict) -> None:
+        """The step watchdog fired (its thread; the process exits next)."""
+        self.counters.watchdog_fires += 1
+        last = diag.get("last_known_state") or {}
+        if self.events is not None:
+            self.events.emit("watchdog_fire", seconds_since_heartbeat=diag.get("seconds_since_heartbeat"),
+                             last_known_state=last)
+            self.events.flush()
+        if self.prof is not None:
+            # immediate: the loop is wedged, there may never be another
+            # step to close a windowed capture on.
+            self.prof.trigger_anomaly("watchdog", int(last.get("gstep", 0)), immediate=True)
+
     def add_goodput(self, bucket: str, seconds: float) -> None:
         if self.goodput is not None:
             self.goodput.add(bucket, seconds)
@@ -194,6 +227,7 @@ class Telemetry:
         """End of run, whatever the exit path: final snapshot, goodput, run
         summary, ``run_end``, the merged timeline and the runs store."""
         args = self.args
+        supervised = bool(os.environ.get("_DDP_SUPERVISED"))
         if self.prof is not None:
             self.prof.close(sync=self.sync)
         if self.registry is not None:
@@ -217,7 +251,9 @@ class Telemetry:
                 # Every rank's file is closed before the merge.  Not after a
                 # failure: the other ranks may never reach the barrier.
                 dist.barrier()
-            if self.rank == 0:
+            if self.rank == 0 and not supervised:
                 merge_timeline(args.events_dir)
-        if self.run_summary is not None and args.runs_dir and self.rank == 0:
+        if self.run_summary is not None and args.runs_dir and self.rank == 0 and not supervised:
             append_run(args.runs_dir, self.run_summary, source="trainer")
+        if self.counters.total:
+            log0("fault summary: %s", self.counters.summary())

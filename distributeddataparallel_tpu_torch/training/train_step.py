@@ -19,6 +19,19 @@ replica (one process per device):
 The reported metrics (loss and the loss_fn's aux values) are averaged over
 the microbatches and over ranks.
 
+``nonfinite_guard=True`` adds the reference's numerical fault guard: after
+the backward (after the last microbatch under ``accum_steps``) the step
+computes one "all gradients finite" flag on the device and agrees on it
+across ranks with one ``all_reduce(MIN)``, before any gradient enters the
+gradient all-reduce, so a NaN never reaches the wire.  A bad step discards
+the whole update: no gradient sync, no optimizer step (torch's per-parameter
+``step`` and moments keep their values), no schedule step (optax's count is
+part of the discarded state), the BatchNorm running buffers restored from a
+snapshot taken before the forward, and no buffer sync.  Only ``state.step``
+advances.  The step reports ``metrics["nonfinite_grad"]`` (0.0 or 1.0);
+``training.fault_tolerance.NonFiniteBreaker`` turns a run of them into a
+hard stop.
+
 ``step(state, batch, seed)`` with an integer ``seed`` (the trainer's per-step
 seed, a function of the run's seed, the epoch and the step) calls
 ``loss_fn(model, microbatch, seed=...)`` with the seed folded with this
@@ -86,6 +99,15 @@ def sync_buffers(buffers: list[torch.Tensor], mode: str) -> None:
         offset += b.numel()
 
 
+def _all_finite(grads: list[torch.Tensor]) -> torch.Tensor:
+    """1.0 if every element of every gradient is finite, else 0.0: an f32
+    tensor on the gradients' device, from GradScaler's multi-tensor check
+    (its unscale by 1.0 leaves the gradients untouched)."""
+    found = torch.zeros(1, device=grads[0].device)
+    torch._amp_foreach_non_finite_check_and_unscale_(grads, found, torch.ones_like(found))
+    return 1.0 - found
+
+
 def _split(batch: dict, n: int) -> list[dict]:
     for k, v in batch.items():
         if v.shape[0] % n:
@@ -108,6 +130,7 @@ def make_train_step(
     overlap: bool = False,
     zero: bool | int = False,
     grad_compress: str | None = None,
+    nonfinite_guard: bool = False,
 ):
     """Build ``step(state, batch) -> metrics`` for plain data parallelism.
 
@@ -136,6 +159,11 @@ def make_train_step(
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
+        if nonfinite_guard:
+            # The forward updates the BatchNorm running buffers; a skipped
+            # step puts them back.
+            buffers = model_buffers(model)
+            saved = [b.detach().clone() for b in buffers]
         micro = [batch] if accum_steps == 1 else _split(batch, accum_steps)
         totals: dict[str, torch.Tensor] = {}
         for i, mb in enumerate(micro):
@@ -154,6 +182,21 @@ def make_train_step(
             for g in grads:
                 g.mul_(inv)
             totals = {k: v * inv for k, v in totals.items()}
+        if nonfinite_guard:
+            finite = _all_finite(grads)
+            if dist.is_initialized():
+                dist.all_reduce(finite, op=dist.ReduceOp.MIN)
+            # The host reads the agreed flag to branch.  The loop already
+            # synchronises after every step, so this adds no sync point; it
+            # moves the step's wait to before the update is enqueued, which
+            # leaves that enqueue on the critical path (chip_smoke.py phase
+            # 9 measures the cost).
+            if not bool(finite):
+                with torch.no_grad():
+                    for b, old in zip(buffers, saved):
+                        b.copy_(old)
+                state.step += 1
+                return {**_mean_over_ranks(totals), "nonfinite_grad": 1.0}
         all_reduce_gradients(grads, bucket_bytes=bucket_bytes)
         if grad_clip is not None:
             # Grads are complete per rank after the sync, so the local norm
@@ -164,7 +207,10 @@ def make_train_step(
         state.apply_gradients()
         if get_world_size() > 1:  # one rank's buffers are already its own
             sync_buffers(model_buffers(model), buffer_sync)
-        return _mean_over_ranks(totals)
+        metrics = _mean_over_ranks(totals)
+        if nonfinite_guard:
+            metrics["nonfinite_grad"] = 0.0
+        return metrics
 
     return step
 

@@ -7,9 +7,12 @@
   sampler, the augmentation draws and the optimizer state are functions of
   what the checkpoint holds, and the CPU kernels are deterministic).
 - A checkpoint written by two ranks resumes in one process.
-- ``max_to_keep`` prunes the oldest checkpoints.
-- A save that fails midway leaves no file under a checkpoint's name, and a
-  checkpoint is renamed into place only once complete.
+- ``max_to_keep`` prunes the oldest checkpoints, with their hash sidecars.
+- A save that fails midway leaves no file under a checkpoint's name (nor
+  its hash sidecar), and a checkpoint is renamed into place only once
+  complete, after its sidecar.
+
+All through the trainer's one checkpointer, ``ResilientCheckpointer``.
 """
 
 import os
@@ -21,6 +24,7 @@ import torch
 from distributeddataparallel_tpu_torch import dpp
 from distributeddataparallel_tpu_torch.models.simple_cnn import TinyMLP
 from distributeddataparallel_tpu_torch.training import checkpoint as ck
+from distributeddataparallel_tpu_torch.training import fault_tolerance as ft
 from distributeddataparallel_tpu_torch.training.state import TrainState
 
 FLAGS = ["--device", "cpu", "--model", "resnet18", "--num-examples", "24", "--batch-size", "8",
@@ -56,7 +60,7 @@ def _state():
 
 
 def test_max_to_keep_prunes_and_restore_takes_the_newest(tmp_path):
-    ckpt = ck.Checkpointer(str(tmp_path), max_to_keep=2)
+    ckpt = ft.ResilientCheckpointer(str(tmp_path), max_to_keep=2)
     state = _state()
     assert ckpt.latest_step() is None
     assert ckpt.restore_latest(state) == (state, 0)
@@ -66,15 +70,16 @@ def test_max_to_keep_prunes_and_restore_takes_the_newest(tmp_path):
             state.model.fc.bias.fill_(float(epoch))
         ckpt.save(state, epoch)
     assert ckpt.all_steps() == [2, 3]
-    assert sorted(os.listdir(tmp_path)) == ["epoch_2.pt", "epoch_3.pt"]
+    assert sorted(os.listdir(tmp_path)) == ["epoch_2.pt", "epoch_3.pt", "hash_2.json", "hash_3.json"]
     fresh = _state()
-    _, next_epoch = ck.Checkpointer(str(tmp_path)).restore_latest(fresh)
+    _, next_epoch = ft.ResilientCheckpointer(str(tmp_path)).restore_latest(fresh)
     assert next_epoch == 4 and fresh.step == 30
     np.testing.assert_array_equal(fresh.model.fc.bias.detach().numpy(), [3.0, 3.0])
 
 
 def test_no_partial_checkpoint_is_ever_visible(tmp_path, monkeypatch):
-    ckpt = ck.Checkpointer(str(tmp_path))
+    monkeypatch.setattr(ft.time, "sleep", lambda s: None)  # the retries' backoff
+    ckpt = ft.ResilientCheckpointer(str(tmp_path))
     real_save = torch.save
     seen = []
 
@@ -84,8 +89,9 @@ def test_no_partial_checkpoint_is_ever_visible(tmp_path, monkeypatch):
         raise OSError("disk full")
 
     monkeypatch.setattr(ck.torch, "save", failing_save)
-    with pytest.raises(OSError, match="disk full"):
+    with pytest.raises(ft.CheckpointUnrecoverable, match="after 4 attempts") as failed:
         ckpt.save(_state(), 0)
+    assert isinstance(failed.value.__cause__, OSError) and "disk full" in str(failed.value.__cause__)
     assert os.listdir(tmp_path) == [] and ckpt.latest_step() is None
 
     def watched_save(obj, path):
@@ -94,7 +100,8 @@ def test_no_partial_checkpoint_is_ever_visible(tmp_path, monkeypatch):
 
     monkeypatch.setattr(ck.torch, "save", watched_save)
     ckpt.save(_state(), 0)
-    assert seen == [[".epoch_0.pt.tmp"]] and os.listdir(tmp_path) == ["epoch_0.pt"]
+    assert seen == [[".epoch_0.pt.tmp", "hash_0.json"]]
+    assert sorted(os.listdir(tmp_path)) == ["epoch_0.pt", "hash_0.json"]
 
 
 def test_resume_with_another_number_of_processes(tmp_path):
@@ -103,7 +110,7 @@ def test_resume_with_another_number_of_processes(tmp_path):
     flags = ["--device", "cpu", "--model", "cnn", "--num-examples", "32", "--batch-size", "4",
              "--checkpoint-dir", str(tmp_path), "--log-every", "1000"]
     two = dpp.main(flags + ["--epochs", "1", "--num-processes", "2"])
-    assert two["world_size"] == 2 and os.listdir(tmp_path) == ["epoch_0.pt"]
+    assert two["world_size"] == 2 and sorted(os.listdir(tmp_path)) == ["epoch_0.pt", "hash_0.json"]
     one = dpp.main(flags + ["--epochs", "2", "--resume"])
     assert one["world_size"] == 1 and one["start_epoch"] == 1 and one["train_steps"] == 8
     assert all(np.isfinite(one["losses"]))

@@ -136,9 +136,10 @@ def test_one_rank_steps_match_jax(kind):
 TWO_RANK_CASES = [("cnn", "mean"), ("resnet", "mean"), ("resnet", "broadcast")]
 
 
-def _rank_worker(rank, world, init_method, out_dir):
+def _rank_worker(rank, world, coordinator, out_dir):
     torch.set_num_threads(1)
-    rt.init_process_group(init_method=init_method, world_size=world, rank=rank, device="cpu")
+    rt.init_process_group(coordinator_address=coordinator, num_processes=1, process_id=0, world_size=world,
+                          rank=rank, device="cpu")
     try:
         res = {case: _torch_steps(*case, rank, world) for case in TWO_RANK_CASES}
     finally:
@@ -153,7 +154,7 @@ def two_ranks(tmp_path_factory):
     import torch.multiprocessing as mp
 
     out = tmp_path_factory.mktemp("two_ranks")
-    mp.spawn(_rank_worker, args=(2, f"tcp://localhost:{rt.free_port()}", str(out)), nprocs=2, join=True)
+    mp.spawn(_rank_worker, args=(2, f"127.0.0.1:{rt.free_port()}", str(out)), nprocs=2, join=True)
     return [torch.load(out / f"rank{r}.pt", weights_only=True) for r in range(2)]
 
 

@@ -73,4 +73,6 @@ def test_importing_every_port_module_loads_no_jax_package_module():
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(res["imported"]) >= 15
+    assert {f"distributeddataparallel_tpu_torch.{m}" for m in (
+        "utils.chaos", "training.fault_tolerance", "runtime.launcher")} <= set(res["imported"])
     assert res["jax_package_modules"] == []
