@@ -87,16 +87,44 @@ Phases (any failure exits non-zero; nothing is caught):
       next incarnation's first step;
    e. ``--coordinator 127.0.0.1:PORT --num-processes 1 --process-id 0`` on
       NCCL: 2 steps whose losses equal phase 4's first two.
+10. the serving path:
+   a. ``dpp.main`` on phase 4's GPT-2 for 2 steps with ``--generate 64``,
+      then again with ``--decode-quant int8``: every generated token's
+      logit within ``TF_ATOL`` of its position's maximum by a plain full
+      f32 forward of the checkpointed weights (dequantized int8 weights for
+      the second; the first also by the decode twin's own prefill), and
+      K1-K3 launched by the training steps only;
+   b. ``serve.py`` at GPT-2 124M full width (``max_seq_len`` 1024, bf16) on
+      the wall clock, plain, with the fast path (prefix cache, ``--spec-k
+      3``, Zipf prefixes) and with int8 KV and weights: every request
+      completes, the events validate against the port's schema, 4 requests
+      of each run pass the teacher-forced check against the bf16 forward
+      through K1, the fast path's outputs equal a plain engine's on every
+      8th of its prompts (up to a tie of the forward's logits), the
+      engine launches no flash kernel; then a ``torch.profiler`` trace of
+      10 decode steps with every slot busy (the device's idle share);
+   c. the engine API at Llama-3 8B's full width and all 32 layers (bf16
+      cast once from the f32 init, ``max_seq_len`` cut to 2048): both
+      paths in f32 on the first prompt within ``LLAMA_F32_ATOL``; the
+      burst's first 8 requests through an f32 engine of the same pool
+      geometry, each continuation teacher-forced against the f32 decode
+      twin's own prefill; then the burst of 16 requests in bf16, all
+      completed, 2 of them teacher-forced against the bf16 forward through
+      K1 and against the bf16 decode twin's own prefill.
 
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
 ``llama_path`` line (phase 7), one ``reference_workload`` line (phase 8),
-one ``fault_path`` line (phase 9), one ``{"kernels": [...]}`` JSON line,
+one ``fault_path`` line (phase 9), one ``serving_path`` line (phase 10,
+each run's TTFT p50/p99, tokens/s, per-token latency, decode-step ms,
+preemptions, evictions, prefix hits, acceptance, pool bytes against the
+allocator's peak, peak memory), one ``{"kernels": [...]}`` JSON line,
 the card's name and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -250,6 +278,69 @@ REPLAY_ATOL = 1e-3
 # 9e: the same program as phase 4, one NCCL rank either way: its first two
 # losses to f32 rounding of a reordered sum at most.
 COORDINATOR_ATOL = 1e-6
+
+# Phase 10: the serving path.  10a: phase 4's GPT-2 trained 2 steps, then
+# --generate 64 (dense f32, then int8 weights); its checkpoint gives the
+# trained weights to the teacher-forced check.
+GEN_ARGS = [a for a in MAIN_ARGS if a != "--eval"]
+GEN_ARGS[GEN_ARGS.index("--steps-per-epoch") + 1] = "2"
+GEN_ARGS += ["--generate", "64", "--checkpoint-dir", "{ckpt}"]
+# 10b: the serving CLI at GPT-2 124M's full width and max_seq_len (bf16 on
+# the f32 init, as the reference's CLI), on the wall clock.
+SERVE_ARGS = [
+    "--model", "gpt2_124m", "--seq-len", "1024", "--slots", "16", "--blocks", "640", "--block-size", "16",
+    "--chunk", "128", "--rate", "16", "--duration", "8", "--prompt-len", "64,768", "--output-len", "32,192",
+    "--seed", "0", "--events-dir", "{events}",
+]
+SERVE_RUNS = {
+    "plain": [],
+    "fast_path": ["--prefix-cache", "--spec-k", "3", "--prefix-pool", "8", "--prefix-len", "256"],
+    "int8": ["--quantize-kv", "--quantize-weights"],
+}
+# The fast path's outputs against a plain engine's on the same prompts: every
+# FAST_SUBSET-th request of its trace (greedy outputs depend on the prompt
+# and budget only, not on the schedule).
+FAST_SUBSET = 8
+# 10b's idle share: decode steps profiled with every slot of 10b's engine
+# busy (64-token prompts, budgets of 128 keep them running).
+PROFILE_DECODE = dict(steps=10, prompt=64, new=128)
+# 10c: Llama-3 8B at full width and all 32 layers, bf16 cast once from the
+# port's f32 init; max_seq_len cut from 8192 to 2048 (the engine gathers
+# every slot's whole cache each step); a burst of 16 requests.
+SERVE_LLAMA = dict(max_seq_len=2048, num_slots=8, block_size=16, num_blocks=1040, chunk=256,
+                   requests=16, prompt_len=(512, 1024), output_len=64, seed=0)
+# The teacher-forced check: every generated token's logit within an atol of
+# the maximum logit at its position, by a full forward over prompt +
+# continuation.  If a path's logits are within d of the forward's, the
+# token it picks (its own argmax) is at most 2d below the forward's max, so
+# atol = 2d says "the token is an argmax up to the two paths' rounding", and
+# stays true when cuBLAS picks other kernels for other shapes.
+# - f32 (10a, GPT-2): the same f32 products summed in other orders, d ~1e-6
+#   on logits of |logit| < 3; atol 1e-3, far below the ~0.1 typical gap
+#   between the top two logits.
+# - bf16, GPT-2 (10b, 12 layers): the decode twin's plain attention against
+#   K1's tiled forward rounds hidden states an ulp (2^-8) apart here and
+#   there, d up to ~2^-8 * 8 = 0.03 on logits of |logit| < 8: atol 0.0625.
+# - bf16, Llama-3 8B (10c, 32 layers of random weights): those ulps grow
+#   through depth; on an H100 the two paths' logits differ by 0.44-0.55 on
+#   these requests (``decode_vs_forward_max_abs``, printed every run), so
+#   atol = 2 x 0.625 = 1.25.  The bf16 engine's continuations are held to
+#   the bf16 decode twin's own prefill by the same bound: the engine's
+#   decode GEMMs run at M = 8 rows and its prefill in chunks of 256, the
+#   twin's at M = the whole sequence, so cuBLAS sums in other orders and
+#   the same ulps grow through the 32 layers.
+# - f32, Llama-3 8B (10c's f32 engine): 1.25 is loose against the ~0.26
+#   typical top-2 gap of 128256 logits, so the engine is also held in f32,
+#   where the two paths' logits are within d = LLAMA_F32_ATOL: atol 2d.
+TF_ATOL = {"float32": 1e-3, "bfloat16": 6.25e-2, "bfloat16_llama": 1.25, "float32_llama": 2e-2}
+# 10c's f32 cross-check on the same random weights, both paths computing in
+# f32 (K1 in 3xTF32, the decode twin's plain attention), 32 layers: the bf16
+# distance scaled by the ratio of the unit roundoffs (2^-24 / 2^-8) is
+# ~1e-5 (an H100 gives 2.4e-4); 1e-2 leaves a wide margin and is still ~50x
+# below the bf16 distance, so passing it says that distance is rounding, not
+# a different function.
+LLAMA_F32_ATOL = 1e-2
+DEVICE = "cuda"  # phase 10's device
 
 KERNELS = [
     # name, replaces, matmuls per visible (q, k) pair
@@ -1247,6 +1338,377 @@ def fault_path_phase(torch, dpp, phase4_losses, smi) -> dict:
     return out
 
 
+def forward_twin(torch, dm, qparams=None, dtype=None):
+    """A non-decode TransformerLM on ``dm``'s weights (no copy; the int8
+    tree's, dequantized, under ``qparams``), computing in ``dtype`` (default
+    ``dm``'s): the full forward the teacher-forced check reads, through K1
+    on the card."""
+    from distributeddataparallel_tpu_torch.models import io as tio
+    from distributeddataparallel_tpu_torch.models import transformer as tfm
+    from distributeddataparallel_tpu_torch.ops.quant import dequantize
+
+    cfg = dataclasses.replace(dm.cfg, decode=False, quant_serving=False, remat=False,
+                              dtype=dtype or dm.cfg.dtype)
+    if qparams is None:
+        sd = {k: p for k, p in dm.named_parameters()}
+    else:
+        sd = {}
+        for i in range(cfg.num_layers):
+            sd.update({f"layers.{i}.{k}": v for k, v in tio.layer_weights(qparams, i, cfg).items()})
+        top = tio.top_weights(qparams, cfg)
+        sd.update({f"final_norm.{k}": v for k, v in top["final_norm"].items()})
+        sd["token_embed.weight"] = dequantize(qparams["token_embed"]["embedding"], cfg.dtype)
+        if cfg.positional == "learned":
+            sd["pos_embed"] = dequantize(qparams["pos_embed"], cfg.dtype)
+        if not cfg.tie_embeddings:
+            sd["lm_head.weight"] = top["head"]
+    fwd = tfm.TransformerLM(cfg, device="meta")
+    fwd.load_state_dict(sd, assign=True)
+    if cfg.positional == "rope":
+        fwd.rope_cos, fwd.rope_sin = dm.rope_cos, dm.rope_sin
+    return fwd.eval().requires_grad_(False)
+
+
+def twin_prefill(torch, decode_dm, tokens):
+    """The decode twin's logits of one prefill over ``tokens`` (B, S) into
+    a fresh dense cache: the decode path without the engine's pool."""
+    from distributeddataparallel_tpu_torch.models.generate import init_cache
+
+    tokens = torch.as_tensor(tokens, device=DEVICE).long()
+    with torch.no_grad():
+        return decode_dm(tokens, positions=torch.arange(tokens.shape[1], device=DEVICE),
+                         cache=init_cache(decode_dm, tokens.shape[0])).float()
+
+
+def hold_margins(torch, logits, tokens, n_prompt: int, atol: float, what: str) -> dict:
+    """Every generated token's logit within ``atol`` of its position's
+    maximum under ``logits`` (B, S - 1, V) of prompt + continuation."""
+    rows = logits[:, n_prompt - 1:]  # the rows that chose tokens[:, n_prompt:]
+    chosen = rows.gather(-1, tokens[:, n_prompt:, None])[..., 0]
+    margin = rows.max(dim=-1).values - chosen
+    out = {"tokens_checked": int(margin.numel()), "max_margin": float(margin.max()),
+           "margins_over_1e-3": int((margin > 1e-3).sum()), "atol": atol}
+    if not out["max_margin"] <= atol:
+        bad = torch.nonzero(margin > atol)[0].tolist()
+        raise AssertionError(f"{what}: token at {bad} is {out['max_margin']:.3e} below its row's max "
+                             f"(atol {atol}); {out}")
+    return out
+
+
+def teacher_forced(torch, fwd, tokens, n_prompt: int, atol: float, what: str, decode_dm=None) -> dict:
+    """[10] Every generated token's logit within ``atol`` of its position's
+    maximum, by ``fwd``'s full forward over prompt + continuation (B, S);
+    with ``decode_dm``, also by the decode twin's own prefill (``twin``),
+    and the distance of the two paths' logits."""
+    tokens = torch.as_tensor(tokens, device=DEVICE).long()
+    with torch.no_grad():
+        full = fwd(tokens[:, :-1]).float()
+    out = hold_margins(torch, full, tokens, n_prompt, atol, what)
+    if decode_dm is not None:
+        got = twin_prefill(torch, decode_dm, tokens[:, :-1])
+        out["decode_vs_forward_max_abs"] = float((got - full).abs().max())
+        out["twin"] = hold_margins(torch, got, tokens, n_prompt, atol, f"{what} (decode twin)")
+    return out
+
+
+def generate_phase(torch, dpp, fa, smi) -> dict:
+    """[10a] Phase 4's GPT-2, 2 steps, then --generate 64, dense and with
+    int8 weights; each continuation held to the plain full f32 forward of
+    the trained weights (from the run's checkpoint)."""
+    from distributeddataparallel_tpu_torch.models import transformer as tfm
+    from distributeddataparallel_tpu_torch.models.generate import decode_model, quantize_model
+    from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles
+
+    out = {}
+    for name, extra in (("f32", []), ("int8", ["--decode-quant", "int8"])):
+        with tempfile.TemporaryDirectory(prefix="gen_10a_") as d:
+            args = [a.replace("{ckpt}", d) for a in GEN_ARGS] + extra
+            log(f"    10a {name}: dpp.main " + " ".join(args))
+            fa.reset_launches()
+            summary = dpp.main(args)
+            torch.cuda.synchronize()
+            launches = dict(fa.LAUNCHES)
+            expect_launches(summary, f"10a {name}")
+            gen = summary["generate"]
+            cfg = dpp.build_config(dpp.parse_args(args))
+            model = tfm.TransformerLM(dataclasses.replace(cfg, attn_impl="plain"), device=DEVICE)
+            model.load_state_dict(CheckpointFiles(d).read(0)["model"])
+        if name == "int8":
+            qparams = quantize_model(model)
+            fwd = forward_twin(torch, decode_model(model, quant_serving=True), qparams)
+            decode_dm = None
+        else:
+            fwd, decode_dm = model, decode_model(model)
+        n_prompt = len(gen["prompt"][0])
+        check = teacher_forced(torch, fwd, gen["tokens"], n_prompt, TF_ATOL["float32"], f"10a {name}", decode_dm)
+        out[name] = {"prompt_tokens": n_prompt, "new_tokens": len(gen["tokens"][0]) - n_prompt,
+                     "prefill_ms": gen["prefill_ms"], "decode_ms_per_token": gen["decode_ms_per_token"],
+                     "losses": summary["losses"], "teacher_forced": check, "attention_launches": launches}
+        log(f"    10a {name}: prefill {gen['prefill_ms']:.2f} ms ({n_prompt} tokens x 2 rows), decode "
+            f"{gen['decode_ms_per_token']:.3f} ms a token, teacher-forced {check} on {smi}")
+        del model, fwd, decode_dm
+    return out
+
+
+def profile_decode(torch, model, config, smi) -> dict:
+    """[10b] Device idle share of the engine's decode step with every slot
+    busy, from a ``torch.profiler`` trace (as ``profile_step`` reads one)."""
+    from collections import defaultdict
+
+    import numpy as np
+
+    from distributeddataparallel_tpu_torch.profile_step import _group
+    from distributeddataparallel_tpu_torch.serving import InferenceEngine
+
+    engine = InferenceEngine(model, config)
+    rng = np.random.default_rng(1)
+    slots, p = config.num_slots, PROFILE_DECODE
+    for _ in range(slots):
+        engine.submit(rng.integers(0, model.cfg.vocab_size, p["prompt"], dtype=np.int32), p["new"])
+    while len(engine.scheduler.running) < slots:
+        engine.step()
+    for _ in range(3):  # warm
+        engine.step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(p["steps"]):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    host_names = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    per_kernel: dict = defaultdict(float)
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host_names:
+            per_kernel[e.key] += float(e.self_device_time_total)
+    n = p["steps"]
+    busy_ms = sum(per_kernel.values()) / 1e3 / n
+    groups: dict = defaultdict(float)
+    for k, us in per_kernel.items():
+        groups[_group(k)] += us / 1e3 / n
+    out = {"steps": n, "slots_busy": slots, "wall_ms_per_step": wall * 1e3 / n, "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": (1.0 - busy_ms / (wall * 1e3 / n)) if busy_ms else None,
+           "kernels_per_step": sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                                   and e.key not in host_names) / n,
+           "device_ms_per_step_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+    log(f"    decode step profile ({slots} slots busy): {out} on {smi}")
+    return out
+
+
+def serve_phase(torch, fa, smi) -> dict:
+    """[10b] The serving CLI's three runs at GPT-2 124M full width on the
+    wall clock: every request completes, the events validate, 4 requests of
+    each run pass the teacher-forced check, and the fast path's outputs
+    equal a plain engine's on the same prompts (up to a tie of the
+    forward's logits, after which they may part)."""
+    from distributeddataparallel_tpu_torch import serve
+
+    out = {}
+    model = None
+    for name, extra in SERVE_RUNS.items():
+        with tempfile.TemporaryDirectory(prefix="serve_10b_") as d:
+            argv = [a.replace("{events}", d) for a in SERVE_ARGS] + extra
+            log(f"    10b {name}: python -m distributeddataparallel_tpu_torch.serve " + " ".join(argv))
+            args = serve.parse_args(argv)
+            model = model if model is not None else serve.build_model(args)
+            fa.reset_launches()
+            summary, engine, trace = serve.serve(args, model)
+            torch.cuda.synchronize()
+            launches = dict(fa.LAUNCHES)
+            problems = serve.timeline_problems(d, ("request_admit", "prefill_chunk", "decode_step",
+                                                    "request_done"), f"10b {name}")
+        if summary["completed"] != len(trace) or problems:
+            raise AssertionError(f"10b {name}: {summary['completed']}/{len(trace)} completed; {problems}")
+        if any(launches.values()):
+            raise AssertionError(f"10b {name}: the engine launched the flash kernels {launches}")
+        fwd = forward_twin(torch, engine._dm, engine.qparams)
+        rids = sorted(engine.completed)[:: max(len(engine.completed) // 4, 1)][:4]
+        checks = [teacher_forced(torch, fwd, engine.output_tokens(r)[None], engine.completed[r].prompt_len,
+                                 TF_ATOL["bfloat16"], f"10b {name} request {r}") for r in rids]
+        bytes_per_block = summary["kv_pool_bytes"] / args.blocks
+        entry = {k: summary.get(k) for k in (
+            "requests", "completed", "tokens_out", "elapsed_s", "serve_tok_s", "serve_p50_ttft_s",
+            "serve_p99_ttft_s", "mean_tok_latency_s", "decode_step_ms", "steps", "preemptions", "evictions",
+            "prefix_hit_frac", "prefill_flops_avoided_frac", "cow_copies", "spec_accept_mean")}
+        entry.update(kv_pool_bytes=summary["kv_pool_bytes"], peak_live_blocks=summary["peak_live_blocks"],
+                     peak_live_bytes=summary["peak_live_blocks"] * bytes_per_block,
+                     teacher_forced_max_margin=max(c["max_margin"] for c in checks),
+                     teacher_forced_tokens=sum(c["tokens_checked"] for c in checks), attention_launches=launches)
+        if name == "fast_path":
+            entry["vs_plain"] = fast_vs_plain(torch, model, engine, trace, fwd)
+        out[name] = entry
+        log(f"    10b {name}: {entry} on {smi}")
+        del engine, fwd
+    out["decode_profile"] = profile_decode(torch, model, serve.engine_config(serve.parse_args(
+        [a.replace("{events}", "") for a in SERVE_ARGS])), smi)
+    return out
+
+
+def fast_vs_plain(torch, model, fast, trace, fwd) -> dict:
+    """[10b] The fast path's continuations against a plain engine's on every
+    FAST_SUBSET-th prompt of its trace (same slots and pool)."""
+    import numpy as np
+
+    from distributeddataparallel_tpu_torch.serving import EngineConfig, InferenceEngine, VirtualClock
+
+    c = fast.config
+    clock = VirtualClock(0.01)
+    plain = InferenceEngine(model, EngineConfig(num_slots=c.num_slots, num_blocks=c.num_blocks,
+                                                block_size=c.block_size, prefill_chunk=c.prefill_chunk),
+                            time_fn=clock)
+    picked = list(range(0, len(trace), FAST_SUBSET))
+    for i in picked:
+        plain.submit(trace[i]["prompt"], trace[i]["max_new_tokens"])
+    plain.run()
+    equal, tie_parted = 0, []
+    for j, i in enumerate(picked):
+        a, b = fast.output_tokens(i), plain.output_tokens(j)
+        if np.array_equal(a, b):
+            equal += 1
+            continue
+        t = int(np.nonzero(a != b)[0][0])
+        with torch.no_grad():
+            row = fwd(torch.as_tensor(a[None, :t], device=DEVICE).long())[0, -1].float()
+        gap = float(row.max() - min(row[int(a[t])], row[int(b[t])]))
+        if not gap <= TF_ATOL["bfloat16"]:
+            raise AssertionError(f"10b fast path: request {i} parts from the plain engine at {t} where the "
+                                 f"forward's logits are {gap:.3e} apart (not a tie)")
+        tie_parted.append({"request": i, "position": t, "gap": gap})
+    return {"compared": len(picked), "equal": equal, "parted_at_a_tie": tie_parted}
+
+
+def llama_f32_engine(torch, f32, f32_twin, trace) -> dict:
+    """[10c] The engine in f32 at Llama-3 8B's full depth on SERVE_LLAMA's
+    pool geometry, every slot busy: each continuation held to the f32
+    decode twin's own prefill over prompt + continuation within
+    ``TF_ATOL["float32_llama"]``, which a slot reading wrong KV would miss
+    by far more."""
+    from distributeddataparallel_tpu_torch.serving import EngineConfig, InferenceEngine, run_load
+
+    c = SERVE_LLAMA
+    engine = InferenceEngine(f32, EngineConfig(num_slots=c["num_slots"], num_blocks=c["num_blocks"],
+                                               block_size=c["block_size"], prefill_chunk=c["chunk"]))
+    summary = run_load(engine, trace)
+    if summary["completed"] != len(trace):
+        raise AssertionError(f"10c f32 engine: {summary['completed']}/{len(trace)} completed")
+    checks = []
+    for r in sorted(engine.completed):
+        tokens = torch.as_tensor(engine.output_tokens(r)[None], device=DEVICE).long()
+        checks.append(hold_margins(torch, twin_prefill(torch, f32_twin, tokens[:, :-1]), tokens,
+                                   engine.completed[r].prompt_len, TF_ATOL["float32_llama"],
+                                   f"10c f32 engine request {r}"))
+    step_ms = engine.decode_step_ms()
+    del engine
+    torch.cuda.empty_cache()
+    return {"requests": len(trace), "decode_step_ms": step_ms,
+            "tokens_checked": sum(k["tokens_checked"] for k in checks),
+            "max_margin": max(k["max_margin"] for k in checks),
+            "margins_over_1e-3": sum(k["margins_over_1e-3"] for k in checks), "atol": TF_ATOL["float32_llama"]}
+
+
+def llama_serve_phase(torch, fa, smi) -> dict:
+    """[10c] Llama-3 8B at full width and depth through the engine API: the
+    engine in f32 on the burst's first 8 requests, then a burst of 16 in
+    bf16; 2 of them held to the bf16 forward through K1 and to the bf16
+    decode twin's own prefill."""
+    import gc
+
+    import numpy as np
+
+    from distributeddataparallel_tpu_torch.models import transformer as tfm
+    from distributeddataparallel_tpu_torch.models.generate import decode_model
+    from distributeddataparallel_tpu_torch.serving import EngineConfig, InferenceEngine, run_load
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = SERVE_LLAMA
+    cfg = tfm.llama3_8b(max_seq_len=c["max_seq_len"])
+    rng = np.random.default_rng(c["seed"])
+    lo, hi = c["prompt_len"]
+    trace = [{"arrival_s": 0.0, "prompt": rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)),
+                                                     dtype=np.int32), "max_new_tokens": c["output_len"]}
+             for _ in range(c["requests"])]
+    t0 = time.perf_counter()
+    model = tfm.TransformerLM(cfg, device=DEVICE, generator=torch.Generator(device=DEVICE).manual_seed(c["seed"]))
+    n_params = sum(p.numel() for p in model.parameters())
+    build_s = time.perf_counter() - t0
+    # Both paths in f32 at full depth on the first prompt, on the f32 masters.
+    fa.reset_launches()
+    f32 = forward_twin(torch, model, dtype=torch.float32)
+    prompt = torch.as_tensor(trace[0]["prompt"][None], device=DEVICE).long()
+    with torch.no_grad():
+        want = f32(prompt).float()
+    f32_twin = decode_model(f32)
+    f32_dist = float((twin_prefill(torch, f32_twin, prompt) - want).abs().max())
+    del want
+    f32_launches = dict(fa.LAUNCHES)
+    if not f32_dist <= LLAMA_F32_ATOL:
+        raise AssertionError(f"10c: in f32 the decode twin's logits are {f32_dist:.3e} from the forward's "
+                             f"(atol {LLAMA_F32_ATOL})")
+    f32_engine = llama_f32_engine(torch, f32, f32_twin, trace[:c["num_slots"]])
+    del f32, f32_twin
+    t0 = time.perf_counter()
+    dm = decode_model(model)  # bf16, cast once
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    build_s += time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    engine = InferenceEngine(dm, EngineConfig(num_slots=c["num_slots"], num_blocks=c["num_blocks"],
+                                              block_size=c["block_size"], prefill_chunk=c["chunk"]))
+    fa.reset_launches()
+    summary = run_load(engine, trace)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if summary["completed"] != len(trace) or any(launches.values()):
+        raise AssertionError(f"10c: {summary['completed']}/{len(trace)} completed, launches {launches}")
+    fwd = forward_twin(torch, dm)
+    fa.reset_launches()
+    checks = [teacher_forced(torch, fwd, engine.output_tokens(r)[None], engine.completed[r].prompt_len,
+                             TF_ATOL["bfloat16_llama"], f"10c request {r}", dm) for r in (0, 1)]
+    torch.cuda.synchronize()
+    check_launches = dict(fa.LAUNCHES)
+    if check_launches["flash_fwd"] != 2 * cfg.num_layers or f32_launches["flash_fwd"] != cfg.num_layers:
+        raise AssertionError(f"10c: the checks launched {check_launches} and {f32_launches}, not K1 once per layer")
+    out = {"num_params": n_params, "layers": cfg.num_layers, "max_seq_len": cfg.max_seq_len, "config": c,
+           "build_s": build_s, "peak_memory_bytes": peak,
+           # tokens of the decode steps (each request's first comes from its
+           # prefill) over the time spent in them
+           "decode_tok_s": (summary["tokens_out"] - summary["completed"]) / engine.decode_time_s,
+           **{k: summary[k] for k in ("completed", "tokens_out", "elapsed_s", "serve_tok_s", "serve_p50_ttft_s",
+                                       "serve_p99_ttft_s", "mean_tok_latency_s", "steps", "preemptions")},
+           "decode_step_ms": engine.decode_step_ms(), "teacher_forced": checks,
+           "f32_decode_vs_forward_max_abs": f32_dist, "f32_atol": LLAMA_F32_ATOL, "f32_engine": f32_engine,
+           "attention_launches": launches,
+           "check_launches": {k: check_launches[k] + f32_launches[k] for k in check_launches}}
+    log(f"    10c llama-3 8B x32 layers: {out} on {smi}")
+    del engine, dm, fwd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_path_phase(torch, dpp, fa, smi) -> dict:
+    """[10] Generation after training, the serving CLI, and the engine at
+    Llama-3 8B's full depth; K1-K3's launches in each."""
+    t0 = time.perf_counter()
+    log("[10] serving path")
+    out = {"generate": generate_phase(torch, dpp, fa, smi)}
+    out["serve_gpt2"] = serve_phase(torch, fa, smi)
+    out["serve_llama"] = llama_serve_phase(torch, fa, smi)
+    runs = [r["attention_launches"] for r in out["generate"].values()]
+    runs += [r["attention_launches"] for k, r in out["serve_gpt2"].items() if k != "decode_profile"]
+    runs.append(out["serve_llama"]["attention_launches"])  # the checks' own launches stay apart
+    out["attention_launches"] = {k: sum(r[k] for r in runs) for k in runs[0]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"    phase 10 in {out['seconds']:.1f} s; K1-K3 launches {out['attention_launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1313,6 +1775,7 @@ def main() -> int:
     llama = llama_phase(torch, dpp, fa, tfm, smi)
     reference = reference_workload_phase(torch, dpp, fa, smi)
     fault = fault_path_phase(torch, dpp, losses, smi)
+    serving = serving_path_phase(torch, dpp, fa, smi)
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -1325,6 +1788,7 @@ def main() -> int:
             "launches_llama": llama["attention_launches"][name],
             "launches_reference_workload": reference["attention_launches"][name],
             "launches_fault_path": fault["launches"][name],
+            "launches_serving_path": serving["attention_launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1353,6 +1817,7 @@ def main() -> int:
     log(json.dumps({"llama_path": llama, "card": smi}))
     log(json.dumps({"reference_workload": reference, "card": smi}))
     log(json.dumps({"fault_path": fault, "card": smi}))
+    log(json.dumps({"serving_path": serving, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(nvidia_smi())  # the card's name and power limit, as nvidia-smi gives them

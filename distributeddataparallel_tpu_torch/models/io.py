@@ -194,6 +194,105 @@ def _contig(x):
     return np.ascontiguousarray(x)
 
 
+# --- The reference layout as torch tensors (int8 serving, ``ops.quant``) ---
+
+def jax_layout(model: nn.Module) -> dict:
+    """A TransformerLM's params in the reference's tree layout, as torch
+    tensors on their own device: views of the port's tensors where the
+    layout allows, and stacked ``layers/block`` leaves (a copy) under
+    ``cfg.scan_layers``.  ``ops.quant`` groups scales by this layout's
+    shapes."""
+    cfg = model.cfg
+    sd = {k: v.detach() for k, v in model.named_parameters()}
+    H, Hkv, D, d = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head, cfg.d_model
+
+    def norm(prefix):
+        p = {"scale": sd[f"{prefix}.weight"]}
+        if cfg.norm == "layernorm":
+            p["bias"] = sd[f"{prefix}.bias"]
+        return p
+
+    def dense(name, shape, bias_shape=None):
+        p = {"kernel": sd[f"{name}.weight"].t().reshape(shape)}
+        if cfg.use_bias:
+            b = sd[f"{name}.bias"]
+            p["bias"] = b if bias_shape is None else b.reshape(bias_shape)
+        return p
+
+    tree: dict = {"token_embed": {"embedding": sd["token_embed.weight"]}}
+    if cfg.positional == "learned":
+        tree["pos_embed"] = sd["pos_embed"]
+    layers = []
+    for i in range(cfg.num_layers):
+        pre = f"layers.{i}"
+        attn = {name: dense(f"{pre}.attn.{name}", (d, heads, D), (heads, D))
+                for name, heads in (("q_proj", H), ("k_proj", Hkv), ("v_proj", Hkv))}
+        attn["o_proj"] = dense(f"{pre}.attn.o_proj", (H, D, d))
+        mlp = {name: dense(f"{pre}.mlp.{name}", sd[f"{pre}.mlp.{name}.weight"].t().shape)
+               for name in _mlp_names(cfg)}
+        layers.append({"attn_norm": norm(f"{pre}.attn_norm"), "attn": attn,
+                       "mlp_norm": norm(f"{pre}.mlp_norm"), "mlp": mlp})
+    if cfg.scan_layers:
+        def stack(*xs):
+            if isinstance(xs[0], dict):
+                return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+            return torch.stack(xs)
+
+        tree["layers"] = {"block": stack(*layers)}
+    else:
+        tree.update({f"layer_{i}": layer for i, layer in enumerate(layers)})
+    tree["final_norm"] = norm("final_norm")
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"kernel": sd["lm_head.weight"].t()}
+    return tree
+
+
+def _norm_weights(p: dict) -> dict:
+    return {"weight": p["scale"], **({"bias": p["bias"]} if "bias" in p else {})}
+
+
+def layer_weights(qparams: Mapping, i: int, cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+    """Layer ``i`` of a (quantized) reference-layout tree, dequantized to
+    ``cfg.dtype`` and named as the port's ``DecoderBlock`` parameters
+    (views: the ``(d_model, H, D)`` kernel becomes the ``(H*D, d_model)``
+    weight without a copy)."""
+    from distributeddataparallel_tpu_torch.ops.quant import dequantize, tree_map
+
+    if "layers" in qparams:
+        lp = tree_map(lambda leaf: leaf[i], qparams["layers"]["block"])
+    else:
+        lp = qparams[f"layer_{i}"]
+    lp = dequantize(lp, cfg.dtype)
+    d = cfg.d_model
+    out = {f"attn_norm.{k}": v for k, v in _norm_weights(lp["attn_norm"]).items()}
+    out.update({f"mlp_norm.{k}": v for k, v in _norm_weights(lp["mlp_norm"]).items()})
+    for name, p in lp["attn"].items():
+        kernel = p["kernel"]
+        if name == "o_proj":
+            out["attn.o_proj.weight"] = kernel.reshape(-1, d).t()
+        else:
+            out[f"attn.{name}.weight"] = kernel.reshape(d, -1).t()
+        if "bias" in p:
+            out[f"attn.{name}.bias"] = p["bias"].reshape(-1)
+    for name, p in lp["mlp"].items():
+        out[f"mlp.{name}.weight"] = p["kernel"].t()
+        if "bias" in p:
+            out[f"mlp.{name}.bias"] = p["bias"]
+    return out
+
+
+def top_weights(qparams: Mapping, cfg: TransformerConfig) -> dict:
+    """The final norm's weights and the ``(vocab, d_model)`` head matrix of
+    a (quantized) reference-layout tree, dequantized to ``cfg.dtype``."""
+    from distributeddataparallel_tpu_torch.ops.quant import dequantize
+
+    head = (qparams["token_embed"]["embedding"] if cfg.tie_embeddings
+            else qparams["lm_head"]["kernel"])
+    head = dequantize(head, cfg.dtype)
+    return {"final_norm": _norm_weights(dequantize(qparams["final_norm"], cfg.dtype)),
+            "head": head if cfg.tie_embeddings else head.t()}
+
+
 def _image_names(model: nn.Module) -> list[tuple[str, str, str]]:
     """(flax path, port prefix, kind) for every layer of an image model;
     kind is "conv", "bn" or "dense"."""

@@ -28,7 +28,19 @@ flash kernels for CUDA tensors).
   layer and site; a checkpointed block's recompute draws the same masks.
 - ``scan_layers``: PyTorch has no scan, so the layers are a loop either
   way; the flag selects the reference's stacked ``layers/block`` parameter
-  layout in ``models.io``.
+  layout in ``models.io`` (and, for int8 serving, its per-layer scales).
+- ``decode``: the KV-cache twin (``models.generate`` builds it).  The
+  caller passes global ``positions`` and the cache, a per-layer list of
+  ``(k, v)`` tensors of shape ``(B, max_seq_len, kv_heads, head_dim)``
+  that each layer writes in place: contiguous ``(S,)`` positions insert at
+  ``positions[0]`` (clamped as XLA's ``dynamic_update_slice`` clamps) under
+  the causal bias at that offset; per-row ``(B, S)`` positions scatter each
+  row at its own positions under the bias ``kv_pos <= position[b, i]``.
+  Attention is the plain f32-softmax ``dot_product_attention`` over the
+  whole cache, as the reference's decode branch, never the flash kernels.
+- ``quant_serving``: the decode forward takes an int8 tree
+  (``ops.quant``, the reference's layout) and dequantizes one layer's
+  matrices inside that layer's call, so only the int8 stack stays resident.
 
 Config fields of the reference that this port does not run yet are kept so
 configs carry over, and raise ``NotImplementedError`` naming the ROADMAP
@@ -46,8 +58,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from distributeddataparallel_tpu_torch.ops.attention import (
+    NEG_INF,
     apply_rope,
     attention,
+    causal_mask_bias,
+    dot_product_attention,
+    repeat_kv,
     rope_frequencies,
 )
 from distributeddataparallel_tpu_torch.ops.dropout import dropout, fold_seed
@@ -135,9 +151,7 @@ _NOT_PORTED = (
     ("tp_axis", "tensor parallelism, parallel/tensor_parallel.py"),
     ("moe_experts", "mixture of experts, parallel/expert_parallel.py + ops/moe.py"),
     ("ep_axis", "expert parallelism, parallel/expert_parallel.py"),
-    ("decode", "KV-cache decoding, models/generate.py"),
     ("grad_sync_axis", "in-backward gradient sync, parallel/overlap.py"),
-    ("quant_serving", "int8 weight-only serving, ops/quant.py"),
 )
 
 
@@ -220,7 +234,10 @@ class LayerNorm(nn.LayerNorm):
         super().__init__(dim, eps=1e-5, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        # .float(): the serving twin's params may be cast to bf16 (as the
+        # reference casts every f32 leaf); the math stays f32.
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps)
 
 
 def _make_norm(cfg: TransformerConfig, device) -> nn.Module:
@@ -260,6 +277,47 @@ class Attention(nn.Module):
         out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
         return _dense(self.o_proj, out.reshape(B, S, H * D), cfg.dtype)
 
+    def decode(self, x, rope, positions, kv):
+        """KV-cache attention (ref ``Attention.__call__``'s decode branch):
+        insert this call's k/v into ``kv`` in place at ``positions`` and
+        attend against the whole cache under a positional bias."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, Hkv, D = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+        q = _dense(self.q_proj, x, cfg.dtype).view(B, S, H, D)
+        k = _dense(self.k_proj, x, cfg.dtype).view(B, S, Hkv, D)
+        v = _dense(self.v_proj, x, cfg.dtype).view(B, S, Hkv, D)
+        if cfg.positional == "rope":
+            cos, sin = rope
+            q = apply_rope(q, cos, sin, positions=positions)
+            k = apply_rope(k, cos, sin, positions=positions)
+        ck, cv = kv
+        T = ck.shape[1]
+        if positions.dim() == 2:
+            # Per-row positions (continuous batching; S > 1 is a verify
+            # window).  Rows past a slot's position hold stale values that
+            # the finite NEG_INF bias zeroes exactly in the softmax.
+            if tuple(positions.shape) != (B, S):
+                raise ValueError(f"per-row positions must be ({B}, {S}), got {tuple(positions.shape)}")
+            row = torch.arange(B, device=x.device)[:, None]
+            ck.index_put_((row, positions), k.to(ck.dtype))
+            cv.index_put_((row, positions), v.to(cv.dtype))
+            kv_pos = torch.arange(T, device=x.device)
+            bias = torch.where(kv_pos[None, None, None, :] <= positions[:, None, :, None],
+                               0.0, NEG_INF)  # (B, 1, S, T) f32
+        else:
+            # Contiguous positions from positions[0]: the insert starts
+            # there, clamped so the S rows fit (XLA's dynamic_update_slice),
+            # and the mask is the causal bias at that q offset.
+            start = positions[0].clamp(0, T - S)
+            idx = start + torch.arange(S, device=x.device)
+            ck.index_copy_(1, idx, k.to(ck.dtype))
+            cv.index_copy_(1, idx, v.to(cv.dtype))
+            bias = causal_mask_bias(S, T, q_offset=positions[0], device=x.device)[None, None]
+        out = dot_product_attention(q, repeat_kv(ck, H // Hkv), repeat_kv(cv, H // Hkv),
+                                    causal=False, bias=bias)
+        return _dense(self.o_proj, out.reshape(B, S, H * D), cfg.dtype)
+
 
 class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, *, device=None):
@@ -291,9 +349,12 @@ class DecoderBlock(nn.Module):
         self.mlp_norm = _make_norm(cfg, device)
         self.mlp = MLP(cfg, device=device)
 
-    def forward(self, x, rope=None, seed=None):
-        """``seed`` (an int) turns on dropout of both residual branches."""
-        h = self.attn(self.attn_norm(x), rope)
+    def forward(self, x, rope=None, seed=None, positions=None, kv=None):
+        """``seed`` (an int) turns on dropout of both residual branches;
+        ``kv`` (this layer's cache pair) selects KV-cache attention at
+        ``positions``."""
+        y = self.attn_norm(x)
+        h = self.attn(y, rope) if kv is None else self.attn.decode(y, rope, positions, kv)
         if seed is not None:
             h = dropout(h, self.rate, fold_seed(seed, 0))
         x = x + h
@@ -348,11 +409,17 @@ class TransformerLM(nn.Module):
             else:
                 normal(p, o_std if name.endswith("o_proj.weight") else 0.02)
 
-    def forward(self, tokens: torch.Tensor, *, dropout_seed: int | None = None):
+    def forward(self, tokens: torch.Tensor, *, dropout_seed: int | None = None,
+                positions: torch.Tensor | None = None, cache=None, qparams=None):
         """Logits for ``tokens``.  In training mode with ``dropout_rate > 0``
         the masks are functions of ``dropout_seed``, which is then required
-        (the trainer derives it per step, ``ops.dropout.fold_seed``)."""
+        (the trainer derives it per step, ``ops.dropout.fold_seed``).
+
+        ``cfg.decode``: ``positions`` and ``cache`` are required (module
+        docstring); ``qparams`` is an int8 tree under ``quant_serving``."""
         cfg = self.cfg
+        if cfg.decode:
+            return self._decode(tokens, positions, cache, qparams)
         B, S = tokens.shape
         if S > cfg.max_seq_len:
             raise ValueError(f"seq len {S} > max_seq_len {cfg.max_seq_len}")
@@ -376,3 +443,48 @@ class TransformerLM(nn.Module):
         x = self.final_norm(x)
         w = self.token_embed.weight if cfg.tie_embeddings else self.lm_head.weight
         return f32_logits(x, w, cfg.dtype)
+
+    def _decode(self, tokens, positions, cache, qparams):
+        """The decode twin's forward (ref ``TransformerLM.__call__`` with
+        ``cfg.decode``): ``qparams`` replaces every parameter, one layer's
+        dequantized matrices at a time."""
+        cfg = self.cfg
+        if cfg.remat:
+            raise ValueError("decode does not compose with remat (generate() turns it off)")
+        if positions is None or cache is None:
+            raise ValueError("decode=True requires explicit positions and a cache "
+                             "(models.generate passes them)")
+        if cfg.quant_serving != (qparams is not None):
+            raise ValueError("quant_serving and qparams go together")
+        if len(cache) != cfg.num_layers:
+            raise ValueError(f"cache has {len(cache)} layers, config has {cfg.num_layers}")
+        B, S = tokens.shape
+        if S > cfg.max_seq_len:
+            raise ValueError(f"seq len {S} > max_seq_len {cfg.max_seq_len}")
+        positions = positions.to(device=tokens.device, dtype=torch.long)
+        # Lookups past the tables read their last row (XLA's clamping gather).
+        lookup = positions.clamp(0, cfg.max_seq_len - 1)
+        rope = (self.rope_cos, self.rope_sin) if cfg.positional == "rope" else None
+        if qparams is None:
+            x = self.token_embed(tokens).to(cfg.dtype)
+            if cfg.positional == "learned":
+                x = x + self.pos_embed[lookup].to(cfg.dtype)
+            for i, layer in enumerate(self.layers):
+                x = layer(x, rope, None, positions, cache[i])
+            x = self.final_norm(x)
+            w = self.token_embed.weight if cfg.tie_embeddings else self.lm_head.weight
+            return f32_logits(x, w, cfg.dtype)
+        from distributeddataparallel_tpu_torch.models.io import layer_weights, top_weights
+        from distributeddataparallel_tpu_torch.ops.quant import dequantize_rows
+
+        x = dequantize_rows(qparams["token_embed"]["embedding"], tokens, cfg.dtype)
+        if cfg.positional == "learned":
+            x = x + dequantize_rows(qparams["pos_embed"], lookup, cfg.dtype)
+        for i, layer in enumerate(self.layers):
+            # This layer's matrices, dequantized for its call only.
+            x = torch.func.functional_call(
+                layer, layer_weights(qparams, i, cfg), (x, rope, None, positions, cache[i]))
+        top = top_weights(qparams, cfg)
+        x = torch.func.functional_call(self.final_norm, top["final_norm"], (x,))
+        return f32_logits(x, top["head"], cfg.dtype)
+

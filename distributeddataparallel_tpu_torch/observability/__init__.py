@@ -7,8 +7,11 @@ readers (``scripts/check_events.py``, ``scripts/ddp_report.py``,
 ``scripts/perf_gate.py``) read the port's files as they read the
 reference's.  ``schema``, ``events``, ``registry``, ``trace``,
 ``tracecontext``, ``goodput``, ``baseline`` and ``alerts`` are verbatim
-(stdlib only); ``cost_model`` takes the card's peaks, ``memory`` reads the
-CUDA caching allocator and ``profiler`` drives ``torch.profiler``.
+(stdlib only), as are ``trace_export`` (less ``write_trace``) and
+``critical_path``'s lineage check, which the serving CLI's ``--smoke``
+reads; ``cost_model`` takes the card's peaks,
+``memory`` reads the CUDA caching allocator and ``profiler`` drives
+``torch.profiler``.
 
 Everything here is import-light (no torch at module scope).  The package
 exports what the trainer and ``chip_smoke.py`` use; the rest of each

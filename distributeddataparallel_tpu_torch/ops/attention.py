@@ -32,14 +32,29 @@ def rope_frequencies(
     return torch.cos(freqs), torch.sin(freqs)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+def apply_rope(
+    x: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    *,
+    positions: torch.Tensor | None = None,
+) -> torch.Tensor:
     """Rotate query/key halves by position-dependent angles.
 
-    x: (B, S, H, D) at positions 0..S-1; cos/sin: (max_len, D/2).
+    x: (B, S, H, D); cos/sin: (max_len, D/2); positions: (S,) or (B, S)
+    int positions into the tables (default arange(S)).  Positions past the
+    tables read their last row, as XLA's clamping gather does.
     """
     S = x.shape[1]
-    c = cos[None, :S, None, :]  # (1, S, 1, D/2)
-    s = sin[None, :S, None, :]
+    if positions is None:
+        c, s = cos[None, :S], sin[None, :S]  # (1, S, D/2)
+    else:
+        idx = positions.clamp(0, cos.shape[0] - 1)
+        c, s = cos[idx], sin[idx]  # (S, D/2) or (B, S, D/2)
+        if c.dim() == 2:
+            c, s = c[None], s[None]
+    c = c[:, :, None, :]  # (B|1, S, 1, D/2)
+    s = s[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     rotated = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return rotated.to(x.dtype)
@@ -57,14 +72,15 @@ def causal_mask_bias(
     q_len: int,
     kv_len: int,
     *,
-    q_offset: int = 0,
-    kv_offset: int = 0,
+    q_offset: int | torch.Tensor = 0,
+    kv_offset: int | torch.Tensor = 0,
     dtype=torch.float32,
     device=None,
 ) -> torch.Tensor:
     """(q_len, kv_len) additive bias: 0 where kv_pos <= q_pos, NEG_INF above.
 
-    Offsets give the global position of each chunk's first element."""
+    Offsets give the global position of each chunk's first element (ints,
+    or 0-d tensors on ``device`` so no host read is needed)."""
     q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
     kv_pos = kv_offset + torch.arange(kv_len, device=device)[None, :]
     zero = torch.zeros((), dtype=torch.float32, device=device)
@@ -78,16 +94,22 @@ def dot_product_attention(
     v: torch.Tensor,
     *,
     causal: bool = True,
+    bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain attention. q: (B,Sq,H,D); k/v: (B,Skv,H,D) -> (B,Sq,H,D).
 
-    Logits and softmax in float32; matmuls in the input dtype."""
+    Logits and softmax in float32; matmuls in the input dtype.  ``bias``
+    (broadcastable to (B, H, Sq, Skv)) is added to the f32 logits: the KV
+    cache's positional mask, whose finite ``NEG_INF`` gives rows past a
+    sequence's position exactly zero weight."""
     Sq, D = q.shape[1], q.shape[3]
     Skv = k.shape[1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / math.sqrt(D))
     if causal:
         # Sq != Skv: queries are the LAST Sq positions of the kv sequence.
         logits = logits + causal_mask_bias(Sq, Skv, q_offset=Skv - Sq, device=q.device)
+    if bias is not None:
+        logits = logits + bias.float()
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
