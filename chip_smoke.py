@@ -114,7 +114,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
 ``llama_path`` line (phase 7), one ``reference_workload`` line (phase 8),
-one ``fault_path`` line (phase 9), one ``serving_path`` line (phase 10,
+one ``fault_path`` line (phase 9), one ``layouts`` line (phase 11: each
+run's step ms, peak memory and losses), one ``serving_path`` line (phase 10,
 each run's TTFT p50/p99, tokens/s, per-token latency, decode-step ms,
 preemptions, evictions, prefix hits, acceptance, pool bytes against the
 allocator's peak, peak memory), one ``{"kernels": [...]}`` JSON line,
@@ -340,6 +341,36 @@ TF_ATOL = {"float32": 1e-3, "bfloat16": 6.25e-2, "bfloat16_llama": 1.25, "float3
 # below the bf16 distance, so passing it says that distance is rounding, not
 # a different function.
 LLAMA_F32_ATOL = 1e-2
+# Phase 11: the layouts.  11a: phase 4's GPT-2 for 5 steps and 8 eval
+# batches (64 synthetic rows) per layout.
+LAYOUT_ARGS = [a for a in MAIN_ARGS] + ["--steps-per-epoch", "5", "--num-examples", "64"]
+LAYOUTS = {
+    "plain": [], "bucket_mb_1": ["--bucket-mb", "1"], "overlap": ["--overlap"],
+    "bf16_hook": ["--grad-compress", "bf16"],
+    "powersgd_r4": ["--grad-compress", "powersgd", "--powersgd-rank", "4"],
+    "zero1": ["--zero", "1"], "zero2": ["--zero", "2"], "zero3": ["--zero", "3"],
+}
+# --overlap reduces the same buckets as --bucket-mb 1 at one rank: the same
+# f32 values, so its losses are the plain run's.  Under ZeRO the Linear
+# weights are transposed views of the flat layout (the reference's element
+# order), so cuBLAS gets the other operand layout and may sum the f32
+# products in another order: ~1e-7 relative a product, and 5 AdamW steps at
+# lr 3e-4 move the loss by far less than 1e-4 (a wrong reduction, a missing
+# bucket or a stale shard moves it by more than 1e-2).
+LAYOUT_ATOL = 1e-4
+# 11b: phase 7's Llama without eval, its 10 steps, ZeRO-2 with f32 moments
+# (the yardstick) and with low-bit ones.
+LLAMA_ZERO_ARGS = [a for a in LLAMA_ARGS if a != "--eval"] + ["--zero", "2"]
+# The deepest Llama with int8 moments and 5 GiB of the card's 79.18 GiB to
+# spare, at one rank: f32 parameters 4 bytes a parameter, f32 gradients 4,
+# two int8 moments ~2.0 (an f32 scale a 2048-block beside them): ~10 bytes a
+# parameter against plain DP's 16.  A layer is 218.1 M parameters.  On an
+# H100 80GB HBM3 (700 W) this phase measured 34.87 GiB at 8 layers and
+# 70.52 GiB at 26, 1.98 GiB a layer (10 bytes a parameter are 2.03):
+# 34.87 + 1.98 (L - 8) <= 74.18 gives L <= 27.8.
+LLAMA_DEEP_LAYERS = 27
+LLAMA_SPARE_GIB = 5.0
+
 DEVICE = "cuda"  # phase 10's device
 
 KERNELS = [
@@ -1709,6 +1740,117 @@ def serving_path_phase(torch, dpp, fa, smi) -> dict:
     return out
 
 
+def powersgd_conservation(torch) -> dict:
+    """PowerSGD's error feedback on the card at GPT-2's MLP kernel shape
+    (768 x 3072, rank 4, one rank): ``err + m_hat`` equals ``g + err_prev``
+    up to two f32 roundings of the largest element."""
+    from distributeddataparallel_tpu_torch.parallel import powersgd
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    g = torch.randn(768, 3072, generator=gen, device=DEVICE)
+    prev = 0.1 * torch.randn(768, 3072, generator=gen, device=DEVICE)
+    state = [powersgd.PowerSGDLeaf(q=torch.randn(3072, 4, generator=gen, device=DEVICE), err=prev)]
+    (m_hat,), (new,) = powersgd.powersgd_sync([g], state)
+    want = g + prev
+    err = float((new.err + m_hat - want).abs().max())
+    # Two roundings (err = mat - m_hat, then err + m_hat), each within half
+    # an ulp of the largest magnitude M involved: |diff| <= 2^-23 M; twice.
+    big = max(float(t.abs().max()) for t in (want, m_hat, new.err))
+    tol = 2 * 2.0 ** -23 * big
+    if not err <= tol:
+        raise AssertionError(f"11a: PowerSGD error feedback off by {err} > {tol}")
+    return {"max_abs_err": err, "tolerance": tol}
+
+
+def layouts_phase(torch, dpp, fa, smi) -> dict:
+    """[11] The sharded update and the comm hooks: GPT-2 under each layout,
+    Llama-3 8B under ZeRO-2 with low-bit moments, and the deepest Llama the
+    int8 moments fit."""
+    t0 = time.perf_counter()
+    log("[11] the sharded update and the comm hooks")
+    fa.reset_launches()
+    out: dict = {"gpt2": {}, "llama": {}}
+    for name, extra in LAYOUTS.items():
+        release(torch)
+        s = dpp.main(LAYOUT_ARGS + extra)
+        torch.cuda.synchronize()
+        losses = s["losses"]
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"11a {name}: losses {losses}")
+        out["gpt2"][name] = {
+            "flags": extra, "step_ms": s["step_time_s"] * 1e3, "peak_gib": s["peak_memory_bytes"] / 2**30,
+            "losses": losses, "eval_loss": s["eval"]["loss"], "overlap_buckets": s["overlap_buckets"],
+            "attention_launches": expect_launches(s, f"11a {name}"),
+        }
+        log(f"    11a {name}: step {s['step_time_s'] * 1e3:.1f} ms, peak {s['peak_memory_bytes'] / 2**30:.2f} GiB, "
+            f"losses {['%.5f' % x for x in losses]}")
+    plain = out["gpt2"]["plain"]["losses"]
+    for name in ("overlap", "zero1", "zero2", "zero3"):
+        run = out["gpt2"][name]
+        diff = max(abs(a - b) for a, b in zip(run["losses"], plain))
+        run.update(max_abs_diff_vs_plain=diff, bitwise_vs_plain=run["losses"] == plain)
+        if not diff <= LAYOUT_ATOL:
+            raise AssertionError(f"11a {name}: losses {run['losses']} vs plain {plain} (|diff| {diff})")
+    buckets, steps = out["gpt2"]["overlap"]["overlap_buckets"], len(plain)
+    if buckets["after_backward"] or not buckets["in_backward"] or buckets["in_backward"] % steps:
+        raise AssertionError(f"11a overlap: bucket launches {buckets} over {steps} steps")
+    out["overlap_buckets_per_step"] = buckets["in_backward"] // steps
+    out["powersgd_conservation"] = powersgd_conservation(torch)
+    log(f"    11a: |loss - plain| {{{', '.join(f'{k}: {out['gpt2'][k]['max_abs_diff_vs_plain']:.1e}' for k in ('overlap', 'zero1', 'zero2', 'zero3'))}}}, "
+        f"{out['overlap_buckets_per_step']} buckets a step all from hooks; PowerSGD {out['powersgd_conservation']}")
+
+    L = LLAMA_LAYERS
+    for md in ("f32", "int8", "bf16"):
+        release(torch)
+        s = dpp.main(LLAMA_ZERO_ARGS + ["--moment-dtype", md])
+        torch.cuda.synchronize()
+        out["llama"][md] = llama_zero_record(s, L, f"11b {md}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    release(torch)
+    args = LLAMA_ZERO_ARGS + ["--moment-dtype", "int8", "--layers", str(LLAMA_DEEP_LAYERS), "--steps-per-epoch", "3"]
+    s = run_entry(args, f"11b int8 at {LLAMA_DEEP_LAYERS} layers",
+                  env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    deep = llama_zero_record(s, LLAMA_DEEP_LAYERS, f"11b int8 x{LLAMA_DEEP_LAYERS}")
+    deep["spare_gib"] = (total - s["peak_memory_bytes"]) / 2**30
+    deep["kept_spare"] = deep["spare_gib"] >= LLAMA_SPARE_GIB
+    out["llama"][f"int8_{LLAMA_DEEP_LAYERS}_layers"] = deep
+    out["card_gib"] = total / 2**30
+    log(f"    11b: {LLAMA_DEEP_LAYERS} layers, peak {deep['peak_gib']:.2f} GiB of {total / 2**30:.2f}: "
+        f"{deep['spare_gib']:.2f} GiB spare ({'kept' if deep['kept_spare'] else 'NOT kept'} "
+        f"{LLAMA_SPARE_GIB} GiB)")
+    # The in-process runs' counts, and the deep run's own (its process's).
+    out["attention_launches"] = {k: n + deep["attention_launches"][k] for k, n in fa.LAUNCHES.items()}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"    phase 11 in {out['seconds']:.1f} s; K1-K3 launches {out['attention_launches']} on {smi}")
+    return out
+
+
+def release(torch) -> None:
+    """Free what earlier runs left (a model held by a reference cycle, say,
+    the reducer's hooks) before the next run's peak is measured."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def llama_zero_record(s: dict, layers: int, what: str) -> dict:
+    """A ZeRO Llama run's checks (K1 twice a layer a step: forward and
+    recompute; K2, K3 once; losses finite and falling) and numbers."""
+    steps, losses = s["train_steps"], s["losses"]
+    want = {"flash_fwd": 2 * layers * steps, "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps}
+    if s["attention_launches"] != want:
+        raise AssertionError(f"{what}: launches {s['attention_launches']} != {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: losses {losses}")
+    rec = {"layers": layers, "num_params": s["num_params"], "step_ms": s["step_time_s"] * 1e3,
+           "peak_gib": s["peak_memory_bytes"] / 2**30, "losses": losses,
+           "attention_launches": s["attention_launches"]}
+    log(f"    {what}: step {rec['step_ms']:.1f} ms, peak {rec['peak_gib']:.2f} GiB (phase 7, plain DP at 8 "
+        f"layers: 52.14), {s['num_params'] / 1e9:.3f} B params, losses {['%.4f' % x for x in losses]}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1776,6 +1918,7 @@ def main() -> int:
     reference = reference_workload_phase(torch, dpp, fa, smi)
     fault = fault_path_phase(torch, dpp, losses, smi)
     serving = serving_path_phase(torch, dpp, fa, smi)
+    layouts = layouts_phase(torch, dpp, fa, smi)
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -1789,6 +1932,7 @@ def main() -> int:
             "launches_reference_workload": reference["attention_launches"][name],
             "launches_fault_path": fault["launches"][name],
             "launches_serving_path": serving["attention_launches"][name],
+            "launches_layouts": layouts["attention_launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1818,6 +1962,7 @@ def main() -> int:
     log(json.dumps({"reference_workload": reference, "card": smi}))
     log(json.dumps({"fault_path": fault, "card": smi}))
     log(json.dumps({"serving_path": serving, "card": smi}))
+    log(json.dumps({"layouts": layouts, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(nvidia_smi())  # the card's name and power limit, as nvidia-smi gives them

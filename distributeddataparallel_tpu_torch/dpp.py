@@ -49,6 +49,14 @@ evaluates the SLO rules there; ``--runs-dir DIR`` appends the run summary
 to ``DIR/index.jsonl``; ``--profile-steps A:B`` writes a ``torch.profiler``
 Chrome trace of steps [A, B) to ``--profile-dir`` or ``DIR/xprof``, and
 ``--profile-dir`` alone traces the first epoch.
+
+The sharded update and the comm hooks, with the reference's flags and
+composition rules: ``--zero [1|2|3]`` (``parallel.zero``; ``--bucket-mb``
+sizes the level 2/3 buckets) with ``--moment-dtype f32|bf16|int8``,
+``--overlap`` (bucket all-reduces launched from backward's hooks,
+``parallel.overlap``), and ``--grad-compress bf16|powersgd``
+(``--powersgd-rank``; ``parallel.powersgd``).  ``--fsdp`` raises, naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -78,7 +86,7 @@ from distributeddataparallel_tpu_torch.data.sharded import ShardedImageDataset
 from distributeddataparallel_tpu_torch.data.tokens import TokenFileDataset
 from distributeddataparallel_tpu_torch.data.transforms import CifarAugment
 from distributeddataparallel_tpu_torch.models import transformer as tfm
-from distributeddataparallel_tpu_torch.models.io import load_pretrained
+from distributeddataparallel_tpu_torch.models.io import jax_leaf_pieces, load_pretrained
 from distributeddataparallel_tpu_torch.models.resnet import ResNet18, ResNet50
 from distributeddataparallel_tpu_torch.models.simple_cnn import SimpleCNN, TinyMLP
 from distributeddataparallel_tpu_torch.observability import (
@@ -99,7 +107,10 @@ from distributeddataparallel_tpu_torch.ops.losses import (
     per_example_cross_entropy,
 )
 from distributeddataparallel_tpu_torch.ops.preprocess import normalize_u8_images
+from distributeddataparallel_tpu_torch.parallel import overlap
 from distributeddataparallel_tpu_torch.parallel.data_parallel import broadcast_params
+from distributeddataparallel_tpu_torch.parallel.powersgd import leaf_shapes, powersgd_state
+from distributeddataparallel_tpu_torch.parallel.zero import zero_state
 from distributeddataparallel_tpu_torch.runtime import distributed as rt
 from distributeddataparallel_tpu_torch.runtime import launcher
 from distributeddataparallel_tpu_torch.training.fault_tolerance import (
@@ -189,7 +200,34 @@ def parse_args(argv=None):
     p.add_argument("--accum-steps", type=int, default=1,
                    help="gradient accumulation (DDP no_sync analog)")
     p.add_argument("--bucket-mb", type=float, default=None,
-                   help="coalesce the gradient all-reduce into buckets of this size")
+                   help="coalesce the gradient all-reduce into buckets of this size (MiB); "
+                        "under --zero 2/3 the size of the reduce-scatter buckets")
+    p.add_argument("--zero", type=int, nargs="?", const=1, default=0, choices=[0, 1, 2, 3],
+                   metavar="LEVEL",
+                   help="ZeRO weight-update sharding across the ranks. --zero (or --zero 1): "
+                        "optimizer state 1/N (reduce_scatter + sharded update + all_gather). "
+                        "--zero 2: bucketed reduce-scatter straight into the 1/N flat grad shard. "
+                        "--zero 3: params stay sharded between steps too (1/N stored), gathered "
+                        "per bucket at the step's top. Levels 2/3 compose with --bucket-mb and "
+                        "--overlap")
+    p.add_argument("--moment-dtype", choices=["f32", "bf16", "int8"], default=None,
+                   help="optimizer-moment storage under --zero: bf16 or blockwise int8 with "
+                        "stochastic rounding (error-compensated, ops/quant.py) halve/quarter the "
+                        "moment bytes; f32 = unchanged")
+    p.add_argument("--fsdp", action="store_true",
+                   help="fully-sharded data parallelism: not ported yet (ROADMAP item 12b)")
+    p.add_argument("--overlap", action="store_true",
+                   help="overlap the gradient reduction with backward: ~1 MiB buckets (or "
+                        "--bucket-mb) launched from autograd hooks as their gradients become "
+                        "ready (DDP's reducer); under --zero 2/3 the bucket reduce-scatters")
+    p.add_argument("--grad-compress", choices=["bf16", "powersgd"], default=None,
+                   help="comm-hook gradient compression (torch DDP ddp_comm_hooks analog). "
+                        "bf16: gradients cross the wire in bfloat16, half the f32 bytes; "
+                        "composes with --overlap/--bucket-mb/--accum-steps/--grad-clip. "
+                        "powersgd: rank-r low-rank factors with per-replica error feedback "
+                        "(lossy)")
+    p.add_argument("--powersgd-rank", type=int, default=4,
+                   help="PowerSGD approximation rank (with --grad-compress powersgd)")
     p.add_argument("--grad-clip", type=float, default=None,
                    help="clip the synced gradient to this global L2 norm")
     p.add_argument("--buffer-sync", choices=["mean", "broadcast"], default="mean",
@@ -322,7 +360,27 @@ def parse_args(argv=None):
     if args.generate and not lm:
         raise SystemExit("--generate requires an LM model")
     _validate_faults(p, args)
+    _validate_layout(args)
     return args
+
+
+def _validate_layout(args) -> None:
+    """The reference's rules for the sharded update and the comm hooks
+    (``dpp.py:757-830``)."""
+    if args.fsdp:
+        raise SystemExit("--fsdp is not ported yet: ROADMAP.md Queue 1, item 12b")
+    if args.moment_dtype and not args.zero:
+        raise SystemExit("--moment-dtype rides the ZeRO sharded update; add --zero")
+    if args.overlap and args.zero == 1:
+        raise SystemExit("--overlap applies to the DP all-reduce; drop --zero")
+    if args.grad_compress and args.zero:
+        raise SystemExit("--grad-compress applies to the DP all-reduce; drop --zero/--fsdp/--pp")
+    if args.grad_compress == "powersgd":
+        if args.overlap:
+            raise SystemExit("--grad-compress powersgd replaces the bucketed all-reduce --overlap "
+                             "schedules; pick one mechanism")
+        if args.powersgd_rank < 1:
+            raise SystemExit("--powersgd-rank must be >= 1")
 
 
 def _validate_faults(p, args) -> None:
@@ -568,13 +626,25 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
             f"no training steps: dataset gives {len(loader)} batches per replica "
             f"(dataset too small for --batch-size {args.batch_size} x {world_size} replicas)"
         )
-    optimizer, scheduler = build_optimizer(args, model.parameters(), max(spe * args.epochs, 1))
+    bucket_bytes = int(args.bucket_mb * 1024 * 1024) if args.bucket_mb else None
+    total_steps = max(spe * args.epochs, 1)
+    if args.zero:
+        # The optimizer steps this rank's shard of the flat layout.
+        state = zero_state(model, lambda shard: build_optimizer(args, shard, total_steps),
+                           level=args.zero, moment_dtype=args.moment_dtype, seed=args.seed,
+                           bucket_bytes=bucket_bytes if args.zero >= 2 else None)
+    else:
+        state = TrainState(model, *build_optimizer(args, model.parameters(), total_steps))
+        if args.grad_compress == "powersgd":
+            state.comm_state = powersgd_state(leaf_shapes(jax_leaf_pieces(model)), args.powersgd_rank,
+                                              seed=args.seed, device=device)
     trainer = Trainer(
-        state=TrainState(model, optimizer, scheduler),
+        state=state,
         step_fn=make_train_step(
             _loss_fn if lm else _image_loss_fn, accum_steps=args.accum_steps,
-            bucket_bytes=int(args.bucket_mb * 1024 * 1024) if args.bucket_mb else None,
-            grad_clip=args.grad_clip, buffer_sync=args.buffer_sync, nonfinite_guard=args.nan_guard,
+            bucket_bytes=bucket_bytes, grad_clip=args.grad_clip, buffer_sync=args.buffer_sync,
+            nonfinite_guard=args.nan_guard, overlap=args.overlap, zero=args.zero,
+            grad_compress=args.grad_compress,
         ),
         loader=loader,
         steps_per_epoch=spe,
@@ -730,7 +800,7 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
             break
         if eval_step is not None:
             t_ev = time.perf_counter()
-            with tel.span("eval", epoch=epoch):
+            with tel.span("eval", epoch=epoch), state.full_params():
                 parts = []
                 for batch in eval_loader:
                     parts.append(eval_step(model, batch))
@@ -809,6 +879,7 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         torch.cuda.reset_peak_memory_stats(device)
     tel = build_telemetry(args, trainer, device, rank, world_size)
     launches0 = dict(flash_attention.LAUNCHES)
+    buckets0 = dict(overlap.COUNTS)
     status, faults = "ok", None
     try:
         faults = build_faults(args, state, tel, rank, world_size)
@@ -837,7 +908,7 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
     steady = step_times[1:] or step_times
     step_time = sum(steady) / len(steady)
     wall_step_time = wall / wall_steps if wall_steps else None
-    with torch.no_grad():
+    with torch.no_grad(), state.full_params():
         param_norm = math.sqrt(sum(float(p.double().pow(2).sum()) for p in model.parameters()))
     rows_per_step = args.batch_size * world_size
     rate = ("tokens_per_s", rows_per_step * args.seq_len) if is_lm(args) else ("images_per_s", rows_per_step)
@@ -846,7 +917,7 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "world_size": world_size,
-        "num_params": sum(p.numel() for p in model.parameters()),
+        "num_params": state.num_params(),
         "start_epoch": start_epoch,
         "preempted_epoch": preempted,
         "train_steps": len(losses),
@@ -864,11 +935,15 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         "faults": tel.counters.summary(),
         # This run's flash-attention kernel launches.
         "attention_launches": {k: n - launches0[k] for k, n in flash_attention.LAUNCHES.items()},
+        # --overlap's bucket launches: from backward's hooks, and after it.
+        "overlap_buckets": {k: n - buckets0[k] for k, n in overlap.COUNTS.items()},
     }
     log(f"train: {len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
         f"{step_time * 1e3:.1f} ms/step, {summary[rate[0]]:.0f} {rate[0]}")
-    if args.generate and rank == 0:
-        summary["generate"] = run_generate(args, model, trainer.loader.dataset, log)
+    if args.generate:
+        with state.full_params():  # a collective under ZeRO-3
+            if rank == 0:
+                summary["generate"] = run_generate(args, model, trainer.loader.dataset, log)
     return summary
 
 

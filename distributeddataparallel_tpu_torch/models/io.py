@@ -247,6 +247,118 @@ def jax_layout(model: nn.Module) -> dict:
     return tree
 
 
+def jax_leaf_pieces(model: nn.Module) -> list[tuple[str, list[tuple[nn.Parameter, str, tuple]]]]:
+    """The reference's ``params`` leaves in ``jax.tree.leaves`` order (dict
+    keys sorted), each as ``(path, [(parameter, kind, shape), ...])``: the
+    port's parameters whose reference-layout views (of ``shape``),
+    flattened and concatenated, are that leaf's elements in row-major
+    order.  A leaf has one piece, or under ``scan_layers`` one per layer
+    (the stacked leaf's leading dim).  ``kind`` is how the reference lays
+    a parameter's elements out: ``"same"`` (the port's row-major order),
+    ``"t"`` (transposed: Dense and DenseGeneral kernels) or ``"hwio"``
+    (conv kernels).  The ZeRO flat layouts (``parallel.zero``) and
+    PowerSGD's matrices (``parallel.powersgd``) follow it."""
+    if not hasattr(model, "cfg"):
+        return _image_leaf_pieces(model)
+    cfg = model.cfg
+    sd = dict(model.named_parameters())
+    H, Hkv, D, d = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head, cfg.d_model
+
+    def same(name, shape=None):
+        return (sd[name], "same", tuple(shape or sd[name].shape))
+
+    def norm(prefix):
+        p = {"scale": same(f"{prefix}.weight")}
+        if cfg.norm == "layernorm":
+            p["bias"] = same(f"{prefix}.bias")
+        return p
+
+    def dense(name, shape=None, bias_shape=None):
+        w = sd[f"{name}.weight"]
+        p = {"kernel": (w, "t", tuple(shape or w.shape[::-1]))}
+        if cfg.use_bias:
+            p["bias"] = same(f"{name}.bias", bias_shape)
+        return p
+
+    tree: dict = {"token_embed": {"embedding": same("token_embed.weight")},
+                  "final_norm": norm("final_norm")}
+    if cfg.positional == "learned":
+        tree["pos_embed"] = same("pos_embed")
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"kernel": (sd["lm_head.weight"], "t", tuple(sd["lm_head.weight"].shape[::-1]))}
+    layers = []
+    for i in range(cfg.num_layers):
+        pre = f"layers.{i}"
+        attn = {n: dense(f"{pre}.attn.{n}", (d, h, D), (h, D))
+                for n, h in (("q_proj", H), ("k_proj", Hkv), ("v_proj", Hkv))}
+        attn["o_proj"] = dense(f"{pre}.attn.o_proj", (H, D, d))
+        layers.append({"attn_norm": norm(f"{pre}.attn_norm"), "mlp_norm": norm(f"{pre}.mlp_norm"),
+                       "attn": attn, "mlp": {n: dense(f"{pre}.mlp.{n}") for n in _mlp_names(cfg)}})
+    if cfg.scan_layers:
+        def stack(*xs):
+            if isinstance(xs[0], dict):
+                return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+            return list(xs)
+
+        tree["layers"] = {"block": stack(*layers)}
+    else:
+        tree.update({f"layer_{i}": layer for i, layer in enumerate(layers)})
+    return _sorted_leaves(tree)
+
+
+def ref_view(t: torch.Tensor, kind: str) -> torch.Tensor:
+    """A parameter (or its gradient) of ``jax_leaf_pieces``'s ``kind`` as a
+    view in the reference's element order."""
+    if kind == "t":
+        return t.t()
+    if kind == "hwio":
+        return t.permute(2, 3, 1, 0)
+    return t
+
+
+def port_view(flat: torch.Tensor, shape, kind: str) -> torch.Tensor:
+    """Inverse of ``ref_view``: a flat slice in the reference's element
+    order as a view of the port's parameter ``shape``."""
+    if kind == "t":
+        return flat.view(shape[1], shape[0]).t()
+    if kind == "hwio":
+        o, i, h, w = shape
+        return flat.view(h, w, i, o).permute(3, 2, 0, 1)
+    return flat.view(shape)
+
+
+def _sorted_leaves(tree: dict, prefix: str = "") -> list:
+    out = []
+    for k in sorted(tree):
+        v, path = tree[k], f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out += _sorted_leaves(v, path)
+        else:
+            out.append((path, v if isinstance(v, list) else [v]))
+    return out
+
+
+def _image_leaf_pieces(model: nn.Module) -> list:
+    sd = dict(model.named_parameters())
+    tree: dict = {}
+    for path, pre, kind in _image_names(model):
+        node = tree
+        for k in path.split("/"):
+            node = node.setdefault(k, {})
+        w = sd[f"{pre}.weight"]
+        if kind == "bn":
+            node.update(scale=(w, "same", tuple(w.shape)),
+                        bias=(sd[f"{pre}.bias"], "same", tuple(w.shape)))
+            continue
+        if kind == "conv":  # OIHW -> HWIO
+            node["kernel"] = (w, "hwio", (w.shape[2], w.shape[3], w.shape[1], w.shape[0]))
+        else:
+            node["kernel"] = (w, "t", tuple(w.shape[::-1]))
+        if f"{pre}.bias" in sd:
+            node["bias"] = (sd[f"{pre}.bias"], "same", tuple(sd[f"{pre}.bias"].shape))
+    return _sorted_leaves(tree)
+
+
 def _norm_weights(p: dict) -> dict:
     return {"weight": p["scale"], **({"bias": p["bias"]} if "bias" in p else {})}
 

@@ -151,7 +151,8 @@ _NOT_PORTED = (
     ("tp_axis", "tensor parallelism, parallel/tensor_parallel.py"),
     ("moe_experts", "mixture of experts, parallel/expert_parallel.py + ops/moe.py"),
     ("ep_axis", "expert parallelism, parallel/expert_parallel.py"),
-    ("grad_sync_axis", "in-backward gradient sync, parallel/overlap.py"),
+    ("grad_sync_axis", "no in-scan gradient sync: the port's layers are a ModuleList, so "
+                       "--overlap's autograd hooks (parallel/overlap.py) sync the stacked layout too"),
 )
 
 

@@ -1,8 +1,10 @@
 """Weight-only int8 quantization for the decode path.
 
-Counterpart of the serving half of ``distributeddataparallel_tpu/ops/quant.py``
-(``QuantLeaf`` .. ``dequantize`` and ``quantized_bytes``); the low-bit
-optimizer moments stay with ZeRO (ROADMAP item 12).
+Counterpart of ``distributeddataparallel_tpu/ops/quant.py``: the serving
+half (``QuantLeaf`` .. ``dequantize`` and ``quantized_bytes``) and, at the
+end, the training half, the low-bit optimizer moments that
+``parallel.zero.LowBitMoments`` stores between steps (``MOMENT_BLOCK`` ..
+``stochastic_round_bf16``).
 
 Decode at small batch streams every matrix from memory each step.  Storing
 the matrices as int8 with absmax scales halves those bytes against bf16.
@@ -164,3 +166,118 @@ def quantized_bytes(qparams: Pytree) -> dict:
             total += leaf.numel() * leaf.element_size()
             n_dense += 1
     return {"bytes": int(total), "n_quantized_leaves": n_q, "n_passthrough_leaves": n_dense}
+
+
+# --------------------------------------------------------------------------
+# Low-bit optimizer moments (the training half).
+#
+# Moment compression is a lossy round trip every step: state -> low-bit ->
+# state.  Its error compensation is stochastic rounding, E[sr(x)] == x, so
+# the quantization error enters the moments' running averages as zero-mean
+# noise instead of a bias toward zero that would stall small updates.  Each
+# quantizer is a pure function of ``(x, noise)``; a thin wrapper draws the
+# noise from an explicit ``torch.Generator``.  Given the reference's draws
+# (``jax.random.bits(key, shape, uint32) & 0xFFFF`` for bf16,
+# ``jax.random.uniform(key, (blocks, MOMENT_BLOCK))`` for int8) the pure
+# functions return the reference's values bit for bit.
+# --------------------------------------------------------------------------
+
+#: Block length of the blockwise-absmax int8 moments: one outlier poisons
+#: only its 2048 neighbours' scale, and the f32 scales cost 0.2% of the
+#: int8 payload.
+MOMENT_BLOCK = 2048
+
+#: Smallest magnitude of the int8 dynamic codebook relative to the block's
+#: absmax, in the sqrt domain (so absmax * 1e-14 linear).  A geometric grid
+#: bounds the relative error: a linear int8 grid would zero every element
+#: of Adam's second moment below absmax / 127 and the update m / (sqrt(v) +
+#: eps) would blow up.
+Q8_DYNAMIC_MIN = 1e-7
+
+
+def _q8_codebook(device=None) -> torch.Tensor:
+    """The sorted signed codebook, 255 f32 entries: 0 and +/-127 magnitudes
+    log-spaced over [Q8_DYNAMIC_MIN, 1].  An element is stored as its index
+    minus 127, which fits int8."""
+    import numpy as np
+
+    mag = Q8_DYNAMIC_MIN ** ((126 - np.arange(127)) / 126.0)
+    code = np.concatenate([-mag[::-1], [0.0], mag]).astype(np.float32)
+    return torch.from_numpy(code).to(device)
+
+
+@dataclasses.dataclass
+class Q8Moment:
+    """A flat f32 moment vector as int8 codebook indices (minus 127) and a
+    per-block f32 absmax; ``n`` is the unpadded length (the vector is
+    zero-padded to a multiple of ``MOMENT_BLOCK``)."""
+
+    q: torch.Tensor      # int8, (blocks * MOMENT_BLOCK,)
+    scale: torch.Tensor  # f32, (blocks,)
+    n: int
+
+    def nbytes(self) -> int:
+        return self.q.numel() + self.scale.numel() * 4
+
+
+def moment_blocks(n: int) -> int:
+    return -(-n // MOMENT_BLOCK)
+
+
+def quantize_moment_int8_with(x: torch.Tensor, uniform: torch.Tensor) -> Q8Moment:
+    """Flat f32 vector -> ``Q8Moment`` given ``uniform`` draws in [0, 1) of
+    shape ``(blocks, MOMENT_BLOCK)``.  Each block is scaled by its absmax,
+    mapped to sign(v) sqrt(|v|) (so Adam's second moment, a squared
+    quantity, shares the first moment's range) and rounded stochastically
+    between the two neighbouring codebook entries: up with probability
+    equal to its distance from the lower one."""
+    n = x.shape[0]
+    f = torch.nn.functional.pad(x.float(), (0, (-n) % MOMENT_BLOCK)).view(-1, MOMENT_BLOCK)
+    absmax = f.abs().amax(dim=1)
+    scale = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
+    v = f / scale[:, None]
+    y = torch.sign(v) * torch.sqrt(torch.abs(v))
+    code = _q8_codebook(x.device)
+    hi = torch.searchsorted(code, y).clamp_(1, code.shape[0] - 1)
+    lo = hi - 1
+    c_lo, c_hi = code[lo], code[hi]
+    p = (y - c_lo) / (c_hi - c_lo)
+    idx = torch.where(uniform < p, hi, lo)
+    return Q8Moment(q=(idx - 127).to(torch.int8).view(-1), scale=scale, n=n)
+
+
+def quantize_moment_int8(x: torch.Tensor, generator: torch.Generator) -> Q8Moment:
+    """``quantize_moment_int8_with`` on uniform draws from ``generator``."""
+    u = torch.rand((moment_blocks(x.shape[0]), MOMENT_BLOCK), generator=generator,
+                   device=x.device, dtype=torch.float32)
+    return quantize_moment_int8_with(x, u)
+
+
+def dequantize_moment(m: Q8Moment) -> torch.Tensor:
+    """``Q8Moment`` -> the flat f32 vector of its unpadded length."""
+    code = _q8_codebook(m.q.device)
+    z = code[m.q.long() + 127].view(-1, MOMENT_BLOCK)
+    f = torch.sign(z) * z * z * m.scale[:, None]
+    return f.view(-1)[: m.n]
+
+
+def stochastic_round_bf16_with(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """f32 -> bf16, rounding up with probability equal to the dropped
+    fraction: ``noise`` (integers in [0, 65536), ``x``'s shape) is added to
+    the f32 bit pattern below the 16 bits that bf16 keeps.  Non-finite
+    values are cast plainly (noise on an inf or NaN pattern would walk into
+    other NaN encodings)."""
+    f = x.float()
+    # int32 arithmetic: for finite f the sum does not overflow, and the low
+    # 16 bits of (bits + noise) >> 16 are those of the unsigned sum's.
+    top = ((f.view(torch.int32) + noise.to(torch.int32)) >> 16) & 0xFFFF
+    top = top - ((top >> 15) << 16)  # as a signed 16-bit value
+    rounded = top.to(torch.int16).view(torch.bfloat16)
+    return torch.where(torch.isfinite(f), rounded, f.to(torch.bfloat16))
+
+
+def stochastic_round_bf16(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """``stochastic_round_bf16_with`` on 16-bit draws from ``generator``."""
+    noise = torch.randint(0, 1 << 16, x.shape, generator=generator, device=x.device,
+                          dtype=torch.int32)
+    return stochastic_round_bf16_with(x, noise)

@@ -6,8 +6,10 @@ written out explicitly instead of wrapping the model in
 
 - ``broadcast_params``: rank 0's parameters and buffers to every rank.
 - ``all_reduce_gradients``: mean of every gradient over the ranks, per leaf
-  or coalesced into ~``bucket_bytes`` buckets (``bucket_gradients``).
-- ``clip_scale`` / ``sumsq_f32``: the global-norm clip factor.
+  or coalesced into ~``bucket_bytes`` buckets (``bucket_gradients``);
+  ``compress="bf16"`` is the reference's bf16 comm hook.
+- ``clip_scale`` / ``sumsq_f32`` / ``flat_chunk_sumsq``: the global-norm
+  clip factor, and the norm of a ZeRO flat shard.
 - ``masked_tree_mean``: exact masked means for evaluation.
 
 Gradients are reduced in place (the port owns the ``.grad`` buffers, so no
@@ -25,6 +27,15 @@ from distributeddataparallel_tpu_torch.runtime.distributed import get_world_size
 
 #: DDP's default bucket size: 25 MiB (torch Reducer default).
 DEFAULT_BUCKET_BYTES = 25 * 1024 * 1024
+
+#: ``--overlap``'s bucket size (the reference's): leaves above 1 MiB ride
+#: solo, the small ones (biases, norms) coalesce.
+OVERLAP_BUCKET_BYTES = 1 * 1024 * 1024
+
+
+def _check_compress(compress: str | None) -> None:
+    if compress not in (None, "bf16"):
+        raise ValueError(f"compress must be None or 'bf16', got {compress!r}")
 
 
 def plan_buckets(leaf_bytes, bucket_bytes: int) -> list[list[int]]:
@@ -47,6 +58,12 @@ def plan_buckets(leaf_bytes, bucket_bytes: int) -> list[list[int]]:
     return buckets
 
 
+def _inv(t: torch.Tensor) -> torch.Tensor:
+    """``1 / world`` rounded to ``t``'s dtype (the reference multiplies by
+    ``jnp.asarray(inv_n, dtype)``)."""
+    return torch.tensor(1.0 / get_world_size(), dtype=t.dtype)
+
+
 def _sum(t: torch.Tensor) -> None:
     if dist.is_initialized():
         dist.all_reduce(t, op=dist.ReduceOp.SUM)
@@ -56,46 +73,100 @@ def all_reduce_gradients(
     grads: list[torch.Tensor],
     *,
     bucket_bytes: int | None = None,
+    compress: str | None = None,
 ) -> None:
     """Mean of each gradient tensor across the ranks, in place.
 
     The mean is DDP's divide-by-world-size, which keeps every replica in
     lockstep under a local optimizer step.  With ``bucket_bytes`` the leaves
-    are coalesced (``bucket_gradients``)."""
+    are coalesced (``bucket_gradients``).
+
+    ``compress="bf16"`` is the reference's bf16 comm hook, on f32 gradients
+    only: each is cast to bf16, summed on the wire in bf16, multiplied by
+    the bf16 value of ``1 / world`` in bf16 and cast back.  The order is the
+    reference's, not torch's ``bf16_compress_hook`` (which divides before
+    the sum).  Every rank sees the same rounded mean, so replicas stay in
+    lockstep."""
+    _check_compress(compress)
     if bucket_bytes is not None:
-        bucket_gradients(grads, bucket_bytes=bucket_bytes)
+        bucket_gradients(grads, bucket_bytes=bucket_bytes, compress=compress)
         return
     inv_n = 1.0 / get_world_size()
     for g in grads:
-        _sum(g)
-        g.mul_(inv_n)
+        if compress == "bf16" and g.dtype == torch.float32:
+            wire = g.to(torch.bfloat16)
+            _sum(wire)
+            g.copy_(wire.mul_(_inv(wire)))
+        else:
+            _sum(g)
+            g.mul_(inv_n)
 
 
 def bucket_gradients(
     grads: list[torch.Tensor],
     *,
     bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+    compress: str | None = None,
 ) -> None:
     """Coalesced mean all-reduce, in place: leaves grouped into
     ~bucket_bytes buckets in reverse order (DDP's Reducer order), each
-    bucket reduced as one flat f32 vector and scattered back into its
-    leaves' dtypes."""
+    bucket reduced as one flat vector and scattered back into its leaves'
+    dtypes.  The flat vector is f32, or bf16 under ``compress="bf16"`` when
+    every leaf of the bucket is f32 (``all_reduce_gradients``)."""
+    _check_compress(compress)
     buckets = plan_buckets([g.numel() * g.element_size() for g in grads], bucket_bytes)
-    inv_n = 1.0 / get_world_size()
     for bucket in buckets:
-        flat = torch.cat([grads[i].reshape(-1).float() for i in bucket])
+        leaves = [grads[i] for i in bucket]
+        flat = bucket_flat(leaves, compress)
         _sum(flat)
-        flat.mul_(inv_n)
-        offset = 0
-        for i in bucket:
-            n = grads[i].numel()
-            grads[i].copy_(flat[offset : offset + n].view_as(grads[i]))
-            offset += n
+        bucket_unflat(flat, leaves)
+
+
+def bucket_flat(leaves: list[torch.Tensor], compress: str | None = None) -> torch.Tensor:
+    """One bucket's wire vector: the leaves concatenated in f32 (bf16 under
+    ``compress="bf16"`` when all of them are f32).  A lone leaf already of
+    the wire dtype is reduced in place, without a copy."""
+    dtype = torch.float32
+    if compress == "bf16" and all(g.dtype == torch.float32 for g in leaves):
+        dtype = torch.bfloat16
+    if len(leaves) == 1 and leaves[0].dtype == dtype and leaves[0].is_contiguous():
+        return leaves[0].view(-1)
+    return torch.cat([g.reshape(-1).to(dtype) for g in leaves])
+
+
+def bucket_unflat(flat: torch.Tensor, leaves: list[torch.Tensor]) -> None:
+    """The summed wire vector times ``1 / world`` (in its own dtype), back
+    into its leaves."""
+    flat.mul_(_inv(flat))
+    offset = 0
+    for g in leaves:
+        n = g.numel()
+        part = flat[offset : offset + n]
+        if part.data_ptr() != g.data_ptr():
+            g.copy_(part.view_as(g))
+        offset += n
 
 
 def sumsq_f32(tensors) -> torch.Tensor:
     """Sum of squares of every tensor, accumulated in float32."""
     return sum(t.float().pow(2).sum() for t in tensors)
+
+
+def flat_chunk_sumsq(chunk: torch.Tensor, chunk_start: int, leaf_sizes, leaf_dup) -> torch.Tensor:
+    """Sum of squares of one flat-layout chunk in f32, each element of a
+    leaf held by ``leaf_dup[i]`` model-axis positions weighted ``1 / dup``
+    (the reference's ``flat_chunk_sumsq``): the flat vector concatenates
+    leaves of ``leaf_sizes`` elements, then zero padding; ``chunk`` starts
+    at element ``chunk_start``.  With every ``dup`` 1 it is ``sumsq_f32``."""
+    x2 = chunk.float().pow(2)
+    pos = chunk_start + torch.arange(chunk.shape[0], device=chunk.device)
+    w = torch.ones_like(x2)
+    off = 0
+    for size, dup in zip(leaf_sizes, leaf_dup):
+        if dup != 1:
+            w = torch.where((pos >= off) & (pos < off + size), torch.full_like(w, 1.0 / dup), w)
+        off += size
+    return (x2 * w).sum()
 
 
 def clip_scale(gnorm: torch.Tensor, clip_norm: float) -> torch.Tensor:

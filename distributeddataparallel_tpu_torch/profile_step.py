@@ -8,25 +8,31 @@ GPT-2's ``--model gpt2 --seq-len 1024 --vocab-size 50257 --batch-size 8
 --optimizer adamw``, Llama-3's ``--model llama --layers 8 --seq-len 2048
 --vocab-size 128256 --batch-size 2 --optimizer adamw``, or the image paths'
 ``--model resnet50 --dataset shards:DIR --batch-size 64 ...``), runs two
-warm-up steps, then profiles ``--profile-steps`` steps on one GPU.  It
-prints one JSON line: wall time per step, device busy time per step and
-the idle share, and device time per step by kernel group (the three
-flash-attention kernels, convolutions, GEMMs, dtype casts and copies,
-BatchNorm / elementwise / reductions, the optimizer's, the rest) with the
-ten largest kernels.
+warm-up steps, then profiles ``--profile-steps`` steps.  It prints one
+JSON line: wall time per step, device busy time per step and the idle
+share, device time per step by kernel group (the three flash-attention
+kernels, convolutions, GEMMs, dtype casts and copies, BatchNorm /
+elementwise / reductions, the optimizer's, NCCL's, the rest) with the ten
+largest kernels, and the collectives' overlap with compute
+(``parallel.overlap.overlap_report`` over the trace: NCCL kernel time, the
+part of it under compute on another stream, their ratio; on one GPU NCCL
+launches no kernel and the ratio is None).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
 import torch
 
 from distributeddataparallel_tpu_torch import dpp
+from distributeddataparallel_tpu_torch.parallel.overlap import overlap_report, trace_kernels
 from distributeddataparallel_tpu_torch.runtime import distributed as rt
 
 
@@ -99,6 +105,10 @@ def main(argv=None) -> dict:
     for name, us in per_kernel.items():
         groups[_group(name)] += us / 1e3 / n
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        comm = overlap_report(trace_kernels(path))  # over the profiled steps
     out = {
         "device": torch.cuda.get_device_name(device),
         "flags": rest,
@@ -108,6 +118,7 @@ def main(argv=None) -> dict:
         "device_idle_share": (1.0 - busy_ms / (wall * 1e3 / n)) if busy_ms else None,
         "device_ms_per_step_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms_per_step": {k[:120]: us / 1e3 / n for k, us in top},
+        "comm_overlap": comm,
     }
     if not per_kernel:
         out["note"] = "the profiler recorded no device time; time kernels with CUDA events instead"

@@ -15,6 +15,15 @@ rank learns a save's fate, retries and the fall-back past a corrupt file
 are ``training.fault_tolerance.ResilientCheckpointer``'s, the one
 checkpointer the trainer uses.  A resume may use another number of
 processes.  The directory must be one filesystem that every rank sees.
+
+Under ZeRO (``parallel.zero``) or PowerSGD each rank holds state of its own:
+its shard of the optimizer state (the low-bit moments with their noise
+generator), PowerSGD's error residual.  ``host_payload`` is then a
+collective: every rank calls it, rank 0 gathers each rank's part into the
+payload's ``ranks`` list (and, under ZeRO-3, the model's gathered
+parameters) and gets the payload, the others None.  ``load_into`` gives each
+rank its own part back, at the same world size only (resharding to another
+is ROADMAP item 13).
 Nothing of the dropout stream is saved: each step's masks are a function
 of the run's seed, the epoch and the step (``dpp.step_seed``), so a resumed
 run draws the masks the uninterrupted run would have.
@@ -28,7 +37,9 @@ import os
 import re
 
 import torch
+import torch.distributed as dist
 
+from distributeddataparallel_tpu_torch.runtime.distributed import get_rank, get_world_size
 from distributeddataparallel_tpu_torch.training.state import TrainState
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
@@ -64,22 +75,56 @@ def state_content_hash(payload: dict) -> str:
     return h.hexdigest()
 
 
-def host_payload(state: TrainState, epoch: int) -> dict:
-    """What a checkpoint holds, with every tensor copied to the host once."""
-    def cpu(tree):
-        if isinstance(tree, dict):
-            return {k: cpu(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [cpu(v) for v in tree]
-        return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cpu(v) for v in tree]
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
 
-    return cpu({
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+
+def per_rank(state: TrainState) -> bool:
+    """Does each rank hold state of its own (ZeRO shards, PowerSGD)?"""
+    return state.zero is not None or state.comm_state is not None
+
+
+def _rank_part(state: TrainState) -> dict:
+    out: dict = {}
+    if state.zero is not None:
+        out["optimizer"] = state.optimizer.state_dict()
+        out["zero_level"] = state.zero.level
+        if state.moments is not None:
+            out["moments"] = state.moments.state_dict()
+    if state.comm_state is not None:
+        out["comm_state"] = [None if s is None else {"q": s.q, "err": s.err} for s in state.comm_state]
+    return _cpu(out)
+
+
+def host_payload(state: TrainState, epoch: int) -> dict | None:
+    """What a checkpoint holds, with every tensor copied to the host once.
+    A collective when each rank holds state of its own (``per_rank``):
+    rank 0 gets the payload, the others None."""
+    with state.full_params():
+        model = _cpu(state.model.state_dict())
+    payload = {
+        "model": model,
         "scheduler": state.scheduler.state_dict() if state.scheduler is not None else None,
         "step": state.step,
         "epoch": epoch,
-    })
+    }
+    if not per_rank(state):
+        payload["optimizer"] = _cpu(state.optimizer.state_dict())
+        return payload
+    part = _rank_part(state)
+    if get_world_size() > 1:
+        parts = [None] * get_world_size() if get_rank() == 0 else None
+        dist.gather_object(part, parts, dst=0)
+    else:
+        parts = [part]
+    if get_rank() != 0:
+        return None
+    payload["ranks"] = parts
+    return payload
 
 
 def _atomic_write(path: str, write) -> None:
@@ -116,11 +161,13 @@ class CheckpointFiles:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def write(self, state: TrainState, epoch: int) -> None:
-        """Write ``state`` as the checkpoint of ``epoch``: the host copy, its
-        hash sidecar, the checkpoint file, and the pruning to
-        ``max_to_keep`` (a checkpoint's sidecar goes with it)."""
-        payload = host_payload(state, epoch)
+    def write(self, state: TrainState, epoch: int, payload: dict | None = None) -> None:
+        """Write ``state`` as the checkpoint of ``epoch``: the host copy
+        (``payload`` when given), its hash sidecar, the checkpoint file, and
+        the pruning to ``max_to_keep`` (a checkpoint's sidecar goes with
+        it)."""
+        if payload is None:
+            payload = host_payload(state, epoch)
         digest = state_content_hash(payload)
         # Sidecar first: a crash between the two renames leaves a sidecar
         # without its checkpoint (replaced by the next save of the epoch),
@@ -155,12 +202,41 @@ class CheckpointFiles:
     def load_into(state: TrainState, payload: dict) -> int:
         """Copy a checkpoint payload into ``state`` in place; returns the
         next epoch."""
-        state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        if per_rank(state) != ("ranks" in payload):
+            raise ValueError("the checkpoint's layout (per-rank ZeRO/PowerSGD state or not) is not "
+                             "this run's: resume with the flags it was saved with")
+        with state.full_params():
+            state.model.load_state_dict(payload["model"])
+            if state.zero is not None:
+                state.zero.load_shard_from_flat()
+        if "ranks" in payload:
+            _load_rank_part(state, payload["ranks"])
+        else:
+            state.optimizer.load_state_dict(payload["optimizer"])
         if state.scheduler is not None:
             state.scheduler.load_state_dict(payload["scheduler"])
         state.step = payload["step"]
         return payload["epoch"] + 1
+
+
+def _load_rank_part(state: TrainState, parts: list) -> None:
+    if len(parts) != get_world_size():
+        raise ValueError(f"the checkpoint holds {len(parts)} ranks' shards, this run has "
+                         f"{get_world_size()}: resharding to another world size is ROADMAP item 13")
+    part = parts[get_rank()]
+    if state.zero is not None:
+        if part.get("zero_level") != state.zero.level:
+            raise ValueError(f"checkpoint of ZeRO level {part.get('zero_level')}, this run is at "
+                             f"{state.zero.level}")
+        state.optimizer.load_state_dict(part["optimizer"])
+        if state.moments is not None:
+            state.moments.load_state_dict(part["moments"])
+    if state.comm_state is not None:
+        from distributeddataparallel_tpu_torch.parallel.powersgd import PowerSGDLeaf
+
+        device = next(state.model.parameters()).device
+        state.comm_state = [None if s is None else PowerSGDLeaf(q=s["q"].to(device), err=s["err"].to(device))
+                            for s in part["comm_state"]]
 
 
 def _dump_json(path: str, obj) -> None:

@@ -31,7 +31,7 @@ import time
 from typing import Callable
 
 from distributeddataparallel_tpu_torch.runtime.distributed import agree, broadcast_object, get_rank
-from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles
+from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles, host_payload, per_rank
 from distributeddataparallel_tpu_torch.training.state import TrainState
 from distributeddataparallel_tpu_torch.utils.logging import warn_all
 
@@ -107,13 +107,17 @@ class ResilientCheckpointer(CheckpointFiles):
         spent."""
         ordinal = self._saves
         self._saves += 1
-        err = self._write_with_retry(state, epoch, ordinal) if get_rank() == 0 else None
+        # Per-rank state (ZeRO shards, PowerSGD) is gathered to rank 0 by
+        # every rank first: the copy is a collective.
+        payload = host_payload(state, epoch) if per_rank(state) else None
+        err = self._write_with_retry(state, epoch, ordinal, payload) if get_rank() == 0 else None
         if not agree(err is None):
             raise CheckpointUnrecoverable(
                 f"checkpoint save for epoch {epoch} failed after {self._policy.retries + 1} attempts"
             ) from err
 
-    def _write_with_retry(self, state: TrainState, epoch: int, ordinal: int) -> Exception | None:
+    def _write_with_retry(self, state: TrainState, epoch: int, ordinal: int,
+                          payload: dict | None = None) -> Exception | None:
         """Rank 0's save attempts; returns the last error, or None once one
         attempt landed."""
         err = None
@@ -121,7 +125,7 @@ class ResilientCheckpointer(CheckpointFiles):
             try:
                 if self._injector is not None:
                     self._injector.fail_io(ordinal, attempt)
-                self.write(state, epoch)
+                self.write(state, epoch, payload)
                 self._verify_saved(epoch)
                 if self._events is not None:
                     self._events.emit("ckpt_save", epoch=epoch, attempts=attempt + 1)

@@ -4,11 +4,19 @@ Counterpart of ``distributeddataparallel_tpu/training/state.py``.  The
 reference threads an immutable pytree through a compiled step; here the
 model and optimizer own their tensors and update them in place, and the
 state object groups them with the LR scheduler and the step count.
+
+Under ZeRO (``parallel.zero.zero_state``) ``zero`` holds the flat layout and
+the optimizer steps this rank's shard of it (``moments`` keeps its moments
+low-bit between steps); under level 3 the model holds no parameters between
+steps, and ``full_params()`` gathers them for a block (evaluation, saving).
+``comm_state`` is PowerSGD's per-leaf hook state (``parallel.powersgd``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from typing import Any
 
 import torch
 from torch import nn
@@ -20,12 +28,28 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler | None = None
     step: int = 0
+    zero: Any = None        # parallel.zero.ZeroLayout
+    moments: Any = None     # parallel.zero.LowBitMoments
+    comm_state: Any = None  # parallel.powersgd state: a list over the reference's leaves
 
     def apply_gradients(self) -> None:
         """One optimizer step on the synced ``.grad`` buffers, then the
         schedule advances (optax's count convention: step k uses the
         schedule's value at k)."""
-        self.optimizer.step()
+        if self.moments is not None:
+            self.moments.step()
+        else:
+            self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
         self.step += 1
+
+    def full_params(self):
+        """The model's whole parameters for a block (a collective under
+        ZeRO-3; nothing to do otherwise)."""
+        return self.zero.full_params() if self.zero is not None else contextlib.nullcontext()
+
+    def num_params(self) -> int:
+        if self.zero is not None:
+            return sum(self.zero.sizes)
+        return sum(p.numel() for p in self.model.parameters())

@@ -1,16 +1,20 @@
 """The data-parallel train step and the masked eval step.
 
-Counterpart of the DP subset of ``make_train_step`` and of ``make_eval_step``
-in ``distributeddataparallel_tpu/training/train_step.py``.  One step on one
-replica (one process per device):
+Counterpart of the DP and ZeRO layouts of ``make_train_step`` and of
+``make_eval_step`` in ``distributeddataparallel_tpu/training/train_step.py``.
+One step on one replica (one process per device):
 
 1. forward, loss and backward on this rank's batch; with
    ``accum_steps > 1`` the batch splits into microbatches whose gradients
    accumulate locally (DDP's ``no_sync``) and are averaged;
-2. one all-reduce per accumulation boundary: the mean over ranks, per leaf
-   or in ~``bucket_bytes`` buckets (``parallel.data_parallel``);
+2. one reduction per accumulation boundary: the mean over ranks, per leaf
+   or in ~``bucket_bytes`` buckets (``parallel.data_parallel``), launched
+   from backward's hooks under ``overlap`` (``parallel.overlap``), through
+   a comm hook (bf16, PowerSGD), or ZeRO's reduce-scatter into this rank's
+   shard (``parallel.zero``);
 3. ``grad_clip``: the synced gradient scaled to that global L2 norm;
-4. the optimizer step and the schedule's advance;
+4. the optimizer step (on the shard under ZeRO, then the parameters
+   gathered) and the schedule's advance;
 5. the model's buffers (BatchNorm running statistics, which each rank
    updated from its own batch) made equal across ranks: ``buffer_sync=
    "mean"`` averages them, ``"broadcast"`` adopts rank 0's (DDP's
@@ -49,12 +53,16 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from distributeddataparallel_tpu_torch.models.io import jax_leaf_pieces
+from distributeddataparallel_tpu_torch.parallel import overlap as ov
+from distributeddataparallel_tpu_torch.parallel import zero as z
 from distributeddataparallel_tpu_torch.parallel.data_parallel import (
     all_reduce_gradients,
     clip_scale,
     masked_tree_mean,
     sumsq_f32,
 )
+from distributeddataparallel_tpu_torch.parallel.powersgd import sync_model_grads
 from distributeddataparallel_tpu_torch.ops.dropout import fold_seed
 from distributeddataparallel_tpu_torch.runtime.distributed import get_rank, get_world_size
 from distributeddataparallel_tpu_torch.training.state import TrainState
@@ -120,6 +128,26 @@ def _split(batch: dict, n: int) -> list[dict]:
     return [{k: parts[k][i] for k in batch} for i in range(n)]
 
 
+def _check_layout(zero_level: int, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync) -> None:
+    """The reference's composition rules (``train_step.py:233-280``)."""
+    if zero_level not in (0, 1, 2, 3):
+        raise ValueError(f"zero={zero_level!r} (want False/True or a level 0-3)")
+    if zero_level == 1 and (bucket_bytes is not None or overlap):
+        raise ValueError("zero=1 does its own reduction; drop bucket_bytes/overlap (or use zero=2/3, "
+                         "whose bucketed stream composes with both)")
+    if grad_compress not in (None, "bf16", "powersgd"):
+        raise ValueError(f"grad_compress must be None, 'bf16' or 'powersgd'; got {grad_compress!r}")
+    if grad_compress is not None and zero_level:
+        raise ValueError("grad_compress requires grad_sync=True and zero=False")
+    if grad_compress == "powersgd" and overlap:
+        raise ValueError("grad_compress='powersgd' replaces the bucketed all-reduce that overlap "
+                         "schedules; pick one mechanism")
+    if buffer_sync not in ("mean", "broadcast"):
+        raise ValueError(f"buffer_sync must be 'mean' or 'broadcast'; got {buffer_sync!r}")
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+
 def make_train_step(
     loss_fn: LossFn,
     *,
@@ -132,43 +160,86 @@ def make_train_step(
     grad_compress: str | None = None,
     nonfinite_guard: bool = False,
 ):
-    """Build ``step(state, batch) -> metrics`` for plain data parallelism.
+    """Build ``step(state, batch[, seed]) -> metrics`` for data parallelism.
 
-    ``overlap``, ``zero`` and ``grad_compress`` are the reference's other
-    layouts; they raise ``NotImplementedError`` until ported (ROADMAP.md
-    Queue 1: parallel/overlap.py, parallel/zero.py, parallel/powersgd.py).
+    The gradient reduction is one of the reference's layouts:
+
+    - plain: the mean all-reduce per leaf, or in ``bucket_bytes`` buckets;
+      ``grad_compress="bf16"`` sends f32 gradients in bf16 (the comm hook);
+    - ``overlap=True``: the buckets (``bucket_bytes``, default 1 MiB) are
+      all-reduced from backward's hooks as their gradients become ready
+      (``parallel.overlap.DPOverlap``), on the boundary microbatch only;
+    - ``grad_compress="powersgd"``: the low-rank hook on the reference's
+      leaves, its state in ``state.comm_state`` (``parallel.powersgd``);
+    - ``zero=1|2|3`` (``True`` is 1): the state comes from
+      ``parallel.zero.zero_state`` at the same level; the gradients are
+      reduce-scattered into this rank's shard (per bucket at 2/3, from the
+      hooks under ``overlap``), the shard is updated and the parameters
+      gathered (at 3, gathered at the step's top and dropped after the
+      backward).  The clip's global norm is the sum of the shards'.
+
+    Composition is the reference's: ``zero=1`` rejects ``bucket_bytes`` and
+    ``overlap``, ``grad_compress`` rejects ``zero``, PowerSGD rejects
+    ``overlap`` (``ValueError``).  Under ``nonfinite_guard`` the verdict
+    comes before any gradient leaves the rank: the hooks launch nothing,
+    and a bad step reaches neither the wire, PowerSGD's error feedback nor
+    ZeRO's reduce-scatter.
     """
-    for flag, value, item in (
-        ("overlap", overlap, "parallel/overlap.py"),
-        ("zero", zero, "parallel/zero.py"),
-        ("grad_compress", grad_compress, "parallel/powersgd.py and the bf16 comm hook"),
-    ):
-        if value:
-            raise NotImplementedError(
-                f"make_train_step({flag}={value!r}) is not ported yet: "
-                f"ROADMAP.md Queue 1, {item}"
-            )
-    if accum_steps < 1:
-        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    if buffer_sync not in ("mean", "broadcast"):
-        raise ValueError(f"buffer_sync must be 'mean' or 'broadcast'; got {buffer_sync!r}")
+    zero_level = int(zero)
+    _check_layout(zero_level, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync)
+    hooks = {}  # the model's reducer hooks, made on the first step
+
+    def reducer(state: TrainState):
+        key = id(state.model)
+        if key not in hooks:
+            if zero_level:
+                layout = state.zero
+
+                def launch(b, scale):
+                    if scale is not None:
+                        layout.bucket_grad(b).mul_(scale)
+                    return layout.reduce_scatter(b, async_op=True)
+
+                hooks[key] = ov.BucketHooks(ov.zero_bucket_params(layout), launch)
+            else:
+                hooks[key] = ov.DPOverlap([p for p in state.model.parameters() if p.requires_grad],
+                                          bucket_bytes=bucket_bytes, compress=grad_compress)
+        return hooks[key]
 
     def step(state: TrainState, batch: dict, seed: int | None = None) -> dict[str, torch.Tensor]:
         model = state.model
         model.train()
+        layout = state.zero
+        if zero_level and (layout is None or layout.level != zero_level):
+            raise ValueError(f"zero={zero_level} needs a state from parallel.zero.zero_state(level={zero_level})")
+        if grad_compress == "powersgd" and state.comm_state is None:
+            raise ValueError("grad_compress='powersgd' needs state.comm_state (parallel.powersgd.powersgd_state)")
+        if zero_level == 3:
+            layout.gather_params()
         params = [p for p in model.parameters() if p.requires_grad]
-        for p in params:
-            p.grad = None
+        if layout is not None:
+            layout.prepare_grads()
+        else:
+            for p in params:
+                p.grad = None
         if nonfinite_guard:
             # The forward updates the BatchNorm running buffers; a skipped
             # step puts them back.
             buffers = model_buffers(model)
             saved = [b.detach().clone() for b in buffers]
+        red = reducer(state) if overlap else None
+        # Under the guard nothing launches before the verdict.
+        armed = red is not None and not nonfinite_guard
         micro = [batch] if accum_steps == 1 else _split(batch, accum_steps)
+        inv = 1.0 / accum_steps
         totals: dict[str, torch.Tensor] = {}
         for i, mb in enumerate(micro):
             kw = {} if seed is None else {"seed": fold_seed(seed, get_rank(), i)}
             loss, aux = loss_fn(model, mb, **kw)
+            if armed and i == len(micro) - 1:
+                # The boundary microbatch's hooks launch each bucket, its
+                # accumulated gradient averaged over the microbatches first.
+                red.arm(inv if accum_steps > 1 else None)
             loss.backward()  # .grad accumulates over microbatches
             for k, v in {"loss": loss, **aux}.items():
                 totals[k] = totals.get(k, 0.0) + v.detach()
@@ -178,12 +249,12 @@ def make_train_step(
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
         if accum_steps > 1:
-            inv = 1.0 / accum_steps
-            for g in grads:
-                g.mul_(inv)
+            if not armed:
+                for g in ([layout.grad] if layout is not None else grads):
+                    g.mul_(inv)
             totals = {k: v * inv for k, v in totals.items()}
         if nonfinite_guard:
-            finite = _all_finite(grads)
+            finite = _all_finite([layout.grad] if layout is not None else grads)
             if dist.is_initialized():
                 dist.all_reduce(finite, op=dist.ReduceOp.MIN)
             # The host reads the agreed flag to branch.  The loop already
@@ -195,9 +266,35 @@ def make_train_step(
                 with torch.no_grad():
                     for b, old in zip(buffers, saved):
                         b.copy_(old)
+                if zero_level == 3:
+                    layout.release_params()
                 state.step += 1
                 return {**_mean_over_ranks(totals), "nonfinite_grad": 1.0}
-        all_reduce_gradients(grads, bucket_bytes=bucket_bytes)
+        _reduce_and_update(state, grads, red)
+        if get_world_size() > 1:  # one rank's buffers are already its own
+            sync_buffers(model_buffers(model), buffer_sync)
+        metrics = _mean_over_ranks(totals)
+        if nonfinite_guard:
+            metrics["nonfinite_grad"] = 0.0
+        return metrics
+
+    def _reduce_and_update(state: TrainState, grads: list[torch.Tensor], red) -> None:
+        if zero_level:
+            reduced = False
+            if red is not None:
+                for work in red.finish():
+                    if work is not None:
+                        work.wait()
+                reduced = True
+            update = {1: z.zero_update, 2: z.zero2_update, 3: z.zero3_update}[zero_level]
+            update(state, grad_clip, reduced=reduced)
+            return
+        if red is not None:
+            red.finish()
+        elif grad_compress == "powersgd":
+            state.comm_state = sync_model_grads(jax_leaf_pieces(state.model), state.comm_state)
+        else:
+            all_reduce_gradients(grads, bucket_bytes=bucket_bytes, compress=grad_compress)
         if grad_clip is not None:
             # Grads are complete per rank after the sync, so the local norm
             # is the global norm.
@@ -205,12 +302,6 @@ def make_train_step(
             for g in grads:
                 g.mul_(scale.to(g.dtype))
         state.apply_gradients()
-        if get_world_size() > 1:  # one rank's buffers are already its own
-            sync_buffers(model_buffers(model), buffer_sync)
-        metrics = _mean_over_ranks(totals)
-        if nonfinite_guard:
-            metrics["nonfinite_grad"] = 0.0
-        return metrics
 
     return step
 

@@ -5,6 +5,9 @@
   kv), and ``bound`` turns them into the least time at the GPT-2 shapes.
 - ``ptxas_report`` names each kernel instantiation from the compiler's
   mangled names and keeps its register and spill counts.
+- Phase 11's runs are the layouts the port ships, each accepted by the
+  port's entry point, and its deepest Llama keeps the stated spare memory
+  by the phase's own arithmetic; the kernels line carries their launches.
 """
 
 import importlib.util
@@ -60,3 +63,22 @@ def test_ptxas_report_names_each_instantiation():
         "flash_bwd_dq_kernel<bf16,4,64,128,128>: 255 registers; "
         "16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads",
     ]
+
+
+def test_phase11_layouts_parse_and_the_deep_llama_fits():
+    from distributeddataparallel_tpu_torch import dpp
+
+    assert set(chip_smoke.LAYOUTS) == {"plain", "bucket_mb_1", "overlap", "bf16_hook", "powersgd_r4",
+                                       "zero1", "zero2", "zero3"}
+    for extra in chip_smoke.LAYOUTS.values():
+        args = dpp.parse_args(chip_smoke.LAYOUT_ARGS + extra)
+        assert (args.model, args.seq_len, args.vocab_size, args.steps_per_epoch) == ("gpt2", 1024, 50257, 5)
+    for md in ("f32", "int8", "bf16"):
+        args = dpp.parse_args(chip_smoke.LLAMA_ZERO_ARGS + ["--moment-dtype", md])
+        assert (args.zero, args.layers, args.steps_per_epoch, args.eval) == (2, 8, 10, False)
+    # The comment's arithmetic: 8 layers at 34.87 GiB, 1.98 GiB a layer,
+    # 5 GiB of 79.18 kept.
+    fits = [L for L in range(8, 33) if 34.87 + 1.98 * (L - 8) <= 79.18 - chip_smoke.LLAMA_SPARE_GIB]
+    assert chip_smoke.LLAMA_DEEP_LAYERS == max(fits) == 27
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert '"launches_layouts": layouts["attention_launches"][name]' in src
