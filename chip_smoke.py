@@ -112,10 +112,31 @@ Phases (any failure exits non-zero; nothing is caught):
       completed, 2 of them teacher-forced against the bf16 forward through
       K1 and against the bf16 decode twin's own prefill.
 
+11. the layouts (``--zero 1/2/3``, ``--overlap``, the comm hooks) on GPT-2,
+   and Llama-3 8B under ``--zero 2`` with low-bit moments;
+12. context and tensor parallelism at Llama-3 8B's attention width (32 heads,
+   8 kv heads of 128, bf16):
+   a. every rank's hops of the flash ring on a 4-way seq axis over a global
+      sequence of 8192, replayed in this process through
+      ``parallel.context_parallel``'s own hop and merge functions, against
+      one full-sequence K1-K3 call (out, lse, dq, dk, dv), with the launch
+      counts the ring implies (1 + r of each kernel on rank r) and each
+      rank's time beside the single call's; the same replay at 2048 against
+      the plain versions, in f32 at GPT-2's heads over 4096 on a 2-way axis,
+      and Ulysses' head split (GQA-native on 4 ranks, the kv heads repeated
+      on 16);
+   b. one Llama-3 8B block (d_model 4096, FFN 14336) run as its two TP
+      shards one after the other (K1-K3 at 16 heads / 4 kv heads), the
+      partial outputs summed, against the unsharded block;
+   c. with two GPUs or more, ``--cp 2`` (ring, Ulysses) and ``--tp 2`` at
+      Llama-3 8B x 8 layers over NCCL against one GPU; with one, a line
+      saying it was not run.
+
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
 ``llama_path`` line (phase 7), one ``reference_workload`` line (phase 8),
 one ``fault_path`` line (phase 9), one ``layouts`` line (phase 11: each
-run's step ms, peak memory and losses), one ``serving_path`` line (phase 10,
+run's step ms, peak memory and losses), one ``cp_tp_path`` line (phase 12:
+each replay's max errors, launches and times, the GPU count), one ``serving_path`` line (phase 10,
 each run's TTFT p50/p99, tokens/s, per-token latency, decode-step ms,
 preemptions, evictions, prefix hits, acceptance, pool bytes against the
 allocator's peak, peak memory), one ``{"kernels": [...]}`` JSON line,
@@ -371,7 +392,56 @@ LLAMA_ZERO_ARGS = [a for a in LLAMA_ARGS if a != "--eval"] + ["--zero", "2"]
 LLAMA_DEEP_LAYERS = 27
 LLAMA_SPARE_GIB = 5.0
 
-DEVICE = "cuda"  # phase 10's device
+# Phase 12: context and tensor parallelism at Llama-3 8B's attention width
+# (32 heads, 8 kv heads of 128, bf16).  12a runs parallel.context_parallel's
+# own flash ring for every rank of a 4-way seq axis in this process (one
+# thread a rank, the exchange in memory), at a global sequence of 8192
+# (Llama-3 8B's max_seq_len, 2048 a rank: phase 7's), against one
+# full-sequence K1-K3 call and against the ring's hops through the plain
+# versions; again at 2048 against the plain versions; in f32 at GPT-2's
+# heads (12 of 64) over 4096 on a 2-way axis; then the module's Ulysses
+# (native at 4 ranks, the kv heads repeated at 16).  12b runs one Llama-3
+# 8B block (d_model 4096, FFN 14336) as its two TP shards.
+CP_RING = dict(B=1, Sq=8192, Skv=8192, H=32, Hkv=8, D=128, n=4, dtype="bfloat16")
+CP_RING_PLAIN = dict(CP_RING, Sq=2048, Skv=2048)
+CP_RING_F32 = dict(B=1, Sq=4096, Skv=4096, H=12, Hkv=12, D=64, n=2, dtype="float32")
+ULYSSES_N = {"native_n4": 4, "expand_n16": 16}
+TP_BLOCK = dict(B=1, S=2048, tp=2)
+# Tolerances of 12a/12b, |x - ref| <= atol + rtol |ref| + slack max|ref|:
+# - out: TOL.  The ring rounds each hop's output to bf16 (half an ulp of a
+#   hop's value) before the f32 merge, then rounds once more; both stay
+#   under TOL's bf16 bound, which covers a one-ulp difference.
+# - lse: f32 in both, merged by logaddexp against one pass: TOL's f32.
+# - dq, dk, dv: each hop's piece is rounded to bf16 and the pieces are
+#   summed in bf16, one rounding per hop: up to n - 1 more half-ulp
+#   roundings of the running sum than the oracle's one, each at most
+#   2^-8 of the largest value: slack n 2^-8 of the largest value against
+#   the full-sequence oracle, and (n - 1) 2^-8 of it against the plain
+#   replay (the same sums of pieces each within TOL of the plain one, whose
+#   n - 1 additions may each round one ulp apart).  Ulysses' repeated kv
+#   heads (rep copies of one) get their dk/dv pieces rounded to bf16 and
+#   summed: (rep - 1) 2^-8 of the largest value more.
+# - 12b: the TP block sums two bf16 partials where the full block rounds
+#   one f32 sum: up to 1.5 bf16 ulps of the largest partial before the
+#   residual, carried through the next norm and MLP: 4 ulps (4 2^-8) of
+#   each tensor's largest value, for the output and every gradient.
+ULP_BF16 = 2.0 ** -8
+# A replayed rank that waits this long for its neighbour's exchange fails
+# the phase (hops take milliseconds).
+EXCHANGE_TIMEOUT_S = 60
+CP_TP_ENTRY_ARGS = [a for a in LLAMA_ARGS if a != "--eval"] + ["--steps-per-epoch", "3"]
+CP_TP_ENTRY = {"cp2_ring": ["--cp", "2", "--cp-impl", "ring"], "cp2_ulysses": ["--cp", "2", "--cp-impl", "ulysses"],
+               "tp2": ["--tp", "2"]}
+# With four GPUs or more, also the 4-way ring (its masked hops skipped on
+# three of the ranks) and CP x TP.
+CP_TP_ENTRY_4 = {"cp4_ring": ["--cp", "4", "--cp-impl", "ring"], "cp2_tp2": ["--cp", "2", "--tp", "2"]}
+# 12c: losses of the multi-GPU runs against one GPU's on the same global
+# batch, bf16 activations through 8 layers, loss ~12.55: the sound runs on
+# four H100s read gaps of 1.05e-3 to 3.04e-3 (the 2-way ring's, on its
+# third step), so 1e-2 holds them with a margin of 3.
+CP_TP_ENTRY_ATOL = 1e-2
+
+DEVICE = "cuda"  # phases 10 and 12's device
 
 KERNELS = [
     # name, replaces, matmuls per visible (q, k) pair
@@ -414,9 +484,9 @@ def nvidia_smi() -> str:
 
 
 def inputs(torch, c, seed):
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
     dt = getattr(torch, c["dtype"])
-    mk = lambda S, H: torch.randn(c["B"], S, H, c["D"], generator=g, device="cuda").to(dt)
+    mk = lambda S, H: torch.randn(c["B"], S, H, c["D"], generator=g, device=DEVICE).to(dt)
     return mk(c["Sq"], c["H"]), mk(c["Skv"], c["Hkv"]), mk(c["Skv"], c["Hkv"]), mk(c["Sq"], c["H"])
 
 
@@ -1825,6 +1895,365 @@ def layouts_phase(torch, dpp, fa, smi) -> dict:
     return out
 
 
+def _chunk(t, j: int, n: int):
+    L = t.shape[1] // n
+    return t[:, j * L : (j + 1) * L].contiguous()
+
+
+class LocalRing:
+    """The flash ring's exchange (``context_parallel._Ring``'s ``idx``,
+    ``n``, ``post``, ``wait``) among the ranks of a replay, each a thread of
+    this process: ``post`` puts copies of the tensors in the next rank's
+    mailbox, ``wait`` takes the previous rank's in post order (each rank
+    posts the same sequence, as over a process group).  It keeps what it
+    received, for ``CannedRing``.  A wait that outlasts EXCHANGE_TIMEOUT_S
+    raises: a replay fails, it never hangs."""
+
+    def __init__(self, boxes, idx: int):
+        self.boxes, self.idx, self.n = boxes, idx, len(boxes)
+        self.sent, self.received = 0, []
+
+    def post(self, tensors):
+        tag = self.sent
+        self.sent += 1
+        self.boxes[(self.idx + 1) % self.n].put((tag, [t.clone() for t in tensors]))
+        return tag
+
+    def wait(self, tag):
+        got, tensors = self.boxes[self.idx].get(timeout=EXCHANGE_TIMEOUT_S)
+        if got != tag:
+            raise AssertionError(f"rank {self.idx} waited for exchange {tag}, got {got}")
+        self.received.append(tensors)
+        return tensors
+
+
+class CannedRing:
+    """One rank's exchange run alone: ``wait`` gives back what its
+    ``LocalRing`` received, in order, and ``post`` sends nowhere.  Times
+    one rank's hops through the module's own loop."""
+
+    def __init__(self, idx: int, n: int, received):
+        self.idx, self.n, self.received, self.sent = idx, n, received, 0
+
+    def post(self, tensors):
+        self.sent += 1
+        return self.sent - 1
+
+    def wait(self, tag):
+        return self.received[tag]
+
+
+def ring_replay(torch, cp, q, k, v, do, n: int) -> dict:
+    """[12a] ``parallel.context_parallel``'s flash ring, its own forward and
+    backward loops (hop order, the lse merge, the dq and travelling dk/dv
+    accumulators, the final rotation), for every rank of an ``n``-way axis:
+    each rank a thread of this process, stepping with the others through
+    ``LocalRing``.  Returns the global out, lse, dq, dk, dv and, under
+    ``received``, each rank's (forward, backward) receipts."""
+    import queue
+    import threading
+
+    boxes = {"fwd": [queue.Queue() for _ in range(n)], "bwd": [queue.Queue() for _ in range(n)]}
+    results, errors = [None] * n, []
+
+    def rank(r):
+        try:
+            ring_f, ring_b = LocalRing(boxes["fwd"], r), LocalRing(boxes["bwd"], r)
+            qr, kr, vr, dr = (_chunk(t, r, n) for t in (q, k, v, do))
+            out, lse = cp.flash_ring_forward(qr, kr, vr, ring_f)
+            dq, dk, dv = cp.flash_ring_backward(qr, kr, vr, out, lse, dr, ring_b)
+            results[r] = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv,
+                          "received": (ring_f.received, ring_b.received)}
+        except BaseException as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=rank, args=(r,), daemon=True) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=4 * EXCHANGE_TIMEOUT_S)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"ring replay: a rank did not finish in {4 * EXCHANGE_TIMEOUT_S} s")
+    out = {key: torch.cat([res[key] for res in results], dim=2 if key == "lse" else 1)
+           for key in ("out", "lse", "dq", "dk", "dv")}
+    out["received"] = [res["received"] for res in results]
+    return out
+
+
+def plain_ring(torch, fa, cp, q, k, v, do, n: int) -> dict:
+    """[12a] The ring replay's oracle: every rank's live hops one after the
+    other through K1-K3's plain versions, merged by ``cp.ring_merge``,
+    dq summed in q's dtype in hop order and each chunk's dk/dv in k's
+    dtype in the order the ring carries them (its owner's diagonal hop
+    first, then ranks j+1 .. n-1).  Global out, lse, dq, dk, dv."""
+    outs, lses, dqs, dks, dvs = [], [], [], [None] * n, [None] * n
+    for r in range(n):
+        qr, dor = _chunk(q, r, n), _chunk(do, r, n)
+        hops = [(s, _chunk(k, r - s, n), _chunk(v, r - s, n)) for s in range(n) if cp.hop_live(r, s)]
+        of, lse = None, None
+        for s, kc, vc in hops:
+            oh, lseh = fa.flash_fwd_plain(qr, kc, vc, causal=s == 0)
+            of, lse = (oh.float(), lseh) if s == 0 else cp.ring_merge(of, lse, oh, lseh)
+        out = of.to(q.dtype)
+        delta = fa.attention_delta(out, dor)
+        dq = None
+        for s, kc, vc in hops:
+            dq_h = fa.flash_bwd_dq_plain(qr, kc, vc, dor, lse, delta, causal=s == 0)
+            dk_h, dv_h = fa.flash_bwd_dkv_plain(qr, kc, vc, dor, lse, delta, causal=s == 0)
+            dq = dq_h if dq is None else dq + dq_h
+            j = r - s
+            dks[j] = dk_h if dks[j] is None else dks[j] + dk_h
+            dvs[j] = dv_h if dvs[j] is None else dvs[j] + dv_h
+        outs.append(out)
+        lses.append(lse)
+        dqs.append(dq)
+    cat = lambda ts, dim=1: torch.cat(ts, dim=dim)
+    return {"out": cat(outs), "lse": cat(lses, 2), "dq": cat(dqs), "dk": cat(dks), "dv": cat(dvs)}
+
+
+def full_oracle(fa, q, k, v, do) -> dict:
+    """One full-sequence K1-K3 call (causal)."""
+    out, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.attention_delta(out, do)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    return {"out": out, "lse": lse, "dq": fa.flash_bwd_dq(q, k, v, do, lse, delta, True), "dk": dk, "dv": dv}
+
+
+def hold(torch, got: dict, ref: dict, dtype: str, slack: dict, what: str) -> dict:
+    """Max abs error of each output, each within TOL (lse: f32's) plus
+    ``slack[key]`` (rtol, of-max) where given; raises otherwise."""
+    errs = {}
+    for key, x in got.items():
+        if key == "received":
+            continue
+        atol, rtol = TOL["float32" if key == "lse" else dtype]
+        a, b = x.float(), ref[key].float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: {key} has non-finite values")
+        extra_rtol, of_max = slack.get(key, (0.0, 0.0))
+        err = (a - b).abs()
+        bound = atol + (rtol + extra_rtol) * b.abs() + of_max * float(b.abs().max())
+        errs[key] = float(err.max())
+        if dtype == "bfloat16" and key != "lse":
+            errs[f"{key}_bf16_ulps_of_max"] = errs[key] / (ULP_BF16 * float(b.abs().max()))
+        if (err > bound).any():
+            raise AssertionError(f"{what}: {key} off at {int((err > bound).sum())} entries (max abs err "
+                                 f"{errs[key]:.3e}; atol {atol}, rtol {rtol} + {extra_rtol}, {of_max} of max)")
+    log(f"    {what}: " + "  ".join(f"{k} {e:.2e}" for k, e in errs.items() if "ulps" not in k))
+    return errs
+
+
+def ring_timing(torch, fa, cp, q, k, v, do, n: int, received) -> dict:
+    """Device and host ms of each rank's forward and backward through the
+    module's loops (``CannedRing``: the exchange replays what the rank
+    received in ``ring_replay``, so no transfer is timed), of the merges
+    alone, and of one full-sequence K1-K3 call."""
+    def rank_run(r):
+        qr, kr, vr, dr = (_chunk(t, r, n) for t in (q, k, v, do))
+        out, lse = cp.flash_ring_forward(qr, kr, vr, CannedRing(r, n, received[r][0]))
+        cp.flash_ring_backward(qr, kr, vr, out, lse, dr, CannedRing(r, n, received[r][1]))
+
+    ranks = []
+    for r in range(n):
+        ms, host_ms = time_ms(torch, lambda: rank_run(r), 10)
+        ranks.append({"rank": r, "hops": r + 1, "ms": ms, "host_ms": host_ms, "host_ms_per_hop": host_ms / (r + 1)})
+    last = n - 1
+    oh, lse = fa.flash_fwd(_chunk(q, last, n), _chunk(k, last, n), _chunk(v, last, n), True)
+    of = oh.float()
+    merge_ms = time_ms(torch, lambda: cp.ring_merge(of, lse, oh, lse), 20)[0]
+    full_ms, full_host = time_ms(torch, lambda: full_oracle(fa, q, k, v, do), 10)
+    busiest = ranks[last]
+    return {"ranks": ranks, "full_sequence_ms": full_ms, "full_sequence_host_ms": full_host,
+            "merge_ms": merge_ms, "merge_share_busiest_rank": (n - 1) * merge_ms / busiest["ms"],
+            "busiest_rank_over_full": busiest["ms"] / full_ms}
+
+
+def ulysses_replay(torch, cp, q, k, v, do, n: int) -> dict:
+    """[12a] ``parallel.context_parallel``'s Ulysses (``ulysses_ranks``: the
+    kv repeat to lcm(Hkv, n) where ``n`` does not divide the kv heads, the
+    exchanges' block layouts, FlashAttention over the whole sequence on each
+    rank's heads) for every rank of an ``n``-way axis in this process, the
+    all-to-all done in memory, the backward through autograd.  Returns the
+    global out, dq, dk, dv."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    chunks = [[_chunk(t, r, n) for r in range(n)] for t in leaves]
+    exchange = lambda ys: [torch.stack([y[r] for y in ys]) for r in range(n)]
+    out = torch.cat(cp.ulysses_ranks(*chunks, n, exchange, causal=True, impl="kernel"), dim=1)
+    out.backward(do)
+    return {"out": out.detach(), "dq": leaves[0].grad, "dk": leaves[1].grad, "dv": leaves[2].grad}
+
+
+def tp_block_replay(torch, tfm, dtype) -> dict:
+    """[12b] One Llama-3 8B block (bf16 on f32 params) and its tp=2 column /
+    row shards run one after the other on this card: the shards'
+    attention and MLP partials summed (the forward all-reduce) ahead of
+    each residual, against the unsharded block; output, input gradient
+    and every parameter's gradient (the shards' merged)."""
+    from distributeddataparallel_tpu_torch.ops.attention import rope_frequencies
+    from distributeddataparallel_tpu_torch.parallel.tensor_parallel import merge_tp_shards, shard_state_dict_tp
+
+    tp, B, S = TP_BLOCK["tp"], TP_BLOCK["B"], TP_BLOCK["S"]
+    cfg = tfm.llama3_8b(num_layers=1, max_seq_len=S)
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    full = tfm.DecoderBlock(cfg, device=DEVICE)
+    with torch.no_grad():
+        for p in full.parameters():
+            p.normal_(0.0, 0.02, generator=gen) if p.dim() > 1 else p.fill_(1.0)
+    local_cfg = dataclasses.replace(cfg, num_heads=cfg.num_heads // tp, num_kv_heads=cfg.kv_heads // tp,
+                                    d_ff=cfg.d_ff // tp, head_dim=cfg.dims_per_head)
+    shards = []
+    for r in range(tp):
+        blk = tfm.DecoderBlock(local_cfg, device=DEVICE)
+        blk.load_state_dict(shard_state_dict_tp(full.state_dict(), r, tp))
+        shards.append(blk)
+    rope = rope_frequencies(cfg.dims_per_head, S, theta=cfg.rope_theta, device=DEVICE)
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=DEVICE).to(dtype)
+    g = torch.randn(B, S, cfg.d_model, generator=gen, device=DEVICE).to(dtype)
+    xf = x.clone().requires_grad_()
+    ref_out = full(xf, rope)
+    ref_out.backward(g)
+    xs = x.clone().requires_grad_()
+    y = shards[0].attn_norm(xs)
+    x1 = xs + sum(blk.attn(y, rope) for blk in shards)
+    z = shards[0].mlp_norm(x1)
+    out = x1 + sum(blk.mlp(z) for blk in shards)
+    out.backward(g)
+    grads = merge_tp_shards([{n: p.grad for n, p in blk.named_parameters() if p.grad is not None}
+                             for blk in shards])
+    got = {"out": out.detach(), "dx": xs.grad, **{f"d:{n}": grads[n] for n in sorted(grads)}}
+    want = {"out": ref_out.detach(), "dx": xf.grad, **{f"d:{n}": p.grad for n, p in sorted(full.named_parameters())}}
+    errs, ulps = {}, {}
+    for key in want:
+        a, b = got[key].float(), want[key].float()
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        errs[key], ulps[key] = err, err / (ULP_BF16 * scale)
+        if not math.isfinite(err) or err > 4 * ULP_BF16 * scale:
+            raise AssertionError(f"12b: {key} off by {err:.3e} > 4 bf16 ulps of its largest |value| {scale:.3e}")
+    log(f"    12b tp={tp} block B={B} S={S}: out {errs['out']:.2e}, dx {errs['dx']:.2e}, largest weight-gradient "
+        f"error {max(v for k, v in errs.items() if k.startswith('d:')):.2e}")
+    log(f"    12b in bf16 ulps of each tensor's largest |value|: out {ulps['out']:.2f}, dx {ulps['dx']:.2f}, "
+        f"weight gradients up to {max(v for k, v in ulps.items() if k.startswith('d:')):.2f}")
+    return {"shapes": dict(TP_BLOCK, d_model=cfg.d_model, d_ff=cfg.d_ff, local_heads=local_cfg.num_heads,
+                           local_kv_heads=local_cfg.num_kv_heads), "max_abs_err": errs, "bf16_ulps_of_max": ulps}
+
+
+def cp_tp_entry(torch, smi) -> dict:
+    """[12c] The entry point over NCCL on two GPUs: Llama-3 8B x 8 layers
+    under ``--cp 2`` (ring, Ulysses) and ``--tp 2`` against one GPU on the
+    same global batch (one data replica: the ranks split its sequence or
+    its heads); with four, ``--cp 4`` and ``--cp 2 --tp 2`` too.  Only
+    where two GPUs are visible."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"    12c needs two GPUs and was not run: {count} visible")
+        return {"ran": False, "gpus": count}
+    base = run_entry(CP_TP_ENTRY_ARGS, "12c one GPU")
+    out = {"ran": True, "gpus": count, "one_gpu": {"losses": base["losses"], "step_ms": base["step_time_s"] * 1e3}}
+    runs = [(name, extra, 2) for name, extra in CP_TP_ENTRY.items()]
+    if count >= 4:
+        runs += [(name, extra, 4) for name, extra in CP_TP_ENTRY_4.items()]
+    import glob
+
+    from distributeddataparallel_tpu_torch.parallel.overlap import overlap_report, trace_kernels
+
+    for name, extra, gpus in runs:
+        with tempfile.TemporaryDirectory(prefix="cp_tp_ev_") as ev:
+            # The ring runs trace steps 1-2 on every rank: the NCCL kernels'
+            # time and the part of it under the hops' kernels.
+            prof = ["--events-dir", ev, "--profile-steps", "1:3"] if "ring" in name else []
+            s = run_entry(CP_TP_ENTRY_ARGS + extra + ["--num-processes", str(gpus)] + prof, f"12c {name}")
+            exchange = [overlap_report(trace_kernels(path))
+                        for path in sorted(glob.glob(os.path.join(ev, "xprof", "trace_*_p*.json")))]
+        diff = max(abs(a - b) for a, b in zip(s["losses"], base["losses"]))
+        out[name] = {"gpus": gpus, "losses": s["losses"], "step_ms": s["step_time_s"] * 1e3, "max_abs_diff": diff,
+                     "peak_memory_bytes": s["peak_memory_bytes"], "attention_launches": s["attention_launches"],
+                     "exchange_by_rank": exchange}
+        if not diff <= CP_TP_ENTRY_ATOL:
+            raise AssertionError(f"12c {name}: losses {s['losses']} vs one GPU {base['losses']}")
+        log(f"    12c {name}: step {out[name]['step_ms']:.1f} ms, |loss - one GPU| {diff:.2e} on {smi}")
+    return out
+
+
+def cp_tp_phase(torch, fa, tfm, smi) -> dict:
+    """[12] Context and tensor parallelism: the flash ring's and Ulysses'
+    call patterns of K1-K3 and a TP block, replayed on this card."""
+    from distributeddataparallel_tpu_torch.parallel import context_parallel as cp
+
+    t0 = time.perf_counter()
+    log("[12] context and tensor parallelism (replays on one card)")
+    out: dict = {"launches": {}}
+    c = CP_RING
+    n = c["n"]
+    q, k, v, do = inputs(torch, c, 120)
+    fa.reset_launches()
+    oracle = full_oracle(fa, q, k, v, do)
+    replay = ring_replay(torch, cp, q, k, v, do, n)
+    torch.cuda.synchronize()
+    want = {name: 1 + sum(r + 1 for r in range(n)) for name in fa.LAUNCHES}
+    if fa.LAUNCHES != want:
+        raise AssertionError(f"12a ring launches {fa.LAUNCHES} != {want} (the replay's 1 + r a rank, and the oracle's 1)")
+    out["launches"]["ring_s8192"] = dict(fa.LAUNCHES)
+    slack = {key: (0.0, n * ULP_BF16) for key in ("dq", "dk", "dv")}
+    out["ring_s8192_vs_full"] = hold(torch, replay, oracle, c["dtype"], slack, f"12a ring n={n} S={c['Sq']} vs one call")
+    slack = {key: (0.0, (n - 1) * ULP_BF16) for key in ("dq", "dk", "dv")}
+    out["ring_s8192_vs_plain"] = hold(torch, replay, plain_ring(torch, fa, cp, q, k, v, do, n), c["dtype"], slack,
+                                      f"12a ring n={n} S={c['Sq']} vs plain")
+    out["ring_timing"] = ring_timing(torch, fa, cp, q, k, v, do, n, replay["received"])
+    rt_ = out["ring_timing"]
+    log(f"    12a ring per rank ms {[round(x['ms'], 3) for x in rt_['ranks']]} (host ms per hop "
+        f"{[round(x['host_ms_per_hop'], 3) for x in rt_['ranks']]}); one call at S={c['Sq']} {rt_['full_sequence_ms']:.3f} ms; "
+        f"merge {rt_['merge_ms']:.3f} ms, {rt_['merge_share_busiest_rank']:.1%} of the busiest rank on {smi}")
+    for name, m in ULYSSES_N.items():
+        fa.reset_launches()
+        got = ulysses_replay(torch, cp, q, k, v, do, m)
+        torch.cuda.synchronize()
+        if fa.LAUNCHES != {k_: m for k_ in fa.LAUNCHES}:
+            raise AssertionError(f"12a ulysses {name}: launches {fa.LAUNCHES}, want {m} each")
+        out["launches"][f"ulysses_{name}"] = dict(fa.LAUNCHES)
+        rep = cp.ulysses_kv_repeat(c["H"], c["Hkv"], m)
+        slack = {key: (0.0, (rep - 1) * ULP_BF16) for key in ("dk", "dv")}
+        out[f"ulysses_{name}"] = hold(torch, got, {kk: oracle[kk] for kk in got}, c["dtype"], slack,
+                                      f"12a ulysses {name} (Hkv {k.shape[2]} on {m}) vs one call")
+    del q, k, v, do, oracle, replay
+    cs = CP_RING_PLAIN
+    q, k, v, do = inputs(torch, cs, 121)
+    fa.reset_launches()
+    got = ring_replay(torch, cp, q, k, v, do, cs["n"])
+    plain = plain_ring(torch, fa, cp, q, k, v, do, cs["n"])
+    out["launches"]["ring_s2048"] = dict(fa.LAUNCHES)
+    slack = {key: (0.0, (cs["n"] - 1) * ULP_BF16) for key in ("dq", "dk", "dv")}
+    out["ring_s2048_vs_plain"] = hold(torch, got, plain, cs["dtype"], slack, f"12a ring n={cs['n']} S={cs['Sq']} vs plain")
+    cf = CP_RING_F32
+    q, k, v, do = inputs(torch, cf, 122)
+    fa.reset_launches()
+    oracle = full_oracle(fa, q, k, v, do)
+    got = ring_replay(torch, cp, q, k, v, do, cf["n"])
+    out["launches"]["ring_f32"] = dict(fa.LAUNCHES)
+    out["ring_f32_vs_full"] = hold(torch, got, oracle, cf["dtype"], {}, f"12a ring f32 n={cf['n']} S={cf['Sq']} vs one call")
+    del q, k, v, do, oracle, got, plain
+    fa.reset_launches()
+    out["tp_block"] = tp_block_replay(torch, tfm, torch.bfloat16)
+    torch.cuda.synchronize()
+    tp = TP_BLOCK["tp"]
+    if fa.LAUNCHES != {k_: 1 + tp for k_ in fa.LAUNCHES}:
+        raise AssertionError(f"12b launches {fa.LAUNCHES}, want {1 + tp} each (the shards' and the full block's)")
+    out["launches"]["tp_block"] = dict(fa.LAUNCHES)
+    release(torch)
+    out["entry"] = cp_tp_entry(torch, smi)
+    # The replays' launches as the path runs them: every replay but the
+    # oracle calls and the plain comparison's own.
+    L = out["launches"]
+    out["attention_launches"] = {k_: L["ring_s8192"][k_] - 1 + L["ulysses_native_n4"][k_] + L["ulysses_expand_n16"][k_]
+                                 + L["ring_s2048"][k_] + L["ring_f32"][k_] - 1 + L["tp_block"][k_] - 1
+                                 for k_ in fa.LAUNCHES}
+    out["gpus"] = torch.cuda.device_count()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"    phase 12 in {out['seconds']:.1f} s; K1-K3 launches {out['attention_launches']} on {smi}")
+    return out
+
+
 def release(torch) -> None:
     """Free what earlier runs left (a model held by a reference cycle, say,
     the reducer's hooks) before the next run's peak is measured."""
@@ -1919,6 +2348,7 @@ def main() -> int:
     fault = fault_path_phase(torch, dpp, losses, smi)
     serving = serving_path_phase(torch, dpp, fa, smi)
     layouts = layouts_phase(torch, dpp, fa, smi)
+    cp_tp = cp_tp_phase(torch, fa, tfm, smi)
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -1933,6 +2363,7 @@ def main() -> int:
             "launches_fault_path": fault["launches"][name],
             "launches_serving_path": serving["attention_launches"][name],
             "launches_layouts": layouts["attention_launches"][name],
+            "launches_cp_tp_path": cp_tp["attention_launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1963,6 +2394,7 @@ def main() -> int:
     log(json.dumps({"fault_path": fault, "card": smi}))
     log(json.dumps({"serving_path": serving, "card": smi}))
     log(json.dumps({"layouts": layouts, "card": smi}))
+    log(json.dumps({"cp_tp_path": cp_tp, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(nvidia_smi())  # the card's name and power limit, as nvidia-smi gives them

@@ -57,6 +57,14 @@ class DataLoader:
 
     ``workers=True`` gathers host batches on a background thread, one batch
     ahead (one ordered producer, as in the reference).
+
+    Over a mesh, ``rank`` and ``num_replicas`` are the ``data`` axis's index
+    and size: ranks that share a data index (the ``seq`` and ``model`` ranks
+    of one replica) get the same rows.  ``seq_shard=(index, n)`` (context
+    parallelism, the reference's ``shard_lm_batch``) splits each LM batch's
+    ``(B, S + 1)`` tokens into ``inputs`` and ``targets`` on the host, where
+    the next-token shift may cross a chunk's end, and keeps this rank's
+    contiguous ``S / n`` chunk of each.
     """
 
     def __init__(
@@ -73,8 +81,10 @@ class DataLoader:
         with_mask: bool = False,
         augment=None,
         workers: bool = False,
+        seq_shard: tuple[int, int] | None = None,
     ):
         self.dataset = dataset
+        self.seq_shard = seq_shard
         self.per_replica_batch = per_replica_batch
         self.device = torch.device(device)
         self.with_mask = with_mask
@@ -151,7 +161,21 @@ class DataLoader:
             if self.with_mask:
                 p = np.arange(step * B, step * B + len(idx))
                 host["valid"] = (smp.rank + p * smp.num_replicas < smp.dataset_len).astype(np.float32)
+            if self.seq_shard is not None:
+                host = _seq_chunk(host, *self.seq_shard)
             yield host
+
+
+def _seq_chunk(host: dict, index: int, n: int) -> dict:
+    """An LM host batch's next-token pairs, chunk ``index`` of ``n`` along
+    the sequence."""
+    tokens = host.pop("tokens")
+    S = tokens.shape[1] - 1
+    if S % n:
+        raise ValueError(f"sequence length {S} is not divisible by the {n} sequence shards")
+    lo, hi = index * (S // n), (index + 1) * (S // n)
+    host["inputs"], host["targets"] = tokens[:, :-1][:, lo:hi], tokens[:, 1:][:, lo:hi]
+    return host
 
 
 def _background(items: Iterator) -> Iterator:

@@ -57,6 +57,16 @@ sizes the level 2/3 buckets) with ``--moment-dtype f32|bf16|int8``,
 ``parallel.overlap``), and ``--grad-compress bf16|powersgd``
 (``--powersgd-rank``; ``parallel.powersgd``).  ``--fsdp`` raises, naming
 its ROADMAP item.
+
+Model-axis layouts for the LMs, with the reference's flags and checks:
+``--cp N`` shards the sequence over a ``seq`` axis (``--cp-impl ring``,
+the flash ring, or ``ulysses``; ``parallel.context_parallel``) and ``--tp
+N`` shards heads and hidden units over a ``model`` axis (Megatron,
+``parallel.tensor_parallel``).  The ranks form the reference's mesh: data
+outermost, then ``seq``, then ``model`` (``runtime.distributed.make_mesh``).
+They compose with each other and with ``--accum-steps``, ``--zero 1``,
+``--grad-clip``, ``--eval``, ``--remat`` and ``--dropout``; ``--pp`` and
+``--ep`` raise, naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -110,6 +120,7 @@ from distributeddataparallel_tpu_torch.ops.preprocess import normalize_u8_images
 from distributeddataparallel_tpu_torch.parallel import overlap
 from distributeddataparallel_tpu_torch.parallel.data_parallel import broadcast_params
 from distributeddataparallel_tpu_torch.parallel.powersgd import leaf_shapes, powersgd_state
+from distributeddataparallel_tpu_torch.parallel.tensor_parallel import shard_state_dict_tp
 from distributeddataparallel_tpu_torch.parallel.zero import zero_state
 from distributeddataparallel_tpu_torch.runtime import distributed as rt
 from distributeddataparallel_tpu_torch.runtime import launcher
@@ -230,6 +241,20 @@ def parse_args(argv=None):
                    help="PowerSGD approximation rank (with --grad-compress powersgd)")
     p.add_argument("--grad-clip", type=float, default=None,
                    help="clip the synced gradient to this global L2 norm")
+    p.add_argument("--cp", type=int, default=1,
+                   help="context-parallel degree: shard the sequence over a 'seq' mesh axis "
+                        "with collective attention (LM only)")
+    p.add_argument("--cp-impl", choices=["ring", "ulysses"], default="ring",
+                   help="sequence-parallel attention collective: 'ring' (the flash ring, "
+                        "O(S/N) memory) or 'ulysses' (all_to_all to a head-sharded layout; "
+                        "local flash attention over the full sequence, needs num_heads %% cp == 0)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree: Megatron column/row sharding of attention "
+                        "heads + MLP hidden over a 'model' mesh axis (LM only)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel degree: not ported yet (ROADMAP item 16)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel degree: not ported yet (ROADMAP item 17)")
     p.add_argument("--buffer-sync", choices=["mean", "broadcast"], default="mean",
                    help="BatchNorm buffers across ranks: 'mean' averages the running "
                         "stats, 'broadcast' adopts rank 0's (DDP broadcast_buffers)")
@@ -365,10 +390,35 @@ def parse_args(argv=None):
 
 
 def _validate_layout(args) -> None:
-    """The reference's rules for the sharded update and the comm hooks
-    (``dpp.py:757-830``)."""
+    """The reference's rules for the model axes, the sharded update and the
+    comm hooks (``dpp.py:554-560``, ``:757-840``); a composition the
+    reference accepts and this port does not run yet raises
+    ``NotImplementedError`` naming its ROADMAP item."""
+    if args.pp != 1:
+        raise NotImplementedError("--pp is not ported yet: ROADMAP.md Queue 1, item 16")
+    if args.ep != 1:
+        raise NotImplementedError("--ep is not ported yet: ROADMAP.md Queue 1, item 17")
     if args.fsdp:
         raise SystemExit("--fsdp is not ported yet: ROADMAP.md Queue 1, item 12b")
+    if args.cp < 1 or args.tp < 1:
+        raise SystemExit("--cp and --tp must be >= 1")
+    if args.cp > 1:
+        if not is_lm(args):
+            raise SystemExit("--cp requires an LM model (--model gpt2|llama)")
+        if args.seq_len % args.cp:
+            raise SystemExit("--seq-len must be divisible by --cp")
+    if args.tp > 1 and not is_lm(args):
+        raise SystemExit("--tp requires an LM model (--model gpt2|llama)")
+    if args.zero >= 2 and args.tp > 1:
+        raise SystemExit(f"--zero {args.zero} shards over the data axis only; drop --tp or use --zero 1")
+    if args.grad_compress == "powersgd" and args.tp > 1:
+        raise SystemExit("--grad-compress powersgd supports DP/CP layouts; drop --tp/--ep")
+    if args.generate and args.tp > 1:
+        raise SystemExit("--generate needs replicated params (no --tp/--pp/--ep; --fsdp [--tp N] "
+                         "generates via the host gather)")
+    if args.cp > 1 and (args.overlap or args.grad_compress == "powersgd"):
+        raise NotImplementedError("--overlap and --grad-compress powersgd with --cp are not ported "
+                                  "yet: ROADMAP.md Queue 1, item 15b")
     if args.moment_dtype and not args.zero:
         raise SystemExit("--moment-dtype rides the ZeRO sharded update; add --zero")
     if args.overlap and args.zero == 1:
@@ -426,6 +476,10 @@ def build_config(args, vocab_size: int | None = None) -> tfm.TransformerConfig:
     ``build_model`` makes it (``dpp.py:918-973``, plain DP)."""
     family = tfm.gpt2_124m if args.model == "gpt2" else tfm.llama3_8b
     overrides = dict(vocab_size=vocab_size or args.vocab_size, max_seq_len=args.seq_len)
+    if args.cp > 1:
+        overrides.update(cp_axis=rt.SEQ_AXIS, cp_impl=args.cp_impl)
+    if args.tp > 1:
+        overrides["tp_axis"] = rt.MODEL_AXIS
     if args.dropout:
         overrides["dropout_rate"] = args.dropout
     if args.layers:
@@ -440,9 +494,14 @@ def build_config(args, vocab_size: int | None = None) -> tfm.TransformerConfig:
         heads = max(1, args.d_model // 16)
         overrides.update(d_model=args.d_model, d_ff=4 * args.d_model, num_heads=heads)
         if args.model == "llama":
-            # The largest kv-head count <= heads / 4 that divides heads
-            # (dpp.py:956-973 at a TP degree of 1).
-            overrides["num_kv_heads"] = max(d for d in range(1, max(heads // 4, 1) + 1) if heads % d == 0)
+            # The largest kv-head count <= heads / 4 (or --tp) that divides
+            # heads and that --tp divides (dpp.py:956-973).
+            kv = max((d for d in range(1, max(heads // 4, args.tp) + 1)
+                      if heads % d == 0 and d % args.tp == 0), default=None)
+            if kv is None:
+                raise SystemExit(f"no GQA kv-head count divides heads={heads} and is divisible by "
+                                 f"--tp {args.tp}; pick a larger --d-model")
+            overrides["num_kv_heads"] = kv
     return family(**overrides)
 
 
@@ -523,16 +582,23 @@ def _image_metric_fn(model, batch):
     }
 
 
-def _loss_fn(model, batch, seed=None):
+def _lm_pairs(batch):
+    """(inputs, targets): the loader's split under --cp (a sequence
+    chunk's), else the tokens shifted by one."""
+    if "inputs" in batch:
+        return batch["inputs"], batch["targets"]
     tokens = batch["tokens"]
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    return tokens[:, :-1], tokens[:, 1:]
+
+
+def _loss_fn(model, batch, seed=None):
+    inputs, targets = _lm_pairs(batch)
     logits = model(inputs, dropout_seed=seed)
     return lm_cross_entropy(logits, targets), {"accuracy": accuracy(logits, targets)}
 
 
 def _metric_fn(model, batch):
-    tokens = batch["tokens"]
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    inputs, targets = _lm_pairs(batch)
     logits = model(inputs)
     return {
         "loss": per_example_cross_entropy(logits, targets),
@@ -598,16 +664,45 @@ class Trainer:
     eval_loader: DataLoader | None = None
 
 
+def build_mesh(args, world_size: int):
+    """The reference's mesh for ``--cp`` / ``--tp`` (``dpp.py:511-533``):
+    data outermost, then ``seq``, then ``model``; None for plain DP."""
+    axes, sizes = [rt.DATA_AXIS], []
+    for degree, name in ((args.cp, rt.SEQ_AXIS), (args.tp, rt.MODEL_AXIS)):
+        if degree > 1:
+            axes.append(name)
+            sizes.append(degree)
+    if not sizes:
+        return None
+    if world_size % math.prod(sizes):
+        raise SystemExit(
+            f"requested parallelism ({' x '.join(f'{a}={d}' for a, d in zip(axes[1:], sizes))}) "
+            f"does not divide {world_size} devices")
+    return rt.make_mesh(tuple(axes), (world_size // math.prod(sizes), *sizes))
+
+
+def data_coords(mesh, rank: int, world_size: int) -> tuple[int, int]:
+    """(this rank's data-parallel replica, the replicas): the ``data``
+    axis's index and size on a mesh, the rank and world otherwise."""
+    if mesh is None:
+        return rank, world_size
+    return mesh.index(rt.DATA_AXIS), mesh.size(rt.DATA_AXIS)
+
+
 def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1) -> Trainer:
     """Model (rank 0's weights on every rank), optimizer, step functions and
     loaders for these flags; the process group, if any, is formed.
-    ``train`` restores the newest checkpoint with ``--resume``."""
+    ``train`` restores the newest checkpoint with ``--resume``.  Under
+    ``--cp`` / ``--tp`` the mesh is formed here; every rank builds the full
+    model from the seed and keeps its TP shard of it."""
     lm = is_lm(args)
+    mesh = build_mesh(args, world_size)
+    d_index, n_data = data_coords(mesh, rank, world_size)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     dataset = build_dataset(args, train=True)
     if lm:
         cfg = build_config(args, getattr(dataset, "vocab_size", None))
-        model = tfm.TransformerLM(cfg, device=device, generator=gen)
+        model = tfm.TransformerLM(dataclasses.replace(cfg, tp_axis=None), device=device, generator=gen)
     else:
         model = build_model(args, dataset, device, gen)
     if args.pretrained:
@@ -615,24 +710,32 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
         if rank == 0:
             print(f"loaded pretrained weights from {args.pretrained}", flush=True)
     broadcast_params(model)  # DDP constructor broadcast
+    if lm and cfg.tp_axis is not None:
+        full = model.state_dict()
+        model = tfm.TransformerLM(cfg, device=device)
+        model.load_state_dict(shard_state_dict_tp(full, mesh.index(rt.MODEL_AXIS), mesh.size(rt.MODEL_AXIS)))
+        del full
+    seq_shard = (mesh.index(rt.SEQ_AXIS), mesh.size(rt.SEQ_AXIS)) if args.cp > 1 else None
 
-    loader = DataLoader(dataset, per_replica_batch=args.batch_size, rank=rank,
-                        num_replicas=world_size, device=device, shuffle=True,
+    loader = DataLoader(dataset, per_replica_batch=args.batch_size, rank=d_index,
+                        num_replicas=n_data, device=device, shuffle=True,
                         seed=args.seed, drop_last=True, workers=args.workers > 0,
-                        augment=CifarAugment() if args.augment else None)
+                        augment=CifarAugment() if args.augment else None, seq_shard=seq_shard)
     spe = len(loader) if not args.steps_per_epoch else min(len(loader), args.steps_per_epoch)
     if spe == 0:
         raise SystemExit(
             f"no training steps: dataset gives {len(loader)} batches per replica "
-            f"(dataset too small for --batch-size {args.batch_size} x {world_size} replicas)"
+            f"(dataset too small for --batch-size {args.batch_size} x {n_data} replicas)"
         )
     bucket_bytes = int(args.bucket_mb * 1024 * 1024) if args.bucket_mb else None
     total_steps = max(spe * args.epochs, 1)
+    data_group = rt.axis_group(rt.DATA_AXIS) if mesh is not None else None
     if args.zero:
         # The optimizer steps this rank's shard of the flat layout.
         state = zero_state(model, lambda shard: build_optimizer(args, shard, total_steps),
                            level=args.zero, moment_dtype=args.moment_dtype, seed=args.seed,
-                           bucket_bytes=bucket_bytes if args.zero >= 2 else None)
+                           bucket_bytes=bucket_bytes if args.zero >= 2 else None,
+                           group=data_group, tp_axis=cfg.tp_axis if lm else None)
     else:
         state = TrainState(model, *build_optimizer(args, model.parameters(), total_steps))
         if args.grad_compress == "powersgd":
@@ -645,16 +748,19 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
             bucket_bytes=bucket_bytes, grad_clip=args.grad_clip, buffer_sync=args.buffer_sync,
             nonfinite_guard=args.nan_guard, overlap=args.overlap, zero=args.zero,
             grad_compress=args.grad_compress,
+            cp_axis=cfg.cp_axis if lm else None, tp_axis=cfg.tp_axis if lm else None,
         ),
         loader=loader,
         steps_per_epoch=spe,
     )
     if args.eval:
-        trainer.eval_step = make_eval_step(_metric_fn if lm else _image_metric_fn)
+        metric_fn = _metric_fn if lm else _image_metric_fn
+        trainer.eval_step = make_eval_step(metric_fn, seq_axis=cfg.cp_axis if lm else None)
         trainer.eval_loader = DataLoader(
             build_dataset(args, train=False),
-            per_replica_batch=args.batch_size, rank=rank, num_replicas=world_size,
+            per_replica_batch=args.batch_size, rank=d_index, num_replicas=n_data,
             device=device, shuffle=False, seed=args.seed, drop_last=False, with_mask=True,
+            seq_shard=seq_shard,
         )
     return trainer
 
@@ -664,7 +770,7 @@ def build_telemetry(args, trainer: Trainer, device: torch.device, rank: int,
     """The telemetry these flags ask for (``training.telemetry``), with the
     analytic FLOP count of a step for ``--mfu`` (the reference's cost model,
     ``dpp.py:2126-2186``)."""
-    rows = args.batch_size * world_size
+    rows = args.batch_size * data_coords(rt.current_mesh(), rank, world_size)[1]
     lm = is_lm(args)
     tel = Telemetry(args, rank=rank, world_size=world_size,
                     items_per_step=rows * args.seq_len if lm else rows,
@@ -910,7 +1016,7 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
     wall_step_time = wall / wall_steps if wall_steps else None
     with torch.no_grad(), state.full_params():
         param_norm = math.sqrt(sum(float(p.double().pow(2).sum()) for p in model.parameters()))
-    rows_per_step = args.batch_size * world_size
+    rows_per_step = args.batch_size * data_coords(rt.current_mesh(), rank, world_size)[1]
     rate = ("tokens_per_s", rows_per_step * args.seq_len) if is_lm(args) else ("images_per_s", rows_per_step)
     summary = {
         "model": args.model,

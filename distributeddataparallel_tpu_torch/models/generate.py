@@ -59,13 +59,13 @@ def _live_params(cfg, params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor
 
 
 def decode_model(model: TransformerLM, *, quant_serving: bool = False) -> TransformerLM:
-    """The decode twin of a TransformerLM: KV-cache attention, remat and
-    dropout off, the model's params (``_live_params``: shared in f32, one
+    """The decode twin of a TransformerLM: KV-cache attention, remat,
+    dropout and sequence sharding off, the model's params (``_live_params``: shared in f32, one
     cast copy in a lower compute dtype).  ``quant_serving`` twins compute
     from an int8 tree (``forward(qparams=...)``) and share the masters
     only for their shapes."""
     cfg = dataclasses.replace(model.cfg, decode=True, remat=False, dropout_rate=0.0,
-                              quant_serving=quant_serving)
+                              cp_axis=None, quant_serving=quant_serving)
     if model.cfg == cfg:
         return model
     params = {k: p.detach() for k, p in model.named_parameters()}

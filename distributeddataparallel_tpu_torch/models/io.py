@@ -99,9 +99,13 @@ def unstack_scanned_layers(params: Mapping, num_layers: int, prefix: str = "laye
     return out
 
 
-def from_jax_params(params, cfg: TransformerConfig | nn.Module) -> dict[str, torch.Tensor]:
+def from_jax_params(params, cfg: TransformerConfig | nn.Module, *, tp_rank: int = 0,
+                    tp_size: int = 1) -> dict[str, torch.Tensor]:
     """Reference flax tree -> this port's state_dict (CPU float32 tensors).
-    An LM tree may be in either layer layout."""
+    An LM tree may be in either layer layout.  With ``tp_size > 1`` the
+    result is tensor-parallel rank ``tp_rank``'s shard of it
+    (``parallel.tensor_parallel.shard_state_dict_tp``: its query and kv
+    heads and hidden units; the rest whole)."""
     if not isinstance(cfg, TransformerConfig):
         return _tensors(_image_from_jax(params, cfg))
     if "layers" in params:
@@ -135,7 +139,12 @@ def from_jax_params(params, cfg: TransformerConfig | nn.Module) -> dict[str, tor
     norm("final_norm", params["final_norm"])
     if not cfg.tie_embeddings:
         out["lm_head.weight"] = _np(params["lm_head"]["kernel"]).T
-    return _tensors(out)
+    sd = _tensors(out)
+    if tp_size > 1:
+        from distributeddataparallel_tpu_torch.parallel.tensor_parallel import shard_state_dict_tp
+
+        sd = shard_state_dict_tp(sd, tp_rank, tp_size)
+    return sd
 
 
 def _tensors(arrays: dict) -> dict[str, torch.Tensor]:
@@ -144,11 +153,14 @@ def _tensors(arrays: dict) -> dict[str, torch.Tensor]:
 
 def to_jax_params(state_dict, cfg: TransformerConfig | nn.Module) -> dict:
     """This port's state_dict -> the reference flax tree (nested dicts of
-    float32 numpy arrays)."""
+    float32 numpy arrays).  The head counts are read off the projections,
+    so a tensor-parallel shard's state_dict gives that shard of the tree
+    (its heads and hidden units; ``parallel.tensor_parallel.merge_tp_shards``
+    puts the shards' state_dicts back together first for the whole tree)."""
     sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
     if not isinstance(cfg, TransformerConfig):
         return _contig(_image_to_jax(sd, cfg))
-    H, Hkv, D, d = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head, cfg.d_model
+    D, d = cfg.dims_per_head, cfg.d_model
     tree: dict = {"token_embed": {"embedding": sd["token_embed.weight"]}}
     if cfg.positional == "learned":
         tree["pos_embed"] = sd["pos_embed"]
@@ -162,11 +174,11 @@ def to_jax_params(state_dict, cfg: TransformerConfig | nn.Module) -> dict:
     for i in range(cfg.num_layers):
         pre = f"layers.{i}"
         attn = {}
-        for name, heads in (("q_proj", H), ("k_proj", Hkv), ("v_proj", Hkv)):
-            attn[name] = {"kernel": sd[f"{pre}.attn.{name}.weight"].T.reshape(d, heads, D)}
+        for name in ("q_proj", "k_proj", "v_proj"):
+            attn[name] = {"kernel": sd[f"{pre}.attn.{name}.weight"].T.reshape(d, -1, D)}
             if cfg.use_bias:
-                attn[name]["bias"] = sd[f"{pre}.attn.{name}.bias"].reshape(heads, D)
-        attn["o_proj"] = {"kernel": sd[f"{pre}.attn.o_proj.weight"].T.reshape(H, D, d)}
+                attn[name]["bias"] = sd[f"{pre}.attn.{name}.bias"].reshape(-1, D)
+        attn["o_proj"] = {"kernel": sd[f"{pre}.attn.o_proj.weight"].T.reshape(-1, D, d)}
         if cfg.use_bias:
             attn["o_proj"]["bias"] = sd[f"{pre}.attn.o_proj.bias"]
         mlp = {}
@@ -262,7 +274,11 @@ def jax_leaf_pieces(model: nn.Module) -> list[tuple[str, list[tuple[nn.Parameter
         return _image_leaf_pieces(model)
     cfg = model.cfg
     sd = dict(model.named_parameters())
-    H, Hkv, D, d = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head, cfg.d_model
+    # This rank's head counts (a tensor-parallel shard holds H / tp).
+    attn0 = model.layers[0].attn if len(model.layers) else None
+    H = attn0.heads if attn0 is not None else cfg.num_heads
+    Hkv = attn0.kv_heads if attn0 is not None else cfg.kv_heads
+    D, d = cfg.dims_per_head, cfg.d_model
 
     def same(name, shape=None):
         return (sd[name], "same", tuple(shape or sd[name].shape))

@@ -42,6 +42,17 @@ flash kernels for CUDA tensors).
   (``ops.quant``, the reference's layout) and dequantizes one layer's
   matrices inside that layer's call, so only the int8 stack stays resident.
 
+- ``tp_axis``: Megatron tensor parallelism over that axis of the current
+  mesh (``parallel.tensor_parallel``): each rank holds ``H / tp`` query and
+  ``Hkv / tp`` kv heads and ``d_ff / tp`` hidden units, ``copy_to_tp`` and
+  ``reduce_from_tp`` sit where the reference puts them, and the row-parallel
+  biases are added after the reduction.  Unbound (no mesh, or no such
+  axis), the model has the full shapes.
+- ``cp_axis``: the sequence is sharded over that axis: the model sees its
+  rank's chunk, RoPE and learned positions use the chunk's global positions
+  (``context_parallel.cp_positions``), attention is the ring or Ulysses
+  (``cp_impl``), and the length guard checks the global length.
+
 Config fields of the reference that this port does not run yet are kept so
 configs carry over, and raise ``NotImplementedError`` naming the ROADMAP
 item that ports them.
@@ -67,6 +78,9 @@ from distributeddataparallel_tpu_torch.ops.attention import (
     rope_frequencies,
 )
 from distributeddataparallel_tpu_torch.ops.dropout import dropout, fold_seed
+from distributeddataparallel_tpu_torch.parallel import context_parallel as cp
+from distributeddataparallel_tpu_torch.parallel.tensor_parallel import copy_to_tp, reduce_from_tp, tp_size
+from distributeddataparallel_tpu_torch.runtime.distributed import axis_group, axis_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +105,7 @@ class TransformerConfig:
     dropout_rate: float = 0.0
     use_bias: bool = True            # proj biases: GPT-2 yes, Llama no
     cp_axis: str | None = None
+    cp_impl: str = "ring"            # "ring" | "ulysses"
     tp_axis: str | None = None
     decode: bool = False
     moe_experts: int = 0
@@ -147,8 +162,6 @@ def tiny_lm(**overrides) -> TransformerConfig:
 #: Config features outside this port's slice -> the ROADMAP item (Queue 1)
 #: that ports them.
 _NOT_PORTED = (
-    ("cp_axis", "context parallelism, parallel/context_parallel.py"),
-    ("tp_axis", "tensor parallelism, parallel/tensor_parallel.py"),
     ("moe_experts", "mixture of experts, parallel/expert_parallel.py + ops/moe.py"),
     ("ep_axis", "expert parallelism, parallel/expert_parallel.py"),
     ("grad_sync_axis", "no in-scan gradient sync: the port's layers are a ModuleList, so "
@@ -249,6 +262,15 @@ def _make_norm(cfg: TransformerConfig, device) -> nn.Module:
     raise ValueError(f"unknown norm {cfg.norm!r}")
 
 
+def _row_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp_axis) -> torch.Tensor:
+    """A row-parallel Linear (ref ``_RowParallelOut``): the partial product
+    of this rank's input features summed over the TP axis, then the
+    replicated bias added once."""
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    y = reduce_from_tp(y, tp_axis)
+    return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, *, device=None):
         super().__init__()
@@ -256,27 +278,47 @@ class Attention(nn.Module):
         H, Hkv, D, d = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head, cfg.d_model
         if H % Hkv:
             raise ValueError(f"num_heads {H} not a multiple of kv heads {Hkv}")
+        n_tp = tp_size(cfg.tp_axis)
+        if H % n_tp or Hkv % n_tp:
+            raise ValueError(f"tp={n_tp} must divide num_heads={H} and kv_heads={Hkv}")
+        self.tp = n_tp > 1
+        # This rank's head counts (all of them without TP).
+        self.heads, self.kv_heads = H // n_tp, Hkv // n_tp
         lin = lambda i, o: nn.Linear(i, o, bias=cfg.use_bias, device=device)
-        self.q_proj = lin(d, H * D)
-        self.k_proj = lin(d, Hkv * D)
-        self.v_proj = lin(d, Hkv * D)
-        self.o_proj = lin(H * D, d)
+        self.q_proj = lin(d, self.heads * D)
+        self.k_proj = lin(d, self.kv_heads * D)
+        self.v_proj = lin(d, self.kv_heads * D)
+        self.o_proj = lin(self.heads * D, d)
 
-    def forward(self, x, rope=None):
+    def forward(self, x, rope=None, positions=None):
         cfg = self.cfg
         B, S, _ = x.shape
-        H, Hkv, D = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+        H, Hkv, D = self.heads, self.kv_heads, cfg.dims_per_head
+        if self.tp:
+            x = copy_to_tp(x, cfg.tp_axis)
         q = _dense(self.q_proj, x, cfg.dtype).view(B, S, H, D)
         k = _dense(self.k_proj, x, cfg.dtype).view(B, S, Hkv, D)
         v = _dense(self.v_proj, x, cfg.dtype).view(B, S, Hkv, D)
         if cfg.positional == "rope":
             cos, sin = rope
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
+            q = apply_rope(q, cos, sin, positions=positions)
+            k = apply_rope(k, cos, sin, positions=positions)
         # GQA kv stays at its own head count: the kernels index the shared
-        # head natively; the plain path expands internally.
-        out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
-        return _dense(self.o_proj, out.reshape(B, S, H * D), cfg.dtype)
+        # head natively; the plain path expands internally.  So do both
+        # sequence-parallel collectives (the ring carries kv at Hkv heads).
+        if axis_size(cfg.cp_axis) > 1:
+            if cfg.cp_impl == "ulysses":
+                out = cp.ulysses_attention(q, k, v, axis_group(cfg.cp_axis), causal=True, impl=cfg.attn_impl)
+            elif cfg.cp_impl == "ring":
+                out = cp.ring_attention(q, k, v, axis_group(cfg.cp_axis), causal=True, impl=cfg.attn_impl)
+            else:
+                raise ValueError(f"unknown cp_impl {cfg.cp_impl!r}")
+        else:
+            out = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+        out = out.reshape(B, S, H * D)
+        if self.tp:
+            return _row_parallel(self.o_proj, out, cfg.dtype, cfg.tp_axis)
+        return _dense(self.o_proj, out, cfg.dtype)
 
     def decode(self, x, rope, positions, kv):
         """KV-cache attention (ref ``Attention.__call__``'s decode branch):
@@ -284,7 +326,7 @@ class Attention(nn.Module):
         attend against the whole cache under a positional bias."""
         cfg = self.cfg
         B, S, _ = x.shape
-        H, Hkv, D = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+        H, Hkv, D = self.heads, self.kv_heads, cfg.dims_per_head
         q = _dense(self.q_proj, x, cfg.dtype).view(B, S, H, D)
         k = _dense(self.k_proj, x, cfg.dtype).view(B, S, Hkv, D)
         v = _dense(self.v_proj, x, cfg.dtype).view(B, S, Hkv, D)
@@ -326,18 +368,27 @@ class MLP(nn.Module):
         self.cfg = cfg
         if cfg.activation not in ("gelu", "swiglu"):
             raise ValueError(f"unknown activation {cfg.activation!r}")
+        n_tp = tp_size(cfg.tp_axis)
+        if cfg.d_ff % n_tp:
+            raise ValueError(f"tp={n_tp} must divide d_ff={cfg.d_ff}")
+        self.tp = n_tp > 1
+        ff = cfg.d_ff // n_tp  # this rank's hidden units
         lin = lambda i, o: nn.Linear(i, o, bias=cfg.use_bias, device=device)
         if cfg.activation == "swiglu":
-            self.gate_proj = lin(cfg.d_model, cfg.d_ff)
-        self.up_proj = lin(cfg.d_model, cfg.d_ff)
-        self.down_proj = lin(cfg.d_ff, cfg.d_model)
+            self.gate_proj = lin(cfg.d_model, ff)
+        self.up_proj = lin(cfg.d_model, ff)
+        self.down_proj = lin(ff, cfg.d_model)
 
     def forward(self, x):
         dt = self.cfg.dtype
+        if self.tp:
+            x = copy_to_tp(x, self.cfg.tp_axis)
         if self.cfg.activation == "swiglu":
             h = F.silu(_dense(self.gate_proj, x, dt)) * _dense(self.up_proj, x, dt)
         else:
             h = F.gelu(_dense(self.up_proj, x, dt), approximate="tanh")
+        if self.tp:
+            return _row_parallel(self.down_proj, h, dt, self.cfg.tp_axis)
         return _dense(self.down_proj, h, dt)
 
 
@@ -353,9 +404,10 @@ class DecoderBlock(nn.Module):
     def forward(self, x, rope=None, seed=None, positions=None, kv=None):
         """``seed`` (an int) turns on dropout of both residual branches;
         ``kv`` (this layer's cache pair) selects KV-cache attention at
-        ``positions``."""
+        ``positions`` (without it, ``positions`` are the tokens' global
+        positions for RoPE: a sequence chunk's under ``cp_axis``)."""
         y = self.attn_norm(x)
-        h = self.attn(y, rope) if kv is None else self.attn.decode(y, rope, positions, kv)
+        h = self.attn(y, rope, positions) if kv is None else self.attn.decode(y, rope, positions, kv)
         if seed is not None:
             h = dropout(h, self.rate, fold_seed(seed, 0))
         x = x + h
@@ -420,17 +472,29 @@ class TransformerLM(nn.Module):
         docstring); ``qparams`` is an int8 tree under ``quant_serving``."""
         cfg = self.cfg
         if cfg.decode:
+            if cfg.cp_axis is not None:
+                # The cache has no sequence-sharded layout; the decode twin
+                # (models.generate) turns cp_axis off.
+                raise ValueError("decode does not compose with cp_axis/remat")
             return self._decode(tokens, positions, cache, qparams)
         B, S = tokens.shape
-        if S > cfg.max_seq_len:
-            raise ValueError(f"seq len {S} > max_seq_len {cfg.max_seq_len}")
+        # Under CP the model sees its chunk: the guard checks the global
+        # length, or RoPE / pos_embed lookups past the tables would clamp.
+        n_seq = axis_size(cfg.cp_axis)
+        if S * n_seq > cfg.max_seq_len:
+            detail = (f"global seq len {S * n_seq} ({S} local x {n_seq} {cfg.cp_axis!r} shards)"
+                      if n_seq > 1 else f"seq len {S}")
+            raise ValueError(f"{detail} > max_seq_len {cfg.max_seq_len}")
+        if n_seq > 1 and positions is None:
+            positions = cp.cp_positions(S, axis_group(cfg.cp_axis), device=tokens.device)
         drop = self.training and cfg.dropout_rate > 0
         if drop and dropout_seed is None:
             raise ValueError("training with dropout_rate > 0 needs forward(dropout_seed=...)")
         x = self.token_embed(tokens).to(cfg.dtype)
         rope = None
         if cfg.positional == "learned":
-            x = x + self.pos_embed[:S].to(cfg.dtype)
+            pos = self.pos_embed[:S] if positions is None else self.pos_embed[positions]
+            x = x + pos.to(cfg.dtype)
         else:
             rope = (self.rope_cos, self.rope_sin)
         if drop:
@@ -438,9 +502,9 @@ class TransformerLM(nn.Module):
         for i, layer in enumerate(self.layers):
             seed = fold_seed(dropout_seed, i + 1) if drop else None
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, rope, seed, use_reentrant=False)
+                x = checkpoint(layer, x, rope, seed, positions, use_reentrant=False)
             else:
-                x = layer(x, rope, seed)
+                x = layer(x, rope, seed, positions)
         x = self.final_norm(x)
         w = self.token_embed.weight if cfg.tie_embeddings else self.lm_head.weight
         return f32_logits(x, w, cfg.dtype)

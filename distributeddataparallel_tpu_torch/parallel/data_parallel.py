@@ -14,7 +14,9 @@ written out explicitly instead of wrapping the model in
 
 Gradients are reduced in place (the port owns the ``.grad`` buffers, so no
 second copy of the gradient is kept).  Every function is a no-op reduction
-when no process group is initialized.
+when no process group is initialized.  ``group=`` names the process group
+to reduce over (a mesh axis's, ``runtime.distributed.axis_group``); the
+default, None, is the whole world.
 """
 
 from __future__ import annotations
@@ -58,15 +60,29 @@ def plan_buckets(leaf_bytes, bucket_bytes: int) -> list[list[int]]:
     return buckets
 
 
-def _inv(t: torch.Tensor) -> torch.Tensor:
-    """``1 / world`` rounded to ``t``'s dtype (the reference multiplies by
+def group_size(group=None) -> int:
+    """Ranks in ``group`` (None: the world; 1 without a process group)."""
+    if not dist.is_initialized():
+        return 1
+    return dist.get_world_size(group) if group is not None else get_world_size()
+
+
+def _inv(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``1 / n`` rounded to ``t``'s dtype (the reference multiplies by
     ``jnp.asarray(inv_n, dtype)``)."""
-    return torch.tensor(1.0 / get_world_size(), dtype=t.dtype)
+    return torch.tensor(1.0 / group_size(group), dtype=t.dtype)
 
 
-def _sum(t: torch.Tensor) -> None:
-    if dist.is_initialized():
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+def group_active(group) -> bool:
+    """Is there a collective to run over ``group``?  The world's runs
+    whenever a process group exists, even one of a single rank; a mesh
+    axis's only when the axis has more than one rank."""
+    return dist.is_initialized() and (group is None or dist.get_world_size(group) > 1)
+
+
+def _sum(t: torch.Tensor, group=None) -> None:
+    if group_active(group):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
 
 
 def all_reduce_gradients(
@@ -74,8 +90,9 @@ def all_reduce_gradients(
     *,
     bucket_bytes: int | None = None,
     compress: str | None = None,
+    group=None,
 ) -> None:
-    """Mean of each gradient tensor across the ranks, in place.
+    """Mean of each gradient tensor across the ranks of ``group``, in place.
 
     The mean is DDP's divide-by-world-size, which keeps every replica in
     lockstep under a local optimizer step.  With ``bucket_bytes`` the leaves
@@ -89,16 +106,16 @@ def all_reduce_gradients(
     lockstep."""
     _check_compress(compress)
     if bucket_bytes is not None:
-        bucket_gradients(grads, bucket_bytes=bucket_bytes, compress=compress)
+        bucket_gradients(grads, bucket_bytes=bucket_bytes, compress=compress, group=group)
         return
-    inv_n = 1.0 / get_world_size()
+    inv_n = 1.0 / group_size(group)
     for g in grads:
         if compress == "bf16" and g.dtype == torch.float32:
             wire = g.to(torch.bfloat16)
-            _sum(wire)
-            g.copy_(wire.mul_(_inv(wire)))
+            _sum(wire, group)
+            g.copy_(wire.mul_(_inv(wire, group)))
         else:
-            _sum(g)
+            _sum(g, group)
             g.mul_(inv_n)
 
 
@@ -107,6 +124,7 @@ def bucket_gradients(
     *,
     bucket_bytes: int = DEFAULT_BUCKET_BYTES,
     compress: str | None = None,
+    group=None,
 ) -> None:
     """Coalesced mean all-reduce, in place: leaves grouped into
     ~bucket_bytes buckets in reverse order (DDP's Reducer order), each
@@ -118,8 +136,8 @@ def bucket_gradients(
     for bucket in buckets:
         leaves = [grads[i] for i in bucket]
         flat = bucket_flat(leaves, compress)
-        _sum(flat)
-        bucket_unflat(flat, leaves)
+        _sum(flat, group)
+        bucket_unflat(flat, leaves, group)
 
 
 def bucket_flat(leaves: list[torch.Tensor], compress: str | None = None) -> torch.Tensor:
@@ -134,10 +152,10 @@ def bucket_flat(leaves: list[torch.Tensor], compress: str | None = None) -> torc
     return torch.cat([g.reshape(-1).to(dtype) for g in leaves])
 
 
-def bucket_unflat(flat: torch.Tensor, leaves: list[torch.Tensor]) -> None:
-    """The summed wire vector times ``1 / world`` (in its own dtype), back
-    into its leaves."""
-    flat.mul_(_inv(flat))
+def bucket_unflat(flat: torch.Tensor, leaves: list[torch.Tensor], group=None) -> None:
+    """The summed wire vector times ``1 / n`` (in its own dtype, n the
+    ranks of ``group``), back into its leaves."""
+    flat.mul_(_inv(flat, group))
     offset = 0
     for g in leaves:
         n = g.numel()
@@ -176,27 +194,38 @@ def clip_scale(gnorm: torch.Tensor, clip_norm: float) -> torch.Tensor:
 
 
 @torch.no_grad()
-def broadcast_params(module: nn.Module) -> None:
-    """Overwrite every rank's parameters and buffers with rank 0's — DDP's
-    construction-time broadcast."""
-    if not dist.is_initialized():
+def broadcast_params(module: nn.Module, group=None) -> None:
+    """Overwrite every rank's parameters and buffers with those of the
+    first rank of ``group`` — DDP's construction-time broadcast."""
+    if not group_active(group):
         return
+    src = 0 if group is None else dist.get_global_rank(group, 0)
     for t in list(module.parameters()) + list(module.buffers()):
-        dist.broadcast(t.data, src=0)
+        dist.broadcast(t.data, src=src, group=group)
 
 
 def masked_tree_mean(
-    metrics: dict[str, torch.Tensor], mask: torch.Tensor
+    metrics: dict[str, torch.Tensor], mask: torch.Tensor, group=None, seq_group=None,
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """Global masked mean of per-row metrics: ``(means, count)``.
 
     ``metrics`` values are per-row vectors on this rank; ``mask`` is the
     matching (rows,) validity mask (0 on sampler-padded duplicate rows).
-    One all-reduce carries the count and every numerator."""
+    One all-reduce over ``group`` carries the count and every numerator.
+    With ``seq_group`` (context parallelism) each rank's per-row values
+    cover its chunk of the sequence: they are first averaged over that
+    group (the chunks are equal, so this is each row's exact mean), in one
+    all-reduce of every metric's rows."""
     mask = mask.float()
     keys = list(metrics)
-    parts = [mask.sum()] + [(metrics[k].float() * mask).sum() for k in keys]
+    rows = [metrics[k].float() for k in keys]
+    n_seq = group_size(seq_group)
+    if n_seq > 1:
+        stacked = torch.stack(rows)
+        _sum(stacked, seq_group)
+        rows = list((stacked / n_seq).unbind())
+    parts = [mask.sum()] + [(r * mask).sum() for r in rows]
     total = torch.stack(parts)
-    _sum(total)
+    _sum(total, group)
     den = total[0]
     return {k: total[i + 1] / den.clamp(min=1.0) for i, k in enumerate(keys)}, den

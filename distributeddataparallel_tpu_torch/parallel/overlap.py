@@ -18,7 +18,8 @@ scheduled HLO.  Here it is DDP's own mechanism, a reducer on autograd hooks:
   become ready, which is the autograd engine's order for the one graph
   every rank runs, so every rank issues the same collectives in the same
   order.  ``COUNTS`` counts the launches made inside backward and after it.
-- ``DPOverlap`` is ``--overlap``'s all-reduce: the model's parameters in
+- ``DPOverlap`` is ``--overlap``'s all-reduce (over ``group``: the data
+  axis of a mesh, the world by default): the model's parameters in
   ~``OVERLAP_BUCKET_BYTES`` buckets planned in reverse registration order,
   the port's gradient-ready order (the output layers' gradients first),
   each bucket reduced as ``parallel.data_parallel.bucket_gradients``
@@ -50,6 +51,7 @@ from distributeddataparallel_tpu_torch.parallel.data_parallel import (
     _check_compress,
     bucket_flat,
     bucket_unflat,
+    group_active,
     plan_buckets,
 )
 
@@ -137,10 +139,11 @@ class DPOverlap:
     in ~``bucket_bytes`` buckets, launched from backward's hooks."""
 
     def __init__(self, params: Sequence[nn.Parameter], *, bucket_bytes: int | None = None,
-                 compress: str | None = None):
+                 compress: str | None = None, group=None):
         _check_compress(compress)
         self.params = list(params)
         self.compress = compress
+        self.group = group  # the data axis's process group (None: the world)
         groups = plan_buckets([p.numel() * p.element_size() for p in self.params],
                               bucket_bytes or OVERLAP_BUCKET_BYTES)
         self.hooks = BucketHooks([[self.params[i] for i in g] for g in groups], self._launch)
@@ -154,7 +157,7 @@ class DPOverlap:
                 p.grad.mul_(scale)
             leaves.append(p.grad)
         flat = bucket_flat(leaves, self.compress)
-        work = dist.all_reduce(flat, async_op=True) if dist.is_initialized() else None
+        work = dist.all_reduce(flat, group=self.group, async_op=True) if group_active(self.group) else None
         return work, flat, leaves
 
     def arm(self, scale: float | None = None) -> None:
@@ -165,7 +168,7 @@ class DPOverlap:
         for work, flat, leaves in self.hooks.finish():
             if work is not None:
                 work.wait()
-            bucket_unflat(flat, leaves)
+            bucket_unflat(flat, leaves, self.group)
 
 
 # ------------------------------------------------------------ evidence ---

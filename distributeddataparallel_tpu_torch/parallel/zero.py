@@ -40,6 +40,14 @@ its moments in bf16 or blockwise int8 between steps.
 The functions ``flatten_f32`` .. ``gather_params_bucketed`` are the
 reference's, on lists of tensors in its leaf order, with the collectives of
 the default process group (none without one).
+
+Over a mesh (``runtime.distributed.make_mesh``) the layout shards over the
+``data`` axis's group (``group=``): under context parallelism the ``seq``
+ranks hold the same shard, under tensor parallelism (level 1 only, as the
+reference) each ``model`` rank flattens its own TP shard of the
+parameters, so the optimizer state is sharded n_data x n_tp ways and the
+clip's norm weights each replicated leaf ``1 / n_tp`` and sums over both
+groups (``tp_axis``).
 """
 
 from __future__ import annotations
@@ -53,8 +61,16 @@ from torch import nn
 
 from distributeddataparallel_tpu_torch.models.io import jax_leaf_pieces, port_view, ref_view
 from distributeddataparallel_tpu_torch.ops import quant
-from distributeddataparallel_tpu_torch.parallel.data_parallel import clip_scale, plan_buckets, sumsq_f32
-from distributeddataparallel_tpu_torch.runtime.distributed import get_rank, get_world_size
+from distributeddataparallel_tpu_torch.parallel.data_parallel import (
+    clip_scale,
+    flat_chunk_sumsq,
+    group_active,
+    group_size,
+    plan_buckets,
+    sumsq_f32,
+)
+from distributeddataparallel_tpu_torch.parallel.tensor_parallel import flax_tp_dim
+from distributeddataparallel_tpu_torch.runtime.distributed import axis_group, axis_size, get_rank, get_world_size
 from distributeddataparallel_tpu_torch.training.state import TrainState
 
 #: Default bucket size of the level 2/3 layout (the reference's).
@@ -172,9 +188,9 @@ def _reduce_scatter(out: torch.Tensor, inp: torch.Tensor) -> None:
         out.copy_(inp[: out.numel()])
 
 
-def _all_gather(out: torch.Tensor, inp: torch.Tensor) -> None:
+def _all_gather(out: torch.Tensor, inp: torch.Tensor, group=None) -> None:
     if dist.is_initialized():
-        dist.all_gather_into_tensor(out, inp)
+        dist.all_gather_into_tensor(out, inp, group=group)
     else:
         out[: inp.numel()].copy_(inp)
 
@@ -236,14 +252,24 @@ class ZeroLayout:
     evaluation and saving)."""
 
     def __init__(self, model: nn.Module, level: int, *, bucket_bytes: int | None = None,
-                 rank: int | None = None, world: int | None = None):
+                 rank: int | None = None, world: int | None = None, group=None, tp_axis: str | None = None):
         level = int(level)
         if level not in (1, 2, 3):
             raise ValueError(f"ZeRO level={level!r} (want 1, 2 or 3)")
-        self.model, self.level = model, level
+        n_tp = axis_size(tp_axis)
+        if n_tp > 1 and level != 1:
+            raise ValueError("zero=2/3 shard over the data axis only; compose tp/ep with zero=1 or the fsdp path")
+        self.model, self.level, self.group = model, level, group
+        if group is not None:
+            rank, world = dist.get_rank(group), dist.get_world_size(group)
         self.rank = get_rank() if rank is None else rank
         self.world = get_world_size() if world is None else world
-        leaf_pieces = [[(p, kind) for p, kind, _ in pieces] for _, pieces in jax_leaf_pieces(model)]
+        named = jax_leaf_pieces(model)
+        # Under TP: how many model-axis ranks hold each leaf whole (the
+        # clip's weights) and that axis's group; None without TP.
+        self.tp_dup = [1 if flax_tp_dim(path) is not None else n_tp for path, _ in named] if n_tp > 1 else None
+        self.model_group = axis_group(tp_axis) if n_tp > 1 else None
+        leaf_pieces = [[(p, kind) for p, kind, _ in pieces] for _, pieces in named]
         self.sizes = [sum(p.numel() for p, _ in pieces) for pieces in leaf_pieces]
         self.plan = (flat_plan(self.sizes, self.world) if level == 1
                      else bucket_plan(self.sizes, self.world, bucket_bytes))
@@ -326,7 +352,8 @@ class ZeroLayout:
         slice of it, in place; a work handle with ``async_op``."""
         if not dist.is_initialized():
             return None
-        return dist.reduce_scatter_tensor(self.grad_shard(b), self.bucket_grad(b), async_op=async_op)
+        return dist.reduce_scatter_tensor(self.grad_shard(b), self.bucket_grad(b), group=self.group,
+                                          async_op=async_op)
 
     def finish_grads(self) -> None:
         """The reduced shard divided by the world size (the mean, as the
@@ -344,7 +371,7 @@ class ZeroLayout:
         for b, o in enumerate(self.plan.offsets):
             full = self.flat[o : o + self.plan.padded[b]]
             s = self.plan.sub[b]
-            dist.all_gather_into_tensor(full, full[self.rank * s : (self.rank + 1) * s])
+            dist.all_gather_into_tensor(full, full[self.rank * s : (self.rank + 1) * s], group=self.group)
 
     def gather_params(self) -> None:
         """Level 3: the full parameters from every rank's shard, one
@@ -353,7 +380,7 @@ class ZeroLayout:
         full = torch.empty(self.total, dtype=torch.float32, device=self.device)
         for b, (o, so) in enumerate(zip(self.plan.offsets, self._shard_offsets())):
             s = self.plan.sub[b]
-            _all_gather(full[o : o + self.plan.padded[b]], self.shard[so : so + s])
+            _all_gather(full[o : o + self.plan.padded[b]], self.shard[so : so + s], self.group)
         self.flat = full
         self._point_params(full)
 
@@ -488,14 +515,16 @@ class LowBitMoments:
 
 
 def zero_state(model: nn.Module, build_optimizer, *, level: int = 1, moment_dtype: str | None = None,
-               bucket_bytes: int | None = None, seed: int = 0):
+               bucket_bytes: int | None = None, seed: int = 0, group=None, tp_axis: str | None = None):
     """A ``TrainState`` whose optimizer state is ZeRO-sharded: ``model``'s
     parameters in ``ZeroLayout(level)``, and ``build_optimizer(params)``
     (returning ``(optimizer, scheduler)``) called on this rank's shard
     pieces.  ``moment_dtype`` ``"bf16"``/``"int8"`` wraps the optimizer in
     ``LowBitMoments`` (``None``/``"f32"``: unchanged).  ``bucket_bytes``
-    sizes the level 2/3 buckets."""
-    layout = ZeroLayout(model, level, bucket_bytes=bucket_bytes)
+    sizes the level 2/3 buckets.  ``group``: the data axis's process group
+    (None: the world); ``tp_axis``: the mesh axis the model's parameters
+    are tensor-parallel over (level 1 only)."""
+    layout = ZeroLayout(model, level, bucket_bytes=bucket_bytes, group=group, tp_axis=tp_axis)
     optimizer, scheduler = build_optimizer(layout.shard_params)
     moments = None
     if moment_dtype not in (None, "f32"):
@@ -506,12 +535,22 @@ def zero_state(model: nn.Module, build_optimizer, *, level: int = 1, moment_dtyp
 def _clip_shard(state, clip_norm: float | None) -> None:
     if clip_norm is None:
         return
-    grads = [sp.grad for sp in state.zero.shard_params]
+    layout = state.zero
+    grads = [sp.grad for sp in layout.shard_params]
     # The shards partition the gradient (padding is zero): the global norm
-    # is one sum of the shards' sums of squares.
-    total = sumsq_f32(grads)
-    if dist.is_initialized():
-        dist.all_reduce(total)
+    # is one sum of the shards' sums of squares.  Under TP each model rank
+    # holds its own shards of the sharded leaves and the whole of the
+    # replicated ones: those count 1 / n_tp on each, and the sum runs over
+    # the model axis too.
+    if layout.tp_dup is None:
+        total = sumsq_f32(grads)
+    else:
+        total = flat_chunk_sumsq(layout.grad_shard(0), layout.rank * layout.plan.sub[0], layout.sizes,
+                                 layout.tp_dup)
+    if group_active(layout.group):
+        dist.all_reduce(total, group=layout.group)
+    if layout.model_group is not None and group_size(layout.model_group) > 1:
+        dist.all_reduce(total, group=layout.model_group)
     scale = clip_scale(torch.sqrt(total), clip_norm)
     for g in grads:
         g.mul_(scale)

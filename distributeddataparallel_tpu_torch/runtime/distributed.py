@@ -13,6 +13,8 @@ is hosts x local devices and a process's global rank is
 
 from __future__ import annotations
 
+import itertools
+import math
 import random
 import socket
 
@@ -95,8 +97,124 @@ def init_process_group(
 
 
 def destroy_process_group() -> None:
+    global _MESH
+    _MESH = None
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+#: The mesh's axis names, the reference's (``dpp.py:511-533``): the
+#: data-parallel replicas outermost, then the sequence shards (``--cp``),
+#: then the tensor-parallel shards (``--tp``).
+DATA_AXIS, SEQ_AXIS, MODEL_AXIS = "data", "seq", "model"
+
+
+class Mesh:
+    """The ranks laid out row-major over named axes (the reference's device
+    mesh, ``distributed.py:180-203``): rank ``r`` sits at the coordinates of
+    ``r`` in an array of ``shape``, so the first axis is outermost.  Each axis
+    has one process group per line of ranks along it; ``group(axis)`` is the
+    one through this rank."""
+
+    def __init__(self, axes, shape, rank: int, groups: dict):
+        self.axes, self.shape = tuple(axes), tuple(shape)
+        self.rank = rank
+        self._groups = groups
+        self.coords = dict(zip(self.axes, _unravel(rank, self.shape)))
+
+    def size(self, axis: str) -> int:
+        return self.shape[self.axes.index(axis)]
+
+    def index(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def group(self, axis: str):
+        """The process group of ``axis`` through this rank (None without a
+        process group)."""
+        return self._groups[axis]
+
+    def __repr__(self) -> str:
+        return f"Mesh({dict(zip(self.axes, self.shape))}, rank {self.rank} at {self.coords})"
+
+
+_MESH: Mesh | None = None
+
+
+def _unravel(rank: int, shape) -> tuple[int, ...]:
+    out = []
+    for n in reversed(shape):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
+
+
+def make_mesh(axes=("data",), shape=None) -> Mesh:
+    """Lay the world's ranks out over ``axes`` (``shape`` defaults to every
+    rank on the first axis) and build one process group per line of ranks
+    along each axis; the mesh becomes the current one (``current_mesh``,
+    ``axis_size``), as a ``shard_map`` binds its axes in the reference.  A
+    collective: every rank calls it with the same arguments, since every
+    rank must join the creation of every group."""
+    global _MESH
+    world, rank = get_world_size(), get_rank()
+    axes = tuple(axes)
+    shape = tuple(shape) if shape is not None else (world,) + (1,) * (len(axes) - 1)
+    if len(shape) != len(axes) or math.prod(shape) != world:
+        raise ValueError(f"mesh shape {shape} over axes {axes} does not cover {world} ranks")
+    groups = {}
+    for a, axis in enumerate(axes):
+        # A group of its own even where the axis spans the world: None
+        # stands for "no such axis" in the callers.
+        mine = None
+        # Every line of ranks along this axis, in one order on every rank.
+        others = [range(n) for n in shape[:a] + shape[a + 1:]]
+        for rest in itertools.product(*others):
+            ranks = []
+            for i in range(shape[a]):
+                coord = rest[:a] + (i,) + rest[a:]
+                ranks.append(int(sum(c * s for c, s in zip(coord, _strides(shape)))))
+            g = dist.new_group(ranks) if dist.is_initialized() else None
+            if rank in ranks:
+                mine = g
+        groups[axis] = mine
+    _MESH = Mesh(axes, shape, rank, groups)
+    return _MESH
+
+
+def _strides(shape) -> list[int]:
+    out, s = [], 1
+    for n in reversed(shape):
+        out.append(s)
+        s *= n
+    return list(reversed(out))
+
+
+def current_mesh() -> Mesh | None:
+    return _MESH
+
+
+def axis_size(axis: str | None) -> int:
+    """The size of ``axis`` in the current mesh; 1 when the axis is None or
+    not bound (no mesh, or a mesh without it): the unsharded shapes, as the
+    reference's ``tp_size`` outside ``shard_map``."""
+    if axis is None or _MESH is None or axis not in _MESH.axes:
+        return 1
+    return _MESH.size(axis)
+
+
+def axis_index(axis: str | None) -> int:
+    """This rank's index along ``axis`` (0 when it is not bound)."""
+    if axis_size(axis) == 1:
+        return 0
+    return _MESH.index(axis)
+
+
+def axis_group(axis: str):
+    """The process group of ``axis`` through this rank (None only without
+    a process group: one rank)."""
+    if _MESH is None or axis not in _MESH.axes:
+        raise ValueError(f"mesh axis {axis!r} is not bound (make_mesh first)")
+    return _MESH.group(axis)
 
 
 def get_rank() -> int:

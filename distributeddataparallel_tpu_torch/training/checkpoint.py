@@ -23,7 +23,11 @@ collective: every rank calls it, rank 0 gathers each rank's part into the
 payload's ``ranks`` list (and, under ZeRO-3, the model's gathered
 parameters) and gets the payload, the others None.  ``load_into`` gives each
 rank its own part back, at the same world size only (resharding to another
-is ROADMAP item 13).
+is ROADMAP item 13).  Under tensor parallelism each TP shard of the model
+(and, without ZeRO, of its optimizer state) is gathered once, from the
+ranks at data and seq index 0; the payload's ``model`` is the shards merged,
+the whole model, and each rank cuts its shard out of it on resume.  The
+payload records the mesh: a resume needs the same mesh.
 Nothing of the dropout stream is saved: each step's masks are a function
 of the run's seed, the epoch and the step (``dpp.step_seed``), so a resumed
 run draws the masks the uninterrupted run would have.
@@ -33,13 +37,21 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import re
 
 import torch
 import torch.distributed as dist
 
-from distributeddataparallel_tpu_torch.runtime.distributed import get_rank, get_world_size
+from distributeddataparallel_tpu_torch.parallel.tensor_parallel import merge_tp_shards, shard_state_dict_tp
+from distributeddataparallel_tpu_torch.runtime.distributed import (
+    axis_index,
+    axis_size,
+    current_mesh,
+    get_rank,
+    get_world_size,
+)
 from distributeddataparallel_tpu_torch.training.state import TrainState
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
@@ -83,13 +95,37 @@ def _cpu(tree):
     return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
 
 
+def _tp_axis(state: TrainState) -> str | None:
+    """The mesh axis the model is tensor-parallel over (None: unsharded)."""
+    axis = getattr(getattr(state.model, "cfg", None), "tp_axis", None)
+    return axis if axis_size(axis) > 1 else None
+
+
+def _tp_owner(tp_axis: str) -> int:
+    """The rank that writes this rank's TP shard: the one at index 0 on
+    every other mesh axis and at this rank's index on ``tp_axis``."""
+    mesh = current_mesh()
+    return mesh.index(tp_axis) * math.prod(mesh.shape[mesh.axes.index(tp_axis) + 1:])
+
+
 def per_rank(state: TrainState) -> bool:
-    """Does each rank hold state of its own (ZeRO shards, PowerSGD)?"""
-    return state.zero is not None or state.comm_state is not None
+    """Does each rank hold state of its own (ZeRO shards, PowerSGD, a TP
+    shard of the model)?"""
+    return state.zero is not None or state.comm_state is not None or _tp_axis(state) is not None
+
+
+def _mesh_record():
+    mesh = current_mesh()
+    return None if mesh is None else {"axes": list(mesh.axes), "shape": list(mesh.shape)}
 
 
 def _rank_part(state: TrainState) -> dict:
     out: dict = {}
+    tp = _tp_axis(state)
+    if tp is not None and get_rank() == _tp_owner(tp):
+        out["model"] = state.model.state_dict()
+        if state.zero is None:
+            out["optimizer"] = state.optimizer.state_dict()
     if state.zero is not None:
         out["optimizer"] = state.optimizer.state_dict()
         out["zero_level"] = state.zero.level
@@ -112,8 +148,12 @@ def host_payload(state: TrainState, epoch: int) -> dict | None:
         "step": state.step,
         "epoch": epoch,
     }
-    if not per_rank(state):
+    if _mesh_record() is not None:
+        payload["mesh"] = _mesh_record()
+    tp = _tp_axis(state)
+    if state.zero is None and tp is None:  # the optimizer state is the same on every rank
         payload["optimizer"] = _cpu(state.optimizer.state_dict())
+    if not per_rank(state):
         return payload
     part = _rank_part(state)
     if get_world_size() > 1:
@@ -123,6 +163,8 @@ def host_payload(state: TrainState, epoch: int) -> dict | None:
         parts = [part]
     if get_rank() != 0:
         return None
+    if tp is not None:
+        payload["model"] = merge_tp_shards([p.pop("model") for p in parts if "model" in p])
     payload["ranks"] = parts
     return payload
 
@@ -203,16 +245,23 @@ class CheckpointFiles:
         """Copy a checkpoint payload into ``state`` in place; returns the
         next epoch."""
         if per_rank(state) != ("ranks" in payload):
-            raise ValueError("the checkpoint's layout (per-rank ZeRO/PowerSGD state or not) is not "
+            raise ValueError("the checkpoint's layout (per-rank ZeRO/PowerSGD/TP state or not) is not "
                              "this run's: resume with the flags it was saved with")
+        if payload.get("mesh") != _mesh_record():
+            raise ValueError(f"the checkpoint was saved on the mesh {payload.get('mesh')}, this run's is "
+                             f"{_mesh_record()}: resume on the same mesh (resharding is ROADMAP item 13)")
+        model_sd = payload["model"]
+        tp = _tp_axis(state)
+        if tp is not None:
+            model_sd = shard_state_dict_tp(model_sd, axis_index(tp), axis_size(tp))
         with state.full_params():
-            state.model.load_state_dict(payload["model"])
+            state.model.load_state_dict(model_sd)
             if state.zero is not None:
                 state.zero.load_shard_from_flat()
+        if "optimizer" in payload:
+            state.optimizer.load_state_dict(payload["optimizer"])
         if "ranks" in payload:
             _load_rank_part(state, payload["ranks"])
-        else:
-            state.optimizer.load_state_dict(payload["optimizer"])
         if state.scheduler is not None:
             state.scheduler.load_state_dict(payload["scheduler"])
         state.step = payload["step"]
@@ -228,9 +277,13 @@ def _load_rank_part(state: TrainState, parts: list) -> None:
         if part.get("zero_level") != state.zero.level:
             raise ValueError(f"checkpoint of ZeRO level {part.get('zero_level')}, this run is at "
                              f"{state.zero.level}")
-        state.optimizer.load_state_dict(part["optimizer"])
         if state.moments is not None:
             state.moments.load_state_dict(part["moments"])
+    tp = _tp_axis(state)
+    if state.zero is not None:
+        state.optimizer.load_state_dict(part["optimizer"])
+    elif tp is not None:
+        state.optimizer.load_state_dict(parts[_tp_owner(tp)]["optimizer"])
     if state.comm_state is not None:
         from distributeddataparallel_tpu_torch.parallel.powersgd import PowerSGDLeaf
 

@@ -43,6 +43,20 @@ rank and the microbatch's index, as the reference folds its step rng per
 replica and microbatch (``train_step.py:457,520``): dropout masks differ
 across ranks and microbatches and are the same on a rerun or a resume.
 Without ``seed`` the loss_fn is called as ``loss_fn(model, microbatch)``.
+
+Over a mesh (``runtime.distributed.make_mesh``) the step is the reference's
+DP x CP x TP composition (``train_step.py:166-188``):
+
+- ``cp_axis``: each rank's loss saw its chunk of the sequence, so the
+  gradients (and the metrics) are first averaged over the ``seq`` group.
+  That completes the gradient of the sharded loss; it is model math, not
+  data-parallel sync.  The dropout seed folds in the ``seq`` index too.
+- ``tp_axis``: the model's copy/reduce pairs leave every gradient complete
+  per rank (a shard for the sharded leaves, the same whole gradient on
+  every ``model`` rank for the replicated ones), so nothing is reduced
+  over the ``model`` group; the clip's norm sums the sharded leaves' parts
+  over it and counts the replicated leaves once.
+- then the data-parallel sync (any layout above) over the ``data`` group.
 """
 
 from __future__ import annotations
@@ -59,25 +73,105 @@ from distributeddataparallel_tpu_torch.parallel import zero as z
 from distributeddataparallel_tpu_torch.parallel.data_parallel import (
     all_reduce_gradients,
     clip_scale,
+    group_active,
+    group_size,
     masked_tree_mean,
     sumsq_f32,
 )
+from distributeddataparallel_tpu_torch.parallel.tensor_parallel import tp_dim
 from distributeddataparallel_tpu_torch.parallel.powersgd import sync_model_grads
 from distributeddataparallel_tpu_torch.ops.dropout import fold_seed
-from distributeddataparallel_tpu_torch.runtime.distributed import get_rank, get_world_size
+from distributeddataparallel_tpu_torch.runtime.distributed import (
+    DATA_AXIS,
+    axis_group,
+    axis_index,
+    axis_size,
+    current_mesh,
+    get_rank,
+    get_world_size,
+)
 from distributeddataparallel_tpu_torch.training.state import TrainState
 
 # loss_fn(model, batch[, seed=int]) -> (scalar loss, aux dict of scalars)
 LossFn = Callable[[nn.Module, dict], tuple[torch.Tensor, dict]]
 
 
-def _mean_over_ranks(values: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+def _mean_over_ranks(values: dict[str, torch.Tensor], groups=(None,)) -> dict[str, torch.Tensor]:
+    """The metrics averaged over each of ``groups`` in turn (the world by
+    default; over a mesh the ``seq`` group, then the ``data`` group: the
+    ``model`` ranks hold the same values)."""
     keys = list(values)
     vec = torch.stack([values[k].detach().float() for k in keys])
-    if dist.is_initialized():
-        dist.all_reduce(vec, op=dist.ReduceOp.SUM)
-        vec = vec / dist.get_world_size()
+    for g in groups:
+        if group_active(g):
+            dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=g)
+            vec = vec / group_size(g)
     return dict(zip(keys, vec.unbind()))
+
+
+def _data_bound() -> bool:
+    mesh = current_mesh()
+    return mesh is not None and DATA_AXIS in mesh.axes
+
+
+def _data_group():
+    """The data-parallel group: the mesh's ``data`` axis, or the world
+    (None) without a mesh."""
+    return axis_group(DATA_AXIS) if _data_bound() else None
+
+
+class _Axes:
+    """The step's process groups, resolved from the current mesh when the
+    step first runs: ``data`` (None: the world, as without a mesh), and
+    the ``seq`` / ``model`` groups with their sizes (size 1 when unused)."""
+
+    def __init__(self, cp_axis: str | None, tp_axis: str | None):
+        self.data = _data_group()
+        self.n_seq, self.n_tp = axis_size(cp_axis), axis_size(tp_axis)
+        self.seq = axis_group(cp_axis) if self.n_seq > 1 else None
+        self.seq_index = axis_index(cp_axis)
+        self.model = axis_group(tp_axis) if self.n_tp > 1 else None
+        self._bound = _data_bound()
+        if (cp_axis or tp_axis) and not self._bound:
+            raise ValueError(f"cp_axis/tp_axis need a mesh with the {DATA_AXIS!r} axis "
+                             f"(runtime.distributed.make_mesh)")
+
+    @property
+    def data_index(self) -> int:
+        return axis_index(DATA_AXIS) if self._bound else get_rank()
+
+    @property
+    def metric_groups(self):
+        return ((self.seq,) if self.seq is not None else ()) + (self.data,)
+
+    def seed(self, seed: int, micro: int) -> int:
+        """The microbatch's dropout seed: folded with the data index (the
+        rank without a mesh), the ``seq`` index under CP, and the
+        microbatch; the ``model`` ranks share it, as they share the
+        activations it masks."""
+        if self.seq is not None:
+            return fold_seed(seed, self.data_index, self.seq_index, micro)
+        return fold_seed(seed, self.data_index, micro)
+
+
+def _seq_mean(tensors: list[torch.Tensor], group, n: int) -> None:
+    """Average each tensor over the ``seq`` group, in place (ref ``pmean``
+    over ``cp_axis``)."""
+    for t in tensors:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        t.div_(n)
+
+
+def _tp_sumsq(model: nn.Module, model_group) -> torch.Tensor:
+    """The global sum of squares of the gradients under TP (ref
+    ``model_axes_sumsq``): the sharded leaves' parts summed over the
+    ``model`` group, the replicated leaves (whole and equal on every rank)
+    counted once."""
+    named = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
+    sharded = sumsq_f32([g for n, g in named if tp_dim(n) is not None])
+    sharded = torch.as_tensor(sharded, dtype=torch.float32, device=named[0][1].device)
+    dist.all_reduce(sharded, group=model_group)
+    return sharded + sumsq_f32([g for n, g in named if tp_dim(n) is None])
 
 
 def model_buffers(model: nn.Module) -> list[torch.Tensor]:
@@ -128,10 +222,22 @@ def _split(batch: dict, n: int) -> list[dict]:
     return [{k: parts[k][i] for k in batch} for i in range(n)]
 
 
-def _check_layout(zero_level: int, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync) -> None:
-    """The reference's composition rules (``train_step.py:233-280``)."""
+def _check_layout(zero_level: int, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync,
+                  cp_axis=None, tp_axis=None) -> None:
+    """The reference's composition rules (``train_step.py:233-280``), and
+    the ones this port does not wire yet (``NotImplementedError`` naming
+    their ROADMAP item)."""
     if zero_level not in (0, 1, 2, 3):
         raise ValueError(f"zero={zero_level!r} (want False/True or a level 0-3)")
+    if zero_level >= 2 and tp_axis is not None:
+        raise ValueError("zero=2/3 shard over the data axis only; compose tp/ep with zero=1 or the fsdp path")
+    if grad_compress == "powersgd" and tp_axis is not None:
+        raise ValueError("grad_compress='powersgd' does not compose with tp_axis/ep_axis: the low-rank "
+                         "factor reduction and error-feedback state are data-axis-only")
+    if cp_axis is not None and (overlap or grad_compress == "powersgd"):
+        raise NotImplementedError(
+            "overlap / grad_compress='powersgd' with cp_axis is not ported yet: ROADMAP.md Queue 1, "
+            "item 15b (the hooks would launch before the seq-axis mean)")
     if zero_level == 1 and (bucket_bytes is not None or overlap):
         raise ValueError("zero=1 does its own reduction; drop bucket_bytes/overlap (or use zero=2/3, "
                          "whose bucketed stream composes with both)")
@@ -159,8 +265,12 @@ def make_train_step(
     zero: bool | int = False,
     grad_compress: str | None = None,
     nonfinite_guard: bool = False,
+    cp_axis: str | None = None,
+    tp_axis: str | None = None,
 ):
-    """Build ``step(state, batch[, seed]) -> metrics`` for data parallelism.
+    """Build ``step(state, batch[, seed]) -> metrics`` for data parallelism
+    (over the mesh's ``data`` group when a mesh is bound), composed
+    with ``cp_axis`` / ``tp_axis`` (module docstring).
 
     The gradient reduction is one of the reference's layouts:
 
@@ -186,8 +296,14 @@ def make_train_step(
     ZeRO's reduce-scatter.
     """
     zero_level = int(zero)
-    _check_layout(zero_level, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync)
+    _check_layout(zero_level, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync, cp_axis, tp_axis)
     hooks = {}  # the model's reducer hooks, made on the first step
+    resolved: list[_Axes] = []
+
+    def axes() -> _Axes:
+        if not resolved:
+            resolved.append(_Axes(cp_axis, tp_axis))
+        return resolved[0]
 
     def reducer(state: TrainState):
         key = id(state.model)
@@ -203,10 +319,12 @@ def make_train_step(
                 hooks[key] = ov.BucketHooks(ov.zero_bucket_params(layout), launch)
             else:
                 hooks[key] = ov.DPOverlap([p for p in state.model.parameters() if p.requires_grad],
-                                          bucket_bytes=bucket_bytes, compress=grad_compress)
+                                          bucket_bytes=bucket_bytes, compress=grad_compress,
+                                          group=axes().data)
         return hooks[key]
 
     def step(state: TrainState, batch: dict, seed: int | None = None) -> dict[str, torch.Tensor]:
+        ax = axes()
         model = state.model
         model.train()
         layout = state.zero
@@ -234,7 +352,7 @@ def make_train_step(
         inv = 1.0 / accum_steps
         totals: dict[str, torch.Tensor] = {}
         for i, mb in enumerate(micro):
-            kw = {} if seed is None else {"seed": fold_seed(seed, get_rank(), i)}
+            kw = {} if seed is None else {"seed": ax.seed(seed, i)}
             loss, aux = loss_fn(model, mb, **kw)
             if armed and i == len(micro) - 1:
                 # The boundary microbatch's hooks launch each bucket, its
@@ -253,6 +371,10 @@ def make_train_step(
                 for g in ([layout.grad] if layout is not None else grads):
                     g.mul_(inv)
             totals = {k: v * inv for k, v in totals.items()}
+        if ax.seq is not None:
+            # Complete the sequence-sharded gradient (model math: before any
+            # data-parallel layout sees it).
+            _seq_mean([layout.grad] if layout is not None else grads, ax.seq, ax.n_seq)
         if nonfinite_guard:
             finite = _all_finite([layout.grad] if layout is not None else grads)
             if dist.is_initialized():
@@ -269,16 +391,16 @@ def make_train_step(
                 if zero_level == 3:
                     layout.release_params()
                 state.step += 1
-                return {**_mean_over_ranks(totals), "nonfinite_grad": 1.0}
-        _reduce_and_update(state, grads, red)
+                return {**_mean_over_ranks(totals, ax.metric_groups), "nonfinite_grad": 1.0}
+        _reduce_and_update(state, grads, red, ax)
         if get_world_size() > 1:  # one rank's buffers are already its own
             sync_buffers(model_buffers(model), buffer_sync)
-        metrics = _mean_over_ranks(totals)
+        metrics = _mean_over_ranks(totals, ax.metric_groups)
         if nonfinite_guard:
             metrics["nonfinite_grad"] = 0.0
         return metrics
 
-    def _reduce_and_update(state: TrainState, grads: list[torch.Tensor], red) -> None:
+    def _reduce_and_update(state: TrainState, grads: list[torch.Tensor], red, ax: _Axes) -> None:
         if zero_level:
             reduced = False
             if red is not None:
@@ -294,11 +416,13 @@ def make_train_step(
         elif grad_compress == "powersgd":
             state.comm_state = sync_model_grads(jax_leaf_pieces(state.model), state.comm_state)
         else:
-            all_reduce_gradients(grads, bucket_bytes=bucket_bytes, compress=grad_compress)
+            all_reduce_gradients(grads, bucket_bytes=bucket_bytes, compress=grad_compress, group=ax.data)
         if grad_clip is not None:
-            # Grads are complete per rank after the sync, so the local norm
-            # is the global norm.
-            scale = clip_scale(torch.sqrt(sumsq_f32(grads)), grad_clip)
+            # Grads are complete per rank after the sync (and the seq
+            # mean), so the local norm is the global norm; under TP the
+            # sharded leaves' parts sum over the model group.
+            sumsq = sumsq_f32(grads) if ax.model is None else _tp_sumsq(state.model, ax.model)
+            scale = clip_scale(torch.sqrt(sumsq), grad_clip)
             for g in grads:
                 g.mul_(scale.to(g.dtype))
         state.apply_gradients()
@@ -306,7 +430,7 @@ def make_train_step(
     return step
 
 
-def make_eval_step(metric_fn: Callable[[nn.Module, dict], dict]):
+def make_eval_step(metric_fn: Callable[[nn.Module, dict], dict], *, seq_axis: str | None = None):
     """``eval_step(model, batch) -> (means, count)`` without gradients, in
     eval mode (BatchNorm normalizes with its running statistics).
 
@@ -314,13 +438,20 @@ def make_eval_step(metric_fn: Callable[[nn.Module, dict], dict]):
     carries ``"valid"`` (``DataLoader(with_mask=True)``), 0 on the sampler's
     padded duplicate rows.  The step returns the global masked means and the
     global valid-row count, so weighting each batch's means by its count
-    gives the mean over unique samples."""
+    gives the mean over unique samples.  Over a mesh the masked sums run
+    over the ``data`` group; with ``seq_axis`` (the reference's
+    ``make_cp_eval_step``) each row's values are first averaged over the
+    sequence chunks."""
+    groups: list = []
 
     @torch.no_grad()
     def eval_step(model: nn.Module, batch: dict):
+        if not groups:
+            groups.append(_data_group())
+            groups.append(axis_group(seq_axis) if axis_size(seq_axis) > 1 else None)
         model.eval()
         batch = dict(batch)
         mask = batch.pop("valid")
-        return masked_tree_mean(metric_fn(model, batch), mask)
+        return masked_tree_mean(metric_fn(model, batch), mask, groups[0], groups[1])
 
     return eval_step

@@ -6,6 +6,8 @@
   losses, and the final model and optimizer state are bitwise equal (the
   sampler, the augmentation draws and the optimizer state are functions of
   what the checkpoint holds, and the CPU kernels are deterministic).
+- The same resume under ``--grad-compress powersgd``: the optimizer's
+  momentum is saved beside the per-rank PowerSGD state.
 - A checkpoint written by two ranks resumes in one process.
 - ``max_to_keep`` prunes the oldest checkpoints, with their hash sidecars.
 - A save that fails midway leaves no file under a checkpoint's name (nor
@@ -51,6 +53,21 @@ def test_resume_is_bitwise_equal_to_an_uninterrupted_run(tmp_path):
         assert torch.equal(pa["momentum_buffer"], pb["momentum_buffer"])
     with pytest.raises(SystemExit, match="nothing left"):
         dpp.main(FLAGS + ["--epochs", "3", "--checkpoint-dir", str(tmp_path / "b"), "--resume"])
+
+
+def test_powersgd_resume_keeps_the_optimizer_state(tmp_path):
+    """Under ``--grad-compress powersgd`` (per-rank PowerSGD state) the
+    checkpoint also holds the optimizer's momentum: the resumed epoch's
+    losses equal the uninterrupted run's exactly."""
+    flags = ["--device", "cpu", "--model", "mlp", "--num-examples", "48", "--batch-size", "8",
+             "--optimizer", "sgd", "--momentum", "0.9", "--lr", "0.01", "--log-every", "1000",
+             "--grad-compress", "powersgd", "--powersgd-rank", "1"]
+    straight = dpp.main(flags + ["--epochs", "3", "--checkpoint-dir", str(tmp_path / "a")])
+    dpp.main(flags + ["--epochs", "2", "--checkpoint-dir", str(tmp_path / "b")])
+    resumed = dpp.main(flags + ["--epochs", "3", "--checkpoint-dir", str(tmp_path / "b"), "--resume"])
+    spe = resumed["train_steps"]
+    assert resumed["start_epoch"] == 2 and spe > 1
+    assert resumed["losses"] == straight["losses"][2 * spe :]
 
 
 def _state():

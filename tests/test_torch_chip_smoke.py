@@ -8,6 +8,12 @@
 - Phase 11's runs are the layouts the port ships, each accepted by the
   port's entry point, and its deepest Llama keeps the stated spare memory
   by the phase's own arithmetic; the kernels line carries their launches.
+- Phase 12's replays on CPU tensors at tiny shapes (the kernels' plain
+  versions stand in): the module's flash ring, its ranks as threads,
+  against one full-sequence call and against the hop-by-hop plain oracle,
+  and the module's Ulysses (native and repeated kv heads), within the
+  phase's own tolerances; the TP=2 block within its 4-ulp bound; 12c's
+  flags parse.
 """
 
 import importlib.util
@@ -82,3 +88,41 @@ def test_phase11_layouts_parse_and_the_deep_llama_fits():
     assert chip_smoke.LLAMA_DEEP_LAYERS == max(fits) == 27
     src = (ROOT / "chip_smoke.py").read_text()
     assert '"launches_layouts": layouts["attention_launches"][name]' in src
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_phase12_replays_hold_on_the_cpu(monkeypatch, dtype):
+    import torch
+
+    from distributeddataparallel_tpu_torch import dpp
+    from distributeddataparallel_tpu_torch.models import transformer as tfm
+    from distributeddataparallel_tpu_torch.ops import flash_attention as fa
+    from distributeddataparallel_tpu_torch.parallel import context_parallel as cp
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    c = dict(B=1, Sq=256, Skv=256, H=8, Hkv=2, D=32, n=4, dtype=dtype)
+    q, k, v, do = chip_smoke.inputs(torch, c, 0)
+    oracle = chip_smoke.full_oracle(fa, q, k, v, do)
+    bf16 = dtype == "bfloat16"
+    slack = {key: (0.0, c["n"] * chip_smoke.ULP_BF16 if bf16 else 0.0) for key in ("dq", "dk", "dv")}
+    replay = chip_smoke.ring_replay(torch, cp, q, k, v, do, c["n"])
+    chip_smoke.hold(torch, replay, oracle, dtype, slack, "ring")
+    slack = {key: (0.0, (c["n"] - 1) * chip_smoke.ULP_BF16 if bf16 else 0.0) for key in ("dq", "dk", "dv")}
+    chip_smoke.hold(torch, replay, chip_smoke.plain_ring(torch, fa, cp, q, k, v, do, c["n"]), dtype, slack, "plain")
+    assert [len(f) for f, _ in replay["received"]] == [c["n"] - 1] * c["n"]
+    assert [len(b) for _, b in replay["received"]] == [2 * c["n"] - 1] * c["n"]
+    for m in (2, 8):  # the kv heads travel as they are, then repeated to 8
+        rep = cp.ulysses_kv_repeat(c["H"], c["Hkv"], m)
+        got = chip_smoke.ulysses_replay(torch, cp, q, k, v, do, m)
+        slack = {key: (0.0, (rep - 1) * chip_smoke.ULP_BF16) for key in ("dk", "dv")}
+        chip_smoke.hold(torch, got, {key: oracle[key] for key in got}, dtype, slack, f"ulysses {m}")
+    if bf16:
+        monkeypatch.setattr(chip_smoke, "TP_BLOCK", dict(B=1, S=32, tp=2))
+        small = dict(d_model=64, num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=64)
+        real = tfm.llama3_8b
+        monkeypatch.setattr(tfm, "llama3_8b", lambda **kw: real(**{**small, **kw}))
+        errs = chip_smoke.tp_block_replay(torch, tfm, torch.bfloat16)["max_abs_err"]
+        assert set(errs) >= {"out", "dx", "d:attn.q_proj.weight", "d:mlp.down_proj.weight"}
+    for extra in chip_smoke.CP_TP_ENTRY.values():
+        args = dpp.parse_args(chip_smoke.CP_TP_ENTRY_ARGS + extra)
+        assert (args.layers, args.seq_len, args.steps_per_epoch) == (8, 2048, 3)

@@ -32,8 +32,7 @@ def test_gpt2_124m_is_full_width():
 
 @pytest.mark.parametrize(
     "override",
-    [dict(cp_axis="seq"), dict(tp_axis="model"), dict(moe_experts=4), dict(ep_axis="expert"),
-     dict(grad_sync_axis="data"), dict(decode=True, cp_axis="seq")],
+    [dict(moe_experts=4), dict(ep_axis="expert"), dict(grad_sync_axis="data")],
 )
 def test_features_outside_the_slice_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
