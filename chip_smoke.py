@@ -5,6 +5,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --multi-gpu`` on a machine with four runs only the
+entry-point runs over several GPUs (12c, 13c) after the build.
+
 Phases (any failure exits non-zero; nothing is caught):
 
 1. the card: name, count and ``nvidia-smi`` name/power limit;
@@ -60,10 +63,11 @@ Phases (any failure exits non-zero; nothing is caught):
    their numpy versions; and phase 4 once more with ``--mfu``, its MFU and
    HFU beside this script's own share of the bound;
 9. the fault path at GPT-2 124M's full width (phase 4's model and batch, so
-   K1-K3 run on it) and with phase 6's ResNet-18, each check in a fresh
-   process of the port's entry point
+   K1-K3 run on it) and with phase 6's ResNet-18, each check but 9c and
+   the costs in a fresh process of the port's entry point
    (``python -m distributeddataparallel_tpu_torch.dpp``); 9b's resumed run,
-   9c's two runs and 9e, which time nothing, run side by side:
+   9c's two runs (``dpp.main`` in this process) and 9e, which time
+   nothing, run side by side:
    a. supervised chaos replay: ``--max-restarts 2`` with
       ``DDP_CHAOS=ckpt-io@0,preempt@6``, 3 epochs of 4 steps, beside the
       same run uninterrupted: it exits 0 after one restart and one IO
@@ -128,15 +132,29 @@ Phases (any failure exits non-zero; nothing is caught):
    b. one Llama-3 8B block (d_model 4096, FFN 14336) run as its two TP
       shards one after the other (K1-K3 at 16 heads / 4 kv heads), the
       partial outputs summed, against the unsharded block;
-   c. with two GPUs or more, ``--cp 2`` (ring, Ulysses) and ``--tp 2`` at
-      Llama-3 8B x 8 layers over NCCL against one GPU; with one, a line
-      saying it was not run.
+   c. with two GPUs or more, ``--cp 2`` (ring, Ulysses, the ring with
+      ``--overlap``) and ``--tp 2`` at Llama-3 8B x 8 layers over NCCL
+      against one GPU; with one, a line saying it was not run.
+13. FSDP (``--fsdp``) in an NCCL group of one, through ``dpp.main``:
+   a. phase 7's exact arguments plus ``--fsdp``, then plus ``--fsdp-gather
+      bf16``: losses against phase 7's (f32 gathers within
+      ``FSDP_LOSS_ATOL``, bf16 within ``FSDP_BF16_RTOL``), K1-K3 launched as
+      the model implies, the gathers and scatters remat implies, the step,
+      the peak memory and the streaming eval;
+   b. phase 4's GPT-2 at 11a's size under ``--fsdp`` with a checkpoint,
+      then ``--generate 16`` through the host gather: losses against 11a's
+      plain run's, the continuation teacher-forced against the checkpoint's
+      whole model;
+   c. with four GPUs or more, Llama-3 8B at all 32 layers under ``--fsdp``
+      (step, per-card peak) and at 8 layers against plain DP on the same
+      four GPUs; with fewer, a line saying it was not run.
 
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
 ``llama_path`` line (phase 7), one ``reference_workload`` line (phase 8),
 one ``fault_path`` line (phase 9), one ``layouts`` line (phase 11: each
 run's step ms, peak memory and losses), one ``cp_tp_path`` line (phase 12:
-each replay's max errors, launches and times, the GPU count), one ``serving_path`` line (phase 10,
+each replay's max errors, launches and times, the GPU count), one
+``fsdp_path`` line (phase 13), one ``phase_seconds`` line, one ``serving_path`` line (phase 10,
 each run's TTFT p50/p99, tokens/s, per-token latency, decode-step ms,
 preemptions, evictions, prefix hits, acceptance, pool bytes against the
 allocator's peak, peak memory), one ``{"kernels": [...]}`` JSON line,
@@ -308,10 +326,12 @@ GEN_ARGS = [a for a in MAIN_ARGS if a != "--eval"]
 GEN_ARGS[GEN_ARGS.index("--steps-per-epoch") + 1] = "2"
 GEN_ARGS += ["--generate", "64", "--checkpoint-dir", "{ckpt}"]
 # 10b: the serving CLI at GPT-2 124M's full width and max_seq_len (bf16 on
-# the f32 init, as the reference's CLI), on the wall clock.
+# the f32 init, as the reference's CLI), on the wall clock: 6 s of arrivals
+# at 16 requests/s (8 s until phase 13 bought its time back: the three
+# runs took 25.2, 26.2 and 53.2 s to serve 125-127 requests each).
 SERVE_ARGS = [
     "--model", "gpt2_124m", "--seq-len", "1024", "--slots", "16", "--blocks", "640", "--block-size", "16",
-    "--chunk", "128", "--rate", "16", "--duration", "8", "--prompt-len", "64,768", "--output-len", "32,192",
+    "--chunk", "128", "--rate", "16", "--duration", "6", "--prompt-len", "64,768", "--output-len", "32,192",
     "--seed", "0", "--events-dir", "{events}",
 ]
 SERVE_RUNS = {
@@ -431,7 +451,7 @@ ULP_BF16 = 2.0 ** -8
 EXCHANGE_TIMEOUT_S = 60
 CP_TP_ENTRY_ARGS = [a for a in LLAMA_ARGS if a != "--eval"] + ["--steps-per-epoch", "3"]
 CP_TP_ENTRY = {"cp2_ring": ["--cp", "2", "--cp-impl", "ring"], "cp2_ulysses": ["--cp", "2", "--cp-impl", "ulysses"],
-               "tp2": ["--tp", "2"]}
+               "cp2_ring_overlap": ["--cp", "2", "--cp-impl", "ring", "--overlap"], "tp2": ["--tp", "2"]}
 # With four GPUs or more, also the 4-way ring (its masked hops skipped on
 # three of the ranks) and CP x TP.
 CP_TP_ENTRY_4 = {"cp4_ring": ["--cp", "4", "--cp-impl", "ring"], "cp2_tp2": ["--cp", "2", "--tp", "2"]}
@@ -440,6 +460,32 @@ CP_TP_ENTRY_4 = {"cp4_ring": ["--cp", "4", "--cp-impl", "ring"], "cp2_tp2": ["--
 # four H100s read gaps of 1.05e-3 to 3.04e-3 (the 2-way ring's, on its
 # third step), so 1e-2 holds them with a margin of 3.
 CP_TP_ENTRY_ATOL = 1e-2
+
+# Phase 13: FSDP in an NCCL group of one (the gathers and scatters are
+# copies: the path runs whole, and buys no memory on one card).  13a: phase
+# 7's exact arguments (so the LR schedule, a function of the total steps,
+# is phase 7's) plus --fsdp, then plus --fsdp-gather bf16.
+FSDP_LLAMA = {"f32_gather": ["--fsdp"], "bf16_gather": ["--fsdp", "--fsdp-gather", "bf16"]}
+# With one rank a gather is a copy and each gathered leaf a contiguous copy
+# in the plain model's layout, so the step runs phase 7's cuBLAS calls and
+# kernels on the same values and the losses should be phase 7's bit for
+# bit (on the CPU the port's FSDP equals plain DP bit for bit at 1 and 2
+# ranks); the bound is 1e-5, ~10 f32 ulps of a loss of 12.5.
+FSDP_LOSS_ATOL = 1e-5
+# bf16 gathers round every f32 master to bf16 before its use; the matrices
+# were rounded per use anyway, so the norm scales and the embeddings change:
+# the reference test's bound (tests/test_fsdp.py:326), relative.
+FSDP_BF16_RTOL = 2e-2
+# 13b: phase 4's GPT-2 at 11a's size (5 steps, 8 eval batches) under
+# --fsdp, checkpointed, then --generate 16 through the host gather; its
+# losses against 11a's plain run within LAYOUT_ATOL.
+FSDP_GPT2_ARGS = LAYOUT_ARGS + ["--fsdp", "--generate", "16", "--checkpoint-dir", "{ckpt}"]
+# 13c, with four GPUs or more: Llama-3 8B at all 32 layers under --fsdp (3
+# steps, each card keeping 1/4 of the 8.03 B parameters' 16 bytes), and at
+# 8 layers against plain DP on the same four GPUs (the same global batch of
+# 4 x 2 rows; bf16 activations through 8 layers, 12c's bound).
+FSDP_DEEP_ARGS = [a for a in LLAMA_ARGS if a != "--eval"] + ["--steps-per-epoch", "3"]
+FSDP_ENTRY_GPUS = 4
 
 DEVICE = "cuda"  # phases 10 and 12's device
 
@@ -1264,17 +1310,20 @@ def fault_sigterm(smi, beside) -> tuple[dict, object]:
     return out, others
 
 
-def fault_guard(torch) -> dict:
+def fault_guard(torch, dpp) -> dict:
     """[9c] The skip-step guard on ResNet-18: steps 0-2 with one-step epochs
-    and checkpoints, then --resume for steps 3-4."""
+    and checkpoints, then --resume for steps 3-4; both runs in this process
+    (``dpp.main``: it times nothing, and two fresh processes cost ~40 s)."""
     from distributeddataparallel_tpu_torch.training import checkpoint as ck
 
     with tempfile.TemporaryDirectory(prefix="fault_9c_") as d:
         run = FAULT_R18_ARGS + ["--nan-guard", "--chaos", "nan-grad@2", "--steps-per-epoch", "1",
                                 "--checkpoint-dir", d]
-        first = run_entry(run + ["--epochs", "3"], "9c steps 0-2")
+        log("    9c steps 0-2: dpp.main " + " ".join(run + ["--epochs", "3"]))
+        first = dpp.main(run + ["--epochs", "3"])
         one, two = (torch.load(os.path.join(d, f"epoch_{e}.pt"), weights_only=True) for e in (1, 2))
-        rest = run_entry(run + ["--epochs", "5", "--resume"], "9c --resume, steps 3-4")
+        log("    9c --resume, steps 3-4: dpp.main " + " ".join(run + ["--epochs", "5", "--resume"]))
+        rest = dpp.main(run + ["--epochs", "5", "--resume"])
     same = {
         "model": one["model"].keys() == two["model"].keys()
         and all(torch.equal(one["model"][k], two["model"][k]) for k in one["model"]),
@@ -1412,7 +1461,7 @@ def fault_path_phase(torch, dpp, phase4_losses, smi) -> dict:
         coordinator = start_coordinator()
         log("    9a uninterrupted: python -m distributeddataparallel_tpu_torch.dpp " + " ".join(REPLAY_ARGS))
         straight = start_entry(REPLAY_ARGS)
-        guard = fault_guard(torch)
+        guard = fault_guard(torch, dpp)
         coordinated = finish_coordinator(coordinator, phase4_losses, smi)
         return guard, coordinated, finish_entry(straight, "9a uninterrupted")
 
@@ -2254,6 +2303,144 @@ def cp_tp_phase(torch, fa, tfm, smi) -> dict:
     return out
 
 
+def gib(nbytes) -> str:
+    return "n/a" if nbytes is None else f"{nbytes / 2**30:.2f}"
+
+
+def expect_remat_launches(s: dict, layers: int, what: str) -> dict:
+    """A Llama run's K1-K3 launches under remat: K1 twice a layer a step
+    (forward and recompute) and once a layer an eval batch, K2 and K3 once
+    a layer a step."""
+    steps, evals, got = s["train_steps"], s["eval_batches"], s["attention_launches"]
+    want = {"flash_fwd": layers * (2 * steps + evals), "flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+    return got
+
+
+def fsdp_collectives(s: dict, layers: int, remat: bool, what: str) -> dict:
+    """A run's FSDP gathers and scatters, as its layers imply: under remat
+    each step gathers every layer twice (forward and recompute) and the
+    rest flat four times (embed and head, each recomputed), without remat
+    once and twice; each eval batch gathers L + 2 times; each step
+    scatters L + 2 times (the rest once for each of its uses)."""
+    steps, evals = s["train_steps"], s["eval_batches"]
+    want = {"gather": steps * (layers + 2) * (2 if remat else 1) + evals * (layers + 2),
+            "scatter": steps * (layers + 2)}
+    if s["fsdp_collectives"] != want:
+        raise AssertionError(f"{what}: FSDP collectives {s['fsdp_collectives']} != {want}")
+    return want
+
+
+def fsdp_llama(torch, dpp, llama_losses, smi) -> dict:
+    """[13a] Phase 7's arguments under --fsdp, f32 then bf16 gathers."""
+    out, L = {}, LLAMA_LAYERS
+    for name, extra in FSDP_LLAMA.items():
+        release(torch)
+        log(f"    13a {name}: dpp.main " + " ".join(LLAMA_ARGS + extra))
+        s = dpp.main(LLAMA_ARGS + extra)
+        torch.cuda.synchronize()
+        steps, evals, losses = s["train_steps"], s["eval_batches"], s["losses"]
+        launches = expect_remat_launches(s, L, f"13a {name}")
+        if s["layout"] != "fsdp" or not math.isfinite(s["eval"]["loss"]):
+            raise AssertionError(f"13a {name}: layout {s['layout']}, eval {s['eval']}")
+        diff = max(abs(a - b) for a, b in zip(losses, llama_losses))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, llama_losses))
+        ok = diff <= FSDP_LOSS_ATOL if name == "f32_gather" else rel <= FSDP_BF16_RTOL
+        if steps != len(llama_losses) or not ok:
+            raise AssertionError(f"13a {name}: losses {losses} vs phase 7's {llama_losses} "
+                                 f"(|diff| {diff:.3e}, rel {rel:.3e})")
+        out[name] = {"flags": extra, "losses": losses, "max_abs_diff_vs_phase7": diff,
+                     "max_rel_diff_vs_phase7": rel, "bitwise_vs_phase7": losses == llama_losses,
+                     "step_ms": s["step_time_s"] * 1e3, "tokens_per_s": s["tokens_per_s"],
+                     "peak_memory_bytes": s["peak_memory_bytes"], "eval": s["eval"], "eval_batches": evals,
+                     "fsdp_collectives": fsdp_collectives(s, L, True, f"13a {name}"), "attention_launches": launches}
+        log(f"    13a {name}: step {out[name]['step_ms']:.1f} ms, peak {gib(s['peak_memory_bytes'])} GiB, "
+            f"|loss - phase 7| {diff:.3e} ({'bitwise' if out[name]['bitwise_vs_phase7'] else 'not bitwise'}), "
+            f"eval {s['eval']['loss']:.4f}, collectives {s['fsdp_collectives']} on {smi}")
+    return out
+
+
+def fsdp_gpt2(torch, dpp, plain_losses, smi) -> dict:
+    """[13b] GPT-2 under --fsdp, checkpointed, then --generate 16 through
+    the host gather, held to the checkpoint's whole model."""
+    from distributeddataparallel_tpu_torch.models import transformer as tfm
+    from distributeddataparallel_tpu_torch.models.generate import decode_model
+    from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles
+
+    release(torch)
+    with tempfile.TemporaryDirectory(prefix="fsdp_13b_") as d:
+        args = [a.replace("{ckpt}", d) for a in FSDP_GPT2_ARGS]
+        log("    13b: dpp.main " + " ".join(args))
+        s = dpp.main(args)
+        torch.cuda.synchronize()
+        payload = CheckpointFiles(d).read(0)
+    launches = expect_launches(s, "13b")
+    diff = max(abs(a - b) for a, b in zip(s["losses"], plain_losses))
+    if payload.get("layout") != "fsdp" or not diff <= LAYOUT_ATOL:
+        raise AssertionError(f"13b: layout {payload.get('layout')}, losses {s['losses']} vs 11a plain "
+                             f"{plain_losses}")
+    cfg = dpp.build_config(dpp.parse_args(args))
+    model = tfm.TransformerLM(dataclasses.replace(cfg, attn_impl="plain"), device=DEVICE)
+    model.load_state_dict(payload["model"])
+    gen = s["generate"]
+    n_prompt = len(gen["prompt"][0])
+    check = teacher_forced(torch, model, gen["tokens"], n_prompt, TF_ATOL["float32"], "13b", decode_model(model))
+    out = {"losses": s["losses"], "max_abs_diff_vs_11a_plain": diff, "bitwise_vs_11a_plain": s["losses"] == plain_losses,
+           "step_ms": s["step_time_s"] * 1e3, "peak_memory_bytes": s["peak_memory_bytes"], "eval": s["eval"],
+           "new_tokens": len(gen["tokens"][0]) - n_prompt, "prefill_ms": gen["prefill_ms"],
+           "decode_ms_per_token": gen["decode_ms_per_token"], "teacher_forced": check,
+           "fsdp_collectives": fsdp_collectives(s, 12, False, "13b"), "attention_launches": launches}
+    log(f"    13b: step {out['step_ms']:.1f} ms, |loss - 11a plain| {diff:.2e}, generated "
+        f"{out['new_tokens']} tokens, teacher-forced {check} on {smi}")
+    del model
+    return out
+
+
+def fsdp_entry(torch, smi) -> dict:
+    """[13c] Only where four GPUs are visible: Llama-3 8B at all 32 layers
+    under --fsdp over NCCL, and at 8 layers against plain DP on the same
+    GPUs."""
+    count = torch.cuda.device_count()
+    if count < FSDP_ENTRY_GPUS:
+        log(f"    13c needs {FSDP_ENTRY_GPUS} GPUs and was not run: {count} visible")
+        return {"ran": False, "gpus": count}
+    procs = ["--num-processes", str(FSDP_ENTRY_GPUS)]
+    out = {"ran": True, "gpus": count}
+    deep = run_entry(FSDP_DEEP_ARGS + ["--layers", "32", "--fsdp"] + procs, "13c 32 layers --fsdp")
+    out["llama_32_layers"] = {"losses": deep["losses"], "step_ms": deep["step_time_s"] * 1e3,
+                              "peak_memory_bytes_rank0": deep["peak_memory_bytes"], "num_params": deep["num_params"]}
+    plain = run_entry(FSDP_DEEP_ARGS + procs, "13c 8 layers plain DP")
+    sharded = run_entry(FSDP_DEEP_ARGS + ["--fsdp"] + procs, "13c 8 layers --fsdp")
+    diff = max(abs(a - b) for a, b in zip(sharded["losses"], plain["losses"]))
+    out["llama_8_layers"] = {"plain_losses": plain["losses"], "fsdp_losses": sharded["losses"], "max_abs_diff": diff,
+                             "plain_step_ms": plain["step_time_s"] * 1e3, "fsdp_step_ms": sharded["step_time_s"] * 1e3,
+                             "plain_peak_memory_bytes": plain["peak_memory_bytes"],
+                             "fsdp_peak_memory_bytes": sharded["peak_memory_bytes"]}
+    if not all(math.isfinite(x) for x in deep["losses"]) or not diff <= CP_TP_ENTRY_ATOL:
+        raise AssertionError(f"13c: 32 layers {deep['losses']}; 8 layers {sharded['losses']} vs {plain['losses']}")
+    log(f"    13c: 32 layers {out['llama_32_layers']}; 8 layers |loss - plain DP| {diff:.2e} on {smi}")
+    return out
+
+
+def fsdp_phase(torch, dpp, fa, llama_losses, plain_gpt2_losses, smi) -> dict:
+    """[13] FSDP: 13a, 13b on this card, 13c with four GPUs."""
+    from distributeddataparallel_tpu_torch.parallel import fsdp
+
+    t0 = time.perf_counter()
+    log("[13] FSDP")
+    fa.reset_launches()
+    fsdp.reset_counts()
+    out = {"llama": fsdp_llama(torch, dpp, llama_losses, smi), "gpt2": fsdp_gpt2(torch, dpp, plain_gpt2_losses, smi)}
+    out["attention_launches"] = dict(fa.LAUNCHES)
+    out["fsdp_counts"] = dict(fsdp.COUNTS)
+    out["entry"] = fsdp_entry(torch, smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"    phase 13 in {out['seconds']:.1f} s; K1-K3 launches {out['attention_launches']} on {smi}")
+    return out
+
+
 def release(torch) -> None:
     """Free what earlier runs left (a model held by a reference cycle, say,
     the reducer's hooks) before the next run's peak is measured."""
@@ -2300,6 +2487,13 @@ def main() -> int:
     log(f"[2] build: {so.name} in {time.perf_counter() - t0:.1f} s")
     for line in ptxas_report(so.with_suffix(".log").read_text()):
         log("    " + line)
+    if "--multi-gpu" in sys.argv[1:]:
+        # Only the entry-point runs over several GPUs (12c, 13c): what a
+        # one-card run skips.
+        out = {"cp_tp_entry": cp_tp_entry(torch, smi), "fsdp_entry": fsdp_entry(torch, smi)}
+        log(json.dumps({"multi_gpu": out, "card": smi, "seconds": time.perf_counter() - t_all}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 plain versions
     torch.backends.cudnn.allow_tf32 = False
@@ -2339,16 +2533,25 @@ def main() -> int:
         f"{summary['tokens_per_s']:.0f} tokens/s, peak memory "
         f"{summary['peak_memory_bytes'] / 2**30:.2f} GiB on {smi}")
 
-    image_paths = {
+    seconds = {"1_4": time.perf_counter() - t_all}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    image_paths = timed("5_6", lambda: {
         "resnet50_imagenet_shape": resnet50_phase(torch, dpp, fa, smi),
         "resnet18_cifar_resume": resnet18_resume_phase(torch, dpp, fa, smi),
-    }
-    llama = llama_phase(torch, dpp, fa, tfm, smi)
-    reference = reference_workload_phase(torch, dpp, fa, smi)
-    fault = fault_path_phase(torch, dpp, losses, smi)
-    serving = serving_path_phase(torch, dpp, fa, smi)
-    layouts = layouts_phase(torch, dpp, fa, smi)
-    cp_tp = cp_tp_phase(torch, fa, tfm, smi)
+    })
+    llama = timed("7", llama_phase, torch, dpp, fa, tfm, smi)
+    reference = timed("8", reference_workload_phase, torch, dpp, fa, smi)
+    fault = timed("9", fault_path_phase, torch, dpp, losses, smi)
+    serving = timed("10", serving_path_phase, torch, dpp, fa, smi)
+    layouts = timed("11", layouts_phase, torch, dpp, fa, smi)
+    cp_tp = timed("12", cp_tp_phase, torch, fa, tfm, smi)
+    fsdp_path = timed("13", fsdp_phase, torch, dpp, fa, llama["losses"], layouts["gpt2"]["plain"]["losses"], smi)
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -2364,6 +2567,7 @@ def main() -> int:
             "launches_serving_path": serving["attention_launches"][name],
             "launches_layouts": layouts["attention_launches"][name],
             "launches_cp_tp_path": cp_tp["attention_launches"][name],
+            "launches_fsdp_path": fsdp_path["attention_launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2395,6 +2599,8 @@ def main() -> int:
     log(json.dumps({"serving_path": serving, "card": smi}))
     log(json.dumps({"layouts": layouts, "card": smi}))
     log(json.dumps({"cp_tp_path": cp_tp, "card": smi}))
+    log(json.dumps({"fsdp_path": fsdp_path, "card": smi}))
+    log(json.dumps({"phase_seconds": seconds, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(nvidia_smi())  # the card's name and power limit, as nvidia-smi gives them

@@ -55,8 +55,11 @@ composition rules: ``--zero [1|2|3]`` (``parallel.zero``; ``--bucket-mb``
 sizes the level 2/3 buckets) with ``--moment-dtype f32|bf16|int8``,
 ``--overlap`` (bucket all-reduces launched from backward's hooks,
 ``parallel.overlap``), and ``--grad-compress bf16|powersgd``
-(``--powersgd-rank``; ``parallel.powersgd``).  ``--fsdp`` raises, naming
-its ROADMAP item.
+(``--powersgd-rank``; ``parallel.powersgd``).  ``--fsdp`` shards the
+parameters, gradients and optimizer state of an LM over the data ranks and
+gathers each layer inside the step (``parallel.fsdp``; ``--fsdp-gather
+bf16`` gathers in bf16), composing with ``--tp``; its ``--eval`` streams the
+same gathers and ``--generate`` decodes the host-gathered whole model.
 
 Model-axis layouts for the LMs, with the reference's flags and checks:
 ``--cp N`` shards the sequence over a ``seq`` axis (``--cp-impl ring``,
@@ -65,8 +68,14 @@ N`` shards heads and hidden units over a ``model`` axis (Megatron,
 ``parallel.tensor_parallel``).  The ranks form the reference's mesh: data
 outermost, then ``seq``, then ``model`` (``runtime.distributed.make_mesh``).
 They compose with each other and with ``--accum-steps``, ``--zero 1``,
-``--grad-clip``, ``--eval``, ``--remat`` and ``--dropout``; ``--pp`` and
-``--ep`` raise, naming their ROADMAP items.
+``--grad-clip``, ``--eval``, ``--remat`` and ``--dropout``, and ``--cp`` with
+``--overlap`` (one mean over the data x seq ranks launched from backward)
+and ``--grad-compress powersgd`` (after the seq mean, over the data ranks).
+
+The reference's flags whose feature is not ported yet (``--pp*``, ``--ep``,
+``--moe-*``, ``--elastic*``, ``--integrity-*``, ...) parse with its
+defaults and checks; a value off the default raises
+``NotImplementedError`` naming its ROADMAP item (``UNPORTED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -117,7 +126,7 @@ from distributeddataparallel_tpu_torch.ops.losses import (
     per_example_cross_entropy,
 )
 from distributeddataparallel_tpu_torch.ops.preprocess import normalize_u8_images
-from distributeddataparallel_tpu_torch.parallel import overlap
+from distributeddataparallel_tpu_torch.parallel import fsdp, overlap
 from distributeddataparallel_tpu_torch.parallel.data_parallel import broadcast_params
 from distributeddataparallel_tpu_torch.parallel.powersgd import leaf_shapes, powersgd_state
 from distributeddataparallel_tpu_torch.parallel.tensor_parallel import shard_state_dict_tp
@@ -226,7 +235,12 @@ def parse_args(argv=None):
                         "stochastic rounding (error-compensated, ops/quant.py) halve/quarter the "
                         "moment bytes; f32 = unchanged")
     p.add_argument("--fsdp", action="store_true",
-                   help="fully-sharded data parallelism: not ported yet (ROADMAP item 12b)")
+                   help="fully-sharded data parallelism (parallel.fsdp): parameters, gradients "
+                        "and optimizer state 1/N per rank, each layer's weights gathered inside "
+                        "the step (LMs; composes with --tp only)")
+    p.add_argument("--fsdp-gather", choices=["f32", "bf16"], default="f32",
+                   help="dtype of the FSDP weight gathers: bf16 halves the gathered bytes and "
+                        "the gathered weights' memory (f32 master shards either way)")
     p.add_argument("--overlap", action="store_true",
                    help="overlap the gradient reduction with backward: ~1 MiB buckets (or "
                         "--bucket-mb) launched from autograd hooks as their gradients become "
@@ -253,8 +267,22 @@ def parse_args(argv=None):
                         "heads + MLP hidden over a 'model' mesh axis (LM only)")
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline-parallel degree: not ported yet (ROADMAP item 16)")
+    p.add_argument("--pp-microbatches", type=int, default=None,
+                   help="pipeline microbatches per step: not ported yet (ROADMAP item 16)")
+    p.add_argument("--pp-schedule", default="gpipe", choices=["gpipe", "1f1b", "zb"],
+                   help="pipeline schedule: not ported yet (ROADMAP item 16)")
+    p.add_argument("--pp-virtual", type=int, default=1,
+                   help="virtual layer chunks per pipeline stage: not ported yet (ROADMAP item 16)")
     p.add_argument("--ep", type=int, default=1,
                    help="expert-parallel degree: not ported yet (ROADMAP item 17)")
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="routed experts per block: not ported yet (ROADMAP item 17)")
+    p.add_argument("--moe-top-k", type=int, default=1,
+                   help="experts per token: not ported yet (ROADMAP item 17)")
+    p.add_argument("--moe-aux-weight", type=float, default=0.01,
+                   help="weight of the load-balance loss: not ported yet (ROADMAP item 17)")
+    p.add_argument("--moe-capacity-factor", type=float, default=0.0,
+                   help="token-choice expert capacity: not ported yet (ROADMAP item 17)")
     p.add_argument("--buffer-sync", choices=["mean", "broadcast"], default="mean",
                    help="BatchNorm buffers across ranks: 'mean' averages the running "
                         "stats, 'broadcast' adopts rank 0's (DDP broadcast_buffers)")
@@ -342,6 +370,33 @@ def parse_args(argv=None):
     p.add_argument("--profile-steps", default=None, metavar="A:B",
                    help="capture a torch.profiler trace of global steps [A, B) into "
                         "--profile-dir if set, else EVENTS_DIR/xprof")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="persistent step cache: not ported yet (ROADMAP item 11b)")
+    p.add_argument("--dispatch-depth", type=int, default=2,
+                   help="steps in flight before the host syncs: not ported yet (ROADMAP item 11b; "
+                        "the port's loop syncs after every step)")
+    p.add_argument("--elastic", action="store_true",
+                   help="elastic gang resize: not ported yet (ROADMAP item 13)")
+    p.add_argument("--min-procs", type=int, default=1,
+                   help="smallest gang --elastic resizes to: not ported yet (ROADMAP item 13)")
+    p.add_argument("--elastic-dir", default=None, metavar="DIR",
+                   help="rendezvous root for --elastic: not ported yet (ROADMAP item 13)")
+    p.add_argument("--integrity-every", type=int, default=0, metavar="N",
+                   help="state digests every N steps: not ported yet (ROADMAP item 20)")
+    p.add_argument("--integrity-shadow", action="store_true",
+                   help="shadow re-run on the digest cadence: not ported yet (ROADMAP item 20)")
+    p.add_argument("--bw-probe", action="store_true",
+                   help="all-reduce bandwidth probe: not ported yet (ROADMAP item 10's remainder)")
+    p.add_argument("--lint-step", action="store_true",
+                   help="graph-lint the train step: not ported yet (ROADMAP item 21)")
+    p.add_argument("--autotune", choices=["search", "apply", "off"], default="off",
+                   help="autotuning: not ported yet (ROADMAP item 22)")
+    p.add_argument("--tune-dir", default=None, metavar="DIR",
+                   help="tuned-config store: not ported yet (ROADMAP item 22)")
+    p.add_argument("--tune-trials", type=int, default=3,
+                   help="measured candidates per search: not ported yet (ROADMAP item 22)")
+    p.add_argument("--tune-steps", type=int, default=4,
+                   help="measured steps per candidate: not ported yet (ROADMAP item 22)")
     args = p.parse_args(argv)
     if args.events_dir is None:
         args.events_dir = os.environ.get("DDP_EVENTS_DIR") or None
@@ -385,21 +440,149 @@ def parse_args(argv=None):
     if args.generate and not lm:
         raise SystemExit("--generate requires an LM model")
     _validate_faults(p, args)
+    _validate_reference_rules(args)
     _validate_layout(args)
+    _refuse_unported(p, args)
     return args
 
 
+#: The reference's flags whose feature this port does not run yet, by the
+#: ROADMAP.md Queue 1 item that ports them: a value off the flag's default
+#: raises ``NotImplementedError`` naming the item (after the reference's own
+#: checks of the value, ``_validate_reference_rules``).
+UNPORTED_FLAGS = {
+    "16": ("pp", "pp_microbatches", "pp_schedule", "pp_virtual"),
+    "17": ("ep", "moe_experts", "moe_top_k", "moe_aux_weight", "moe_capacity_factor"),
+    "11b": ("compile_cache", "dispatch_depth"),
+    "13": ("elastic", "elastic_dir", "min_procs"),
+    "20": ("integrity_every", "integrity_shadow"),
+    "10's remainder": ("bw_probe",),
+    "21": ("lint_step",),
+    "22": ("autotune", "tune_dir", "tune_trials", "tune_steps"),
+}
+
+
+def _refuse_unported(p, args) -> None:
+    for item, dests in UNPORTED_FLAGS.items():
+        for dest in dests:
+            if getattr(args, dest) != p.get_default(dest):
+                raise NotImplementedError(f"--{dest.replace('_', '-')} is not ported yet: "
+                                          f"ROADMAP.md Queue 1, item {item}")
+
+
+def _bad(*pairs) -> list[str]:
+    return [flag for flag, on in pairs if on]
+
+
+def _validate_reference_rules(args) -> None:
+    """The reference's checks of the flags whose feature is not ported yet
+    (``dpp.py:454-458``, ``:562-585``, ``:654-680``, ``:716-786``,
+    ``:841-868``), with its messages, so a bad value is refused as the
+    reference refuses it before ``_refuse_unported`` names the item."""
+    if args.dispatch_depth < 0:
+        raise SystemExit(f"--dispatch-depth must be >= 0, got {args.dispatch_depth}")
+    if args.pp > 1:
+        if not is_lm(args):
+            raise SystemExit("--pp requires an LM model (--model gpt2|llama)")
+        if args.eval and args.cp > 1:
+            raise SystemExit("--pp --eval does not support --cp")
+        if args.accum_steps > 1:
+            raise SystemExit("--pp's microbatch loop IS the accumulation; use --pp-microbatches "
+                             "instead of --accum-steps")
+        if args.bucket_mb:
+            raise SystemExit("--pp does not support --bucket-mb")
+        if args.layers and args.layers % (args.pp * args.pp_virtual):
+            raise SystemExit(f"--layers {args.layers} must be divisible by --pp {args.pp}"
+                             + (f" x --pp-virtual {args.pp_virtual}" if args.pp_virtual > 1 else ""))
+        if args.pp_schedule == "zb":
+            m = args.pp_microbatches or args.pp
+            if m < args.pp:
+                raise SystemExit(f"--pp-schedule zb needs --pp-microbatches >= --pp (got {m} < {args.pp}): "
+                                 f"with fewer microbatches than stages the steady state never forms and "
+                                 f"there is no W work to fill the bubble — use 1f1b")
+            if args.cp > 1:
+                raise SystemExit("--pp-schedule zb does not compose with --cp yet; use --pp-schedule "
+                                 "1f1b for context-parallel pipelines")
+            if args.moe_experts and args.moe_aux_weight:
+                raise SystemExit("--pp-schedule zb does not support the MoE aux loss (the B/W split has "
+                                 "no aux cotangent path); set --moe-aux-weight 0 or use --pp-schedule 1f1b")
+        if args.pp_virtual > 1:
+            if args.pp_schedule not in ("1f1b", "zb"):
+                raise SystemExit("--pp-virtual requires --pp-schedule 1f1b or zb")
+            if args.zero:
+                raise SystemExit("--pp-virtual does not compose with --zero yet")
+            if args.eval or args.generate:
+                raise SystemExit("--pp-virtual does not support --eval/--generate")
+    elif args.pp_virtual > 1:
+        raise SystemExit("--pp-virtual requires --pp > 1")
+    if args.min_procs < 1:
+        raise SystemExit("--min-procs must be >= 1")
+    if args.elastic:
+        bad = _bad(("--fsdp", args.fsdp), ("--pp", args.pp > 1), ("--tp", args.tp > 1),
+                   ("--ep", args.ep > 1), ("--cp", args.cp > 1))
+        if bad:
+            raise SystemExit(f"--elastic resizes over the data axis only; drop {', '.join(bad)}")
+        if args.zero >= 2:
+            raise SystemExit("--elastic supports plain DP and --zero 1; the ZeRO-2/3 resident weight "
+                             "shards resize through supervised restart + elastic_restore instead")
+        if args.moment_dtype:
+            raise SystemExit("--elastic does not compose with --moment-dtype: the in-memory reshard "
+                             "has no dequant/requant path for low-bit moments")
+        if args.grad_compress:
+            raise SystemExit("--elastic does not compose with --grad-compress: the hook state layout "
+                             "is replica-count-dependent")
+        if not (args.elastic_dir or args.events_dir or args.checkpoint_dir):
+            raise SystemExit("--elastic needs a rendezvous root: --elastic-dir, or "
+                             "--events-dir/--checkpoint-dir to derive one")
+    if args.integrity_every:
+        if args.integrity_every < 0:
+            raise SystemExit("--integrity-every must be >= 0")
+        bad = _bad(("--fsdp", args.fsdp), ("--pp", args.pp > 1), ("--tp", args.tp > 1),
+                   ("--ep", args.ep > 1), ("--cp", args.cp > 1))
+        if bad:
+            raise SystemExit(f"--integrity-every compares replicated data-axis state; drop {', '.join(bad)}")
+        if args.zero >= 2:
+            raise SystemExit("--integrity-every supports plain DP and --zero 1; ZeRO-2/3 shard the "
+                             "comparable state away")
+    elif args.integrity_shadow:
+        raise SystemExit("--integrity-shadow needs a cadence: set --integrity-every N")
+    if args.autotune != "off":
+        bad = _bad(("--fsdp", args.fsdp), ("--pp", args.pp > 1), ("--tp", args.tp > 1),
+                   ("--ep", args.ep > 1), ("--cp", args.cp > 1), ("--elastic", args.elastic))
+        if bad:
+            raise SystemExit(f"--autotune searches the DP/ZeRO space only; drop {', '.join(bad)}")
+        if args.model not in ("mlp", "cnn", "gpt2"):
+            raise SystemExit("--autotune supports --model mlp|cnn|gpt2 (the tuning harness "
+                             f"registry); got {args.model!r}")
+        if args.tune_trials < 1:
+            raise SystemExit("--tune-trials must be >= 1")
+        if args.tune_steps < 1:
+            raise SystemExit("--tune-steps must be >= 1")
+    if args.moe_experts and not is_lm(args):
+        raise SystemExit("--moe-experts requires an LM model")
+    if args.moe_experts and not 1 <= args.moe_top_k <= args.moe_experts:
+        raise SystemExit(f"--moe-top-k {args.moe_top_k} must be in [1, {args.moe_experts}]")
+    if args.moe_top_k != 1 and not args.moe_experts:
+        raise SystemExit("--moe-top-k requires --moe-experts")
+    if args.moe_capacity_factor and not args.moe_experts:
+        raise SystemExit("--moe-capacity-factor requires --moe-experts")
+    if args.moe_capacity_factor < 0:
+        raise SystemExit("--moe-capacity-factor must be >= 0")
+    if args.ep > 1:
+        if not args.moe_experts:
+            raise SystemExit("--ep requires --moe-experts")
+        if args.moe_experts % args.ep:
+            raise SystemExit(f"--moe-experts {args.moe_experts} must be divisible by --ep {args.ep}")
+        if args.pp > 1 and args.tp > 1:
+            raise SystemExit("--ep with BOTH --pp and --tp is untested")
+        if args.cp > 1 and (args.pp > 1 or args.tp > 1):
+            raise SystemExit("--ep with --cp composes pairwise only (no extra --pp/--tp)")
+
+
 def _validate_layout(args) -> None:
-    """The reference's rules for the model axes, the sharded update and the
-    comm hooks (``dpp.py:554-560``, ``:757-840``); a composition the
-    reference accepts and this port does not run yet raises
-    ``NotImplementedError`` naming its ROADMAP item."""
-    if args.pp != 1:
-        raise NotImplementedError("--pp is not ported yet: ROADMAP.md Queue 1, item 16")
-    if args.ep != 1:
-        raise NotImplementedError("--ep is not ported yet: ROADMAP.md Queue 1, item 17")
-    if args.fsdp:
-        raise SystemExit("--fsdp is not ported yet: ROADMAP.md Queue 1, item 12b")
+    """The reference's rules for the model axes, FSDP, the sharded update
+    and the comm hooks (``dpp.py:554-560``, ``:620-651``, ``:709-713``,
+    ``:757-840``), with its messages."""
     if args.cp < 1 or args.tp < 1:
         raise SystemExit("--cp and --tp must be >= 1")
     if args.cp > 1:
@@ -409,28 +592,43 @@ def _validate_layout(args) -> None:
             raise SystemExit("--seq-len must be divisible by --cp")
     if args.tp > 1 and not is_lm(args):
         raise SystemExit("--tp requires an LM model (--model gpt2|llama)")
-    if args.zero >= 2 and args.tp > 1:
-        raise SystemExit(f"--zero {args.zero} shards over the data axis only; drop --tp or use --zero 1")
-    if args.grad_compress == "powersgd" and args.tp > 1:
-        raise SystemExit("--grad-compress powersgd supports DP/CP layouts; drop --tp/--ep")
-    if args.generate and args.tp > 1:
-        raise SystemExit("--generate needs replicated params (no --tp/--pp/--ep; --fsdp [--tp N] "
-                         "generates via the host gather)")
-    if args.cp > 1 and (args.overlap or args.grad_compress == "powersgd"):
-        raise NotImplementedError("--overlap and --grad-compress powersgd with --cp are not ported "
-                                  "yet: ROADMAP.md Queue 1, item 15b")
+    if args.fsdp:
+        if not is_lm(args):
+            raise SystemExit("--fsdp requires an LM model (--model gpt2|llama)")
+        bad = _bad(("--zero", args.zero), ("--pp", args.pp > 1), ("--cp", args.cp > 1),
+                   ("--ep", args.ep > 1), ("--moe-experts", bool(args.moe_experts)),
+                   ("--bucket-mb", bool(args.bucket_mb)))
+        if bad:
+            raise SystemExit(f"--fsdp composes with --tp only; drop {', '.join(bad)}")
+        if args.dropout:
+            raise SystemExit("--dropout trains under DP/ZeRO/TP/EP/CP (scan + remat included); "
+                             "--fsdp and --pp do not support it")
+        if args.nan_guard:
+            raise SystemExit("--nan-guard supports the DP/ZeRO/TP/EP/CP step; drop --fsdp/--pp")
+    if args.zero >= 2:
+        bad = _bad(("--tp", args.tp > 1), ("--ep", args.ep > 1), ("--pp", args.pp > 1))
+        if bad:
+            raise SystemExit(f"--zero {args.zero} shards over the data axis only; drop {', '.join(bad)} "
+                             f"or use --zero 1")
     if args.moment_dtype and not args.zero:
         raise SystemExit("--moment-dtype rides the ZeRO sharded update; add --zero")
-    if args.overlap and args.zero == 1:
-        raise SystemExit("--overlap applies to the DP all-reduce; drop --zero")
-    if args.grad_compress and args.zero:
+    if args.overlap:
+        bad = _bad(("--zero", args.zero == 1), ("--fsdp", args.fsdp), ("--pp", args.pp > 1))
+        if bad:
+            raise SystemExit(f"--overlap applies to the DP all-reduce; drop {', '.join(bad)}")
+    if args.grad_compress and (args.zero or args.fsdp or args.pp > 1):
         raise SystemExit("--grad-compress applies to the DP all-reduce; drop --zero/--fsdp/--pp")
     if args.grad_compress == "powersgd":
+        if args.tp > 1 or args.ep > 1:
+            raise SystemExit("--grad-compress powersgd supports DP/CP layouts; drop --tp/--ep")
         if args.overlap:
             raise SystemExit("--grad-compress powersgd replaces the bucketed all-reduce --overlap "
                              "schedules; pick one mechanism")
         if args.powersgd_rank < 1:
             raise SystemExit("--powersgd-rank must be >= 1")
+    if args.generate and ((args.tp > 1 and not args.fsdp) or args.pp > 1 or args.ep > 1):
+        raise SystemExit("--generate needs replicated params (no --tp/--pp/--ep; --fsdp [--tp N] "
+                         "generates via the host gather)")
 
 
 def _validate_faults(p, args) -> None:
@@ -478,6 +676,8 @@ def build_config(args, vocab_size: int | None = None) -> tfm.TransformerConfig:
     overrides = dict(vocab_size=vocab_size or args.vocab_size, max_seq_len=args.seq_len)
     if args.cp > 1:
         overrides.update(cp_axis=rt.SEQ_AXIS, cp_impl=args.cp_impl)
+    if args.fsdp:
+        overrides["scan_layers"] = True  # FSDP's stacked layer flats (dpp.py:930-932)
     if args.tp > 1:
         overrides["tp_axis"] = rt.MODEL_AXIS
     if args.dropout:
@@ -694,7 +894,8 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
     loaders for these flags; the process group, if any, is formed.
     ``train`` restores the newest checkpoint with ``--resume``.  Under
     ``--cp`` / ``--tp`` the mesh is formed here; every rank builds the full
-    model from the seed and keeps its TP shard of it."""
+    model from the seed and keeps its TP shard of it (under ``--fsdp`` its
+    chunk of the flats, of its TP shard with ``--tp``)."""
     lm = is_lm(args)
     mesh = build_mesh(args, world_size)
     d_index, n_data = data_coords(mesh, rank, world_size)
@@ -710,7 +911,7 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
         if rank == 0:
             print(f"loaded pretrained weights from {args.pretrained}", flush=True)
     broadcast_params(model)  # DDP constructor broadcast
-    if lm and cfg.tp_axis is not None:
+    if lm and cfg.tp_axis is not None and not args.fsdp:  # FSDP cuts its TP shards from the whole model
         full = model.state_dict()
         model = tfm.TransformerLM(cfg, device=device)
         model.load_state_dict(shard_state_dict_tp(full, mesh.index(rt.MODEL_AXIS), mesh.size(rt.MODEL_AXIS)))
@@ -730,7 +931,16 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
     bucket_bytes = int(args.bucket_mb * 1024 * 1024) if args.bucket_mb else None
     total_steps = max(spe * args.epochs, 1)
     data_group = rt.axis_group(rt.DATA_AXIS) if mesh is not None else None
-    if args.zero:
+    if args.fsdp:
+        # This rank's chunk of every layer flat (of its TP shard) and of
+        # the rest; the whole model is dropped.
+        params = model.state_dict()
+        del model
+        state = fsdp.fsdp_state(cfg, params, lambda shards: build_optimizer(args, shards, total_steps),
+                                group=data_group, tp_axis=cfg.tp_axis,
+                                gather_dtype=torch.bfloat16 if args.fsdp_gather == "bf16" else None)
+        del params
+    elif args.zero:
         # The optimizer steps this rank's shard of the flat layout.
         state = zero_state(model, lambda shard: build_optimizer(args, shard, total_steps),
                            level=args.zero, moment_dtype=args.moment_dtype, seed=args.seed,
@@ -741,21 +951,22 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
         if args.grad_compress == "powersgd":
             state.comm_state = powersgd_state(leaf_shapes(jax_leaf_pieces(model)), args.powersgd_rank,
                                               seed=args.seed, device=device)
-    trainer = Trainer(
-        state=state,
-        step_fn=make_train_step(
+    if args.fsdp:
+        step_fn = fsdp.make_fsdp_train_step(_loss_fn, accum_steps=args.accum_steps, grad_clip=args.grad_clip,
+                                            tp_axis=cfg.tp_axis)
+    else:
+        step_fn = make_train_step(
             _loss_fn if lm else _image_loss_fn, accum_steps=args.accum_steps,
             bucket_bytes=bucket_bytes, grad_clip=args.grad_clip, buffer_sync=args.buffer_sync,
             nonfinite_guard=args.nan_guard, overlap=args.overlap, zero=args.zero,
             grad_compress=args.grad_compress,
             cp_axis=cfg.cp_axis if lm else None, tp_axis=cfg.tp_axis if lm else None,
-        ),
-        loader=loader,
-        steps_per_epoch=spe,
-    )
+        )
+    trainer = Trainer(state=state, step_fn=step_fn, loader=loader, steps_per_epoch=spe)
     if args.eval:
         metric_fn = _metric_fn if lm else _image_metric_fn
-        trainer.eval_step = make_eval_step(metric_fn, seq_axis=cfg.cp_axis if lm else None)
+        trainer.eval_step = (fsdp.make_fsdp_eval_step() if args.fsdp  # streams the per-layer gathers
+                             else make_eval_step(metric_fn, seq_axis=cfg.cp_axis if lm else None))
         trainer.eval_loader = DataLoader(
             build_dataset(args, train=False),
             per_replica_batch=args.batch_size, rank=d_index, num_replicas=n_data,
@@ -774,7 +985,7 @@ def build_telemetry(args, trainer: Trainer, device: torch.device, rank: int,
     lm = is_lm(args)
     tel = Telemetry(args, rank=rank, world_size=world_size,
                     items_per_step=rows * args.seq_len if lm else rows,
-                    unit="tok" if lm else "img", sync=lambda: _sync(device))
+                    unit="tok" if lm else "img", sync=lambda: _sync(device), layout=layout_name(args))
     if args.mfu:
         model, dataset = trainer.state.model, trainer.loader.dataset
         remat = False
@@ -986,6 +1197,7 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
     tel = build_telemetry(args, trainer, device, rank, world_size)
     launches0 = dict(flash_attention.LAUNCHES)
     buckets0 = dict(overlap.COUNTS)
+    fsdp0 = dict(fsdp.COUNTS)
     status, faults = "ok", None
     try:
         faults = build_faults(args, state, tel, rank, world_size)
@@ -1014,8 +1226,11 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
     steady = step_times[1:] or step_times
     step_time = sum(steady) / len(steady)
     wall_step_time = wall / wall_steps if wall_steps else None
-    with torch.no_grad(), state.full_params():
-        param_norm = math.sqrt(sum(float(p.double().pow(2).sum()) for p in model.parameters()))
+    if state.fsdp is not None:
+        param_norm = state.fsdp.param_norm()
+    else:
+        with torch.no_grad(), state.full_params():
+            param_norm = math.sqrt(sum(float(p.double().pow(2).sum()) for p in model.parameters()))
     rows_per_step = args.batch_size * data_coords(rt.current_mesh(), rank, world_size)[1]
     rate = ("tokens_per_s", rows_per_step * args.seq_len) if is_lm(args) else ("images_per_s", rows_per_step)
     summary = {
@@ -1023,6 +1238,7 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "world_size": world_size,
+        "layout": layout_name(args),
         "num_params": state.num_params(),
         "start_epoch": start_epoch,
         "preempted_epoch": preempted,
@@ -1043,14 +1259,30 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         "attention_launches": {k: n - launches0[k] for k, n in flash_attention.LAUNCHES.items()},
         # --overlap's bucket launches: from backward's hooks, and after it.
         "overlap_buckets": {k: n - buckets0[k] for k, n in overlap.COUNTS.items()},
+        # FSDP's flat gathers (forward and remat's recompute) and scatters.
+        "fsdp_collectives": {k: n - fsdp0[k] for k, n in fsdp.COUNTS.items()},
     }
     log(f"train: {len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
         f"{step_time * 1e3:.1f} ms/step, {summary[rate[0]]:.0f} {rate[0]}")
     if args.generate:
-        with state.full_params():  # a collective under ZeRO-3
+        if state.fsdp is not None:
+            # The whole model from the host gather (a collective), TP-free
+            # and in the compute dtype, on the device of every rank.
+            gen_model = fsdp.host_model(state.fsdp, device)
             if rank == 0:
-                summary["generate"] = run_generate(args, model, trainer.loader.dataset, log)
+                summary["generate"] = run_generate(args, gen_model, trainer.loader.dataset, log)
+            del gen_model
+        else:
+            with state.full_params():  # a collective under ZeRO-3
+                if rank == 0:
+                    summary["generate"] = run_generate(args, model, trainer.loader.dataset, log)
     return summary
+
+
+def layout_name(args) -> str:
+    """The weight-update layout, as the reference's checkpoint topology
+    names it (``dpp.py:1910-1914``)."""
+    return "fsdp" if args.fsdp else f"zero{args.zero}" if args.zero else "replicated"
 
 
 def run_generate(args, model, dataset, log) -> dict:

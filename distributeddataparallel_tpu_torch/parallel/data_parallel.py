@@ -219,7 +219,8 @@ def masked_tree_mean(
     mask = mask.float()
     keys = list(metrics)
     rows = [metrics[k].float() for k in keys]
-    n_seq = group_size(seq_group)
+    # None means no sequence axis here (not the world, as for ``group``).
+    n_seq = group_size(seq_group) if seq_group is not None else 1
     if n_seq > 1:
         stacked = torch.stack(rows)
         _sum(stacked, seq_group)

@@ -35,7 +35,7 @@ import torch
 import torch.distributed as dist
 
 from distributeddataparallel_tpu_torch.models.io import ref_view
-from distributeddataparallel_tpu_torch.runtime.distributed import get_world_size
+from distributeddataparallel_tpu_torch.parallel.data_parallel import group_active, group_size
 
 #: Leaves with fewer elements stay dense: two factor all-reduces cost more
 #: launches than the payload they save.
@@ -95,14 +95,17 @@ def _orthonormalize(p: torch.Tensor) -> torch.Tensor:
     return torch.linalg.qr(p.float(), mode="reduced").Q
 
 
-def _mean(t: torch.Tensor, n: int) -> torch.Tensor:
-    if dist.is_initialized():
-        dist.all_reduce(t)
+def _mean(t: torch.Tensor, n: int, group=None) -> torch.Tensor:
+    if group_active(group):
+        dist.all_reduce(t, group=group)
     return t.div_(n)
 
 
-def powersgd_sync(grads: list[torch.Tensor], state: list, *, op: str = "mean") -> tuple[list, list]:
-    """One PowerSGD round over the ranks: ``(synced grads, new state)``.
+def powersgd_sync(grads: list[torch.Tensor], state: list, *, op: str = "mean",
+                  group=None) -> tuple[list, list]:
+    """One PowerSGD round over the ranks of ``group`` (None: the world; a
+    mesh's ``data`` axis under context parallelism, after the ``seq``
+    mean): ``(synced grads, new state)``.
 
     ``grads`` are this rank's leaves in the reference's layout.  A
     compressed leaf comes back as the rank-r approximation of the mean over
@@ -112,21 +115,21 @@ def powersgd_sync(grads: list[torch.Tensor], state: list, *, op: str = "mean") -
     matrix).  The inputs are not modified."""
     if op not in ("mean", "sum"):
         raise ValueError(f"op must be 'mean' or 'sum', got {op!r}")
-    n_world = get_world_size()
+    n_world = group_size(group)
     out_g, out_s = [], []
     for g, s in zip(grads, state):
         if s is None:
             red = g.clone()
-            if dist.is_initialized():
-                dist.all_reduce(red)
+            if group_active(group):
+                dist.all_reduce(red, group=group)
             out_g.append(red.div_(n_world) if op == "mean" else red)
             out_s.append(None)
             continue
         n, m = _matrix_shape(tuple(g.shape))
         mat = (g + s.err.to(g.dtype)).reshape(n, m)
         mat32 = mat.float()
-        p = _orthonormalize(_mean(mat32 @ s.q, n_world))
-        q = _mean(mat32.t() @ p, n_world)
+        p = _orthonormalize(_mean(mat32 @ s.q, n_world, group))
+        q = _mean(mat32.t() @ p, n_world, group)
         m_hat = (p @ q.t()).to(g.dtype)
         err = (mat - m_hat).reshape(g.shape)
         if op == "sum":
@@ -174,15 +177,15 @@ def leaf_shapes(pieces) -> list[tuple[tuple, torch.dtype]]:
 
 
 @torch.no_grad()
-def sync_model_grads(pieces, state: list) -> list:
+def sync_model_grads(pieces, state: list, group=None) -> list:
     """PowerSGD over a model's ``.grad``s in place, leaf by leaf (only one
-    leaf's matrix exists at a time); returns the new state.  ``pieces`` is
-    ``models.io.jax_leaf_pieces(model)``."""
+    leaf's matrix exists at a time), over ``group``'s ranks; returns the
+    new state.  ``pieces`` is ``models.io.jax_leaf_pieces(model)``."""
     new_state = []
     for (_, ps), s in zip(pieces, state):
         grads = [ref_view(p.grad, kind).reshape(shape) for p, kind, shape in ps]
         g = grads[0] if len(grads) == 1 else torch.stack(grads)
-        (out,), (ns,) = powersgd_sync([g], [s])
+        (out,), (ns,) = powersgd_sync([g], [s], group=group)
         for (p, kind, _), part in zip(ps, out.unbind(0) if len(ps) > 1 else [out]):
             view = ref_view(p.grad, kind)
             view.copy_(part.reshape(view.shape))

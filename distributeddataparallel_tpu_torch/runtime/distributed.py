@@ -107,6 +107,10 @@ def destroy_process_group() -> None:
 #: data-parallel replicas outermost, then the sequence shards (``--cp``),
 #: then the tensor-parallel shards (``--tp``).
 DATA_AXIS, SEQ_AXIS, MODEL_AXIS = "data", "seq", "model"
+#: The joint data x seq axis: every (data, seq) rank of one model line.
+#: One mean over it is the seq mean followed by the data mean (equal group
+#: sizes), which ``--overlap`` launches from backward under ``--cp``.
+DATA_SEQ = (DATA_AXIS, SEQ_AXIS)
 
 
 class Mesh:
@@ -128,9 +132,9 @@ class Mesh:
     def index(self, axis: str) -> int:
         return self.coords[axis]
 
-    def group(self, axis: str):
-        """The process group of ``axis`` through this rank (None without a
-        process group)."""
+    def group(self, axis):
+        """The process group of ``axis`` (a name, or ``DATA_SEQ``) through
+        this rank (None without a process group)."""
         return self._groups[axis]
 
     def __repr__(self) -> str:
@@ -151,7 +155,9 @@ def _unravel(rank: int, shape) -> tuple[int, ...]:
 def make_mesh(axes=("data",), shape=None) -> Mesh:
     """Lay the world's ranks out over ``axes`` (``shape`` defaults to every
     rank on the first axis) and build one process group per line of ranks
-    along each axis; the mesh becomes the current one (``current_mesh``,
+    along each axis (and, on a mesh with both, one over the ``data`` x
+    ``seq`` ranks of each model line: ``DATA_SEQ``); the mesh becomes the
+    current one (``current_mesh``,
     ``axis_size``), as a ``shard_map`` binds its axes in the reference.  A
     collective: every rank calls it with the same arguments, since every
     rank must join the creation of every group."""
@@ -165,20 +171,31 @@ def make_mesh(axes=("data",), shape=None) -> Mesh:
     for a, axis in enumerate(axes):
         # A group of its own even where the axis spans the world: None
         # stands for "no such axis" in the callers.
-        mine = None
-        # Every line of ranks along this axis, in one order on every rank.
-        others = [range(n) for n in shape[:a] + shape[a + 1:]]
-        for rest in itertools.product(*others):
-            ranks = []
-            for i in range(shape[a]):
-                coord = rest[:a] + (i,) + rest[a:]
-                ranks.append(int(sum(c * s for c, s in zip(coord, _strides(shape)))))
-            g = dist.new_group(ranks) if dist.is_initialized() else None
-            if rank in ranks:
-                mine = g
-        groups[axis] = mine
+        groups[axis] = _line_groups(shape, (a,), rank)
+    if all(axis in axes for axis in DATA_SEQ):
+        groups[DATA_SEQ] = _line_groups(shape, tuple(axes.index(axis) for axis in DATA_SEQ), rank)
     _MESH = Mesh(axes, shape, rank, groups)
     return _MESH
+
+
+def _line_groups(shape, dims: tuple[int, ...], rank: int):
+    """One process group per set of ranks that differ only along ``dims``
+    (every rank creates every group, in one order); returns this rank's."""
+    mine = None
+    others = [d for d in range(len(shape)) if d not in dims]
+    for rest in itertools.product(*(range(shape[d]) for d in others)):
+        ranks = []
+        for inner in itertools.product(*(range(shape[d]) for d in dims)):
+            coord = [0] * len(shape)
+            for d, c in zip(others, rest):
+                coord[d] = c
+            for d, c in zip(dims, inner):
+                coord[d] = c
+            ranks.append(int(sum(c * s for c, s in zip(coord, _strides(shape)))))
+        g = dist.new_group(ranks) if dist.is_initialized() else None
+        if rank in ranks:
+            mine = g
+    return mine
 
 
 def _strides(shape) -> list[int]:
@@ -209,10 +226,11 @@ def axis_index(axis: str | None) -> int:
     return _MESH.index(axis)
 
 
-def axis_group(axis: str):
-    """The process group of ``axis`` through this rank (None only without
-    a process group: one rank)."""
-    if _MESH is None or axis not in _MESH.axes:
+def axis_group(axis):
+    """The process group of ``axis`` (a name, or ``DATA_SEQ``) through this
+    rank (None only without a process group: one rank)."""
+    names = axis if isinstance(axis, tuple) else (axis,)
+    if _MESH is None or any(a not in _MESH.axes for a in names):
         raise ValueError(f"mesh axis {axis!r} is not bound (make_mesh first)")
     return _MESH.group(axis)
 

@@ -28,6 +28,13 @@ is ROADMAP item 13).  Under tensor parallelism each TP shard of the model
 ranks at data and seq index 0; the payload's ``model`` is the shards merged,
 the whole model, and each rank cuts its shard out of it on resume.  The
 payload records the mesh: a resume needs the same mesh.
+Under FSDP (``parallel.fsdp``) the payload's ``model`` is the whole model
+from the host gather (a collective), its ``layout`` is ``"fsdp"`` (the
+reference's ``topology_meta`` name) and ``ranks`` holds each rank's
+optimizer shard.  It resumes at the same mesh; its model loads into a plain
+run, and a plain checkpoint into an FSDP run, the optimizer state moved
+between the flats and the parameters (``parallel.fsdp``'s
+``plain_optimizer_state`` / ``shard_optimizer_state``; without TP).
 Nothing of the dropout stream is saved: each step's masks are a function
 of the run's seed, the epoch and the step (``dpp.step_seed``), so a resumed
 run draws the masks the uninterrupted run would have.
@@ -35,6 +42,7 @@ run draws the masks the uninterrupted run would have.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import math
@@ -109,9 +117,10 @@ def _tp_owner(tp_axis: str) -> int:
 
 
 def per_rank(state: TrainState) -> bool:
-    """Does each rank hold state of its own (ZeRO shards, PowerSGD, a TP
-    shard of the model)?"""
-    return state.zero is not None or state.comm_state is not None or _tp_axis(state) is not None
+    """Does each rank hold state of its own (ZeRO or FSDP shards, PowerSGD,
+    a TP shard of the model)?"""
+    return (state.zero is not None or state.fsdp is not None or state.comm_state is not None
+            or _tp_axis(state) is not None)
 
 
 def _mesh_record():
@@ -136,10 +145,36 @@ def _rank_part(state: TrainState) -> dict:
     return _cpu(out)
 
 
+def _gather_parts(part: dict) -> list | None:
+    """Every rank's ``part`` on rank 0 (None elsewhere): a collective."""
+    if get_world_size() == 1:
+        return [part]
+    parts = [None] * get_world_size() if get_rank() == 0 else None
+    dist.gather_object(part, parts, dst=0)
+    return parts
+
+
+def _fsdp_payload(state: TrainState, epoch: int) -> dict | None:
+    from distributeddataparallel_tpu_torch.parallel.fsdp import fsdp_gather_params
+
+    model = fsdp_gather_params(state.fsdp, host=True)
+    parts = _gather_parts(_cpu({"optimizer": state.optimizer.state_dict()}))
+    if get_rank() != 0:
+        return None
+    payload = {"model": model, "layout": "fsdp",
+               "scheduler": state.scheduler.state_dict() if state.scheduler is not None else None,
+               "step": state.step, "epoch": epoch, "ranks": parts}
+    if _mesh_record() is not None:
+        payload["mesh"] = _mesh_record()
+    return payload
+
+
 def host_payload(state: TrainState, epoch: int) -> dict | None:
     """What a checkpoint holds, with every tensor copied to the host once.
     A collective when each rank holds state of its own (``per_rank``):
     rank 0 gets the payload, the others None."""
+    if state.fsdp is not None:
+        return _fsdp_payload(state, epoch)
     with state.full_params():
         model = _cpu(state.model.state_dict())
     payload = {
@@ -155,12 +190,7 @@ def host_payload(state: TrainState, epoch: int) -> dict | None:
         payload["optimizer"] = _cpu(state.optimizer.state_dict())
     if not per_rank(state):
         return payload
-    part = _rank_part(state)
-    if get_world_size() > 1:
-        parts = [None] * get_world_size() if get_rank() == 0 else None
-        dist.gather_object(part, parts, dst=0)
-    else:
-        parts = [part]
+    parts = _gather_parts(_rank_part(state))
     if get_rank() != 0:
         return None
     if tp is not None:
@@ -244,6 +274,12 @@ class CheckpointFiles:
     def load_into(state: TrainState, payload: dict) -> int:
         """Copy a checkpoint payload into ``state`` in place; returns the
         next epoch."""
+        if state.fsdp is not None or payload.get("layout") == "fsdp":
+            _load_fsdp(state, payload)
+            if state.scheduler is not None:
+                state.scheduler.load_state_dict(payload["scheduler"])
+            state.step = payload["step"]
+            return payload["epoch"] + 1
         if per_rank(state) != ("ranks" in payload):
             raise ValueError("the checkpoint's layout (per-rank ZeRO/PowerSGD/TP state or not) is not "
                              "this run's: resume with the flags it was saved with")
@@ -266,6 +302,36 @@ class CheckpointFiles:
             state.scheduler.load_state_dict(payload["scheduler"])
         state.step = payload["step"]
         return payload["epoch"] + 1
+
+
+def _load_fsdp(state: TrainState, payload: dict) -> None:
+    """An FSDP payload into an FSDP state at the same mesh, or into a plain
+    state; a plain payload into an FSDP state."""
+    from distributeddataparallel_tpu_torch.parallel import fsdp
+
+    groups = state.optimizer.state_dict()["param_groups"]
+    if state.fsdp is not None and payload.get("layout") == "fsdp":
+        if payload.get("mesh") != _mesh_record() or len(payload["ranks"]) != get_world_size():
+            raise ValueError(f"the FSDP checkpoint was saved on {len(payload['ranks'])} ranks (mesh "
+                             f"{payload.get('mesh')}), this run has {get_world_size()} (mesh {_mesh_record()}): "
+                             f"resume on the same mesh (resharding is ROADMAP item 13)")
+        state.fsdp.load_full(payload["model"])
+        state.optimizer.load_state_dict(payload["ranks"][get_rank()]["optimizer"])
+    elif state.fsdp is not None:
+        if "ranks" in payload:
+            raise ValueError("an FSDP run loads an FSDP or a plain checkpoint (not ZeRO/TP/PowerSGD state)")
+        state.fsdp.load_full(payload["model"])
+        state.optimizer.load_state_dict(fsdp.shard_optimizer_state(state.fsdp, payload["optimizer"], groups))
+    else:
+        mesh = payload.get("mesh") or {"axes": [], "shape": []}
+        if per_rank(state) or dict(zip(mesh["axes"], mesh["shape"])).get("model", 1) > 1:
+            raise ValueError("an FSDP checkpoint without TP loads into an FSDP run or a plain one (not "
+                             "ZeRO/TP/PowerSGD state)")
+        cfg = dataclasses.replace(state.model.cfg, scan_layers=True, dropout_rate=0.0, cp_axis=None)
+        meta = fsdp.FsdpMeta(cfg, len(payload["ranks"]))
+        state.model.load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(
+            fsdp.plain_optimizer_state(meta, [p["optimizer"] for p in payload["ranks"]], groups))
 
 
 def _load_rank_part(state: TrainState, parts: list) -> None:

@@ -10,6 +10,10 @@ the optimizer steps this rank's shard of it (``moments`` keeps its moments
 low-bit between steps); under level 3 the model holds no parameters between
 steps, and ``full_params()`` gathers them for a block (evaluation, saving).
 ``comm_state`` is PowerSGD's per-leaf hook state (``parallel.powersgd``).
+Under FSDP (``parallel.fsdp.fsdp_state``) ``model`` is the ``FsdpLM`` over
+this rank's shards and ``fsdp`` the same object: the optimizer steps the
+shards, evaluation streams the per-layer gathers, and the whole model is
+assembled only by ``parallel.fsdp.fsdp_gather_params``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ class TrainState:
     zero: Any = None        # parallel.zero.ZeroLayout
     moments: Any = None     # parallel.zero.LowBitMoments
     comm_state: Any = None  # parallel.powersgd state: a list over the reference's leaves
+    fsdp: Any = None        # parallel.fsdp.FsdpLM
 
     def apply_gradients(self) -> None:
         """One optimizer step on the synced ``.grad`` buffers, then the
@@ -50,6 +55,8 @@ class TrainState:
         return self.zero.full_params() if self.zero is not None else contextlib.nullcontext()
 
     def num_params(self) -> int:
+        if self.fsdp is not None:
+            return self.fsdp.meta.total
         if self.zero is not None:
             return sum(self.zero.sizes)
         return sum(p.numel() for p in self.model.parameters())

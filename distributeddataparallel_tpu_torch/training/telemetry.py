@@ -63,7 +63,7 @@ from distributeddataparallel_tpu_torch.utils.metrics import FaultCounters, StepT
 
 class Telemetry:
     def __init__(self, args, *, rank: int, world_size: int, items_per_step: int,
-                 unit: str, sync=None):
+                 unit: str, sync=None, layout: str | None = None):
         self.args, self.rank, self.world_size, self.sync = args, rank, world_size, sync
         self.items_per_step, self.unit = items_per_step, unit
         self.counters = FaultCounters()
@@ -72,7 +72,7 @@ class Telemetry:
         if args.events_dir:
             self.events = EventLog(events_path(args.events_dir, rank), rank)
             self.events.emit("run_start", argv=sys.argv[1:], attempt=self.counters.restarts,
-                             devices=world_size)
+                             devices=world_size, layout=layout)
             self.registry = MetricsRegistry()
             self.registry.add_exporter(JsonlExporter(self.events))
             if rank == 0:

@@ -51,6 +51,13 @@ DP x CP x TP composition (``train_step.py:166-188``):
   gradients (and the metrics) are first averaged over the ``seq`` group.
   That completes the gradient of the sharded loss; it is model math, not
   data-parallel sync.  The dropout seed folds in the ``seq`` index too.
+  Under ``overlap`` the hooks instead mean each bucket over the joint
+  data x seq group (``runtime.distributed.DATA_SEQ``: for equal group
+  sizes the seq mean and the data mean in one, up to summation order), and
+  ZeRO-2/3's hooks reduce-scatter over data first and average the shard
+  over seq after (the scatter is a sum, so linear); PowerSGD keeps the
+  reference's order, the seq mean and then the factors over data, so every
+  rank's error feedback is its data position's.
 - ``tp_axis``: the model's copy/reduce pairs leave every gradient complete
   per rank (a shard for the sharded leaves, the same whole gradient on
   every ``model`` rank for the replicated ones), so nothing is reduced
@@ -83,6 +90,7 @@ from distributeddataparallel_tpu_torch.parallel.powersgd import sync_model_grads
 from distributeddataparallel_tpu_torch.ops.dropout import fold_seed
 from distributeddataparallel_tpu_torch.runtime.distributed import (
     DATA_AXIS,
+    DATA_SEQ,
     axis_group,
     axis_index,
     axis_size,
@@ -130,6 +138,9 @@ class _Axes:
         self.n_seq, self.n_tp = axis_size(cp_axis), axis_size(tp_axis)
         self.seq = axis_group(cp_axis) if self.n_seq > 1 else None
         self.seq_index = axis_index(cp_axis)
+        # --overlap's group under CP: one mean over every (data, seq) rank
+        # of this model line is the seq mean and then the data mean.
+        self.data_seq = axis_group(DATA_SEQ) if self.seq is not None else self.data
         self.model = axis_group(tp_axis) if self.n_tp > 1 else None
         self._bound = _data_bound()
         if (cp_axis or tp_axis) and not self._bound:
@@ -223,10 +234,14 @@ def _split(batch: dict, n: int) -> list[dict]:
 
 
 def _check_layout(zero_level: int, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync,
-                  cp_axis=None, tp_axis=None) -> None:
-    """The reference's composition rules (``train_step.py:233-280``), and
-    the ones this port does not wire yet (``NotImplementedError`` naming
-    their ROADMAP item)."""
+                  cp_axis=None, tp_axis=None, fsdp=False, nonfinite_guard=False) -> None:
+    """The reference's composition rules (``train_step.py:233-280``; FSDP's
+    step, ``parallel/fsdp.py:493``, has none of the other layouts'
+    options)."""
+    if fsdp and (zero_level or bucket_bytes is not None or overlap or grad_compress or cp_axis
+                 or nonfinite_guard):
+        raise ValueError("fsdp=True owns its reduction (the gathers' reduce-scatters) and composes with "
+                         "tp_axis, accum_steps and grad_clip only")
     if zero_level not in (0, 1, 2, 3):
         raise ValueError(f"zero={zero_level!r} (want False/True or a level 0-3)")
     if zero_level >= 2 and tp_axis is not None:
@@ -234,10 +249,6 @@ def _check_layout(zero_level: int, bucket_bytes, overlap, grad_compress, accum_s
     if grad_compress == "powersgd" and tp_axis is not None:
         raise ValueError("grad_compress='powersgd' does not compose with tp_axis/ep_axis: the low-rank "
                          "factor reduction and error-feedback state are data-axis-only")
-    if cp_axis is not None and (overlap or grad_compress == "powersgd"):
-        raise NotImplementedError(
-            "overlap / grad_compress='powersgd' with cp_axis is not ported yet: ROADMAP.md Queue 1, "
-            "item 15b (the hooks would launch before the seq-axis mean)")
     if zero_level == 1 and (bucket_bytes is not None or overlap):
         raise ValueError("zero=1 does its own reduction; drop bucket_bytes/overlap (or use zero=2/3, "
                          "whose bucketed stream composes with both)")
@@ -267,6 +278,7 @@ def make_train_step(
     nonfinite_guard: bool = False,
     cp_axis: str | None = None,
     tp_axis: str | None = None,
+    fsdp: bool = False,
 ):
     """Build ``step(state, batch[, seed]) -> metrics`` for data parallelism
     (over the mesh's ``data`` group when a mesh is bound), composed
@@ -281,6 +293,10 @@ def make_train_step(
       (``parallel.overlap.DPOverlap``), on the boundary microbatch only;
     - ``grad_compress="powersgd"``: the low-rank hook on the reference's
       leaves, its state in ``state.comm_state`` (``parallel.powersgd``);
+    - ``fsdp=True``: the state comes from ``parallel.fsdp.fsdp_state``;
+      the model's gathers reduce-scatter every gradient into this rank's
+      shard during backward, and the step divides the shards by the data
+      ranks (``parallel.fsdp.make_fsdp_train_step`` builds this step);
     - ``zero=1|2|3`` (``True`` is 1): the state comes from
       ``parallel.zero.zero_state`` at the same level; the gradients are
       reduce-scattered into this rank's shard (per bucket at 2/3, from the
@@ -296,7 +312,8 @@ def make_train_step(
     ZeRO's reduce-scatter.
     """
     zero_level = int(zero)
-    _check_layout(zero_level, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync, cp_axis, tp_axis)
+    _check_layout(zero_level, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync, cp_axis, tp_axis,
+                  fsdp, nonfinite_guard)
     hooks = {}  # the model's reducer hooks, made on the first step
     resolved: list[_Axes] = []
 
@@ -320,7 +337,7 @@ def make_train_step(
             else:
                 hooks[key] = ov.DPOverlap([p for p in state.model.parameters() if p.requires_grad],
                                           bucket_bytes=bucket_bytes, compress=grad_compress,
-                                          group=axes().data)
+                                          group=axes().data_seq)
         return hooks[key]
 
     def step(state: TrainState, batch: dict, seed: int | None = None) -> dict[str, torch.Tensor]:
@@ -330,6 +347,9 @@ def make_train_step(
         layout = state.zero
         if zero_level and (layout is None or layout.level != zero_level):
             raise ValueError(f"zero={zero_level} needs a state from parallel.zero.zero_state(level={zero_level})")
+        if fsdp and (state.fsdp is None or state.fsdp.meta.tp_axis != tp_axis):
+            raise ValueError("fsdp=True needs a state from parallel.fsdp.fsdp_state; pass tp_axis to BOTH "
+                             "the config and the factory")
         if grad_compress == "powersgd" and state.comm_state is None:
             raise ValueError("grad_compress='powersgd' needs state.comm_state (parallel.powersgd.powersgd_state)")
         if zero_level == 3:
@@ -371,9 +391,12 @@ def make_train_step(
                 for g in ([layout.grad] if layout is not None else grads):
                     g.mul_(inv)
             totals = {k: v * inv for k, v in totals.items()}
-        if ax.seq is not None:
+        if ax.seq is not None and not armed:
             # Complete the sequence-sharded gradient (model math: before any
-            # data-parallel layout sees it).
+            # data-parallel layout sees it).  Armed hooks took it along:
+            # DPOverlap's buckets mean over the joint data x seq group, and
+            # ZeRO's shards are averaged over seq once their reduce-scatter
+            # (a sum, so linear) is done.
             _seq_mean([layout.grad] if layout is not None else grads, ax.seq, ax.n_seq)
         if nonfinite_guard:
             finite = _all_finite([layout.grad] if layout is not None else grads)
@@ -392,7 +415,7 @@ def make_train_step(
                     layout.release_params()
                 state.step += 1
                 return {**_mean_over_ranks(totals, ax.metric_groups), "nonfinite_grad": 1.0}
-        _reduce_and_update(state, grads, red, ax)
+        _reduce_and_update(state, grads, red, ax, armed)
         if get_world_size() > 1:  # one rank's buffers are already its own
             sync_buffers(model_buffers(model), buffer_sync)
         metrics = _mean_over_ranks(totals, ax.metric_groups)
@@ -400,7 +423,20 @@ def make_train_step(
             metrics["nonfinite_grad"] = 0.0
         return metrics
 
-    def _reduce_and_update(state: TrainState, grads: list[torch.Tensor], red, ax: _Axes) -> None:
+    def _reduce_and_update(state: TrainState, grads: list[torch.Tensor], red, ax: _Axes, armed: bool) -> None:
+        if fsdp:
+            # The backward's reduce-scatters summed the data ranks'
+            # gradients into the shards: their mean, then the global clip.
+            n = group_size(state.fsdp.group)
+            if n > 1:
+                for g in grads:
+                    g.div_(n)
+            if grad_clip is not None:
+                scale = clip_scale(torch.sqrt(state.fsdp.grad_sumsq()), grad_clip)
+                for g in grads:
+                    g.mul_(scale)
+            state.apply_gradients()
+            return
         if zero_level:
             reduced = False
             if red is not None:
@@ -408,13 +444,16 @@ def make_train_step(
                     if work is not None:
                         work.wait()
                 reduced = True
+                if armed and ax.seq is not None:
+                    layout = state.zero
+                    _seq_mean([layout.grad_shard(b) for b in range(layout.plan.n_buckets)], ax.seq, ax.n_seq)
             update = {1: z.zero_update, 2: z.zero2_update, 3: z.zero3_update}[zero_level]
             update(state, grad_clip, reduced=reduced)
             return
         if red is not None:
             red.finish()
         elif grad_compress == "powersgd":
-            state.comm_state = sync_model_grads(jax_leaf_pieces(state.model), state.comm_state)
+            state.comm_state = sync_model_grads(jax_leaf_pieces(state.model), state.comm_state, ax.data)
         else:
             all_reduce_gradients(grads, bucket_bytes=bucket_bytes, compress=grad_compress, group=ax.data)
         if grad_clip is not None:

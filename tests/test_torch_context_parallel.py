@@ -457,16 +457,21 @@ FLAG_ERRORS = [
     (["--model", "gpt2", "--tp", "2", "--zero", "2"], SystemExit, "--zero 2 shards over the data axis only"),
     (["--model", "gpt2", "--tp", "2", "--grad-compress", "powersgd"], SystemExit, "supports DP/CP layouts"),
     (["--model", "gpt2", "--tp", "2", "--generate", "4"], SystemExit, "--generate needs replicated params"),
-    (["--model", "gpt2", "--cp", "2", "--overlap"], NotImplementedError, "item 15b"),
+    (["--model", "gpt2", "--cp", "2", "--overlap", "--grad-compress", "powersgd"], SystemExit,
+     "pick one mechanism"),
     (["--model", "gpt2", "--pp", "2"], NotImplementedError, "item 16"),
-    (["--model", "gpt2", "--ep", "2"], NotImplementedError, "item 17"),
+    (["--model", "gpt2", "--moe-experts", "2", "--ep", "2"], NotImplementedError, "item 17"),
 ]
 
 
 def test_dpp_flag_errors():
     """The reference's checks and messages (``dpp.py:554-560``, ``:757-840``);
     what the reference accepts and the port does not run yet names its
-    ROADMAP item."""
+    ROADMAP item.  ``--overlap`` and PowerSGD parse with ``--cp`` (each
+    alone, as the reference takes them)."""
     for flags, err, match in FLAG_ERRORS:
         with pytest.raises(err, match=match):
             tdpp.parse_args(["--device", "cpu", *flags])
+    for extra in (["--overlap"], ["--grad-compress", "powersgd"]):
+        args = tdpp.parse_args(["--device", "cpu", "--model", "gpt2", "--cp", "2", *extra])
+        assert args.cp == 2 and (args.overlap or args.grad_compress == "powersgd")

@@ -183,10 +183,8 @@ def test_dpp_main_without_cpu_flag_needs_a_gpu():
 
 
 def test_layouts_outside_the_slice_raise():
-    """FSDP and the reference's in-scan gradient sync are outside the port:
-    each refuses, naming where it stands."""
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1, item 12b"):
-        tdpp.parse_args(["--device", "cpu", "--fsdp"])
+    """The reference's in-scan gradient sync is outside the port: it
+    refuses, naming where it stands."""
     with pytest.raises(NotImplementedError, match="grad_sync_axis.*--overlap"):
         ttfm.TransformerLM(ttfm.llama3_8b(vocab_size=32, num_layers=1, num_heads=2, num_kv_heads=1,
                                           d_model=16, d_ff=32, max_seq_len=8, grad_sync_axis="data"))
