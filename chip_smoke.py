@@ -5,8 +5,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py --multi-gpu`` on a machine with four runs only the
-entry-point runs over several GPUs (12c, 13c) after the build.
+``python3 chip_smoke.py --multi-gpu [12c] [13c] [14c]`` on a machine with
+four runs only the entry-point runs over several GPUs (all three, or those
+named) after the build.
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -148,13 +149,27 @@ Phases (any failure exits non-zero; nothing is caught):
    c. with four GPUs or more, Llama-3 8B at all 32 layers under ``--fsdp``
       (step, per-card peak) and at 8 layers against plain DP on the same
       four GPUs; with fewer, a line saying it was not run.
+14. mixture of experts, through ``dpp.main``:
+   a. Llama-3 8B's widths with 8 experts top-2 (token choice, capacity
+      factor 1.25) at 1 layer, phase 7's other flags: losses finite and
+      falling, ``moe_aux`` finite and near 1, K1-K3 launched as remat
+      implies, the step and peak memory; then one such MoE block's forward
+      and backward under ``torch.cuda.set_sync_debug_mode("error")``;
+   b. GPT-2 124M at 11a's size with 8 experts top-2 in dense dispatch,
+      checkpointed, then ``--generate 16`` teacher-forced against the
+      checkpoint's whole model;
+   c. with two GPUs or more (four for the last three), 14a's model at
+      capacity factor 8 under ``--ep 2``, ``--ep 4``, ``--ep 2 --tp 2`` and
+      ``--cp 2 --ep 2`` against one GPU, with each rank's all-to-all ms;
+      with one, a line saying it was not run.
 
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
 ``llama_path`` line (phase 7), one ``reference_workload`` line (phase 8),
 one ``fault_path`` line (phase 9), one ``layouts`` line (phase 11: each
 run's step ms, peak memory and losses), one ``cp_tp_path`` line (phase 12:
 each replay's max errors, launches and times, the GPU count), one
-``fsdp_path`` line (phase 13), one ``phase_seconds`` line, one ``serving_path`` line (phase 10,
+``fsdp_path`` line (phase 13), one ``moe_path`` line (phase 14), one ``phase_seconds`` line, one
+``serving_path`` line (phase 10,
 each run's TTFT p50/p99, tokens/s, per-token latency, decode-step ms,
 preemptions, evictions, prefix hits, acceptance, pool bytes against the
 allocator's peak, peak memory), one ``{"kernels": [...]}`` JSON line,
@@ -328,7 +343,9 @@ GEN_ARGS += ["--generate", "64", "--checkpoint-dir", "{ckpt}"]
 # 10b: the serving CLI at GPT-2 124M's full width and max_seq_len (bf16 on
 # the f32 init, as the reference's CLI), on the wall clock: 6 s of arrivals
 # at 16 requests/s (8 s until phase 13 bought its time back: the three
-# runs took 25.2, 26.2 and 53.2 s to serve 125-127 requests each).
+# runs took 25.2, 26.2 and 53.2 s to serve 125-127 requests each), 3 s for
+# the int8 run since phase 14 bought its time back (its per-layer dequant
+# makes it the slowest: 47.3 s for 6 s of arrivals).
 SERVE_ARGS = [
     "--model", "gpt2_124m", "--seq-len", "1024", "--slots", "16", "--blocks", "640", "--block-size", "16",
     "--chunk", "128", "--rate", "16", "--duration", "6", "--prompt-len", "64,768", "--output-len", "32,192",
@@ -337,7 +354,7 @@ SERVE_ARGS = [
 SERVE_RUNS = {
     "plain": [],
     "fast_path": ["--prefix-cache", "--spec-k", "3", "--prefix-pool", "8", "--prefix-len", "256"],
-    "int8": ["--quantize-kv", "--quantize-weights"],
+    "int8": ["--quantize-kv", "--quantize-weights", "--duration", "3"],
 }
 # The fast path's outputs against a plain engine's on the same prompts: every
 # FAST_SUBSET-th request of its trace (greedy outputs depend on the prompt
@@ -486,6 +503,44 @@ FSDP_GPT2_ARGS = LAYOUT_ARGS + ["--fsdp", "--generate", "16", "--checkpoint-dir"
 # 4 x 2 rows; bf16 activations through 8 layers, 12c's bound).
 FSDP_DEEP_ARGS = [a for a in LLAMA_ARGS if a != "--eval"] + ["--steps-per-epoch", "3"]
 FSDP_ENTRY_GPUS = 4
+
+# Phase 14: mixture of experts.  14a: Llama-3 8B's widths (phase 7's flags:
+# bf16 on f32 params, remat, AdamW, 10 steps and the eval pass) with
+# Mixtral 8x7B's expert count and top-k (8 experts, top 2, token choice at
+# capacity factor 1.25), cut to 1 layer: the embedding and the untied head
+# are 1.05 B parameters, the block 1.45 B (1.41 B of experts), 2.50 B at 16
+# bytes a parameter ~40 GB; 2 layers (3.95 B, ~63 GB of state) leave no
+# room for AdamW's temporaries and the activations on an 80 GB card.
+MOE_LAYERS = 1
+MOE_FLAGS = ["--moe-experts", "8", "--moe-top-k", "2", "--moe-capacity-factor", "1.25"]
+
+
+def _set(args, flag, value):
+    out = list(args)
+    out[out.index(flag) + 1] = value
+    return out
+
+
+LLAMA_MOE_ARGS = _set(LLAMA_ARGS, "--layers", str(MOE_LAYERS)) + MOE_FLAGS
+# 14b: phase 4's GPT-2 at 11a's size (12 layers, f32, GELU) with 8 experts
+# top-2 in dense dispatch (every token through every expert: exact, so the
+# continuation holds to the checkpoint's whole model), then --generate 16.
+GPT2_MOE_ARGS = LAYOUT_ARGS + ["--moe-experts", "8", "--moe-top-k", "2", "--generate", "16",
+                               "--checkpoint-dir", "{ckpt}"]
+# 14c, with two GPUs or more (four for the last three): 14a's model at
+# capacity factor 8 (= E: no token dropped, so every layout computes the
+# same function) for 3 steps, one data replica: the global batch is the
+# one-GPU run's.  The all-to-all's time comes from a trace of steps 1-2.
+MOE_ENTRY_ARGS = _set(_set([a for a in LLAMA_MOE_ARGS if a != "--eval"], "--moe-capacity-factor", "8"),
+                      "--steps-per-epoch", "3")
+MOE_ENTRY = {"ep2": (["--ep", "2"], 2), "ep4": (["--ep", "4"], 4), "ep2_tp2": (["--ep", "2", "--tp", "2"], 4),
+             "cp2_ep2": (["--cp", "2", "--ep", "2"], 4)}
+# Their losses against one GPU's (loss ~12.58): bf16 activations, the expert
+# GEMMs at other row counts (cuBLAS may sum in other orders) and, under
+# --tp / --cp, 12c's partial sums.  The first four-card run on H100s read gaps
+# of 2.30e-4 (--ep 2) to 5.23e-3 (--ep 2 --tp 2) over 3 steps, so 1.6e-2
+# holds them with a margin of 3, as 12c's bound does.
+MOE_ENTRY_ATOL = 1.6e-2
 
 DEVICE = "cuda"  # phases 10 and 12's device
 
@@ -2441,6 +2496,171 @@ def fsdp_phase(torch, dpp, fa, llama_losses, plain_gpt2_losses, smi) -> dict:
     return out
 
 
+def moe_llama(torch, dpp, smi) -> dict:
+    """[14a] Llama-3 8B width x 1 layer, 8 experts top-2, token choice."""
+    release(torch)
+    log("    14a: dpp.main " + " ".join(LLAMA_MOE_ARGS))
+    s = dpp.main(LLAMA_MOE_ARGS)
+    torch.cuda.synchronize()
+    losses, aux = s["losses"], s["moe_aux"]
+    launches = expect_remat_launches(s, MOE_LAYERS, "14a")
+    if s["train_steps"] != 10 or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"14a: losses {losses}")
+    if not aux or len(aux) != len(losses) or not all(math.isfinite(a) and a >= 1.0 - 1e-4 for a in aux):
+        raise AssertionError(f"14a: moe_aux {aux} (1 at perfect balance)")
+    if not math.isfinite(s["eval"]["loss"]):
+        raise AssertionError(f"14a: eval {s['eval']}")
+    out = {"flags": LLAMA_MOE_ARGS, "num_params": s["num_params"], "losses": losses, "moe_aux": aux,
+           "step_ms": s["step_time_s"] * 1e3, "tokens_per_s": s["tokens_per_s"],
+           "peak_memory_bytes": s["peak_memory_bytes"], "eval": s["eval"], "eval_batches": s["eval_batches"],
+           "attention_launches": launches}
+    log(f"    14a: step {out['step_ms']:.1f} ms, peak {gib(s['peak_memory_bytes'])} GiB, "
+        f"{s['num_params'] / 1e9:.3f} B params, losses {['%.4f' % x for x in losses]}, "
+        f"moe_aux {['%.4f' % a for a in aux]} on {smi}")
+    return out
+
+
+def moe_no_sync(torch, tfm) -> dict:
+    """[14a] One MoE block at 14a's widths, forward and backward, under
+    ``torch.cuda.set_sync_debug_mode("error")``: any op that makes the
+    host wait for the device raises.  A first pass outside the mode builds
+    what the first call builds (cuBLAS handles, the kernels' load)."""
+    release(torch)
+    cfg = tfm.llama3_8b(num_layers=1, max_seq_len=2048, moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+                        remat=False)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    blk = tfm.DecoderBlock(cfg, device=DEVICE)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    rope = tfm.rope_frequencies(cfg.dims_per_head, cfg.max_seq_len, theta=cfg.rope_theta, device=DEVICE)
+    x = torch.randn(2, 2048, cfg.d_model, device=DEVICE, generator=gen).to(cfg.dtype).requires_grad_()
+
+    def step():
+        y, aux = blk(x, rope)
+        (y.float().pow(2).mean() + aux).backward()
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out = {"block_params": sum(p.numel() for p in blk.parameters()), "synchronising_ops": 0,
+           "router_grad_finite": bool(torch.isfinite(blk.mlp.router.weight.grad).all())}
+    del blk, x
+    return out
+
+
+def moe_gpt2(torch, dpp, smi) -> dict:
+    """[14b] GPT-2 124M x 12 layers with 8 dense-dispatch experts,
+    checkpointed, then --generate 16, held to the checkpoint's whole model."""
+    from distributeddataparallel_tpu_torch.models import transformer as tfm
+    from distributeddataparallel_tpu_torch.models.generate import decode_model
+    from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles
+
+    release(torch)
+    with tempfile.TemporaryDirectory(prefix="moe_14b_") as d:
+        args = [a.replace("{ckpt}", d) for a in GPT2_MOE_ARGS]
+        log("    14b: dpp.main " + " ".join(args))
+        s = dpp.main(args)
+        torch.cuda.synchronize()
+        payload = CheckpointFiles(d).read(0)
+    launches = expect_launches(s, "14b")
+    losses = s["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0] or not s["moe_aux"]:
+        raise AssertionError(f"14b: losses {losses}, moe_aux {s['moe_aux']}")
+    cfg = dpp.build_config(dpp.parse_args(args))
+    model = tfm.TransformerLM(dataclasses.replace(cfg, attn_impl="plain"), device=DEVICE)
+    model.load_state_dict(payload["model"])
+    gen = s["generate"]
+    n_prompt = len(gen["prompt"][0])
+    check = teacher_forced(torch, model, gen["tokens"], n_prompt, TF_ATOL["float32"], "14b", decode_model(model))
+    out = {"losses": losses, "moe_aux": s["moe_aux"], "step_ms": s["step_time_s"] * 1e3,
+           "peak_memory_bytes": s["peak_memory_bytes"], "num_params": s["num_params"], "eval": s["eval"],
+           "new_tokens": len(gen["tokens"][0]) - n_prompt, "prefill_ms": gen["prefill_ms"],
+           "decode_ms_per_token": gen["decode_ms_per_token"], "teacher_forced": check, "attention_launches": launches}
+    log(f"    14b: step {out['step_ms']:.1f} ms, peak {gib(s['peak_memory_bytes'])} GiB, losses "
+        f"{['%.4f' % x for x in losses]}, generated {out['new_tokens']} tokens, teacher-forced {check} on {smi}")
+    del model
+    return out
+
+
+def alltoall_ms(trace_paths, steps: int) -> list:
+    """Each rank's NCCL send/recv kernels' (the all-to-all's) device ms a
+    step, from its trace of ``steps`` steps."""
+    from distributeddataparallel_tpu_torch.parallel.overlap import trace_kernels
+
+    out = []
+    for path in trace_paths:
+        kernels = [k for k in trace_kernels(path) if "sendrecv" in k["name"].lower()]
+        out.append(sum(k["end"] - k["start"] for k in kernels) / 1e3 / steps)
+    return out
+
+
+def moe_entry(torch, smi) -> dict:
+    """[14c] Only where two GPUs are visible (four for the last three
+    runs): 14a's model at capacity factor 8 under --ep 2, --ep 4,
+    --ep 2 --tp 2 and --cp 2 --ep 2 over NCCL, one data replica, against
+    one GPU on the same global batch."""
+    import glob
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"    14c needs two GPUs and was not run: {count} visible")
+        return {"ran": False, "gpus": count}
+    base = run_entry(MOE_ENTRY_ARGS, "14c one GPU")
+    out = {"ran": True, "gpus": count, "atol": MOE_ENTRY_ATOL,
+           "one_gpu": {"losses": base["losses"], "step_ms": base["step_time_s"] * 1e3,
+                       "peak_memory_bytes": base["peak_memory_bytes"]}}
+    for name, (extra, gpus) in MOE_ENTRY.items():
+        if gpus > count:
+            log(f"    14c {name} needs {gpus} GPUs and was not run: {count} visible")
+            continue
+        with tempfile.TemporaryDirectory(prefix="moe_ev_") as ev:
+            s = run_entry(MOE_ENTRY_ARGS + extra + ["--num-processes", str(gpus), "--events-dir", ev,
+                                                    "--profile-steps", "1:3"], f"14c {name}")
+            a2a = alltoall_ms(sorted(glob.glob(os.path.join(ev, "xprof", "trace_*_p*.json"))), 2)
+        diff = max(abs(a - b) for a, b in zip(s["losses"], base["losses"]))
+        out[name] = {"gpus": gpus, "losses": s["losses"], "step_ms": s["step_time_s"] * 1e3, "max_abs_diff": diff,
+                     "peak_memory_bytes_rank0": s["peak_memory_bytes"], "alltoall_ms_per_step_by_rank": a2a,
+                     "attention_launches": s["attention_launches"]}
+        if not diff <= MOE_ENTRY_ATOL:
+            raise AssertionError(f"14c {name}: losses {s['losses']} vs one GPU {base['losses']}")
+        log(f"    14c {name}: step {out[name]['step_ms']:.1f} ms, peak {gib(s['peak_memory_bytes'])} GiB, "
+            f"|loss - one GPU| {diff:.2e}, all-to-all {a2a} ms a step on {smi}")
+    return out
+
+
+def moe_phase(torch, dpp, fa, tfm, smi) -> dict:
+    """[14] Mixture of experts: 14a and 14b through dpp.main with the
+    kernels' counters set to 0 just before each and read just after, the
+    no-sync block; 14c with two GPUs or more."""
+    t0 = time.perf_counter()
+    log("[14] mixture of experts")
+    fa.reset_launches()
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        result = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        return result
+
+    llama = timed("14a", moe_llama, torch, dpp, smi)
+    gpt2 = timed("14b", moe_gpt2, torch, dpp, smi)
+    out = {"llama_8x_top2": llama, "gpt2_8x_dense": gpt2, "attention_launches": dict(fa.LAUNCHES)}
+    out["no_sync_block"] = timed("no_sync", moe_no_sync, torch, tfm)
+    log(f"    14a: one MoE block's forward and backward ran under sync debug mode 'error': {out['no_sync_block']}")
+    out["entry"] = timed("14c", moe_entry, torch, smi)
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = seconds
+    log(f"    phase 14 in {out['seconds']:.1f} s; K1-K3 launches {out['attention_launches']} on {smi}")
+    return out
+
+
 def release(torch) -> None:
     """Free what earlier runs left (a model held by a reference cycle, say,
     the reducer's hooks) before the next run's peak is measured."""
@@ -2488,9 +2708,11 @@ def main() -> int:
     for line in ptxas_report(so.with_suffix(".log").read_text()):
         log("    " + line)
     if "--multi-gpu" in sys.argv[1:]:
-        # Only the entry-point runs over several GPUs (12c, 13c): what a
-        # one-card run skips.
-        out = {"cp_tp_entry": cp_tp_entry(torch, smi), "fsdp_entry": fsdp_entry(torch, smi)}
+        # Only the entry-point runs over several GPUs (12c, 13c, 14c, or
+        # those named after the flag): what a one-card run skips.
+        entries = {"12c": cp_tp_entry, "13c": fsdp_entry, "14c": moe_entry}
+        picked = [a for a in sys.argv[sys.argv.index("--multi-gpu") + 1:] if a in entries] or list(entries)
+        out = {name: entries[name](torch, smi) for name in picked}
         log(json.dumps({"multi_gpu": out, "card": smi, "seconds": time.perf_counter() - t_all}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)
         return 0
@@ -2552,6 +2774,7 @@ def main() -> int:
     layouts = timed("11", layouts_phase, torch, dpp, fa, smi)
     cp_tp = timed("12", cp_tp_phase, torch, fa, tfm, smi)
     fsdp_path = timed("13", fsdp_phase, torch, dpp, fa, llama["losses"], layouts["gpt2"]["plain"]["losses"], smi)
+    moe_path = timed("14", moe_phase, torch, dpp, fa, tfm, smi)
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -2568,6 +2791,7 @@ def main() -> int:
             "launches_layouts": layouts["attention_launches"][name],
             "launches_cp_tp_path": cp_tp["attention_launches"][name],
             "launches_fsdp_path": fsdp_path["attention_launches"][name],
+            "launches_moe_path": moe_path["attention_launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2600,6 +2824,7 @@ def main() -> int:
     log(json.dumps({"layouts": layouts, "card": smi}))
     log(json.dumps({"cp_tp_path": cp_tp, "card": smi}))
     log(json.dumps({"fsdp_path": fsdp_path, "card": smi}))
+    log(json.dumps({"moe_path": moe_path, "card": smi}))
     log(json.dumps({"phase_seconds": seconds, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -72,10 +72,20 @@ They compose with each other and with ``--accum-steps``, ``--zero 1``,
 ``--overlap`` (one mean over the data x seq ranks launched from backward)
 and ``--grad-compress powersgd`` (after the seq mean, over the data ranks).
 
-The reference's flags whose feature is not ported yet (``--pp*``, ``--ep``,
-``--moe-*``, ``--elastic*``, ``--integrity-*``, ...) parse with its
-defaults and checks; a value off the default raises
-``NotImplementedError`` naming its ROADMAP item (``UNPORTED_FLAGS``).
+Mixture of experts, with the reference's flags and checks: ``--moe-experts
+E`` makes every LM block's MLP E experts routed top-``--moe-top-k``, dense
+dispatch or, with ``--moe-capacity-factor`` > 0, capacity-bounded token
+choice (``models.transformer.MoEMLP``, ``ops.moe``); the loss adds
+``--moe-aux-weight`` times the load-balance term, reported as ``moe_aux``.
+``--ep N`` shards the experts over an ``expert`` axis
+(``parallel.expert_parallel``; the mesh: data, seq, expert, model), with
+``--cp`` or ``--tp``, ``--zero 1``, the comm hooks but PowerSGD,
+``--accum-steps``, ``--grad-clip``, ``--eval`` and checkpoints.
+
+The reference's flags whose feature is not ported yet (``--pp*``,
+``--elastic*``, ``--integrity-*``, ...) parse with its defaults and checks;
+a value off the default raises ``NotImplementedError`` naming its ROADMAP
+item (``UNPORTED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -83,6 +93,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -129,7 +140,7 @@ from distributeddataparallel_tpu_torch.ops.preprocess import normalize_u8_images
 from distributeddataparallel_tpu_torch.parallel import fsdp, overlap
 from distributeddataparallel_tpu_torch.parallel.data_parallel import broadcast_params
 from distributeddataparallel_tpu_torch.parallel.powersgd import leaf_shapes, powersgd_state
-from distributeddataparallel_tpu_torch.parallel.tensor_parallel import shard_state_dict_tp
+from distributeddataparallel_tpu_torch.parallel.expert_parallel import shard_model_axes
 from distributeddataparallel_tpu_torch.parallel.zero import zero_state
 from distributeddataparallel_tpu_torch.runtime import distributed as rt
 from distributeddataparallel_tpu_torch.runtime import launcher
@@ -273,16 +284,21 @@ def parse_args(argv=None):
                    help="pipeline schedule: not ported yet (ROADMAP item 16)")
     p.add_argument("--pp-virtual", type=int, default=1,
                    help="virtual layer chunks per pipeline stage: not ported yet (ROADMAP item 16)")
-    p.add_argument("--ep", type=int, default=1,
-                   help="expert-parallel degree: not ported yet (ROADMAP item 17)")
     p.add_argument("--moe-experts", type=int, default=0,
-                   help="routed experts per block: not ported yet (ROADMAP item 17)")
+                   help="replace every block's MLP with this many routed experts (LM only; "
+                        "0 = dense MLP)")
     p.add_argument("--moe-top-k", type=int, default=1,
-                   help="experts per token: not ported yet (ROADMAP item 17)")
+                   help="experts per token: 1 = Switch routing, 2 = Mixtral-style with "
+                        "renormalized gates")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel degree: shard the experts over an 'expert' mesh axis "
+                        "(requires --moe-experts)")
     p.add_argument("--moe-aux-weight", type=float, default=0.01,
-                   help="weight of the load-balance loss: not ported yet (ROADMAP item 17)")
+                   help="weight of the switch load-balance auxiliary loss (0 disables)")
     p.add_argument("--moe-capacity-factor", type=float, default=0.0,
-                   help="token-choice expert capacity: not ported yet (ROADMAP item 17)")
+                   help="token-choice dispatch: each expert takes at most ceil(k*T/E*factor) "
+                        "tokens, the overflow dropped through the residual; 0 = dense dispatch "
+                        "(every token through every expert)")
     p.add_argument("--buffer-sync", choices=["mean", "broadcast"], default="mean",
                    help="BatchNorm buffers across ranks: 'mean' averages the running "
                         "stats, 'broadcast' adopts rank 0's (DDP broadcast_buffers)")
@@ -452,7 +468,6 @@ def parse_args(argv=None):
 #: checks of the value, ``_validate_reference_rules``).
 UNPORTED_FLAGS = {
     "16": ("pp", "pp_microbatches", "pp_schedule", "pp_virtual"),
-    "17": ("ep", "moe_experts", "moe_top_k", "moe_aux_weight", "moe_capacity_factor"),
     "11b": ("compile_cache", "dispatch_depth"),
     "13": ("elastic", "elastic_dir", "min_procs"),
     "20": ("integrity_every", "integrity_shadow"),
@@ -476,9 +491,9 @@ def _bad(*pairs) -> list[str]:
 
 def _validate_reference_rules(args) -> None:
     """The reference's checks of the flags whose feature is not ported yet
-    (``dpp.py:454-458``, ``:562-585``, ``:654-680``, ``:716-786``,
-    ``:841-868``), with its messages, so a bad value is refused as the
-    reference refuses it before ``_refuse_unported`` names the item."""
+    (``dpp.py:454-458``, ``:562-585``, ``:654-680``, ``:716-786``), with
+    its messages, so a bad value is refused as the reference refuses it
+    before ``_refuse_unported`` names the item."""
     if args.dispatch_depth < 0:
         raise SystemExit(f"--dispatch-depth must be >= 0, got {args.dispatch_depth}")
     if args.pp > 1:
@@ -558,31 +573,12 @@ def _validate_reference_rules(args) -> None:
             raise SystemExit("--tune-trials must be >= 1")
         if args.tune_steps < 1:
             raise SystemExit("--tune-steps must be >= 1")
-    if args.moe_experts and not is_lm(args):
-        raise SystemExit("--moe-experts requires an LM model")
-    if args.moe_experts and not 1 <= args.moe_top_k <= args.moe_experts:
-        raise SystemExit(f"--moe-top-k {args.moe_top_k} must be in [1, {args.moe_experts}]")
-    if args.moe_top_k != 1 and not args.moe_experts:
-        raise SystemExit("--moe-top-k requires --moe-experts")
-    if args.moe_capacity_factor and not args.moe_experts:
-        raise SystemExit("--moe-capacity-factor requires --moe-experts")
-    if args.moe_capacity_factor < 0:
-        raise SystemExit("--moe-capacity-factor must be >= 0")
-    if args.ep > 1:
-        if not args.moe_experts:
-            raise SystemExit("--ep requires --moe-experts")
-        if args.moe_experts % args.ep:
-            raise SystemExit(f"--moe-experts {args.moe_experts} must be divisible by --ep {args.ep}")
-        if args.pp > 1 and args.tp > 1:
-            raise SystemExit("--ep with BOTH --pp and --tp is untested")
-        if args.cp > 1 and (args.pp > 1 or args.tp > 1):
-            raise SystemExit("--ep with --cp composes pairwise only (no extra --pp/--tp)")
 
 
 def _validate_layout(args) -> None:
-    """The reference's rules for the model axes, FSDP, the sharded update
-    and the comm hooks (``dpp.py:554-560``, ``:620-651``, ``:709-713``,
-    ``:757-840``), with its messages."""
+    """The reference's rules for the model axes, FSDP, the sharded update,
+    the comm hooks and MoE / EP (``dpp.py:554-560``, ``:620-651``,
+    ``:709-713``, ``:757-868``), with its messages."""
     if args.cp < 1 or args.tp < 1:
         raise SystemExit("--cp and --tp must be >= 1")
     if args.cp > 1:
@@ -629,6 +625,25 @@ def _validate_layout(args) -> None:
     if args.generate and ((args.tp > 1 and not args.fsdp) or args.pp > 1 or args.ep > 1):
         raise SystemExit("--generate needs replicated params (no --tp/--pp/--ep; --fsdp [--tp N] "
                          "generates via the host gather)")
+    if args.moe_experts and not is_lm(args):
+        raise SystemExit("--moe-experts requires an LM model")
+    if args.moe_experts and not 1 <= args.moe_top_k <= args.moe_experts:
+        raise SystemExit(f"--moe-top-k {args.moe_top_k} must be in [1, {args.moe_experts}]")
+    if args.moe_top_k != 1 and not args.moe_experts:
+        raise SystemExit("--moe-top-k requires --moe-experts")
+    if args.moe_capacity_factor and not args.moe_experts:
+        raise SystemExit("--moe-capacity-factor requires --moe-experts")
+    if args.moe_capacity_factor < 0:
+        raise SystemExit("--moe-capacity-factor must be >= 0")
+    if args.ep > 1:
+        if not args.moe_experts:
+            raise SystemExit("--ep requires --moe-experts")
+        if args.moe_experts % args.ep:
+            raise SystemExit(f"--moe-experts {args.moe_experts} must be divisible by --ep {args.ep}")
+        if args.pp > 1 and args.tp > 1:
+            raise SystemExit("--ep with BOTH --pp and --tp is untested")
+        if args.cp > 1 and (args.pp > 1 or args.tp > 1):
+            raise SystemExit("--ep with --cp composes pairwise only (no extra --pp/--tp)")
 
 
 def _validate_faults(p, args) -> None:
@@ -682,6 +697,11 @@ def build_config(args, vocab_size: int | None = None) -> tfm.TransformerConfig:
         overrides["tp_axis"] = rt.MODEL_AXIS
     if args.dropout:
         overrides["dropout_rate"] = args.dropout
+    if args.moe_experts:
+        overrides.update(moe_experts=args.moe_experts, moe_top_k=args.moe_top_k,
+                         moe_capacity_factor=args.moe_capacity_factor)
+    if args.ep > 1:
+        overrides["ep_axis"] = rt.EXPERT_AXIS
     if args.layers:
         overrides["num_layers"] = args.layers
     if args.remat != "auto":
@@ -791,10 +811,23 @@ def _lm_pairs(batch):
     return tokens[:, :-1], tokens[:, 1:]
 
 
-def _loss_fn(model, batch, seed=None):
+def _loss_fn(model, batch, seed=None, aux_weight: float = 0.0):
+    """The LM loss; with ``aux_weight`` > 0 (an MoE model, ``--moe-aux-weight``)
+    plus that times the load-balance term, reported as ``moe_aux`` (ref
+    ``dpp.py:1549-1568``)."""
     inputs, targets = _lm_pairs(batch)
+    if aux_weight > 0:
+        logits, aux = model(inputs, dropout_seed=seed, with_aux=True)
+        loss = lm_cross_entropy(logits, targets) + aux_weight * aux
+        return loss, {"accuracy": accuracy(logits, targets), "moe_aux": aux}
     logits = model(inputs, dropout_seed=seed)
     return lm_cross_entropy(logits, targets), {"accuracy": accuracy(logits, targets)}
+
+
+def lm_loss_fn(args):
+    """The LM loss_fn for these flags."""
+    weight = args.moe_aux_weight if args.moe_experts else 0.0
+    return functools.partial(_loss_fn, aux_weight=weight) if weight > 0 else _loss_fn
 
 
 def _metric_fn(model, batch):
@@ -865,10 +898,11 @@ class Trainer:
 
 
 def build_mesh(args, world_size: int):
-    """The reference's mesh for ``--cp`` / ``--tp`` (``dpp.py:511-533``):
-    data outermost, then ``seq``, then ``model``; None for plain DP."""
+    """The reference's mesh for ``--cp`` / ``--ep`` / ``--tp``
+    (``dpp.py:511-533``): data outermost, then ``seq``, ``expert``,
+    ``model``; None for plain DP."""
     axes, sizes = [rt.DATA_AXIS], []
-    for degree, name in ((args.cp, rt.SEQ_AXIS), (args.tp, rt.MODEL_AXIS)):
+    for degree, name in ((args.cp, rt.SEQ_AXIS), (args.ep, rt.EXPERT_AXIS), (args.tp, rt.MODEL_AXIS)):
         if degree > 1:
             axes.append(name)
             sizes.append(degree)
@@ -893,9 +927,9 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
     """Model (rank 0's weights on every rank), optimizer, step functions and
     loaders for these flags; the process group, if any, is formed.
     ``train`` restores the newest checkpoint with ``--resume``.  Under
-    ``--cp`` / ``--tp`` the mesh is formed here; every rank builds the full
-    model from the seed and keeps its TP shard of it (under ``--fsdp`` its
-    chunk of the flats, of its TP shard with ``--tp``)."""
+    ``--cp`` / ``--ep`` / ``--tp`` the mesh is formed here; every rank builds
+    the full model from the seed and keeps its TP and EP shard of it (under
+    ``--fsdp`` its chunk of the flats, of its TP shard with ``--tp``)."""
     lm = is_lm(args)
     mesh = build_mesh(args, world_size)
     d_index, n_data = data_coords(mesh, rank, world_size)
@@ -903,7 +937,8 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
     dataset = build_dataset(args, train=True)
     if lm:
         cfg = build_config(args, getattr(dataset, "vocab_size", None))
-        model = tfm.TransformerLM(dataclasses.replace(cfg, tp_axis=None), device=device, generator=gen)
+        model = tfm.TransformerLM(dataclasses.replace(cfg, tp_axis=None, ep_axis=None), device=device,
+                                  generator=gen)
     else:
         model = build_model(args, dataset, device, gen)
     if args.pretrained:
@@ -911,10 +946,10 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
         if rank == 0:
             print(f"loaded pretrained weights from {args.pretrained}", flush=True)
     broadcast_params(model)  # DDP constructor broadcast
-    if lm and cfg.tp_axis is not None and not args.fsdp:  # FSDP cuts its TP shards from the whole model
+    if lm and (cfg.tp_axis or cfg.ep_axis) and not args.fsdp:  # FSDP cuts its TP shards from the whole model
         full = model.state_dict()
         model = tfm.TransformerLM(cfg, device=device)
-        model.load_state_dict(shard_state_dict_tp(full, mesh.index(rt.MODEL_AXIS), mesh.size(rt.MODEL_AXIS)))
+        model.load_state_dict(shard_model_axes(full, cfg.tp_axis, cfg.ep_axis))
         del full
     seq_shard = (mesh.index(rt.SEQ_AXIS), mesh.size(rt.SEQ_AXIS)) if args.cp > 1 else None
 
@@ -945,7 +980,8 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
         state = zero_state(model, lambda shard: build_optimizer(args, shard, total_steps),
                            level=args.zero, moment_dtype=args.moment_dtype, seed=args.seed,
                            bucket_bytes=bucket_bytes if args.zero >= 2 else None,
-                           group=data_group, tp_axis=cfg.tp_axis if lm else None)
+                           group=data_group, tp_axis=cfg.tp_axis if lm else None,
+                           ep_axis=cfg.ep_axis if lm else None)
     else:
         state = TrainState(model, *build_optimizer(args, model.parameters(), total_steps))
         if args.grad_compress == "powersgd":
@@ -956,11 +992,11 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
                                             tp_axis=cfg.tp_axis)
     else:
         step_fn = make_train_step(
-            _loss_fn if lm else _image_loss_fn, accum_steps=args.accum_steps,
+            lm_loss_fn(args) if lm else _image_loss_fn, accum_steps=args.accum_steps,
             bucket_bytes=bucket_bytes, grad_clip=args.grad_clip, buffer_sync=args.buffer_sync,
             nonfinite_guard=args.nan_guard, overlap=args.overlap, zero=args.zero,
-            grad_compress=args.grad_compress,
-            cp_axis=cfg.cp_axis if lm else None, tp_axis=cfg.tp_axis if lm else None,
+            grad_compress=args.grad_compress, cp_axis=cfg.cp_axis if lm else None,
+            tp_axis=cfg.tp_axis if lm else None, ep_axis=cfg.ep_axis if lm else None,
         )
     trainer = Trainer(state=state, step_fn=step_fn, loader=loader, steps_per_epoch=spe)
     if args.eval:
@@ -1060,7 +1096,7 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
     state, step_fn, loader, spe = trainer.state, trainer.step_fn, trainer.loader, trainer.steps_per_epoch
     eval_step, eval_loader, model = trainer.eval_step, trainer.eval_loader, trainer.state.model
     injector, ckpt, watchdog = faults.injector, faults.checkpointer, faults.watchdog
-    losses, step_times, eval_batches, evals = [], [], 0, []
+    losses, step_times, eval_batches, evals, moe_aux = [], [], 0, [], []
     wall, wall_steps, preempted = 0.0, 0, None
     for epoch in range(start_epoch, args.epochs):
         loader.set_epoch(epoch)
@@ -1084,12 +1120,15 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
                 step_times.append(time.perf_counter() - t0)
                 ends.append(time.perf_counter())
                 losses.append(metrics["loss"])
+                aux = float(metrics["moe_aux"]) if "moe_aux" in metrics else None
+                if aux is not None:
+                    moe_aux.append(aux)
                 if faults.breaker is not None:
                     bad = metrics["nonfinite_grad"]  # a host float: the step read the flag
                     if bad:
                         tel.nan_skip(gstep, epoch, i)
                     faults.breaker.observe(bad)
-                tel.step_end(gstep)
+                tel.step_end(gstep, None if aux is None else {"moe_aux": aux})
                 if watchdog is not None:
                     # Armed after the first step, which builds the kernels.
                     if watchdog.running:
@@ -1098,7 +1137,8 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
                         watchdog.start(epoch=epoch, batch=i, gstep=gstep)
                 if (state.step % args.log_every == 0) or i == spe - 1:
                     log(f"epoch {epoch} step {state.step} loss {float(metrics['loss']):.4f} "
-                        f"acc {float(metrics['accuracy']):.4f} {step_times[-1] * 1e3:.1f} ms")
+                        f"acc {float(metrics['accuracy']):.4f}"
+                        + ("" if aux is None else f" moe_aux {aux:.4f}") + f" {step_times[-1] * 1e3:.1f} ms")
                 if ckpt is not None and _preempt_agreed(faults, i, world_size):
                     t_ck = time.perf_counter()
                     with tel.span("ckpt_save", epoch=epoch):
@@ -1134,7 +1174,7 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
             tel.add_goodput("checkpoint", time.perf_counter() - t_ck)
         if eval_step is not None or ckpt is not None:
             tel.reset_window()  # eval and saves stay out of the throughput window
-    return losses, step_times, eval_batches, evals, wall, wall_steps, preempted
+    return losses, step_times, eval_batches, evals, wall, wall_steps, preempted, moe_aux
 
 
 def build_faults(args, state: TrainState, tel: Telemetry, rank: int, world_size: int) -> Faults:
@@ -1210,7 +1250,7 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         if start_epoch:
             log(f"resumed at epoch {start_epoch} (step {state.step})")
         with _sigterm_sets(faults, enabled=faults.checkpointer is not None):
-            losses, step_times, eval_batches, evals, wall, wall_steps, preempted = _loop(
+            losses, step_times, eval_batches, evals, wall, wall_steps, preempted, moe_aux = _loop(
                 args, trainer, device, tel, log, faults, start_epoch, rank, world_size)
     except BaseException as e:
         status = type(e).__name__
@@ -1244,6 +1284,8 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         "preempted_epoch": preempted,
         "train_steps": len(losses),
         "losses": losses,
+        # Each step's load-balance term (MoE with --moe-aux-weight > 0).
+        "moe_aux": moe_aux or None,
         "eval_batches": eval_batches,
         "eval": evals[-1] if evals else None,
         "step_time_s": step_time,

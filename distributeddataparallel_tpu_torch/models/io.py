@@ -22,6 +22,9 @@ arrays converted with ``np.asarray``).
   ``downsample.{0,1}``; ``Dense_0`` -> ``fc``.
 - ``Dense`` kernels ``(in, out)`` transpose to Linear ``(out, in)``; norm
   ``scale``/``bias`` become ``weight``/``bias``.
+- An MoE block's ``mlp/router/kernel`` ``(d_model, E)`` becomes the
+  router's Linear weight; its expert stacks ``experts_{up,gate,down}`` keep
+  their shape and element order (parameters ``mlp.experts_*``).
 - The LM's layers come per layer (``layer_0`` .. ``layer_{L-1}``) or in the
   reference's ``scan_layers`` layout, one ``layers/block`` subtree whose
   leaves carry a leading layer dim (``stack_scanned_layers``).
@@ -67,6 +70,12 @@ def _mlp_names(cfg: TransformerConfig):
     return ("gate_proj", "up_proj", "down_proj") if cfg.activation == "swiglu" else ("up_proj", "down_proj")
 
 
+def _expert_names(cfg: TransformerConfig):
+    """An MoE block's expert stacks (the router is the fourth leaf)."""
+    names = ("experts_up", "experts_down")
+    return names + ("experts_gate",) if cfg.activation == "swiglu" else names
+
+
 def stack_scanned_layers(params: dict, num_layers: int, prefix: str = "layer_") -> dict:
     """Per-layer subtrees (``layer_0`` .. ``layer_{L-1}``) -> the
     ``scan_layers`` layout: one ``layers/block`` subtree whose leaves carry
@@ -100,12 +109,14 @@ def unstack_scanned_layers(params: Mapping, num_layers: int, prefix: str = "laye
 
 
 def from_jax_params(params, cfg: TransformerConfig | nn.Module, *, tp_rank: int = 0,
-                    tp_size: int = 1) -> dict[str, torch.Tensor]:
+                    tp_size: int = 1, ep_rank: int = 0, ep_size: int = 1) -> dict[str, torch.Tensor]:
     """Reference flax tree -> this port's state_dict (CPU float32 tensors).
     An LM tree may be in either layer layout.  With ``tp_size > 1`` the
     result is tensor-parallel rank ``tp_rank``'s shard of it
     (``parallel.tensor_parallel.shard_state_dict_tp``: its query and kv
-    heads and hidden units; the rest whole)."""
+    heads and hidden units; the rest whole); with ``ep_size > 1`` expert
+    rank ``ep_rank``'s (``parallel.expert_parallel.shard_state_dict_ep``:
+    experts ``[r*E/ep, (r+1)*E/ep)`` of each MoE block)."""
     if not isinstance(cfg, TransformerConfig):
         return _tensors(_image_from_jax(params, cfg))
     if "layers" in params:
@@ -132,7 +143,11 @@ def from_jax_params(params, cfg: TransformerConfig | nn.Module, *, tp_rank: int 
         out[f"{pre}.attn.o_proj.weight"] = _np(attn["o_proj"]["kernel"]).reshape(H * D, d).T
         if cfg.use_bias:
             out[f"{pre}.attn.o_proj.bias"] = _np(attn["o_proj"]["bias"])
-        for name in _mlp_names(cfg):
+        if cfg.moe_experts:
+            out[f"{pre}.mlp.router.weight"] = _np(lp["mlp"]["router"]["kernel"]).T
+            for name in _expert_names(cfg):  # (E, d, f) / (E, f, d) as they are
+                out[f"{pre}.mlp.{name}"] = _np(lp["mlp"][name])
+        for name in () if cfg.moe_experts else _mlp_names(cfg):
             out[f"{pre}.mlp.{name}.weight"] = _np(lp["mlp"][name]["kernel"]).T
             if cfg.use_bias:
                 out[f"{pre}.mlp.{name}.bias"] = _np(lp["mlp"][name]["bias"])
@@ -144,6 +159,10 @@ def from_jax_params(params, cfg: TransformerConfig | nn.Module, *, tp_rank: int 
         from distributeddataparallel_tpu_torch.parallel.tensor_parallel import shard_state_dict_tp
 
         sd = shard_state_dict_tp(sd, tp_rank, tp_size)
+    if ep_size > 1:
+        from distributeddataparallel_tpu_torch.parallel.expert_parallel import shard_state_dict_ep
+
+        sd = shard_state_dict_ep(sd, ep_rank, ep_size)
     return sd
 
 
@@ -153,10 +172,11 @@ def _tensors(arrays: dict) -> dict[str, torch.Tensor]:
 
 def to_jax_params(state_dict, cfg: TransformerConfig | nn.Module) -> dict:
     """This port's state_dict -> the reference flax tree (nested dicts of
-    float32 numpy arrays).  The head counts are read off the projections,
-    so a tensor-parallel shard's state_dict gives that shard of the tree
-    (its heads and hidden units; ``parallel.tensor_parallel.merge_tp_shards``
-    puts the shards' state_dicts back together first for the whole tree)."""
+    float32 numpy arrays).  The head and expert counts are read off the
+    tensors, so a tensor- or expert-parallel shard's state_dict gives that
+    shard of the tree (``parallel.tensor_parallel.merge_tp_shards`` and
+    ``parallel.expert_parallel.merge_ep_shards`` put the shards'
+    state_dicts back together first for the whole tree)."""
     sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
     if not isinstance(cfg, TransformerConfig):
         return _contig(_image_to_jax(sd, cfg))
@@ -182,7 +202,10 @@ def to_jax_params(state_dict, cfg: TransformerConfig | nn.Module) -> dict:
         if cfg.use_bias:
             attn["o_proj"]["bias"] = sd[f"{pre}.attn.o_proj.bias"]
         mlp = {}
-        for name in _mlp_names(cfg):
+        if cfg.moe_experts:
+            mlp["router"] = {"kernel": sd[f"{pre}.mlp.router.weight"].T}
+            mlp.update({name: sd[f"{pre}.mlp.{name}"] for name in _expert_names(cfg)})
+        for name in () if cfg.moe_experts else _mlp_names(cfg):
             mlp[name] = {"kernel": sd[f"{pre}.mlp.{name}.weight"].T}
             if cfg.use_bias:
                 mlp[name]["bias"] = sd[f"{pre}.mlp.{name}.bias"]
@@ -240,8 +263,12 @@ def jax_layout(model: nn.Module) -> dict:
         attn = {name: dense(f"{pre}.attn.{name}", (d, heads, D), (heads, D))
                 for name, heads in (("q_proj", H), ("k_proj", Hkv), ("v_proj", Hkv))}
         attn["o_proj"] = dense(f"{pre}.attn.o_proj", (H, D, d))
-        mlp = {name: dense(f"{pre}.mlp.{name}", sd[f"{pre}.mlp.{name}.weight"].t().shape)
-               for name in _mlp_names(cfg)}
+        if cfg.moe_experts:
+            mlp = {"router": {"kernel": sd[f"{pre}.mlp.router.weight"].t()},
+                   **{name: sd[f"{pre}.mlp.{name}"] for name in _expert_names(cfg)}}
+        else:
+            mlp = {name: dense(f"{pre}.mlp.{name}", sd[f"{pre}.mlp.{name}.weight"].t().shape)
+                   for name in _mlp_names(cfg)}
         layers.append({"attn_norm": norm(f"{pre}.attn_norm"), "attn": attn,
                        "mlp_norm": norm(f"{pre}.mlp_norm"), "mlp": mlp})
     if cfg.scan_layers:
@@ -308,8 +335,14 @@ def jax_leaf_pieces(model: nn.Module) -> list[tuple[str, list[tuple[nn.Parameter
         attn = {n: dense(f"{pre}.attn.{n}", (d, h, D), (h, D))
                 for n, h in (("q_proj", H), ("k_proj", Hkv), ("v_proj", Hkv))}
         attn["o_proj"] = dense(f"{pre}.attn.o_proj", (H, D, d))
+        if cfg.moe_experts:
+            router = sd[f"{pre}.mlp.router.weight"]
+            mlp = {"router": {"kernel": (router, "t", tuple(router.shape[::-1]))},
+                   **{n: same(f"{pre}.mlp.{n}") for n in _expert_names(cfg)}}
+        else:
+            mlp = {n: dense(f"{pre}.mlp.{n}") for n in _mlp_names(cfg)}
         layers.append({"attn_norm": norm(f"{pre}.attn_norm"), "mlp_norm": norm(f"{pre}.mlp_norm"),
-                       "attn": attn, "mlp": {n: dense(f"{pre}.mlp.{n}") for n in _mlp_names(cfg)}})
+                       "attn": attn, "mlp": mlp})
     if cfg.scan_layers:
         def stack(*xs):
             if isinstance(xs[0], dict):
@@ -403,6 +436,9 @@ def layer_weights(qparams: Mapping, i: int, cfg: TransformerConfig) -> dict[str,
         if "bias" in p:
             out[f"attn.{name}.bias"] = p["bias"].reshape(-1)
     for name, p in lp["mlp"].items():
+        if name.startswith("experts_"):  # an MoE stack, in the port's order already
+            out[f"mlp.{name}"] = p
+            continue
         out[f"mlp.{name}.weight"] = p["kernel"].t()
         if "bias" in p:
             out[f"mlp.{name}.bias"] = p["bias"]

@@ -52,6 +52,13 @@ flash kernels for CUDA tensors).
   rank's chunk, RoPE and learned positions use the chunk's global positions
   (``context_parallel.cp_positions``), attention is the ring or Ulysses
   (``cp_impl``), and the length guard checks the global length.
+- ``moe_experts``: every block's MLP is a ``MoEMLP`` of that many experts,
+  routed top-``moe_top_k``, dense or token-choice dispatch
+  (``moe_capacity_factor``), on every path (remat, dropout, decode, TP with
+  the experts replicated over ``model``, CP with each chunk routing its own
+  tokens); ``forward(with_aux=True)`` also returns the load-balance term.
+  ``ep_axis`` shards the experts over that axis
+  (``parallel.expert_parallel``).
 
 Config fields of the reference that this port does not run yet are kept so
 configs carry over, and raise ``NotImplementedError`` naming the ROADMAP
@@ -60,6 +67,7 @@ item that ports them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -77,10 +85,16 @@ from distributeddataparallel_tpu_torch.ops.attention import (
     repeat_kv,
     rope_frequencies,
 )
+from distributeddataparallel_tpu_torch.ops import moe
 from distributeddataparallel_tpu_torch.ops.dropout import dropout, fold_seed
 from distributeddataparallel_tpu_torch.parallel import context_parallel as cp
+from distributeddataparallel_tpu_torch.parallel.expert_parallel import (
+    ep_all_to_all,
+    ep_shard_tokens,
+    ep_unshard_tokens,
+)
 from distributeddataparallel_tpu_torch.parallel.tensor_parallel import copy_to_tp, reduce_from_tp, tp_size
-from distributeddataparallel_tpu_torch.runtime.distributed import axis_group, axis_size
+from distributeddataparallel_tpu_torch.runtime.distributed import axis_group, axis_index, axis_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +122,10 @@ class TransformerConfig:
     cp_impl: str = "ring"            # "ring" | "ulysses"
     tp_axis: str | None = None
     decode: bool = False
-    moe_experts: int = 0
+    moe_experts: int = 0             # > 0: every block's MLP is a MoEMLP of this many experts
+    moe_top_k: int = 1
     ep_axis: str | None = None
+    moe_capacity_factor: float = 0.0  # 0: dense dispatch; > 0: token choice
     grad_sync_axis: str | None = None
     quant_serving: bool = False
 
@@ -162,8 +178,6 @@ def tiny_lm(**overrides) -> TransformerConfig:
 #: Config features outside this port's slice -> the ROADMAP item (Queue 1)
 #: that ports them.
 _NOT_PORTED = (
-    ("moe_experts", "mixture of experts, parallel/expert_parallel.py + ops/moe.py"),
-    ("ep_axis", "expert parallelism, parallel/expert_parallel.py"),
     ("grad_sync_axis", "no in-scan gradient sync: the port's layers are a ModuleList, so "
                        "--overlap's autograd hooks (parallel/overlap.py) sync the stacked layout too"),
 )
@@ -392,29 +406,176 @@ class MLP(nn.Module):
         return _dense(self.down_proj, h, dt)
 
 
+@contextlib.contextmanager
+def _full_f32_matmuls():
+    """f32 matmuls in full f32 (no TF32) inside the block, whatever the
+    global setting: a top-k near a tie flips on TF32's ~1e-3 error."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class MoEMLP(nn.Module):
+    """Top-k-routed mixture-of-experts MLP (ref ``MoEMLP``).
+
+    Routing: an f32 router (``Linear(d, E)``, no bias) on ``x`` in f32, a
+    softmax, and the top ``moe_top_k`` experts (the lower index first on a
+    tie, as ``jax.lax.top_k``).  K = 1 is the Switch convention (the raw top
+    probability gates the output); K > 1 renormalizes the gates over the
+    chosen k.  ``forward`` returns ``(out, aux)``: ``aux`` is the
+    load-balance term ``E * sum_e frac_e * mean_prob_e`` (1 at perfect
+    balance; ``frac`` counts routing slots and carries no gradient).
+
+    The expert stacks are parameters in the reference's element order,
+    ``experts_up``/``experts_gate`` ``(E_local, d, f)`` and ``experts_down``
+    ``(E_local, f, d)``, read by ``torch.bmm`` as they are.  Under
+    ``ep_axis`` a rank holds experts ``[r*E_local, (r+1)*E_local)``
+    (``parallel.expert_parallel``).  Two dispatch modes:
+
+    - dense (``moe_capacity_factor`` 0): every token through every local
+      expert, blended by the ``(B, S, E)`` gate weights; under EP the
+      tokens enter through ``copy_to_tp`` and the partial blends leave
+      through ``reduce_from_tp`` over the expert group;
+    - token choice (``> 0``, ``ops.moe``): each token in at most K slots of
+      a capacity-bounded buffer, the overflow dropped through the residual;
+      under EP each rank routes its 1/ep slice of the tokens (the capacity
+      from that slice), the slot buffers travel to their experts' ranks and
+      back by all-to-all, and the combined slices are gathered.
+
+    Nothing here reads a device value on the host."""
+
+    def __init__(self, cfg: TransformerConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        E, K = cfg.moe_experts, cfg.moe_top_k
+        n_ep = axis_size(cfg.ep_axis)
+        if E % n_ep:
+            raise ValueError(f"ep={n_ep} must divide moe_experts={E}")
+        if not 1 <= K <= E:
+            raise ValueError(f"moe_top_k={K} must be in [1, {E}]")
+        if cfg.activation not in ("gelu", "swiglu"):
+            raise ValueError(f"unknown activation {cfg.activation!r}")
+        self.n_ep, self.local = n_ep, E // n_ep
+        d, f = cfg.d_model, cfg.d_ff
+        self.router = nn.Linear(d, E, bias=False, device=device)
+        stack = lambda *shape: nn.Parameter(torch.empty(self.local, *shape, device=device))
+        self.experts_up = stack(d, f)
+        if cfg.activation == "swiglu":
+            self.experts_gate = stack(d, f)
+        self.experts_down = stack(f, d)
+
+    def _route(self, x):
+        """Gates (B, S, K), expert ids (B, S, K), the aux term."""
+        E, K = self.cfg.moe_experts, self.cfg.moe_top_k
+        with _full_f32_matmuls():
+            logits = F.linear(x.float(), self.router.weight.float())
+        probs = torch.softmax(logits, dim=-1)  # (B, S, E)
+        vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        vals, idx = vals[..., :K], idx[..., :K]
+        if K > 1:
+            vals = vals / vals.sum(dim=-1, keepdim=True)
+        sel = (idx[..., None] == torch.arange(E, device=x.device)).float()  # (B, S, K, E)
+        frac = sel.mean(dim=(0, 1, 2))
+        aux = E * torch.sum(frac * probs.mean(dim=(0, 1)))
+        return vals, idx, sel, aux
+
+    def _experts(self, z):
+        """The local experts' MLPs: (E_local, n, d) -> (E_local, n, d)."""
+        dt = self.cfg.dtype
+        h = torch.matmul(z, self.experts_up.to(dt))
+        if self.cfg.activation == "swiglu":
+            h = F.silu(torch.matmul(z, self.experts_gate.to(dt))) * h
+        else:
+            h = F.gelu(h, approximate="tanh")
+        return torch.matmul(h, self.experts_down.to(dt))
+
+    def forward(self, x):
+        cfg = self.cfg
+        vals, idx, sel, aux = self._route(x)
+        if cfg.moe_capacity_factor > 0:
+            return self._token_choice(x, vals, idx), aux
+        B, S, d = x.shape
+        ep = cfg.ep_axis if self.n_ep > 1 else None
+        w = torch.sum(sel * vals[..., None], dim=2)  # (B, S, E): a token's gate per expert
+        if ep is not None:
+            x, w = copy_to_tp(x, ep), copy_to_tp(w, ep)
+        # (1, T, d) against the (E_local, d, f) stacks: x is not copied per expert.
+        y = self._experts(x.to(cfg.dtype).reshape(1, B * S, d))  # (E_local, T, d)
+        first = axis_index(ep) * self.local if ep is not None else 0
+        w_local = w[..., first : first + self.local].reshape(B * S, self.local)
+        out = torch.einsum("etd,te->td", y, w_local.to(cfg.dtype)).reshape(B, S, d)
+        if ep is not None:
+            out = reduce_from_tp(out, ep)
+        return out, aux
+
+    def _token_choice(self, x, vals, idx):
+        cfg = self.cfg
+        E, K, El, n = cfg.moe_experts, cfg.moe_top_k, self.local, self.n_ep
+        B, S, d = x.shape
+        T = B * S
+        ep = cfg.ep_axis if n > 1 else None
+        if ep is not None and T % n:
+            raise ValueError(f"token-choice EP needs tokens ({T}) divisible by the expert-axis size ({n})")
+        Tl = T // n
+        xt, vt, it = x.reshape(T, d), vals.reshape(T, K), idx.reshape(T, K)
+        if ep is not None:
+            xt, vt = ep_shard_tokens(xt, ep), ep_shard_tokens(vt, ep)
+            r = axis_index(ep)
+            it = it[r * Tl : (r + 1) * Tl]
+        C = moe.moe_capacity(Tl, E, K, cfg.moe_capacity_factor)
+        tok, gate = moe.token_choice_slots(it, vt, E, C)
+        z = moe.dispatch(xt.to(cfg.dtype), tok)  # (E*C, d)
+        if ep is not None:
+            # Expert block j's slots go to rank j; received block s is source s's.
+            z = ep_all_to_all(z.reshape(n, El, C, d), ep).transpose(0, 1).reshape(El, n * C, d)
+        else:
+            z = z.reshape(E, C, d)
+        y = self._experts(z)
+        if ep is not None:
+            # Back to the sources: received block j holds expert block j's outputs.
+            y = ep_all_to_all(y.reshape(El, n, C, d).transpose(0, 1), ep)
+        out = moe.combine(y.reshape(E * C, d), tok, gate, Tl)
+        if ep is not None:
+            out = ep_unshard_tokens(out, ep)
+        return out.reshape(B, S, d)
+
+
 class DecoderBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, *, device=None):
         super().__init__()
         self.rate = cfg.dropout_rate
+        self.moe = cfg.moe_experts > 0
         self.attn_norm = _make_norm(cfg, device)
         self.attn = Attention(cfg, device=device)
         self.mlp_norm = _make_norm(cfg, device)
-        self.mlp = MLP(cfg, device=device)
+        self.mlp = MoEMLP(cfg, device=device) if self.moe else MLP(cfg, device=device)
 
     def forward(self, x, rope=None, seed=None, positions=None, kv=None):
         """``seed`` (an int) turns on dropout of both residual branches;
         ``kv`` (this layer's cache pair) selects KV-cache attention at
         ``positions`` (without it, ``positions`` are the tokens' global
-        positions for RoPE: a sequence chunk's under ``cp_axis``)."""
+        positions for RoPE: a sequence chunk's under ``cp_axis``).  An MoE
+        block returns ``(x, aux)``: the aux term is an output, so
+        checkpointing's recompute carries it."""
         y = self.attn_norm(x)
         h = self.attn(y, rope, positions) if kv is None else self.attn.decode(y, rope, positions, kv)
         if seed is not None:
             h = dropout(h, self.rate, fold_seed(seed, 0))
         x = x + h
         h = self.mlp(self.mlp_norm(x))
+        if self.moe:
+            h, aux = h
         if seed is not None:
             h = dropout(h, self.rate, fold_seed(seed, 1))
-        return x + h
+        return (x + h, aux) if self.moe else x + h
+
+
+def _hidden(out):
+    """A block's hidden state (an MoE block also returns its aux term)."""
+    return out[0] if isinstance(out, tuple) else out
 
 
 class TransformerLM(nn.Module):
@@ -463,10 +624,14 @@ class TransformerLM(nn.Module):
                 normal(p, o_std if name.endswith("o_proj.weight") else 0.02)
 
     def forward(self, tokens: torch.Tensor, *, dropout_seed: int | None = None,
-                positions: torch.Tensor | None = None, cache=None, qparams=None):
+                positions: torch.Tensor | None = None, cache=None, qparams=None,
+                with_aux: bool = False):
         """Logits for ``tokens``.  In training mode with ``dropout_rate > 0``
         the masks are functions of ``dropout_seed``, which is then required
         (the trainer derives it per step, ``ops.dropout.fold_seed``).
+        ``with_aux``: ``(logits, aux)``, ``aux`` the mean over layers of the
+        MoE blocks' load-balance terms (ref ``moe_aux_from_intermediates``;
+        0 without MoE).
 
         ``cfg.decode``: ``positions`` and ``cache`` are required (module
         docstring); ``qparams`` is an int8 tree under ``quant_serving``."""
@@ -499,15 +664,22 @@ class TransformerLM(nn.Module):
             rope = (self.rope_cos, self.rope_sin)
         if drop:
             x = dropout(x, cfg.dropout_rate, fold_seed(dropout_seed, 0))
+        auxes = []
         for i, layer in enumerate(self.layers):
             seed = fold_seed(dropout_seed, i + 1) if drop else None
             if cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, rope, seed, positions, use_reentrant=False)
             else:
                 x = layer(x, rope, seed, positions)
+            if cfg.moe_experts:
+                x, aux = x
+                auxes.append(aux)
         x = self.final_norm(x)
         w = self.token_embed.weight if cfg.tie_embeddings else self.lm_head.weight
-        return f32_logits(x, w, cfg.dtype)
+        logits = f32_logits(x, w, cfg.dtype)
+        if not with_aux:
+            return logits
+        return logits, sum(auxes) / len(auxes) if auxes else torch.zeros((), device=logits.device)
 
     def _decode(self, tokens, positions, cache, qparams):
         """The decode twin's forward (ref ``TransformerLM.__call__`` with
@@ -535,7 +707,7 @@ class TransformerLM(nn.Module):
             if cfg.positional == "learned":
                 x = x + self.pos_embed[lookup].to(cfg.dtype)
             for i, layer in enumerate(self.layers):
-                x = layer(x, rope, None, positions, cache[i])
+                x = _hidden(layer(x, rope, None, positions, cache[i]))
             x = self.final_norm(x)
             w = self.token_embed.weight if cfg.tie_embeddings else self.lm_head.weight
             return f32_logits(x, w, cfg.dtype)
@@ -547,8 +719,8 @@ class TransformerLM(nn.Module):
             x = x + dequantize_rows(qparams["pos_embed"], lookup, cfg.dtype)
         for i, layer in enumerate(self.layers):
             # This layer's matrices, dequantized for its call only.
-            x = torch.func.functional_call(
-                layer, layer_weights(qparams, i, cfg), (x, rope, None, positions, cache[i]))
+            x = _hidden(torch.func.functional_call(
+                layer, layer_weights(qparams, i, cfg), (x, rope, None, positions, cache[i])))
         top = top_weights(qparams, cfg)
         x = torch.func.functional_call(self.final_norm, top["final_norm"], (x,))
         return f32_logits(x, top["head"], cfg.dtype)

@@ -43,11 +43,12 @@ the default process group (none without one).
 
 Over a mesh (``runtime.distributed.make_mesh``) the layout shards over the
 ``data`` axis's group (``group=``): under context parallelism the ``seq``
-ranks hold the same shard, under tensor parallelism (level 1 only, as the
-reference) each ``model`` rank flattens its own TP shard of the
-parameters, so the optimizer state is sharded n_data x n_tp ways and the
-clip's norm weights each replicated leaf ``1 / n_tp`` and sums over both
-groups (``tp_axis``).
+ranks hold the same shard, under tensor or expert parallelism (level 1
+only, as the reference) each ``model`` / ``expert`` rank flattens its own
+shard of the parameters (its heads and hidden units, its experts), so the
+optimizer state is sharded n_data x n_tp x n_ep ways and the clip's norm
+weights each leaf ``1 / (the model-axis ranks holding it whole)`` and sums
+over the data group and each model-axis group (``tp_axis``, ``ep_axis``).
 """
 
 from __future__ import annotations
@@ -65,10 +66,10 @@ from distributeddataparallel_tpu_torch.parallel.data_parallel import (
     clip_scale,
     flat_chunk_sumsq,
     group_active,
-    group_size,
     plan_buckets,
     sumsq_f32,
 )
+from distributeddataparallel_tpu_torch.parallel.expert_parallel import flax_ep_dim
 from distributeddataparallel_tpu_torch.parallel.tensor_parallel import flax_tp_dim
 from distributeddataparallel_tpu_torch.runtime.distributed import axis_group, axis_size, get_rank, get_world_size
 from distributeddataparallel_tpu_torch.training.state import TrainState
@@ -252,12 +253,13 @@ class ZeroLayout:
     evaluation and saving)."""
 
     def __init__(self, model: nn.Module, level: int, *, bucket_bytes: int | None = None,
-                 rank: int | None = None, world: int | None = None, group=None, tp_axis: str | None = None):
+                 rank: int | None = None, world: int | None = None, group=None, tp_axis: str | None = None,
+                 ep_axis: str | None = None):
         level = int(level)
         if level not in (1, 2, 3):
             raise ValueError(f"ZeRO level={level!r} (want 1, 2 or 3)")
-        n_tp = axis_size(tp_axis)
-        if n_tp > 1 and level != 1:
+        n_tp, n_ep = axis_size(tp_axis), axis_size(ep_axis)
+        if (n_tp > 1 or n_ep > 1) and level != 1:
             raise ValueError("zero=2/3 shard over the data axis only; compose tp/ep with zero=1 or the fsdp path")
         self.model, self.level, self.group = model, level, group
         if group is not None:
@@ -265,10 +267,11 @@ class ZeroLayout:
         self.rank = get_rank() if rank is None else rank
         self.world = get_world_size() if world is None else world
         named = jax_leaf_pieces(model)
-        # Under TP: how many model-axis ranks hold each leaf whole (the
-        # clip's weights) and that axis's group; None without TP.
-        self.tp_dup = [1 if flax_tp_dim(path) is not None else n_tp for path, _ in named] if n_tp > 1 else None
-        self.model_group = axis_group(tp_axis) if n_tp > 1 else None
+        # Under TP / EP: how many model-axis ranks hold each leaf whole
+        # (the clip's weights; None without either) and those axes' groups.
+        self.dup = ([(1 if flax_tp_dim(path) is not None else n_tp) * (1 if flax_ep_dim(path) is not None else n_ep)
+                     for path, _ in named] if n_tp > 1 or n_ep > 1 else None)
+        self.model_groups = [axis_group(a) for a, n in ((tp_axis, n_tp), (ep_axis, n_ep)) if n > 1]
         leaf_pieces = [[(p, kind) for p, kind, _ in pieces] for _, pieces in named]
         self.sizes = [sum(p.numel() for p, _ in pieces) for pieces in leaf_pieces]
         self.plan = (flat_plan(self.sizes, self.world) if level == 1
@@ -515,16 +518,17 @@ class LowBitMoments:
 
 
 def zero_state(model: nn.Module, build_optimizer, *, level: int = 1, moment_dtype: str | None = None,
-               bucket_bytes: int | None = None, seed: int = 0, group=None, tp_axis: str | None = None):
+               bucket_bytes: int | None = None, seed: int = 0, group=None, tp_axis: str | None = None,
+               ep_axis: str | None = None):
     """A ``TrainState`` whose optimizer state is ZeRO-sharded: ``model``'s
     parameters in ``ZeroLayout(level)``, and ``build_optimizer(params)``
     (returning ``(optimizer, scheduler)``) called on this rank's shard
     pieces.  ``moment_dtype`` ``"bf16"``/``"int8"`` wraps the optimizer in
     ``LowBitMoments`` (``None``/``"f32"``: unchanged).  ``bucket_bytes``
     sizes the level 2/3 buckets.  ``group``: the data axis's process group
-    (None: the world); ``tp_axis``: the mesh axis the model's parameters
-    are tensor-parallel over (level 1 only)."""
-    layout = ZeroLayout(model, level, bucket_bytes=bucket_bytes, group=group, tp_axis=tp_axis)
+    (None: the world); ``tp_axis`` / ``ep_axis``: the mesh axes the
+    model's parameters are tensor- / expert-parallel over (level 1 only)."""
+    layout = ZeroLayout(model, level, bucket_bytes=bucket_bytes, group=group, tp_axis=tp_axis, ep_axis=ep_axis)
     optimizer, scheduler = build_optimizer(layout.shard_params)
     moments = None
     if moment_dtype not in (None, "f32"):
@@ -538,19 +542,19 @@ def _clip_shard(state, clip_norm: float | None) -> None:
     layout = state.zero
     grads = [sp.grad for sp in layout.shard_params]
     # The shards partition the gradient (padding is zero): the global norm
-    # is one sum of the shards' sums of squares.  Under TP each model rank
-    # holds its own shards of the sharded leaves and the whole of the
-    # replicated ones: those count 1 / n_tp on each, and the sum runs over
-    # the model axis too.
-    if layout.tp_dup is None:
+    # is one sum of the shards' sums of squares.  Under TP / EP each model
+    # rank holds its own shards of the sharded leaves and the whole of the
+    # replicated ones: a leaf held whole by k ranks counts 1 / k on each,
+    # and the sum runs over the model axes too.
+    if layout.dup is None:
         total = sumsq_f32(grads)
     else:
         total = flat_chunk_sumsq(layout.grad_shard(0), layout.rank * layout.plan.sub[0], layout.sizes,
-                                 layout.tp_dup)
+                                 layout.dup)
     if group_active(layout.group):
         dist.all_reduce(total, group=layout.group)
-    if layout.model_group is not None and group_size(layout.model_group) > 1:
-        dist.all_reduce(total, group=layout.model_group)
+    for g in layout.model_groups:
+        dist.all_reduce(total, group=g)
     scale = clip_scale(torch.sqrt(total), clip_norm)
     for g in grads:
         g.mul_(scale)

@@ -16,7 +16,12 @@ elementwise / reductions, the optimizer's, NCCL's, the rest) with the ten
 largest kernels, and the collectives' overlap with compute
 (``parallel.overlap.overlap_report`` over the trace: NCCL kernel time, the
 part of it under compute on another stream, their ratio; on one GPU NCCL
-launches no kernel and the ratio is None).
+launches no kernel and the ratio is None).  For an MoE model
+(``--moe-experts``) it also splits the step's device time into the router,
+sort and dispatch/combine ops, the expert GEMMs, attention (K1-K3), the LM
+head, AdamW and the rest (``moe_split``): each kernel is charged to the op
+that launched it (the profiler's self device time of that op, with its
+input shapes), so a forward op and its backward's ops land together.
 """
 
 from __future__ import annotations
@@ -65,6 +70,40 @@ def _group(name: str) -> str:
     return "other kernels"
 
 
+#: The ops of MoE routing and dispatch/combine (``models.transformer.MoEMLP``,
+#: ``ops.moe``), forward and backward; the router's own matmul is told apart
+#: by its output width, the expert count.
+ROUTING_OPS = {"aten::sort", "aten::argsort", "aten::topk", "aten::index_select", "aten::index_add",
+               "aten::index_add_", "aten::scatter", "aten::scatter_add_", "aten::gather", "aten::cumsum",
+               "aten::_softmax", "aten::_softmax_backward_data", "aten::index", "aten::index_put_",
+               "aten::eq", "aten::where"}
+MM_OPS = {"aten::mm", "aten::addmm", "aten::_mm_dtype"}
+
+
+def moe_split(key_averages, groups: dict, n: int, experts: int, vocab: int) -> dict:
+    """Device ms a step of an MoE step by what launched it (module
+    docstring): the router, sort, dispatch/combine ops, the expert GEMMs,
+    the head's and the other GEMMs from the ops' self device time (from
+    ``key_averages(group_by_input_shape=True)``), K1-K3 and AdamW from the
+    kernel ``groups`` (ms a step), the rest of the busy time as ``other``."""
+    out: dict[str, float] = defaultdict(float)
+    for e in key_averages:
+        if e.device_type != torch.autograd.DeviceType.CPU or e.self_device_time_total <= 0:
+            continue
+        name = e.key
+        dims = {d for shape in (e.input_shapes or []) for d in (shape or []) if isinstance(d, int)}
+        if name in ROUTING_OPS or (name in MM_OPS and experts in dims and vocab not in dims):
+            out["router, sort, dispatch/combine"] += e.self_device_time_total / 1e3 / n
+        elif name in ("aten::bmm", "aten::baddbmm"):
+            out["expert GEMMs"] += e.self_device_time_total / 1e3 / n
+        elif name in MM_OPS:
+            out["LM head" if vocab in dims else "other GEMMs"] += e.self_device_time_total / 1e3 / n
+    out["attention (K1-K3)"] = sum(ms for g, ms in groups.items() if g.startswith("flash_"))
+    out["AdamW (foreach)"] = groups.get("optimizer (foreach)", 0.0)
+    out["other"] = sum(groups.values()) - sum(out.values())
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(add_help=False)
     p.add_argument("--profile-steps", type=int, default=3)
@@ -81,7 +120,8 @@ def main(argv=None) -> dict:
             tr.step_fn(tr.state, next(batches), dpp.step_seed(args, 0, i))
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        moe = dpp.is_lm(args) and args.moe_experts > 0
+        with torch.profiler.profile(activities=acts, record_shapes=moe) as prof:
             t0 = time.perf_counter()
             for i in range(2, 2 + own.profile_steps):
                 tr.step_fn(tr.state, next(batches), dpp.step_seed(args, 0, i))
@@ -120,6 +160,9 @@ def main(argv=None) -> dict:
         "top_kernels_ms_per_step": {k[:120]: us / 1e3 / n for k, us in top},
         "comm_overlap": comm,
     }
+    if moe:
+        out["moe_split"] = moe_split(prof.key_averages(group_by_input_shape=True), groups, n,
+                                     args.moe_experts, tr.state.model.cfg.vocab_size)
     if not per_kernel:
         out["note"] = "the profiler recorded no device time; time kernels with CUDA events instead"
     print(json.dumps(out), flush=True)

@@ -103,10 +103,11 @@ def destroy_process_group() -> None:
         dist.destroy_process_group()
 
 
-#: The mesh's axis names, the reference's (``dpp.py:511-533``): the
-#: data-parallel replicas outermost, then the sequence shards (``--cp``),
-#: then the tensor-parallel shards (``--tp``).
-DATA_AXIS, SEQ_AXIS, MODEL_AXIS = "data", "seq", "model"
+#: The mesh's axis names, the reference's (``dpp.py:511-533``), in its
+#: canonical order: the data-parallel replicas outermost, then the sequence
+#: shards (``--cp``), the expert shards (``--ep``), the tensor-parallel
+#: shards (``--tp``).
+DATA_AXIS, SEQ_AXIS, EXPERT_AXIS, MODEL_AXIS = "data", "seq", "expert", "model"
 #: The joint data x seq axis: every (data, seq) rank of one model line.
 #: One mean over it is the seq mean followed by the data mean (equal group
 #: sizes), which ``--overlap`` launches from backward under ``--cp``.
@@ -131,6 +132,14 @@ class Mesh:
 
     def index(self, axis: str) -> int:
         return self.coords[axis]
+
+    def coords_of(self, rank: int) -> dict:
+        """The coordinates of ``rank`` on this mesh."""
+        return dict(zip(self.axes, _unravel(rank, self.shape)))
+
+    def rank_at(self, coords: dict) -> int:
+        """The rank at ``coords`` (an axis missing from it: index 0)."""
+        return int(sum(coords.get(a, 0) * s for a, s in zip(self.axes, _strides(self.shape))))
 
     def group(self, axis):
         """The process group of ``axis`` (a name, or ``DATA_SEQ``) through

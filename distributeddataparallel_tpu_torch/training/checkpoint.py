@@ -23,11 +23,12 @@ collective: every rank calls it, rank 0 gathers each rank's part into the
 payload's ``ranks`` list (and, under ZeRO-3, the model's gathered
 parameters) and gets the payload, the others None.  ``load_into`` gives each
 rank its own part back, at the same world size only (resharding to another
-is ROADMAP item 13).  Under tensor parallelism each TP shard of the model
-(and, without ZeRO, of its optimizer state) is gathered once, from the
-ranks at data and seq index 0; the payload's ``model`` is the shards merged,
-the whole model, and each rank cuts its shard out of it on resume.  The
-payload records the mesh: a resume needs the same mesh.
+is ROADMAP item 13).  Under tensor or expert parallelism each model shard
+(a rank's heads and hidden units, its experts; without ZeRO, its optimizer
+state too) is gathered once, from the ranks at data and seq index 0; the
+payload's ``model`` is the shards merged, the whole model (so a plain MoE
+model loads an ``--ep`` checkpoint's), and each rank cuts its shard out of
+it on resume.  The payload records the mesh: a resume needs the same mesh.
 Under FSDP (``parallel.fsdp``) the payload's ``model`` is the whole model
 from the host gather (a collective), its ``layout`` is ``"fsdp"`` (the
 reference's ``topology_meta`` name) and ``ranks`` holds each rank's
@@ -45,16 +46,15 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-import math
 import os
 import re
 
 import torch
 import torch.distributed as dist
 
-from distributeddataparallel_tpu_torch.parallel.tensor_parallel import merge_tp_shards, shard_state_dict_tp
+from distributeddataparallel_tpu_torch.parallel.expert_parallel import merge_ep_shards, shard_model_axes
+from distributeddataparallel_tpu_torch.parallel.tensor_parallel import merge_tp_shards
 from distributeddataparallel_tpu_torch.runtime.distributed import (
-    axis_index,
     axis_size,
     current_mesh,
     get_rank,
@@ -103,24 +103,39 @@ def _cpu(tree):
     return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
 
 
-def _tp_axis(state: TrainState) -> str | None:
-    """The mesh axis the model is tensor-parallel over (None: unsharded)."""
-    axis = getattr(getattr(state.model, "cfg", None), "tp_axis", None)
-    return axis if axis_size(axis) > 1 else None
+def _model_axes(state: TrainState) -> dict:
+    """The mesh axes the model is sharded over, ``{"tp": axis, "ep":
+    axis}`` for those of size > 1 (empty: unsharded)."""
+    cfg = getattr(state.model, "cfg", None)
+    axes = {"tp": getattr(cfg, "tp_axis", None), "ep": getattr(cfg, "ep_axis", None)}
+    return {k: a for k, a in axes.items() if axis_size(a) > 1}
 
 
-def _tp_owner(tp_axis: str) -> int:
-    """The rank that writes this rank's TP shard: the one at index 0 on
-    every other mesh axis and at this rank's index on ``tp_axis``."""
+def _shard_owner(axes) -> int:
+    """The rank that writes this rank's model shard: the one at index 0 on
+    every mesh axis but ``axes`` and at this rank's index on those."""
     mesh = current_mesh()
-    return mesh.index(tp_axis) * math.prod(mesh.shape[mesh.axes.index(tp_axis) + 1:])
+    return mesh.rank_at({a: mesh.index(a) for a in axes})
+
+
+def _merge_model(parts: list, axes: dict) -> dict:
+    """The whole model from the owners' shards (``parts``: every rank's
+    part, those of the owners holding ``model``)."""
+    mesh = current_mesh()
+    owned = {r: p.pop("model") for r, p in enumerate(parts) if "model" in p}
+    index = lambda r, k: mesh.coords_of(r)[axes[k]] if k in axes else 0
+    rows = []
+    for e in range(axis_size(axes.get("ep"))):
+        row = [sd for r, sd in sorted(owned.items(), key=lambda kv: index(kv[0], "tp")) if index(r, "ep") == e]
+        rows.append(merge_tp_shards(row))
+    return merge_ep_shards(rows)
 
 
 def per_rank(state: TrainState) -> bool:
     """Does each rank hold state of its own (ZeRO or FSDP shards, PowerSGD,
-    a TP shard of the model)?"""
+    a TP or EP shard of the model)?"""
     return (state.zero is not None or state.fsdp is not None or state.comm_state is not None
-            or _tp_axis(state) is not None)
+            or bool(_model_axes(state)))
 
 
 def _mesh_record():
@@ -130,8 +145,8 @@ def _mesh_record():
 
 def _rank_part(state: TrainState) -> dict:
     out: dict = {}
-    tp = _tp_axis(state)
-    if tp is not None and get_rank() == _tp_owner(tp):
+    axes = _model_axes(state)
+    if axes and get_rank() == _shard_owner(axes.values()):
         out["model"] = state.model.state_dict()
         if state.zero is None:
             out["optimizer"] = state.optimizer.state_dict()
@@ -185,16 +200,16 @@ def host_payload(state: TrainState, epoch: int) -> dict | None:
     }
     if _mesh_record() is not None:
         payload["mesh"] = _mesh_record()
-    tp = _tp_axis(state)
-    if state.zero is None and tp is None:  # the optimizer state is the same on every rank
+    axes = _model_axes(state)
+    if state.zero is None and not axes:  # the optimizer state is the same on every rank
         payload["optimizer"] = _cpu(state.optimizer.state_dict())
     if not per_rank(state):
         return payload
     parts = _gather_parts(_rank_part(state))
     if get_rank() != 0:
         return None
-    if tp is not None:
-        payload["model"] = merge_tp_shards([p.pop("model") for p in parts if "model" in p])
+    if axes:
+        payload["model"] = _merge_model(parts, axes)
     payload["ranks"] = parts
     return payload
 
@@ -281,15 +296,13 @@ class CheckpointFiles:
             state.step = payload["step"]
             return payload["epoch"] + 1
         if per_rank(state) != ("ranks" in payload):
-            raise ValueError("the checkpoint's layout (per-rank ZeRO/PowerSGD/TP state or not) is not "
+            raise ValueError("the checkpoint's layout (per-rank ZeRO/PowerSGD/TP/EP state or not) is not "
                              "this run's: resume with the flags it was saved with")
         if payload.get("mesh") != _mesh_record():
             raise ValueError(f"the checkpoint was saved on the mesh {payload.get('mesh')}, this run's is "
                              f"{_mesh_record()}: resume on the same mesh (resharding is ROADMAP item 13)")
-        model_sd = payload["model"]
-        tp = _tp_axis(state)
-        if tp is not None:
-            model_sd = shard_state_dict_tp(model_sd, axis_index(tp), axis_size(tp))
+        axes = _model_axes(state)
+        model_sd = shard_model_axes(payload["model"], axes.get("tp"), axes.get("ep"))
         with state.full_params():
             state.model.load_state_dict(model_sd)
             if state.zero is not None:
@@ -345,11 +358,11 @@ def _load_rank_part(state: TrainState, parts: list) -> None:
                              f"{state.zero.level}")
         if state.moments is not None:
             state.moments.load_state_dict(part["moments"])
-    tp = _tp_axis(state)
+    axes = _model_axes(state)
     if state.zero is not None:
         state.optimizer.load_state_dict(part["optimizer"])
-    elif tp is not None:
-        state.optimizer.load_state_dict(parts[_tp_owner(tp)]["optimizer"])
+    elif axes:
+        state.optimizer.load_state_dict(parts[_shard_owner(axes.values())]["optimizer"])
     if state.comm_state is not None:
         from distributeddataparallel_tpu_torch.parallel.powersgd import PowerSGDLeaf
 

@@ -132,11 +132,16 @@ class Telemetry:
         if self.prof is not None:
             self.prof.on_step_start(gstep)
 
-    def step_end(self, gstep: int) -> None:
-        """After a step: the counters, the profiler window, the StepTimer
-        and, where its window closes, the meters."""
+    def step_end(self, gstep: int, gauges: dict | None = None) -> None:
+        """After a step: the counters, ``gauges`` (the step's host-side
+        values by name, e.g. ``moe_aux``, set on the registry's gauges for
+        the metrics snapshots), the profiler window, the StepTimer and,
+        where its window closes, the meters."""
         if self.steps_total is not None:
             self.steps_total.inc()
+        if self.registry is not None:
+            for name, value in (gauges or {}).items():
+                self.registry.gauge(name).set(value)
         if self.prof is not None:
             self.prof.on_step_end(gstep, sync=self.sync)
         reading = self.timer.tick(self.items_per_step, sync=self.sync)

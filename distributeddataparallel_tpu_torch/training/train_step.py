@@ -63,7 +63,12 @@ DP x CP x TP composition (``train_step.py:166-188``):
   every ``model`` rank for the replicated ones), so nothing is reduced
   over the ``model`` group; the clip's norm sums the sharded leaves' parts
   over it and counts the replicated leaves once.
-- then the data-parallel sync (any layout above) over the ``data`` group.
+- ``ep_axis`` (MoE expert parallelism, ``parallel.expert_parallel``): the
+  same on the ``expert`` group for the expert stacks; the expert ranks of a
+  data replica see the same rows and share its dropout seed.  The clip's
+  norm sums the expert shards' parts over the ``expert`` group.
+- then the data-parallel sync (any layout above) over the ``data`` group:
+  an expert shard is averaged with the same shard of the other replicas.
 """
 
 from __future__ import annotations
@@ -85,6 +90,7 @@ from distributeddataparallel_tpu_torch.parallel.data_parallel import (
     masked_tree_mean,
     sumsq_f32,
 )
+from distributeddataparallel_tpu_torch.parallel.expert_parallel import ep_dim
 from distributeddataparallel_tpu_torch.parallel.tensor_parallel import tp_dim
 from distributeddataparallel_tpu_torch.parallel.powersgd import sync_model_grads
 from distributeddataparallel_tpu_torch.ops.dropout import fold_seed
@@ -131,20 +137,22 @@ def _data_group():
 class _Axes:
     """The step's process groups, resolved from the current mesh when the
     step first runs: ``data`` (None: the world, as without a mesh), and
-    the ``seq`` / ``model`` groups with their sizes (size 1 when unused)."""
+    the ``seq`` / ``model`` / ``expert`` groups with their sizes (size 1
+    when unused)."""
 
-    def __init__(self, cp_axis: str | None, tp_axis: str | None):
+    def __init__(self, cp_axis: str | None, tp_axis: str | None, ep_axis: str | None = None):
         self.data = _data_group()
-        self.n_seq, self.n_tp = axis_size(cp_axis), axis_size(tp_axis)
+        self.n_seq, self.n_tp, self.n_ep = axis_size(cp_axis), axis_size(tp_axis), axis_size(ep_axis)
         self.seq = axis_group(cp_axis) if self.n_seq > 1 else None
         self.seq_index = axis_index(cp_axis)
         # --overlap's group under CP: one mean over every (data, seq) rank
         # of this model line is the seq mean and then the data mean.
         self.data_seq = axis_group(DATA_SEQ) if self.seq is not None else self.data
         self.model = axis_group(tp_axis) if self.n_tp > 1 else None
+        self.expert = axis_group(ep_axis) if self.n_ep > 1 else None
         self._bound = _data_bound()
-        if (cp_axis or tp_axis) and not self._bound:
-            raise ValueError(f"cp_axis/tp_axis need a mesh with the {DATA_AXIS!r} axis "
+        if (cp_axis or tp_axis or ep_axis) and not self._bound:
+            raise ValueError(f"cp_axis/tp_axis/ep_axis need a mesh with the {DATA_AXIS!r} axis "
                              f"(runtime.distributed.make_mesh)")
 
     @property
@@ -158,8 +166,8 @@ class _Axes:
     def seed(self, seed: int, micro: int) -> int:
         """The microbatch's dropout seed: folded with the data index (the
         rank without a mesh), the ``seq`` index under CP, and the
-        microbatch; the ``model`` ranks share it, as they share the
-        activations it masks."""
+        microbatch; the ``model`` and ``expert`` ranks share it, as they
+        share the activations it masks."""
         if self.seq is not None:
             return fold_seed(seed, self.data_index, self.seq_index, micro)
         return fold_seed(seed, self.data_index, micro)
@@ -173,16 +181,20 @@ def _seq_mean(tensors: list[torch.Tensor], group, n: int) -> None:
         t.div_(n)
 
 
-def _tp_sumsq(model: nn.Module, model_group) -> torch.Tensor:
-    """The global sum of squares of the gradients under TP (ref
-    ``model_axes_sumsq``): the sharded leaves' parts summed over the
-    ``model`` group, the replicated leaves (whole and equal on every rank)
-    counted once."""
+def _model_axes_sumsq(model: nn.Module, ax: "_Axes") -> torch.Tensor:
+    """The global sum of squares of the gradients under TP and EP (ref
+    ``model_axes_sumsq``): the TP-sharded leaves' parts summed over the
+    ``model`` group, the expert stacks' over the ``expert`` group, the
+    replicated leaves (whole and equal on every rank) counted once."""
     named = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
-    sharded = sumsq_f32([g for n, g in named if tp_dim(n) is not None])
-    sharded = torch.as_tensor(sharded, dtype=torch.float32, device=named[0][1].device)
-    dist.all_reduce(sharded, group=model_group)
-    return sharded + sumsq_f32([g for n, g in named if tp_dim(n) is None])
+    total = sumsq_f32([g for n, g in named if tp_dim(n) is None and ep_dim(n) is None])
+    for group, on in ((ax.model, lambda n: tp_dim(n) is not None), (ax.expert, lambda n: ep_dim(n) is not None)):
+        if group is not None:
+            part = torch.as_tensor(sumsq_f32([g for n, g in named if on(n)]), dtype=torch.float32,
+                                   device=named[0][1].device)
+            dist.all_reduce(part, group=group)
+            total = part + total
+    return total
 
 
 def model_buffers(model: nn.Module) -> list[torch.Tensor]:
@@ -234,19 +246,19 @@ def _split(batch: dict, n: int) -> list[dict]:
 
 
 def _check_layout(zero_level: int, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync,
-                  cp_axis=None, tp_axis=None, fsdp=False, nonfinite_guard=False) -> None:
+                  cp_axis=None, tp_axis=None, fsdp=False, nonfinite_guard=False, ep_axis=None) -> None:
     """The reference's composition rules (``train_step.py:233-280``; FSDP's
     step, ``parallel/fsdp.py:493``, has none of the other layouts'
     options)."""
     if fsdp and (zero_level or bucket_bytes is not None or overlap or grad_compress or cp_axis
-                 or nonfinite_guard):
+                 or nonfinite_guard or ep_axis):
         raise ValueError("fsdp=True owns its reduction (the gathers' reduce-scatters) and composes with "
                          "tp_axis, accum_steps and grad_clip only")
     if zero_level not in (0, 1, 2, 3):
         raise ValueError(f"zero={zero_level!r} (want False/True or a level 0-3)")
-    if zero_level >= 2 and tp_axis is not None:
+    if zero_level >= 2 and (tp_axis is not None or ep_axis is not None):
         raise ValueError("zero=2/3 shard over the data axis only; compose tp/ep with zero=1 or the fsdp path")
-    if grad_compress == "powersgd" and tp_axis is not None:
+    if grad_compress == "powersgd" and (tp_axis is not None or ep_axis is not None):
         raise ValueError("grad_compress='powersgd' does not compose with tp_axis/ep_axis: the low-rank "
                          "factor reduction and error-feedback state are data-axis-only")
     if zero_level == 1 and (bucket_bytes is not None or overlap):
@@ -279,10 +291,11 @@ def make_train_step(
     cp_axis: str | None = None,
     tp_axis: str | None = None,
     fsdp: bool = False,
+    ep_axis: str | None = None,
 ):
     """Build ``step(state, batch[, seed]) -> metrics`` for data parallelism
     (over the mesh's ``data`` group when a mesh is bound), composed
-    with ``cp_axis`` / ``tp_axis`` (module docstring).
+    with ``cp_axis`` / ``tp_axis`` / ``ep_axis`` (module docstring).
 
     The gradient reduction is one of the reference's layouts:
 
@@ -313,13 +326,13 @@ def make_train_step(
     """
     zero_level = int(zero)
     _check_layout(zero_level, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync, cp_axis, tp_axis,
-                  fsdp, nonfinite_guard)
+                  fsdp, nonfinite_guard, ep_axis)
     hooks = {}  # the model's reducer hooks, made on the first step
     resolved: list[_Axes] = []
 
     def axes() -> _Axes:
         if not resolved:
-            resolved.append(_Axes(cp_axis, tp_axis))
+            resolved.append(_Axes(cp_axis, tp_axis, ep_axis))
         return resolved[0]
 
     def reducer(state: TrainState):
@@ -458,9 +471,10 @@ def make_train_step(
             all_reduce_gradients(grads, bucket_bytes=bucket_bytes, compress=grad_compress, group=ax.data)
         if grad_clip is not None:
             # Grads are complete per rank after the sync (and the seq
-            # mean), so the local norm is the global norm; under TP the
-            # sharded leaves' parts sum over the model group.
-            sumsq = sumsq_f32(grads) if ax.model is None else _tp_sumsq(state.model, ax.model)
+            # mean), so the local norm is the global norm; under TP / EP
+            # the sharded leaves' parts sum over their groups.
+            sumsq = (sumsq_f32(grads) if ax.model is None and ax.expert is None
+                     else _model_axes_sumsq(state.model, ax))
             scale = clip_scale(torch.sqrt(sumsq), grad_clip)
             for g in grads:
                 g.mul_(scale.to(g.dtype))

@@ -14,6 +14,10 @@
   and the module's Ulysses (native and repeated kv heads), within the
   phase's own tolerances; the TP=2 block within its 4-ulp bound; 12c's
   flags parse.
+- Phase 14's argument lists (14a, 14b, 14c's runs) pass the port's parser
+  and layout checks, build the MoE configs the phase names, 14c's runs keep
+  one data replica, and 14a's 1-layer model holds the 2.50 B parameters
+  its memory reckoning counts.
 """
 
 import importlib.util
@@ -126,3 +130,27 @@ def test_phase12_replays_hold_on_the_cpu(monkeypatch, dtype):
     for extra in chip_smoke.CP_TP_ENTRY.values():
         args = dpp.parse_args(chip_smoke.CP_TP_ENTRY_ARGS + extra)
         assert (args.layers, args.seq_len, args.steps_per_epoch) == (8, 2048, 3)
+
+
+def test_phase14_flags_parse_and_the_reckoning_holds():
+    import torch
+
+    from distributeddataparallel_tpu_torch import dpp
+    from distributeddataparallel_tpu_torch.models import transformer as tfm
+
+    gpt2 = [a.replace("{ckpt}", "ck") for a in chip_smoke.GPT2_MOE_ARGS]
+    runs = [chip_smoke.LLAMA_MOE_ARGS, gpt2, chip_smoke.MOE_ENTRY_ARGS]
+    runs += [chip_smoke.MOE_ENTRY_ARGS + extra + ["--num-processes", str(gpus)]
+             for extra, gpus in chip_smoke.MOE_ENTRY.values()]
+    for argv in runs:
+        args = dpp.parse_args(argv)
+        cfg = dpp.build_config(args)
+        assert (cfg.moe_experts, cfg.moe_top_k) == (8, 2)
+        assert args.num_processes in (None, args.ep * args.tp * args.cp)  # one data replica
+    llama = dpp.build_config(dpp.parse_args(chip_smoke.LLAMA_MOE_ARGS))
+    assert (llama.num_layers, llama.d_model, llama.d_ff, llama.vocab_size, llama.moe_capacity_factor) == (
+        1, 4096, 14336, 128256, 1.25)
+    assert dpp.build_config(dpp.parse_args(gpt2)).moe_capacity_factor == 0.0  # 14b: dense dispatch
+    assert dpp.build_config(dpp.parse_args(chip_smoke.MOE_ENTRY_ARGS)).moe_capacity_factor == 8.0  # = E
+    n = sum(p.numel() for p in tfm.TransformerLM(llama, device="meta").parameters())
+    assert abs(n - 2.50e9) < 0.01e9, n

@@ -82,10 +82,6 @@ UNPORTED = [
     (["--pp-microbatches", "4"], "16"),
     (["--pp-schedule", "1f1b"], "16"),
     (["--model", "gpt2", "--layers", "4", "--pp", "2", "--pp-schedule", "1f1b", "--pp-virtual", "2"], "16"),
-    (["--model", "gpt2", "--moe-experts", "2", "--ep", "2"], "17"),
-    (["--model", "gpt2", "--moe-experts", "4"], "17"),
-    (["--moe-aux-weight", "0"], "17"),
-    (["--model", "gpt2", "--moe-experts", "4", "--moe-top-k", "2", "--moe-capacity-factor", "1.25"], "17"),
     (["--compile-cache", "cache"], "11b"),
     (["--dispatch-depth", "0"], "11b"),
     (["--elastic", "--checkpoint-dir", "ck"], "13"),
@@ -99,6 +95,16 @@ UNPORTED = [
 ]
 
 
+# Item 17's cases, ported since: each parses and validates as the reference's
+# does, with its values, and builds the MoE config.
+PORTED_MOE = [
+    ["--model", "gpt2", "--moe-experts", "2", "--ep", "2"],
+    ["--model", "gpt2", "--moe-experts", "4"],
+    ["--moe-aux-weight", "0"],
+    ["--model", "gpt2", "--moe-experts", "4", "--moe-top-k", "2", "--moe-capacity-factor", "1.25"],
+]
+
+
 def test_unported_flags_raise_naming_their_item():
     jdpp, _ = reference_parser()
     for argv, item in UNPORTED:
@@ -106,8 +112,21 @@ def test_unported_flags_raise_naming_their_item():
         jdpp.validate_args(jdpp.parse_args(argv))  # the reference accepts the value
         with pytest.raises(NotImplementedError, match=rf"ROADMAP.md Queue 1, item {item}$"):
             tdpp.parse_args(argv)
+    for argv in PORTED_MOE:
+        argv = ["--device", "cpu", *argv]
+        jargs = jdpp.parse_args(argv)
+        jdpp.validate_args(jargs)
+        args = tdpp.parse_args(argv)
+        for dest in ("ep", "moe_experts", "moe_top_k", "moe_aux_weight", "moe_capacity_factor"):
+            assert getattr(args, dest) == getattr(jargs, dest), dest
+        if args.moe_experts:
+            cfg = tdpp.build_config(args)
+            assert (cfg.moe_experts, cfg.moe_top_k, cfg.moe_capacity_factor) == (
+                args.moe_experts, args.moe_top_k, args.moe_capacity_factor)
+            assert cfg.ep_axis == ("expert" if args.ep > 1 else None)
     seen = {d for dests in tdpp.UNPORTED_FLAGS.values() for d in dests}
-    assert len(seen) == 22  # the 21 flags the parser lacked, less --fsdp-gather, and --pp, --ep
+    assert len(seen) == 17  # the 21 flags the parser lacked, less --fsdp-gather and item 17's four, and --pp
+    assert "17" not in tdpp.UNPORTED_FLAGS
 
 
 REFERENCE_CHECKS = [
