@@ -156,8 +156,8 @@ Phases (any failure exits non-zero; nothing is caught):
       implies, the step and peak memory; then one such MoE block's forward
       and backward under ``torch.cuda.set_sync_debug_mode("error")``;
    b. GPT-2 124M at 11a's size with 8 experts top-2 in dense dispatch,
-      checkpointed, then ``--generate 16`` teacher-forced against the
-      checkpoint's whole model;
+      trained in this process (``dpp.build_trainer``, ``dpp.train``), then
+      ``--generate 16`` teacher-forced against the trained whole model;
    c. with two GPUs or more (four for the last three), 14a's model at
       capacity factor 8 under ``--ep 2``, ``--ep 4``, ``--ep 2 --tp 2`` and
       ``--cp 2 --ep 2`` against one GPU, with each rank's all-to-all ms;
@@ -524,9 +524,8 @@ def _set(args, flag, value):
 LLAMA_MOE_ARGS = _set(LLAMA_ARGS, "--layers", str(MOE_LAYERS)) + MOE_FLAGS
 # 14b: phase 4's GPT-2 at 11a's size (12 layers, f32, GELU) with 8 experts
 # top-2 in dense dispatch (every token through every expert: exact, so the
-# continuation holds to the checkpoint's whole model), then --generate 16.
-GPT2_MOE_ARGS = LAYOUT_ARGS + ["--moe-experts", "8", "--moe-top-k", "2", "--generate", "16",
-                               "--checkpoint-dir", "{ckpt}"]
+# continuation holds to the trained whole model), then --generate 16.
+GPT2_MOE_ARGS = LAYOUT_ARGS + ["--moe-experts", "8", "--moe-top-k", "2", "--generate", "16"]
 # 14c, with two GPUs or more (four for the last three): 14a's model at
 # capacity factor 8 (= E: no token dropped, so every layout computes the
 # same function) for 3 steps, one data replica: the global batch is the
@@ -542,7 +541,41 @@ MOE_ENTRY = {"ep2": (["--ep", "2"], 2), "ep4": (["--ep", "4"], 4), "ep2_tp2": ([
 # holds them with a margin of 3, as 12c's bound does.
 MOE_ENTRY_ATOL = 1.6e-2
 
-DEVICE = "cuda"  # phases 10 and 12's device
+# Phase 15: pipeline parallelism.  15a and 15b replay the module's own
+# schedule code (parallel.pipeline_parallel.run_schedule) with every stage a
+# thread of this process and the exchange in memory (LocalPipe), against the
+# unpipelined model's step on the same weights and batch.  15a: GPT-2 124M
+# at full width and all 12 layers (f32), phase 4's batch of 8 x 1024, M = 8,
+# on 2 and 4 stages.  The pipelined loss is the mean of 8 microbatch means
+# where the oracle takes one mean over the batch, and every GEMM runs at 1/8
+# of the rows (cuBLAS may sum in another order): f32 summation order only,
+# ~1e-6 relative; the bounds are 1e-5 of the loss and 1e-4 of each
+# gradient's largest |value|.  A missing or doubled pipe sum moves the
+# embedding's gradient by half of itself, a wrong stage slice every layer's.
+PP_GPT2 = dict(B=8, S=1024, M=8, stages=(2, 4))
+PP_F32_TOL = dict(loss_rtol=1e-5, grad_rtol=1e-4)
+# 15b: phase 7's Llama-3 8B width x 8 layers (bf16, remat) at 8 x 2048 on 2
+# stages (4 layers each; the memory reckoning is in PERF.md), M = 4 and 8.
+# bf16 GEMMs at other row counts round elsewhere.  The first run on an H100
+# 80GB HBM3 (700 W) read loss errors of 0 and gradient errors of 5.60e-3
+# (M = 4) and 4.53e-3 (M = 8) of each gradient's largest |value|: the
+# bounds are 2e-2 (a margin of 3.6) and the CPU tests' 2e-3 on the loss.
+PP_LLAMA = dict(B=8, S=2048, n=2, M=(4, 8))
+PP_BF16_TOL = dict(loss_atol=2e-3, grad_rtol=2e-2)
+# 15c, with two GPUs or more: the entry point over NCCL.  With four,
+# Llama-3 8B at all 32 layers under --pp 4 (GPipe and 1F1B, 8 x 2048, M = 8,
+# 3 steps, eval, steps 1-2 traced), and at 8 layers --pp 4, --pp 2 --tp 2
+# against one GPU on 4 x 2048 (M = 4), and --pp 2 --ep 2 at 14a's MoE
+# config (2 layers, capacity factor 8) against --ep 2; with two, --pp 2 at 8
+# layers against one GPU.  The losses' bound is 12c's (bf16 through 8
+# layers; set from four H100s' gaps).
+PP_DEEP_ARGS = _set(_set(_set(_set(LLAMA_ARGS, "--layers", "32"), "--batch-size", "8"), "--steps-per-epoch", "3"),
+                    "--num-examples", "32") + ["--pp-microbatches", "8"]
+PP_ENTRY_ARGS = _set(_set([a for a in LLAMA_ARGS if a != "--eval"], "--batch-size", "4"), "--steps-per-epoch", "3")
+PP_MOE_ARGS = _set(_set(MOE_ENTRY_ARGS, "--layers", "2"), "--batch-size", "2")
+PP_ENTRY_ATOL = CP_TP_ENTRY_ATOL
+
+DEVICE = "cuda"  # phases 10, 12 and 15's device
 
 KERNELS = [
     # name, replaces, matmuls per visible (q, k) pair
@@ -2555,26 +2588,35 @@ def moe_no_sync(torch, tfm) -> dict:
 
 
 def moe_gpt2(torch, dpp, smi) -> dict:
-    """[14b] GPT-2 124M x 12 layers with 8 dense-dispatch experts,
-    checkpointed, then --generate 16, held to the checkpoint's whole model."""
+    """[14b] GPT-2 124M x 12 layers with 8 dense-dispatch experts, then
+    --generate 16, held to the trained whole model: ``dpp.build_trainer``
+    and ``dpp.train`` in this process (what ``dpp.main`` runs), so the
+    trained model is at hand without a 6.3 GB checkpoint of it."""
     from distributeddataparallel_tpu_torch.models import transformer as tfm
     from distributeddataparallel_tpu_torch.models.generate import decode_model
-    from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles
+    from distributeddataparallel_tpu_torch.runtime import distributed as rt
 
     release(torch)
-    with tempfile.TemporaryDirectory(prefix="moe_14b_") as d:
-        args = [a.replace("{ckpt}", d) for a in GPT2_MOE_ARGS]
-        log("    14b: dpp.main " + " ".join(args))
-        s = dpp.main(args)
+    args = dpp.parse_args(GPT2_MOE_ARGS)
+    device = dpp.device_for(args)
+    log("    14b: dpp.build_trainer, dpp.train " + " ".join(GPT2_MOE_ARGS))
+    rt.init_process_group(device=device)
+    try:
+        trainer = dpp.build_trainer(args, device)
+        s = dpp.train(args, trainer, device)
         torch.cuda.synchronize()
-        payload = CheckpointFiles(d).read(0)
+    finally:
+        rt.destroy_process_group()
+    trained = trainer.state.model.state_dict()
+    del trainer
     launches = expect_launches(s, "14b")
     losses = s["losses"]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0] or not s["moe_aux"]:
         raise AssertionError(f"14b: losses {losses}, moe_aux {s['moe_aux']}")
-    cfg = dpp.build_config(dpp.parse_args(args))
+    cfg = dpp.build_config(args)
     model = tfm.TransformerLM(dataclasses.replace(cfg, attn_impl="plain"), device=DEVICE)
-    model.load_state_dict(payload["model"])
+    model.load_state_dict(trained)
+    del trained
     gen = s["generate"]
     n_prompt = len(gen["prompt"][0])
     check = teacher_forced(torch, model, gen["tokens"], n_prompt, TF_ATOL["float32"], "14b", decode_model(model))
@@ -2661,6 +2703,377 @@ def moe_phase(torch, dpp, fa, tfm, smi) -> dict:
     return out
 
 
+class LocalPipe:
+    """``pipeline_parallel._Pipe``'s members among the stages of a replay,
+    each a thread of this process: a send puts a copy of the tensor in the
+    neighbour's mailbox (``fwd[s]`` holds what stage s receives from s - 1,
+    ``bwd[s]`` what it receives from s + 1), a receive takes the oldest, as
+    over a process group.  It keeps what it received, for ``CannedPipe``.
+    A receive that outlasts EXCHANGE_TIMEOUT_S raises: a replay fails, it
+    never hangs."""
+
+    def __init__(self, fwd, bwd, stage: int):
+        self.fwd, self.bwd, self.stage, self.n = fwd, bwd, stage, len(fwd)
+        self.like, self.received = None, []
+
+    def _take(self, box, what: str):
+        import queue
+
+        try:
+            t = box.get(timeout=EXCHANGE_TIMEOUT_S)
+        except queue.Empty:
+            raise AssertionError(f"stage {self.stage} waited {EXCHANGE_TIMEOUT_S} s for its {what}") from None
+        self.received.append(t)
+        return t
+
+    def recv_forward(self):
+        return None if self.stage == 0 else self._take(self.fwd[self.stage], "activations")
+
+    def send_forward(self, y) -> None:
+        if self.stage < self.n - 1:
+            self.fwd[self.stage + 1].put(y.detach().clone())
+
+    def recv_backward(self):
+        return None if self.stage == self.n - 1 else self._take(self.bwd[self.stage], "cotangent")
+
+    def send_backward(self, dx) -> None:
+        if self.stage > 0:
+            self.bwd[self.stage - 1].put(dx.detach().clone())
+
+    def send_forward_recv_backward(self, y):
+        self.send_forward(y)
+        return self.recv_backward()
+
+    def send_backward_recv_forward(self, dx):
+        self.send_backward(dx)
+        return self.recv_forward()
+
+
+class CannedPipe:
+    """One stage's exchange run alone: its receives give back, in order,
+    copies of what its ``LocalPipe`` received; its sends go nowhere.  Runs
+    one stage's units through the module's own schedule, to count and time
+    them."""
+
+    def __init__(self, local: LocalPipe):
+        self.stage, self.n, self.received, self.i, self.like = local.stage, local.n, local.received, 0, None
+
+    def _next(self):
+        self.i += 1
+        return self.received[self.i - 1].detach().clone()
+
+    def recv_forward(self):
+        return None if self.stage == 0 else self._next()
+
+    def recv_backward(self):
+        return None if self.stage == self.n - 1 else self._next()
+
+    def send_forward(self, y) -> None:
+        pass
+
+    def send_backward(self, dx) -> None:
+        pass
+
+    def send_forward_recv_backward(self, y):
+        return self.recv_backward()
+
+    def send_backward_recv_forward(self, dx):
+        return self.recv_forward()
+
+
+def pp_replay(torch, pp, stages, inputs, targets, M: int, schedule: str):
+    """The module's schedule for every stage at once, a thread a stage:
+    each stage's ``StageRun`` and ``LocalPipe``.  Gradients accumulate in
+    the stages' ``.grad``."""
+    import queue
+    import threading
+
+    n = len(stages)
+    fwd, bwd = [queue.Queue() for _ in range(n)], [queue.Queue() for _ in range(n)]
+    pipes = [LocalPipe(fwd, bwd, s) for s in range(n)]
+    runs, errors = [None] * n, []
+
+    def work(s):
+        try:
+            runs[s] = pp.run_schedule(stages[s], pipes[s], inputs, targets, microbatches=M, schedule=schedule)
+        except BaseException as e:  # noqa: BLE001 — reported below, the replay fails
+            errors.append(f"stage {s}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=work, args=(s,)) for s in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    if errors:
+        raise AssertionError(f"{schedule} replay on {n} stages: {errors}")
+    return runs, pipes
+
+
+def zero_stage_grads(torch, stages) -> None:
+    for st in stages:
+        for p in st.parameters():
+            p.grad = None
+        for p in st.parameters():
+            p.grad = torch.zeros_like(p)
+
+
+def stage_grad(named, per: int, name: str):
+    """The whole model's gradient ``name`` from the stages' parameters
+    (``named``: each stage's ``named_parameters`` dict): a layer's from its
+    stage, a replicated leaf's summed over the stages (the pipe sum)."""
+    m = re.match(r"layers\.(\d+)\.(.*)", name)
+    if m:
+        i = int(m.group(1))
+        return named[i // per][f"layers.{i % per}.{m.group(2)}"].grad
+    return sum(nd[name].grad for nd in named)
+
+
+def pp_grad_error(stages, want: dict) -> tuple[float, str]:
+    """The largest |pipelined - want| over each gradient's largest |want|
+    (at least 1e-3 of the model's largest: a gradient that is 0 in exact
+    arithmetic, such as a key bias's under the softmax, holds rounding
+    alone), and where it is."""
+    named, per = [dict(st.named_parameters()) for st in stages], len(stages[0].layers)
+    floor = 1e-3 * max(float(w.float().abs().max()) for w in want.values())
+    worst, where = 0.0, None
+    for k, w in want.items():
+        g = stage_grad(named, per, k)
+        err = float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()), floor)
+        if err >= worst:
+            worst, where = err, k
+    return worst, where
+
+
+def pp_oracle(torch, model, inputs, targets):
+    """The unpipelined model's loss and gradients on the whole batch."""
+    from distributeddataparallel_tpu_torch.ops.losses import lm_cross_entropy
+
+    loss = lm_cross_entropy(model(inputs), targets)
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {k: p.grad for k, p in model.named_parameters()}
+
+
+def pp_expected(per: int, M: int, n: int, s: int, schedule: str, remat: bool) -> dict:
+    """K1-K3 launches of stage s: every unit's forward with gradients runs
+    K1 once a layer (twice under remat: the recompute), and 1F1B's forward
+    unit a no-gradient forward first on every stage but the last; K2 and K3
+    once a layer a microbatch."""
+    k1 = (2 if remat else 1) + (1 if schedule == "1f1b" and s < n - 1 else 0)
+    return {"flash_fwd": k1 * per * M, "flash_bwd_dq": per * M, "flash_bwd_dkv": per * M}
+
+
+def pp_gpt2(torch, fa, tfm, pp, smi) -> dict:
+    """[15a] GPT-2 124M (12 layers, f32) on 2 and 4 stages, GPipe and 1F1B,
+    against the unpipelined step; each stage alone through its received
+    tensors (``CannedPipe``) for its launches and its time."""
+    B, S, M = PP_GPT2["B"], PP_GPT2["S"], PP_GPT2["M"]
+    cfg = tfm.gpt2_124m(scan_layers=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    model = tfm.TransformerLM(cfg, device=DEVICE, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), device=DEVICE, generator=gen)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    want_loss, want = pp_oracle(torch, model, inputs, targets)
+    full = model.state_dict()
+    out, launches = {"oracle_loss": want_loss, "tolerance": PP_F32_TOL}, {k: 0 for k in fa.LAUNCHES}
+    for n in PP_GPT2["stages"]:
+        stages = [pp.stage_model(cfg, full, s, n, device=DEVICE) for s in range(n)]
+        per = cfg.num_layers // n
+        res, gpipe = {}, None
+        for schedule in ("gpipe", "1f1b"):
+            zero_stage_grads(torch, stages)
+            fa.reset_launches()
+            runs, pipes = pp_replay(torch, pp, stages, inputs, targets, M, schedule)
+            total = dict(fa.LAUNCHES)
+            loss = float(runs[-1].loss_sum) / M
+            grad_err, where = pp_grad_error(stages, want)
+            rec = {"loss": loss, "loss_abs_err": abs(loss - want_loss), "grad_rel_err": grad_err, "worst": where,
+                   "launches": total, "held": [r.max_held for r in runs], "counts": [r.counts for r in runs]}
+            if not (rec["loss_abs_err"] <= PP_F32_TOL["loss_rtol"] * abs(want_loss)
+                    and grad_err <= PP_F32_TOL["grad_rtol"]):
+                raise AssertionError(f"15a n={n} {schedule}: {rec}")
+            if schedule == "gpipe":
+                named = [dict(st.named_parameters()) for st in stages]
+                gpipe = (loss, {k: stage_grad(named, per, k).clone() for k in want})
+            else:
+                rec["vs_gpipe"] = {"loss_abs_diff": abs(loss - gpipe[0]),
+                                   "grad_rel_err": pp_grad_error(stages, gpipe[1])[0]}
+                if not (rec["vs_gpipe"]["loss_abs_diff"] <= PP_F32_TOL["loss_rtol"] * abs(want_loss)
+                        and rec["vs_gpipe"]["grad_rel_err"] <= PP_F32_TOL["grad_rtol"]):
+                    raise AssertionError(f"15a n={n}: 1F1B against GPipe {rec['vs_gpipe']}")
+            # Each stage alone: its launches exactly, and its time.
+            rec["stage_ms"], rec["stage_launches"] = [], []
+            for s, st in enumerate(stages):
+                fa.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pp.run_schedule(st, CannedPipe(pipes[s]), inputs, targets, microbatches=M, schedule=schedule)
+                torch.cuda.synchronize()
+                rec["stage_ms"].append((time.perf_counter() - t0) * 1e3)
+                got, exp = dict(fa.LAUNCHES), pp_expected(per, M, n, s, schedule, cfg.remat)
+                if got != exp:
+                    raise AssertionError(f"15a n={n} {schedule} stage {s}: launches {got} != {exp}")
+                rec["stage_launches"].append(got)
+                for k, v in got.items():
+                    launches[k] += v
+            if total != {k: sum(x[k] for x in rec["stage_launches"]) for k in total}:
+                raise AssertionError(f"15a n={n} {schedule}: the replay's launches {total} are not its stages'")
+            for k, v in total.items():
+                launches[k] += v
+            if schedule == "1f1b":
+                rec["bubble"] = pp.pp_bubble_fraction(n, M)["bubble_fraction"]
+            res[schedule] = rec
+            log(f"    15a n={n} {schedule}: loss {loss:.6f} (|err| {rec['loss_abs_err']:.1e}), gradients within "
+                f"{grad_err:.1e} of their largest (worst {where}), held {rec['held']}, stage ms "
+                f"{['%.1f' % x for x in rec['stage_ms']]}, launches a stage {rec['stage_launches']}")
+        out[f"n{n}"] = res
+        del stages, gpipe
+    out["attention_launches"] = launches
+    del model, full, want
+    release(torch)
+    return out
+
+
+def pp_llama(torch, fa, tfm, pp, smi) -> dict:
+    """[15b] Llama-3 8B width x 8 layers (bf16, remat) on 2 stages, GPipe
+    and 1F1B at M = 4 and 8, against the unpipelined step; the peak memory
+    above the resident stages and gradients, and the microbatches each
+    stage held."""
+    B, S, n = PP_LLAMA["B"], PP_LLAMA["S"], PP_LLAMA["n"]
+    cfg = tfm.llama3_8b(num_layers=LLAMA_LAYERS, max_seq_len=S)
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    model = tfm.TransformerLM(cfg, device=DEVICE, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), device=DEVICE, generator=gen)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    want_loss, want = pp_oracle(torch, model, inputs, targets)
+    full = model.state_dict()
+    stages = [pp.stage_model(cfg, full, s, n, device=DEVICE) for s in range(n)]
+    del model, full  # the oracle's gradients stay
+    release(torch)
+    per = cfg.num_layers // n
+    out, launches = {"oracle_loss": want_loss, "tolerance": PP_BF16_TOL, "stages": n}, {k: 0 for k in fa.LAUNCHES}
+    for M in PP_LLAMA["M"]:
+        for schedule in ("gpipe", "1f1b"):
+            zero_stage_grads(torch, stages)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            runs, _ = pp_replay(torch, pp, stages, inputs, targets, M, schedule)
+            wall = time.perf_counter() - t0
+            got = dict(fa.LAUNCHES)
+            exp = {k: sum(pp_expected(per, M, n, s, schedule, True)[k] for s in range(n)) for k in got}
+            loss = float(runs[-1].loss_sum) / M
+            grad_err, where = pp_grad_error(stages, want)
+            rec = {"loss": loss, "loss_abs_err": abs(loss - want_loss), "grad_rel_err": grad_err, "worst": where,
+                   "launches": got, "held": [r.max_held for r in runs], "wall_ms": wall * 1e3,
+                   "peak_above_resident_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                   "resident_gib": base / 2**30}
+            if got != exp:
+                raise AssertionError(f"15b M={M} {schedule}: launches {got} != {exp}")
+            if not (rec["loss_abs_err"] <= PP_BF16_TOL["loss_atol"] and grad_err <= PP_BF16_TOL["grad_rtol"]):
+                raise AssertionError(f"15b M={M} {schedule}: {rec}")
+            for k, v in got.items():
+                launches[k] += v
+            out[f"{schedule}_m{M}"] = rec
+            log(f"    15b M={M} {schedule}: loss {loss:.5f} (|err| {rec['loss_abs_err']:.1e}), gradients within "
+                f"{grad_err:.2e} of their largest (worst {where}), held {rec['held']}, "
+                f"{rec['peak_above_resident_gib']:.2f} GiB above {rec['resident_gib']:.2f} resident, "
+                f"{rec['wall_ms']:.0f} ms on {smi}")
+    # 1F1B holds at most n - s microbatches on stage s whatever M; GPipe all M.
+    for M in PP_LLAMA["M"]:
+        if out[f"1f1b_m{M}"]["held"] != [min(n - s, M) for s in range(n)] or out[f"gpipe_m{M}"]["held"] != [M] * n:
+            raise AssertionError(f"15b M={M}: held {out[f'1f1b_m{M}']['held']}, {out[f'gpipe_m{M}']['held']}")
+        if not out[f"1f1b_m{M}"]["peak_above_resident_gib"] < out[f"gpipe_m{M}"]["peak_above_resident_gib"]:
+            raise AssertionError(f"15b M={M}: 1F1B's peak is not below GPipe's")
+    out["attention_launches"] = launches
+    del stages, want
+    release(torch)
+    return out
+
+
+def pp_entry(torch, smi) -> dict:
+    """[15c] Only where two GPUs are visible: the entry point over NCCL
+    (see PP_DEEP_ARGS), each run in fresh processes."""
+    import glob
+
+    from distributeddataparallel_tpu_torch.parallel.pipeline_parallel import pp_bubble_fraction
+    from distributeddataparallel_tpu_torch.profile_step import pp_split
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"    15c needs two GPUs and was not run: {count} visible")
+        return {"ran": False, "gpus": count}
+    n = 4 if count >= 4 else 2
+    out = {"ran": True, "gpus": count, "atol": PP_ENTRY_ATOL}
+
+    def against(name, base, args, gpus):
+        s = run_entry(args + ["--num-processes", str(gpus)], f"15c {name}")
+        diff = max(abs(a - b) for a, b in zip(s["losses"], base["losses"]))
+        out[name] = {"gpus": gpus, "losses": s["losses"], "step_ms": s["step_time_s"] * 1e3, "max_abs_diff": diff,
+                     "peak_memory_bytes_rank0": s["peak_memory_bytes"], "attention_launches": s["attention_launches"]}
+        if not diff <= PP_ENTRY_ATOL:
+            raise AssertionError(f"15c {name}: losses {s['losses']} vs {base['losses']}")
+        log(f"    15c {name}: step {out[name]['step_ms']:.1f} ms, rank 0 peak {gib(s['peak_memory_bytes'])} GiB, "
+            f"|loss - base| {diff:.2e} on {smi}")
+
+    base = run_entry(PP_ENTRY_ARGS, "15c one GPU")
+    out["one_gpu"] = {"losses": base["losses"], "step_ms": base["step_time_s"] * 1e3,
+                      "peak_memory_bytes": base["peak_memory_bytes"]}
+    for schedule in ("gpipe", "1f1b"):
+        against(f"pp{n}_{schedule}", base, PP_ENTRY_ARGS + ["--pp", str(n), "--pp-schedule", schedule], n)
+    if count < 4:
+        log(f"    15c's --pp 2 --tp 2, --pp 2 --ep 2 and 32 layers under --pp 4 need four GPUs: {count} visible")
+        return out
+    against("pp2_tp2", base, PP_ENTRY_ARGS + ["--pp", "2", "--tp", "2"], 4)
+    moe_base = run_entry(PP_MOE_ARGS + ["--ep", "2", "--num-processes", "2"], "15c --ep 2 (MoE, 2 layers)")
+    against("pp2_ep2_moe", moe_base, PP_MOE_ARGS + ["--ep", "2", "--pp", "2"], 4)
+    for schedule in ("gpipe", "1f1b"):
+        with tempfile.TemporaryDirectory(prefix="pp_ev_") as ev:
+            s = run_entry(PP_DEEP_ARGS + ["--pp", "4", "--pp-schedule", schedule, "--num-processes", "4",
+                                          "--events-dir", ev, "--profile-steps", "1:3"], f"15c 32 layers {schedule}")
+            split = pp_split(sorted(glob.glob(os.path.join(ev, "xprof", "trace_*_p*.json"))), 2)
+        if not all(math.isfinite(x) for x in s["losses"]) or s["eval"] is None:
+            raise AssertionError(f"15c 32 layers {schedule}: losses {s['losses']}, eval {s['eval']}")
+        out[f"deep_{schedule}"] = {"losses": s["losses"], "eval": s["eval"], "step_ms": s["step_time_s"] * 1e3,
+                                   "peak_memory_bytes_rank0": s["peak_memory_bytes"], "num_params_rank0": s["num_params"],
+                                   "split_by_rank": split, "bubble": pp_bubble_fraction(4, 8)["bubble_fraction"]
+                                   if schedule == "1f1b" else None}
+        log(f"    15c 32 layers {schedule}: step {out[f'deep_{schedule}']['step_ms']:.1f} ms, rank 0 peak "
+            f"{gib(s['peak_memory_bytes'])} GiB, losses {['%.4f' % x for x in s['losses']]}, per rank "
+            f"{split} on {smi}")
+    return out
+
+
+def pp_phase(torch, fa, tfm, smi) -> dict:
+    """[15] Pipeline parallelism: 15a and 15b replay the module's own
+    schedules on this card (the kernels' counters summed over the replays,
+    the oracles left out); 15c with two GPUs or more."""
+    from distributeddataparallel_tpu_torch.parallel import pipeline_parallel as pp
+
+    t0 = time.perf_counter()
+    log("[15] pipeline parallelism")
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        result = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        return result
+
+    out = {"gpt2_12_layers": timed("15a", pp_gpt2, torch, fa, tfm, pp, smi),
+           "llama_8_layers": timed("15b", pp_llama, torch, fa, tfm, pp, smi)}
+    out["attention_launches"] = {k: out["gpt2_12_layers"]["attention_launches"][k]
+                                 + out["llama_8_layers"]["attention_launches"][k] for k in fa.LAUNCHES}
+    out["entry"] = timed("15c", pp_entry, torch, smi)
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_by_part"] = seconds
+    log(f"    phase 15 in {out['seconds']:.1f} s ({seconds}); K1-K3 launches {out['attention_launches']} on {smi}")
+    return out
+
+
 def release(torch) -> None:
     """Free what earlier runs left (a model held by a reference cycle, say,
     the reducer's hooks) before the next run's peak is measured."""
@@ -2710,7 +3123,7 @@ def main() -> int:
     if "--multi-gpu" in sys.argv[1:]:
         # Only the entry-point runs over several GPUs (12c, 13c, 14c, or
         # those named after the flag): what a one-card run skips.
-        entries = {"12c": cp_tp_entry, "13c": fsdp_entry, "14c": moe_entry}
+        entries = {"12c": cp_tp_entry, "13c": fsdp_entry, "14c": moe_entry, "15c": pp_entry}
         picked = [a for a in sys.argv[sys.argv.index("--multi-gpu") + 1:] if a in entries] or list(entries)
         out = {name: entries[name](torch, smi) for name in picked}
         log(json.dumps({"multi_gpu": out, "card": smi, "seconds": time.perf_counter() - t_all}))
@@ -2775,6 +3188,7 @@ def main() -> int:
     cp_tp = timed("12", cp_tp_phase, torch, fa, tfm, smi)
     fsdp_path = timed("13", fsdp_phase, torch, dpp, fa, llama["losses"], layouts["gpt2"]["plain"]["losses"], smi)
     moe_path = timed("14", moe_phase, torch, dpp, fa, tfm, smi)
+    pp_path = timed("15", pp_phase, torch, fa, tfm, smi)
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -2792,6 +3206,7 @@ def main() -> int:
             "launches_cp_tp_path": cp_tp["attention_launches"][name],
             "launches_fsdp_path": fsdp_path["attention_launches"][name],
             "launches_moe_path": moe_path["attention_launches"][name],
+            "launches_pp_path": pp_path["attention_launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2825,6 +3240,7 @@ def main() -> int:
     log(json.dumps({"cp_tp_path": cp_tp, "card": smi}))
     log(json.dumps({"fsdp_path": fsdp_path, "card": smi}))
     log(json.dumps({"moe_path": moe_path, "card": smi}))
+    log(json.dumps({"pp_path": pp_path, "card": smi}))
     log(json.dumps({"phase_seconds": seconds, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -82,10 +82,19 @@ choice (``models.transformer.MoEMLP``, ``ops.moe``); the loss adds
 ``--cp`` or ``--tp``, ``--zero 1``, the comm hooks but PowerSGD,
 ``--accum-steps``, ``--grad-clip``, ``--eval`` and checkpoints.
 
-The reference's flags whose feature is not ported yet (``--pp*``,
+Pipeline parallelism, with the reference's flags and checks: ``--pp N``
+splits the layers into N stages over a ``pipe`` axis (the mesh: data, seq,
+pipe, expert, model) and ``--pp-schedule gpipe|1f1b`` runs
+``--pp-microbatches`` microbatches through them
+(``parallel.pipeline_parallel``), with ``--tp`` or ``--ep``, ``--zero 1``,
+``--grad-clip``, ``--eval`` (pipelined) and checkpoints; 1F1B emits one
+``pp_phase`` event.
+
+The reference's flags whose feature is not ported yet (``--pp-virtual``,
 ``--elastic*``, ``--integrity-*``, ...) parse with its defaults and checks;
 a value off the default raises ``NotImplementedError`` naming its ROADMAP
-item (``UNPORTED_FLAGS``).
+item (``UNPORTED_FLAGS``), as do ``--pp-schedule zb`` and ``--pp`` with
+``--cp``.
 """
 
 from __future__ import annotations
@@ -127,6 +136,7 @@ from distributeddataparallel_tpu_torch.observability import (
     train_step_flops,
     transformer_fwd_flops,
 )
+from distributeddataparallel_tpu_torch.observability.pipeline import phase_counts_payload
 from distributeddataparallel_tpu_torch.ops import flash_attention
 from distributeddataparallel_tpu_torch.ops.dropout import fold_seed
 from distributeddataparallel_tpu_torch.ops.losses import (
@@ -137,7 +147,7 @@ from distributeddataparallel_tpu_torch.ops.losses import (
     per_example_cross_entropy,
 )
 from distributeddataparallel_tpu_torch.ops.preprocess import normalize_u8_images
-from distributeddataparallel_tpu_torch.parallel import fsdp, overlap
+from distributeddataparallel_tpu_torch.parallel import fsdp, overlap, pipeline_parallel
 from distributeddataparallel_tpu_torch.parallel.data_parallel import broadcast_params
 from distributeddataparallel_tpu_torch.parallel.powersgd import leaf_shapes, powersgd_state
 from distributeddataparallel_tpu_torch.parallel.expert_parallel import shard_model_axes
@@ -277,13 +287,16 @@ def parse_args(argv=None):
                    help="tensor-parallel degree: Megatron column/row sharding of attention "
                         "heads + MLP hidden over a 'model' mesh axis (LM only)")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline-parallel degree: not ported yet (ROADMAP item 16)")
+                   help="pipeline-parallel degree: shard the layer stack into this many stages over a "
+                        "'pipe' mesh axis (LM only; --layers divisible by it)")
     p.add_argument("--pp-microbatches", type=int, default=None,
-                   help="pipeline microbatches per step: not ported yet (ROADMAP item 16)")
+                   help="pipeline microbatches per step (default: --pp); --batch-size divisible by it")
     p.add_argument("--pp-schedule", default="gpipe", choices=["gpipe", "1f1b", "zb"],
-                   help="pipeline schedule: not ported yet (ROADMAP item 16)")
+                   help="pipeline schedule: gpipe (all forwards, then all backwards) or 1f1b (one "
+                        "forward, one backward; at most --pp microbatches held); zb is not ported "
+                        "yet (ROADMAP item 16b)")
     p.add_argument("--pp-virtual", type=int, default=1,
-                   help="virtual layer chunks per pipeline stage: not ported yet (ROADMAP item 16)")
+                   help="virtual layer chunks per pipeline stage: not ported yet (ROADMAP item 16b)")
     p.add_argument("--moe-experts", type=int, default=0,
                    help="replace every block's MLP with this many routed experts (LM only; "
                         "0 = dense MLP)")
@@ -467,7 +480,7 @@ def parse_args(argv=None):
 #: raises ``NotImplementedError`` naming the item (after the reference's own
 #: checks of the value, ``_validate_reference_rules``).
 UNPORTED_FLAGS = {
-    "16": ("pp", "pp_microbatches", "pp_schedule", "pp_virtual"),
+    "16b": ("pp_virtual",),
     "11b": ("compile_cache", "dispatch_depth"),
     "13": ("elastic", "elastic_dir", "min_procs"),
     "20": ("integrity_every", "integrity_shadow"),
@@ -483,6 +496,11 @@ def _refuse_unported(p, args) -> None:
             if getattr(args, dest) != p.get_default(dest):
                 raise NotImplementedError(f"--{dest.replace('_', '-')} is not ported yet: "
                                           f"ROADMAP.md Queue 1, item {item}")
+    # Values of ported flags whose feature is not ported yet.
+    if args.pp_schedule == "zb":
+        raise NotImplementedError("--pp-schedule zb is not ported yet: ROADMAP.md Queue 1, item 16b")
+    if args.pp > 1 and args.cp > 1:
+        raise NotImplementedError("--pp with --cp is not ported yet: ROADMAP.md Queue 1, item 16b")
 
 
 def _bad(*pairs) -> list[str]:
@@ -596,6 +614,7 @@ def _validate_layout(args) -> None:
                    ("--bucket-mb", bool(args.bucket_mb)))
         if bad:
             raise SystemExit(f"--fsdp composes with --tp only; drop {', '.join(bad)}")
+    if args.fsdp or args.pp > 1:
         if args.dropout:
             raise SystemExit("--dropout trains under DP/ZeRO/TP/EP/CP (scan + remat included); "
                              "--fsdp and --pp do not support it")
@@ -691,8 +710,8 @@ def build_config(args, vocab_size: int | None = None) -> tfm.TransformerConfig:
     overrides = dict(vocab_size=vocab_size or args.vocab_size, max_seq_len=args.seq_len)
     if args.cp > 1:
         overrides.update(cp_axis=rt.SEQ_AXIS, cp_impl=args.cp_impl)
-    if args.fsdp:
-        overrides["scan_layers"] = True  # FSDP's stacked layer flats (dpp.py:930-932)
+    if args.fsdp or args.pp > 1:
+        overrides["scan_layers"] = True  # FSDP's flats, the stages' slices (dpp.py:930-932)
     if args.tp > 1:
         overrides["tp_axis"] = rt.MODEL_AXIS
     if args.dropout:
@@ -898,11 +917,12 @@ class Trainer:
 
 
 def build_mesh(args, world_size: int):
-    """The reference's mesh for ``--cp`` / ``--ep`` / ``--tp``
-    (``dpp.py:511-533``): data outermost, then ``seq``, ``expert``,
-    ``model``; None for plain DP."""
+    """The reference's mesh for ``--cp`` / ``--pp`` / ``--ep`` / ``--tp``
+    (``dpp.py:511-533``): data outermost, then ``seq``, ``pipe``,
+    ``expert``, ``model``; None for plain DP."""
     axes, sizes = [rt.DATA_AXIS], []
-    for degree, name in ((args.cp, rt.SEQ_AXIS), (args.ep, rt.EXPERT_AXIS), (args.tp, rt.MODEL_AXIS)):
+    for degree, name in ((args.cp, rt.SEQ_AXIS), (args.pp, rt.PIPE_AXIS), (args.ep, rt.EXPERT_AXIS),
+                         (args.tp, rt.MODEL_AXIS)):
         if degree > 1:
             axes.append(name)
             sizes.append(degree)
@@ -929,14 +949,23 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
     ``train`` restores the newest checkpoint with ``--resume``.  Under
     ``--cp`` / ``--ep`` / ``--tp`` the mesh is formed here; every rank builds
     the full model from the seed and keeps its TP and EP shard of it (under
-    ``--fsdp`` its chunk of the flats, of its TP shard with ``--tp``)."""
+    ``--fsdp`` its chunk of the flats, of its TP shard with ``--tp``; under
+    ``--pp`` its stage's layers and the replicated leaves)."""
     lm = is_lm(args)
+    pp = args.pp > 1
     mesh = build_mesh(args, world_size)
     d_index, n_data = data_coords(mesh, rank, world_size)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     dataset = build_dataset(args, train=True)
     if lm:
         cfg = build_config(args, getattr(dataset, "vocab_size", None))
+        if pp:
+            # The reference's checks of the step factory's inputs (dpp.py:1610-1621).
+            if args.batch_size % (args.pp_microbatches or args.pp):
+                raise SystemExit(f"--batch-size {args.batch_size} must be divisible by "
+                                 f"--pp-microbatches {args.pp_microbatches or args.pp}")
+            if cfg.num_layers % args.pp:
+                raise SystemExit(f"model layer count {cfg.num_layers} must be divisible by --pp {args.pp}")
         model = tfm.TransformerLM(dataclasses.replace(cfg, tp_axis=None, ep_axis=None), device=device,
                                   generator=gen)
     else:
@@ -946,10 +975,14 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
         if rank == 0:
             print(f"loaded pretrained weights from {args.pretrained}", flush=True)
     broadcast_params(model)  # DDP constructor broadcast
-    if lm and (cfg.tp_axis or cfg.ep_axis) and not args.fsdp:  # FSDP cuts its TP shards from the whole model
-        full = model.state_dict()
-        model = tfm.TransformerLM(cfg, device=device)
-        model.load_state_dict(shard_model_axes(full, cfg.tp_axis, cfg.ep_axis))
+    if lm and (cfg.tp_axis or cfg.ep_axis or pp) and not args.fsdp:  # FSDP cuts its TP shards from the whole model
+        full = shard_model_axes(model.state_dict(), cfg.tp_axis, cfg.ep_axis)
+        del model
+        if pp:  # this stage's layers and the replicated leaves
+            model = pipeline_parallel.stage_model(cfg, full, mesh.index(rt.PIPE_AXIS), args.pp, device=device)
+        else:
+            model = tfm.TransformerLM(cfg, device=device)
+            model.load_state_dict(full)
         del full
     seq_shard = (mesh.index(rt.SEQ_AXIS), mesh.size(rt.SEQ_AXIS)) if args.cp > 1 else None
 
@@ -981,7 +1014,7 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
                            level=args.zero, moment_dtype=args.moment_dtype, seed=args.seed,
                            bucket_bytes=bucket_bytes if args.zero >= 2 else None,
                            group=data_group, tp_axis=cfg.tp_axis if lm else None,
-                           ep_axis=cfg.ep_axis if lm else None)
+                           ep_axis=cfg.ep_axis if lm else None, pp_axis=rt.PIPE_AXIS if pp else None)
     else:
         state = TrainState(model, *build_optimizer(args, model.parameters(), total_steps))
         if args.grad_compress == "powersgd":
@@ -990,6 +1023,11 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
     if args.fsdp:
         step_fn = fsdp.make_fsdp_train_step(_loss_fn, accum_steps=args.accum_steps, grad_clip=args.grad_clip,
                                             tp_axis=cfg.tp_axis)
+    elif pp:
+        # The microbatch loop is the accumulation (dpp.py:1606-1629).
+        step_fn = pipeline_parallel.make_pp_train_step(
+            cfg, microbatches=args.pp_microbatches or args.pp, schedule=args.pp_schedule, zero=args.zero,
+            grad_clip=args.grad_clip, moe_aux_weight=args.moe_aux_weight if args.moe_experts else 0.0)
     else:
         step_fn = make_train_step(
             lm_loss_fn(args) if lm else _image_loss_fn, accum_steps=args.accum_steps,
@@ -1001,8 +1039,12 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
     trainer = Trainer(state=state, step_fn=step_fn, loader=loader, steps_per_epoch=spe)
     if args.eval:
         metric_fn = _metric_fn if lm else _image_metric_fn
-        trainer.eval_step = (fsdp.make_fsdp_eval_step() if args.fsdp  # streams the per-layer gathers
-                             else make_eval_step(metric_fn, seq_axis=cfg.cp_axis if lm else None))
+        if args.fsdp:  # streams the per-layer gathers
+            trainer.eval_step = fsdp.make_fsdp_eval_step()
+        elif pp:  # GPipe forwards, masked over the padded tail (dpp.py:2000-2015)
+            trainer.eval_step = pipeline_parallel.make_pp_eval_step(cfg, microbatches=args.pp_microbatches or args.pp)
+        else:
+            trainer.eval_step = make_eval_step(metric_fn, seq_axis=cfg.cp_axis if lm else None)
         trainer.eval_loader = DataLoader(
             build_dataset(args, train=False),
             per_replica_batch=args.batch_size, rank=d_index, num_replicas=n_data,
@@ -1028,8 +1070,9 @@ def build_telemetry(args, trainer: Trainer, device: torch.device, rank: int,
         if lm:
             # The LM step trains on the shifted sequence: seq_len - 1
             # positions, as the reference counts them.
-            fwd = transformer_fwd_flops(model.cfg, batch=rows, seq_len=args.seq_len - 1)
-            remat = bool(model.cfg.remat)
+            cfg = getattr(model, "full_cfg", model.cfg)  # a pipeline stage's: the whole model's
+            fwd = transformer_fwd_flops(cfg, batch=rows, seq_len=args.seq_len - 1)
+            remat = bool(cfg.remat)
         else:
             shape = tuple(getattr(dataset, "image_shape", None) or dataset.images.shape[1:])
             classes = getattr(dataset, "num_classes", None) or 10
@@ -1128,7 +1171,12 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
                     if bad:
                         tel.nan_skip(gstep, epoch, i)
                     faults.breaker.observe(bad)
-                tel.step_end(gstep, None if aux is None else {"moe_aux": aux})
+                counts = metrics.get("pp_phase_counts")  # 1F1B's units a stage, once per run
+                tel.step_end(gstep, None if aux is None else {"moe_aux": aux}, pp_phase=None if counts is None else
+                             phase_counts_payload(counts, schedule=args.pp_schedule, n_stages=args.pp,
+                                                  virtual=args.pp_virtual,
+                                                  microbatches=args.pp_microbatches or args.pp,
+                                                  accounting=step_fn.bubble_accounting, step=gstep))
                 if watchdog is not None:
                     # Armed after the first step, which builds the kernels.
                     if watchdog.running:

@@ -109,14 +109,18 @@ def unstack_scanned_layers(params: Mapping, num_layers: int, prefix: str = "laye
 
 
 def from_jax_params(params, cfg: TransformerConfig | nn.Module, *, tp_rank: int = 0,
-                    tp_size: int = 1, ep_rank: int = 0, ep_size: int = 1) -> dict[str, torch.Tensor]:
+                    tp_size: int = 1, ep_rank: int = 0, ep_size: int = 1, pp_rank: int = 0,
+                    pp_size: int = 1) -> dict[str, torch.Tensor]:
     """Reference flax tree -> this port's state_dict (CPU float32 tensors).
     An LM tree may be in either layer layout.  With ``tp_size > 1`` the
     result is tensor-parallel rank ``tp_rank``'s shard of it
     (``parallel.tensor_parallel.shard_state_dict_tp``: its query and kv
     heads and hidden units; the rest whole); with ``ep_size > 1`` expert
     rank ``ep_rank``'s (``parallel.expert_parallel.shard_state_dict_ep``:
-    experts ``[r*E/ep, (r+1)*E/ep)`` of each MoE block)."""
+    experts ``[r*E/ep, (r+1)*E/ep)`` of each MoE block); with ``pp_size >
+    1`` pipeline stage ``pp_rank``'s
+    (``parallel.pipeline_parallel.shard_state_dict_pp``: its layers,
+    renumbered from 0, and the replicated leaves; a ``StageLM``'s)."""
     if not isinstance(cfg, TransformerConfig):
         return _tensors(_image_from_jax(params, cfg))
     if "layers" in params:
@@ -163,6 +167,10 @@ def from_jax_params(params, cfg: TransformerConfig | nn.Module, *, tp_rank: int 
         from distributeddataparallel_tpu_torch.parallel.expert_parallel import shard_state_dict_ep
 
         sd = shard_state_dict_ep(sd, ep_rank, ep_size)
+    if pp_size > 1:
+        from distributeddataparallel_tpu_torch.parallel.pipeline_parallel import shard_state_dict_pp
+
+        sd = shard_state_dict_pp(sd, pp_rank, pp_size)
     return sd
 
 

@@ -59,6 +59,9 @@ flash kernels for CUDA tensors).
   tokens); ``forward(with_aux=True)`` also returns the load-balance term.
   ``ep_axis`` shards the experts over that axis
   (``parallel.expert_parallel``).
+- ``forward`` is ``embed``, ``blocks`` and ``head`` in turn: a pipeline
+  stage (``parallel.pipeline_parallel.StageLM``, a ``TransformerLM`` of its
+  layers) calls them one by one.
 
 Config fields of the reference that this port does not run yet are kept so
 configs carry over, and raise ``NotImplementedError`` naming the ROADMAP
@@ -655,18 +658,34 @@ class TransformerLM(nn.Module):
         drop = self.training and cfg.dropout_rate > 0
         if drop and dropout_seed is None:
             raise ValueError("training with dropout_rate > 0 needs forward(dropout_seed=...)")
+        seed = dropout_seed if drop else None
+        x, auxes = self.blocks(self.embed(tokens, positions, seed), positions, seed)
+        logits = self.head(x)
+        if not with_aux:
+            return logits
+        return logits, sum(auxes) / len(auxes) if auxes else torch.zeros((), device=logits.device)
+
+    def embed(self, tokens, positions=None, dropout_seed=None):
+        """The input block: token (and learned positional) embeddings in
+        ``cfg.dtype``, dropped with ``dropout_seed`` when it is given."""
+        cfg = self.cfg
         x = self.token_embed(tokens).to(cfg.dtype)
-        rope = None
         if cfg.positional == "learned":
-            pos = self.pos_embed[:S] if positions is None else self.pos_embed[positions]
+            pos = self.pos_embed[: tokens.shape[1]] if positions is None else self.pos_embed[positions]
             x = x + pos.to(cfg.dtype)
-        else:
-            rope = (self.rope_cos, self.rope_sin)
-        if drop:
+        if dropout_seed is not None:
             x = dropout(x, cfg.dropout_rate, fold_seed(dropout_seed, 0))
+        return x
+
+    def blocks(self, x, positions=None, dropout_seed=None):
+        """The decoder blocks on ``x`` (checkpointed under ``remat`` while
+        gradients are recorded): ``(x, auxes)``, the MoE blocks'
+        load-balance terms in layer order (empty without MoE)."""
+        cfg = self.cfg
+        rope = (self.rope_cos, self.rope_sin) if cfg.positional == "rope" else None
         auxes = []
         for i, layer in enumerate(self.layers):
-            seed = fold_seed(dropout_seed, i + 1) if drop else None
+            seed = None if dropout_seed is None else fold_seed(dropout_seed, i + 1)
             if cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, rope, seed, positions, use_reentrant=False)
             else:
@@ -674,12 +693,13 @@ class TransformerLM(nn.Module):
             if cfg.moe_experts:
                 x, aux = x
                 auxes.append(aux)
+        return x, auxes
+
+    def head(self, x):
+        """The output block: the final norm and the f32 logits."""
         x = self.final_norm(x)
-        w = self.token_embed.weight if cfg.tie_embeddings else self.lm_head.weight
-        logits = f32_logits(x, w, cfg.dtype)
-        if not with_aux:
-            return logits
-        return logits, sum(auxes) / len(auxes) if auxes else torch.zeros((), device=logits.device)
+        w = self.token_embed.weight if self.cfg.tie_embeddings else self.lm_head.weight
+        return f32_logits(x, w, self.cfg.dtype)
 
     def _decode(self, tokens, positions, cache, qparams):
         """The decode twin's forward (ref ``TransformerLM.__call__`` with

@@ -1,0 +1,607 @@
+"""Pipeline parallelism: GPipe and 1F1B over a ``pipe`` mesh axis.
+
+Counterpart of the GPipe and 1F1B schedules of
+``distributeddataparallel_tpu/parallel/pipeline_parallel.py``.  Stage ``s``
+of ``n`` holds layers ``[s L/n, (s+1) L/n)`` of the model (the leading-dim
+slice of the reference's stacked layout, ``pp_param_specs``) and the
+replicated leaves: the token embedding, the positional embedding,
+``final_norm`` and ``lm_head``.  ``StageLM`` is the model's own
+``TransformerLM`` cut to that slice: stage 0 embeds with its ``embed``, every
+stage runs its ``blocks`` (the model's ``DecoderBlock``s, checkpointed under
+``remat``), stage n-1 applies its ``head`` and the loss.  A step splits the
+rank's rows into M microbatches (``inputs.reshape(M, B/M, S)``) and passes
+each microbatch's activations (in ``cfg.dtype``) to the next stage and its
+cotangent back, point to point over the ``pipe`` group (``_Pipe``).
+
+- GPipe (``pp_loss`` in the reference): every forward, then every backward
+  in reverse order; each microbatch's graph lives until its backward.
+- 1F1B (``_pp_1f1b_loss_and_grads``): ``n - s - 1`` warm-up forwards, then
+  one forward and one backward in turn, then the cool-down backwards
+  (Megatron-LM's schedule, arXiv 2104.04473 §2.2).  A forward unit runs
+  without gradients and keeps only the stage's input; the backward unit
+  runs the stage forward again under autograd (stage-granular
+  checkpointing, the reference's recompute in its B tick), so at most
+  ``n - s`` microbatches are held, whatever M.  The last stage's forward
+  unit keeps its input only: its backward unit, which comes next, runs the
+  stage forward with gradients.  In the steady state a stage's send and
+  the receive it waits for go in one ``batch_isend_irecv``
+  (``send_forward_recv_backward``), so neighbours never both block on a
+  send.
+
+The loss is the last stage's microbatch losses summed over the pipe and
+divided by M; with MoE and ``moe_aux_weight`` > 0 it adds ``moe_aux_weight
+x (the pipe sum of each stage's per-microbatch aux terms) / (n M)``, each
+aux term's cotangent that constant (reference ``:1068-1115``, ``:475-480``).
+After the schedule the replicated leaves' gradients are summed over the
+pipe (only stages 0 and n-1 contribute; GPT-2's tied embedding gets both),
+then the data-parallel mean, or ZeRO-1 over ``data`` on the stage-local
+layout, then the clip, whose norm sums the layer slices over the pipe (and
+the model and expert axes) and counts the replicated leaves once.
+
+TP and EP compose inside a stage (the blocks' own collectives over the
+``model`` / ``expert`` groups).  Not run here: the zero-bubble schedule,
+interleaved virtual stages and PP x CP (ROADMAP item 16b), and dropout (as
+the reference).  The tick arithmetic (``_1f1b_ticks``, ``_zb_segments``,
+``pp_bubble_fraction``) is the reference's, for every schedule: it counts,
+and the 1F1B step's ``pp_phase_counts`` must equal its table.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import re
+
+import torch
+import torch.distributed as dist
+
+from distributeddataparallel_tpu_torch.models import transformer as tfm
+from distributeddataparallel_tpu_torch.ops.losses import (
+    accuracy,
+    lm_cross_entropy,
+    per_example_accuracy,
+    per_example_cross_entropy,
+)
+from distributeddataparallel_tpu_torch.parallel.data_parallel import (
+    all_reduce_gradients,
+    clip_scale,
+    group_active,
+    sumsq_f32,
+)
+from distributeddataparallel_tpu_torch.parallel.expert_parallel import ep_dim
+from distributeddataparallel_tpu_torch.parallel.tensor_parallel import tp_dim
+from distributeddataparallel_tpu_torch.runtime.distributed import (
+    DATA_AXIS,
+    PIPE_AXIS,
+    axis_group,
+    axis_index,
+    axis_size,
+    current_mesh,
+)
+
+SCHEDULES = ("gpipe", "1f1b")
+_NOT_PORTED = "ROADMAP.md Queue 1, item 16b"
+
+
+# --- the tick arithmetic (the reference's, for every schedule) -----------
+
+def _1f1b_ticks(n: int, M: int, v: int) -> tuple[int, int]:
+    """(last valid unit index, scan length T) of the reference's 1F1B
+    schedule: THE tick arithmetic its bubble accounting shares."""
+    j_last = ((M - 1) // n) * n * v + (v - 1) * n + (M - 1) % n
+    return j_last, j_last + v * n + n - 1
+
+
+def _zb_segments(n: int, M: int, v: int) -> tuple[int, int, int, int]:
+    """(warmup, steady, drain, f_end) tick-segment lengths of the
+    reference's zero-bubble schedule."""
+    j_last, T = _1f1b_ticks(n, M, v)
+    warm = v * n - 1
+    f_end = j_last + n
+    return warm, f_end - warm, T - f_end, f_end
+
+
+def pp_bubble_fraction(n: int, microbatches: int, virtual: int = 1, schedule: str = "1f1b") -> dict:
+    """The reference's slot accounting of a schedule's bubble: useful
+    unit-slots over the slot capacity of its tick table (1F1B: ``2 M v`` of
+    ``2 T``; zb: ``3 M v`` of ``3 (j_last + n)``)."""
+    M, v = microbatches, virtual
+    j_last, T = _1f1b_ticks(n, M, v)
+    if schedule == "zb":
+        warm, steady, drain, f_end = _zb_segments(n, M, v)
+        useful, total = 3 * M * v, 3 * f_end
+        return {
+            "n_stages": n, "microbatches": M, "virtual": v, "schedule": "zb", "ticks": T,
+            "segments": {"warmup": warm, "steady": steady, "drain": drain},
+            "slot_windows": {"F": (0, f_end), "B": (v * n - 1, T), "W": (v * n - 1, T)},
+            "useful_slots": useful, "slot_capacity": total,
+            "bubble_fraction": round((total - useful) / total, 4),
+            "bubble_stage_units": round((total - useful) / (3 * v), 4),
+        }
+    useful, total = 2 * M * v, 2 * T
+    return {
+        "n_stages": n, "microbatches": M, "virtual": v, "schedule": "1f1b", "ticks": T,
+        "slot_windows": {"F": (0, T), "B": (0, T)},
+        "useful_slots": useful, "slot_capacity": total,
+        "bubble_fraction": round((total - useful) / total, 4),
+        "bubble_stage_units": round((total - useful) / (2 * v), 4),
+    }
+
+
+# --- the stage's parameters ----------------------------------------------
+
+_LAYER = re.compile(r"^layers\.(\d+)\.")
+
+
+def stage_layers(num_layers: int, n: int, stage: int) -> range:
+    """The global indices of stage ``stage``'s layers."""
+    if num_layers % n:
+        raise ValueError(f"pipeline: num_layers {num_layers} not divisible by {n} stages")
+    per = num_layers // n
+    return range(stage * per, (stage + 1) * per)
+
+
+def _layer_count(state_dict: dict) -> int:
+    return 1 + max((int(m.group(1)) for k in state_dict if (m := _LAYER.match(k))), default=-1)
+
+
+def shard_state_dict_pp(state_dict: dict, stage: int, n: int) -> dict:
+    """Stage ``stage``'s part of a whole LM ``state_dict``: its layers,
+    renumbered from 0, and every replicated leaf (the reference's
+    ``shard_state_pp`` for one position)."""
+    mine = stage_layers(_layer_count(state_dict), n, stage)
+    out = {}
+    for k, t in state_dict.items():
+        m = _LAYER.match(k)
+        if m is None:
+            out[k] = t
+        elif int(m.group(1)) in mine:
+            out[f"layers.{int(m.group(1)) - mine.start}.{k[m.end():]}"] = t
+    return out
+
+
+def merge_pp_shards(shards: list[dict]) -> dict:
+    """Inverse of ``shard_state_dict_pp``: the whole ``state_dict`` from
+    every stage's part, in stage order (the replicated leaves from stage
+    0)."""
+    out = {k: t for k, t in shards[0].items() if not _LAYER.match(k)}
+    start = 0
+    for sd in shards:
+        for k, t in sd.items():
+            if m := _LAYER.match(k):
+                out[f"layers.{start + int(m.group(1))}.{k[m.end():]}"] = t
+        start += _layer_count(sd)
+    return out
+
+
+def is_replicated(name: str) -> bool:
+    """Is parameter ``name`` on every stage (not a layer's)?"""
+    return _LAYER.match(name) is None
+
+
+def _check_config(cfg: tfm.TransformerConfig) -> None:
+    """The reference's checks of a pipelined config (``:337``, ``:1007``)."""
+    if not cfg.scan_layers:
+        raise ValueError("pipeline parallelism requires scan_layers=True")
+    if cfg.dropout_rate:
+        raise ValueError("pipeline v1 does not support dropout")
+    if cfg.cp_axis is not None:
+        raise NotImplementedError(f"pipeline parallelism with cp_axis is not ported yet: {_NOT_PORTED}")
+
+
+def stage_config(cfg: tfm.TransformerConfig, n: int) -> tfm.TransformerConfig:
+    """The config of one of ``n`` stages: ``L / n`` layers."""
+    _check_config(cfg)
+    return dataclasses.replace(cfg, num_layers=len(stage_layers(cfg.num_layers, n, 0)))
+
+
+class StageLM(tfm.TransformerLM):
+    """Stage ``stage`` of ``n_stages``: a ``TransformerLM`` of the stage's
+    ``L / n`` layers (renumbered from 0) with every replicated leaf.  The
+    schedules call its ``embed``, ``blocks`` and ``head``; ``full_cfg`` is
+    the whole model's config."""
+
+    def __init__(self, cfg: tfm.TransformerConfig, stage: int, n_stages: int, *, device=None, generator=None):
+        super().__init__(stage_config(cfg, n_stages), device=device, generator=generator)
+        self.full_cfg, self.stage, self.n_stages = cfg, stage, n_stages
+
+    def forward(self, *args, **kwargs):
+        raise TypeError("a pipeline stage runs through make_pp_train_step / make_pp_eval_step")
+
+
+def stage_model(cfg, full_state_dict: dict, stage: int, n: int, *, device=None) -> StageLM:
+    """Stage ``stage`` of ``n`` with its part of ``full_state_dict``."""
+    model = StageLM(cfg, stage, n, device=device)
+    model.load_state_dict(shard_state_dict_pp(full_state_dict, stage, n))
+    return model
+
+
+# --- the exchange --------------------------------------------------------
+
+class _Pipe:
+    """A stage's point-to-point exchange with its neighbours over the pipe
+    group.  ``stage`` and ``n`` are its place; the six methods are the
+    schedules' (Megatron-LM's names); a first or last stage's missing
+    neighbour makes its sends no-ops and its receives None.  Each call
+    posts its sends and receives in one ``batch_isend_irecv`` and waits for
+    them.  ``like`` (shape, dtype, device) sizes the receive buffers; the
+    schedules set it per step.  Any object with these members can stand in
+    (stages as threads of one process)."""
+
+    def __init__(self, group, stage: int, n: int):
+        self.group, self.stage, self.n = group, stage, n
+        glob = (lambda i: i) if group is None else (lambda i: dist.get_global_rank(group, i))
+        self.prev = glob(stage - 1) if stage > 0 else None
+        self.next = glob(stage + 1) if stage < n - 1 else None
+        self.like = None
+        self._warm = False
+
+    def _buf(self):
+        shape, dtype, device = self.like
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    def _exchange(self, send_next=None, send_prev=None, recv_prev=False, recv_next=False):
+        if not self._warm:
+            # A group's first batch_isend_irecv must involve every rank of it
+            # (NCCL): one all-reduce over the pipe group comes first.
+            dist.all_reduce(torch.zeros(1, device=self.like[2]), group=self.group)
+            self._warm = True
+        ops, got = [], {}
+        if send_next is not None:
+            ops.append(dist.P2POp(dist.isend, send_next.contiguous(), self.next, self.group))
+        if send_prev is not None:
+            ops.append(dist.P2POp(dist.isend, send_prev.contiguous(), self.prev, self.group))
+        if recv_prev:
+            got["prev"] = self._buf()
+            ops.append(dist.P2POp(dist.irecv, got["prev"], self.prev, self.group))
+        if recv_next:
+            got["next"] = self._buf()
+            ops.append(dist.P2POp(dist.irecv, got["next"], self.next, self.group))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return got
+
+    def recv_forward(self):
+        return None if self.prev is None else self._exchange(recv_prev=True)["prev"]
+
+    def send_forward(self, y) -> None:
+        if self.next is not None:
+            self._exchange(send_next=y)
+
+    def recv_backward(self):
+        return None if self.next is None else self._exchange(recv_next=True)["next"]
+
+    def send_backward(self, dx) -> None:
+        if self.prev is not None:
+            self._exchange(send_prev=dx)
+
+    def send_forward_recv_backward(self, y):
+        return None if self.next is None else self._exchange(send_next=y, recv_next=True)["next"]
+
+    def send_backward_recv_forward(self, dx):
+        return None if self.prev is None else self._exchange(send_prev=dx, recv_prev=True)["prev"]
+
+
+# --- the schedules -------------------------------------------------------
+
+@dataclasses.dataclass
+class StageRun:
+    """One stage's results of a schedule: the sums over its microbatches of
+    the loss and the accuracy (last stage; 0 elsewhere) and of its aux
+    terms (tensors on the device), its executed [F, B, W] units, and the
+    most microbatches it held between their forward and their backward."""
+    loss_sum: torch.Tensor
+    acc_sum: torch.Tensor
+    aux_sum: torch.Tensor
+    counts: list
+    max_held: int
+
+
+def _stage_body(stage: StageLM, x):
+    """The stage's blocks on ``x``: ``(y, aux)``, aux the mean of its
+    layers' load-balance terms (None without MoE; ref
+    ``moe_aux_from_intermediates`` over the stage's slice)."""
+    y, auxes = stage.blocks(x)
+    return y, (sum(auxes) / len(auxes) if auxes else None)
+
+
+def _head_loss(stage: StageLM, y, tgt):
+    logits = stage.head(y)
+    return lm_cross_entropy(logits, tgt), accuracy(logits, tgt).detach()
+
+
+def run_schedule(stage: StageLM, pipe, inputs, targets, *, microbatches: int, schedule: str = "gpipe",
+                 moe_aux_weight: float = 0.0) -> StageRun:
+    """Stage ``stage``'s part of one pipelined forward and backward over
+    ``inputs`` / ``targets`` (B, S) through ``pipe``: the gradients of
+    ``sum_m loss_m / M`` (+ the aux term) accumulate in the stage's
+    ``.grad`` buffers.  ``schedule``: ``"gpipe"`` or ``"1f1b"``."""
+    if schedule not in SCHEDULES:
+        raise (NotImplementedError(f"pipeline schedule {schedule!r} is not ported yet: {_NOT_PORTED}")
+               if schedule == "zb" else ValueError(f"unknown pipeline schedule {schedule!r}"))
+    M, n, s = microbatches, stage.n_stages, stage.stage
+    B, S = inputs.shape
+    if B % M:
+        raise ValueError(f"per-replica batch {B} is not divisible by {M} microbatches")
+    cfg = stage.cfg
+    if S > cfg.max_seq_len:
+        raise ValueError(f"global seq len {S} > max_seq_len {cfg.max_seq_len}")
+    ins, tgts = inputs.reshape(M, B // M, S), targets.reshape(M, B // M, S)
+    pipe.like = ((B // M, S, cfg.d_model), cfg.dtype, inputs.device)
+    first, last = s == 0, s == n - 1
+    use_aux = cfg.moe_experts > 0 and moe_aux_weight > 0
+    aux_grad = moe_aux_weight / (n * M)
+    zero = torch.zeros((), device=inputs.device)
+    run = StageRun(zero, zero, zero, [0, 0, 0], 0)
+
+    def output(m, y):
+        """The last stage's microbatch loss (its sums kept), y elsewhere."""
+        if not last:
+            return y
+        loss, acc = _head_loss(stage, y, tgts[m])
+        run.loss_sum, run.acc_sum = run.loss_sum + loss.detach(), run.acc_sum + acc
+        return loss
+
+    def backward(x, out, aux, dy):
+        """A microbatch's backward through the stage's graph (``out`` from
+        input x: the loss on the last stage, y elsewhere, which takes the
+        cotangent dy); returns the cotangent of x (None on stage 0)."""
+        outs, grads = [out], [torch.full_like(out, 1.0 / M) if last else dy]
+        if use_aux:
+            run.aux_sum = run.aux_sum + aux.detach()
+            outs.append(aux)
+            grads.append(torch.full_like(aux, aux_grad))
+        torch.autograd.backward(outs, grads)
+        run.counts[1] += 1
+        return None if first else x.grad
+
+    def stage_in(m, received):
+        return stage.embed(ins[m]) if first else received.requires_grad_()
+
+    if schedule == "gpipe":
+        held = []
+        for m in range(M):
+            x = stage_in(m, pipe.recv_forward())
+            y, aux = _stage_body(stage, x)
+            if not last:
+                pipe.send_forward(y.detach())
+            held.append((x, output(m, y), aux))
+            run.counts[0] += 1
+        run.max_held = len(held)
+        for _ in range(M):
+            pipe.send_backward(backward(*held.pop(), pipe.recv_backward()))
+        return run
+
+    stored = collections.deque()  # the held microbatches' stage inputs, oldest first
+    nxt = {"f": 0, "b": 0}
+
+    def forward_unit(received):
+        m = nxt["f"]
+        nxt["f"] += 1
+        stored.append(received)
+        run.counts[0] += 1
+        run.max_held = max(run.max_held, len(stored))
+        if last:  # its backward unit, next, runs the stage forward with gradients
+            return None
+        with torch.no_grad():
+            return _stage_body(stage, stage.embed(ins[m]) if first else received)[0]
+
+    def backward_unit(dy):
+        m = nxt["b"]
+        nxt["b"] += 1
+        x = stage_in(m, stored.popleft())
+        y, aux = _stage_body(stage, x)
+        return backward(x, output(m, y), aux, dy)
+
+    warm = min(n - s - 1, M)
+    rest = M - warm
+    for _ in range(warm):
+        pipe.send_forward(forward_unit(pipe.recv_forward()))
+    received = pipe.recv_forward() if rest else None
+    for i in range(rest):
+        dy = pipe.send_forward_recv_backward(forward_unit(received))
+        dx = backward_unit(dy)
+        if i == rest - 1:
+            pipe.send_backward(dx)
+        else:
+            received = pipe.send_backward_recv_forward(dx)
+    for _ in range(warm):
+        pipe.send_backward(backward_unit(pipe.recv_backward()))
+    return run
+
+
+# --- the train and eval steps --------------------------------------------
+
+class _Groups:
+    """The step's process groups, resolved from the current mesh when the
+    step first runs."""
+
+    def __init__(self, cfg):
+        mesh = current_mesh()
+        if mesh is None or PIPE_AXIS not in mesh.axes:
+            raise ValueError(f"pipeline parallelism needs a mesh with the {PIPE_AXIS!r} axis "
+                             f"(runtime.distributed.make_mesh)")
+        self.n, self.stage = axis_size(PIPE_AXIS), axis_index(PIPE_AXIS)
+        self.pipe = axis_group(PIPE_AXIS)
+        self.data = axis_group(DATA_AXIS) if DATA_AXIS in mesh.axes else None
+        self.model = axis_group(cfg.tp_axis) if axis_size(cfg.tp_axis) > 1 else None
+        self.expert = axis_group(cfg.ep_axis) if axis_size(cfg.ep_axis) > 1 else None
+
+
+def _check_stage(model, g: _Groups) -> None:
+    if not isinstance(model, StageLM) or (model.stage, model.n_stages) != (g.stage, g.n):
+        raise ValueError(f"the model must be StageLM stage {g.stage} of {g.n} (pipeline_parallel.stage_model)")
+
+
+def _pipe_complete(state, g: _Groups) -> None:
+    """Sum the replicated leaves' gradients over the pipe, in place (under
+    ZeRO, their ranges of the flat gradient buffer)."""
+    if not group_active(g.pipe):
+        return
+    replicated = [p for k, p in state.model.named_parameters() if is_replicated(k)]
+    if state.zero is not None:
+        ids = {id(p) for p in replicated}
+        for pc in state.zero.pieces:
+            if id(pc.param) in ids:
+                dist.all_reduce(state.zero.grad[pc.offset : pc.offset + pc.param.numel()], group=g.pipe)
+        return
+    for p in replicated:
+        dist.all_reduce(p.grad, group=g.pipe)
+
+
+def pp_sumsq(model, g: _Groups) -> torch.Tensor:
+    """The global sum of squares of the synced gradients: each stage's
+    layer leaves summed over the pipe (their TP / expert shards over the
+    ``model`` / ``expert`` groups first), the replicated leaves (equal on
+    every stage once completed) counted once (ref ``model_axes_sumsq``)."""
+    named = [(k, p.grad) for k, p in model.named_parameters()]
+    device = named[0][1].device
+    f32 = lambda gs: torch.as_tensor(sumsq_f32(gs), dtype=torch.float32, device=device)
+    layers = [(k, t) for k, t in named if not is_replicated(k)]
+    total = f32([t for k, t in layers if tp_dim(k) is None and ep_dim(k) is None])
+    for group, on in ((g.model, tp_dim), (g.expert, ep_dim)):
+        part = f32([t for k, t in layers if on(k) is not None])
+        if group is not None:
+            dist.all_reduce(part, group=group)
+        total = total + part
+    if group_active(g.pipe):
+        dist.all_reduce(total, group=g.pipe)
+    return total + f32([t for k, t in named if is_replicated(k)])
+
+
+def make_pp_train_step(cfg, *, microbatches: int, schedule: str = "gpipe", zero: bool | int = False,
+                       grad_clip: float | None = None, moe_aux_weight: float = 0.0, virtual: int = 1):
+    """Build ``step(state, batch[, seed]) -> metrics`` for DP x PP (x TP
+    or EP inside the stages): ``state.model`` is this rank's ``StageLM``
+    (``stage_model``), or ZeRO-1's state over it (``zero_state(...,
+    pp_axis=...)``), and ``batch = {"tokens": (B, S + 1)}`` this data
+    replica's rows (the same on every stage of its pipe line), ``B``
+    divisible by ``microbatches``.
+
+    The metrics are the loss, the accuracy (the last stage's, over its
+    microbatches) and with MoE ``moe_aux``, means over the data replicas;
+    under 1F1B also ``pp_phase_counts``, the ``(n, 3)`` [F, B, W] table of
+    units each stage ran (the reference's, gathered over the pipe).
+    ``step.last`` is this stage's ``StageRun`` of the last step;
+    ``step.bubble_accounting`` is ``pp_bubble_fraction`` under 1F1B (None
+    under GPipe, as the reference)."""
+    if schedule == "zb" or virtual > 1:
+        raise NotImplementedError(f"the zero-bubble schedule and virtual stages are not ported yet: {_NOT_PORTED}")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    zero_level = int(zero)
+    if zero_level not in (0, 1):
+        raise ValueError("pipeline parallelism composes with zero=1 only (the reference's rule)")
+    _check_config(cfg)
+    M = microbatches
+    resolved: list[_Groups] = []
+    exchanges: dict = {}
+
+    def step(state, batch: dict, seed=None) -> dict:
+        if not resolved:
+            resolved.append(_Groups(cfg))
+        g = resolved[0]
+        model = state.model
+        _check_stage(model, g)
+        if zero_level and state.zero is None:
+            raise ValueError("zero=1 needs a state from parallel.zero.zero_state(pp_axis=...)")
+        ex = exchanges.setdefault(id(model), _Pipe(g.pipe, g.stage, g.n))
+        model.train()
+        if state.zero is not None:
+            state.zero.prepare_grads()
+        else:
+            for p in model.parameters():
+                p.grad = None
+        tokens = batch["tokens"]
+        run = run_schedule(model, ex, tokens[:, :-1], tokens[:, 1:], microbatches=M, schedule=schedule,
+                           moe_aux_weight=moe_aux_weight)
+        step.last = run
+        for p in model.parameters():
+            if p.grad is None:  # a leaf this stage does not use: a zero gradient
+                p.grad = torch.zeros_like(p)
+        # The metrics and the unit counts in one pipe sum: the loss and the
+        # accuracy from the last stage, every stage's aux terms and counts.
+        vec = torch.zeros(3 + 3 * g.n, device=tokens.device)
+        vec[0], vec[1], vec[2] = run.loss_sum, run.acc_sum, run.aux_sum
+        vec[3 + 3 * g.stage : 6 + 3 * g.stage] = torch.tensor(run.counts, dtype=torch.float32)
+        if group_active(g.pipe):
+            dist.all_reduce(vec, group=g.pipe)
+        _pipe_complete(state, g)
+        if state.zero is not None:
+            from distributeddataparallel_tpu_torch.parallel.zero import zero_update
+
+            zero_update(state, grad_clip)
+        else:
+            all_reduce_gradients([p.grad for p in model.parameters()], group=g.data)
+            if grad_clip is not None:
+                scale = clip_scale(torch.sqrt(pp_sumsq(model, g)), grad_clip)
+                for p in model.parameters():
+                    p.grad.mul_(scale)
+            state.apply_gradients()
+        metrics = {"loss": vec[0] / M, "accuracy": vec[1] / M}
+        if cfg.moe_experts:
+            metrics["moe_aux"] = vec[2] / (g.n * M)
+            metrics["loss"] = metrics["loss"] + moe_aux_weight * metrics["moe_aux"]
+        if group_active(g.data):
+            keys = list(metrics)
+            means = torch.stack([metrics[k] for k in keys])
+            dist.all_reduce(means, group=g.data)
+            metrics = dict(zip(keys, (means / dist.get_world_size(g.data)).unbind()))
+        if schedule == "1f1b":
+            metrics["pp_phase_counts"] = vec[3:].reshape(g.n, 3).to(torch.int64).cpu()
+        return metrics
+
+    step.last = None
+    step.bubble_accounting = pp_bubble_fraction(axis_size(PIPE_AXIS), M) if schedule == "1f1b" else None
+    return step
+
+
+def make_pp_eval_step(cfg, *, microbatches: int):
+    """Forward-only pipelined evaluation (the reference's
+    ``make_pp_eval_step``): ``eval_step(model, batch) -> (means, count)``
+    with ``make_eval_step``'s contract, ``batch = {"tokens": (B, S + 1),
+    "valid": (B,)}``.  GPipe forwards over M microbatches, the rows padded
+    with ``valid = 0`` up to a multiple of M; the last stage's masked sums
+    of the per-row loss and accuracy are summed over the pipe and then over
+    the data replicas."""
+    _check_config(cfg)
+    M = microbatches
+    resolved: list[_Groups] = []
+    exchanges: dict = {}
+
+    @torch.no_grad()
+    def eval_step(model, batch: dict):
+        if not resolved:
+            resolved.append(_Groups(cfg))
+        g = resolved[0]
+        _check_stage(model, g)
+        ex = exchanges.setdefault(id(model), _Pipe(g.pipe, g.stage, g.n))
+        model.eval()
+        tokens, valid = batch["tokens"], batch["valid"].float()
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        pad = (-inputs.shape[0]) % M
+        if pad:  # a tail the microbatches do not divide: rows of weight 0
+            inputs = torch.cat([inputs, inputs.new_zeros(pad, inputs.shape[1])])
+            targets = torch.cat([targets, targets.new_zeros(pad, targets.shape[1])])
+            valid = torch.cat([valid, valid.new_zeros(pad)])
+        B, S = inputs.shape
+        if S > model.cfg.max_seq_len:
+            raise ValueError(f"global seq len {S} > max_seq_len {model.cfg.max_seq_len}")
+        ex.like = ((B // M, S, model.cfg.d_model), model.cfg.dtype, inputs.device)
+        sums = torch.zeros(3, device=inputs.device)
+        for m, (x_in, tgt, v) in enumerate(zip(inputs.chunk(M), targets.chunk(M), valid.chunk(M))):
+            x = model.embed(x_in) if g.stage == 0 else ex.recv_forward()
+            y, _ = model.blocks(x)
+            if g.stage < g.n - 1:
+                ex.send_forward(y)
+                continue
+            logits = model.head(y)
+            sums += torch.stack([(per_example_cross_entropy(logits, tgt) * v).sum(),
+                                 (per_example_accuracy(logits, tgt) * v).sum(), v.sum()])
+        for group in (g.pipe, g.data):
+            if group_active(group):
+                dist.all_reduce(sums, group=group)
+        denom = sums[2].clamp(min=1.0)
+        return {"loss": sums[0] / denom, "accuracy": sums[1] / denom}, sums[2]
+
+    return eval_step

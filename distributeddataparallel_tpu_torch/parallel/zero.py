@@ -49,6 +49,9 @@ shard of the parameters (its heads and hidden units, its experts), so the
 optimizer state is sharded n_data x n_tp x n_ep ways and the clip's norm
 weights each leaf ``1 / (the model-axis ranks holding it whole)`` and sums
 over the data group and each model-axis group (``tp_axis``, ``ep_axis``).
+A pipeline stage (``parallel.pipeline_parallel``, ``pp_axis``) flattens its
+layers and the replicated leaves the same way: each stage's flat vector is
+its own, sharded over its data group.
 """
 
 from __future__ import annotations
@@ -254,24 +257,26 @@ class ZeroLayout:
 
     def __init__(self, model: nn.Module, level: int, *, bucket_bytes: int | None = None,
                  rank: int | None = None, world: int | None = None, group=None, tp_axis: str | None = None,
-                 ep_axis: str | None = None):
+                 ep_axis: str | None = None, pp_axis: str | None = None):
         level = int(level)
         if level not in (1, 2, 3):
             raise ValueError(f"ZeRO level={level!r} (want 1, 2 or 3)")
-        n_tp, n_ep = axis_size(tp_axis), axis_size(ep_axis)
-        if (n_tp > 1 or n_ep > 1) and level != 1:
-            raise ValueError("zero=2/3 shard over the data axis only; compose tp/ep with zero=1 or the fsdp path")
+        n_tp, n_ep, n_pp = axis_size(tp_axis), axis_size(ep_axis), axis_size(pp_axis)
+        if (n_tp > 1 or n_ep > 1 or n_pp > 1) and level != 1:
+            raise ValueError("zero=2/3 shard over the data axis only; compose tp/ep/pp with zero=1 or the fsdp path")
         self.model, self.level, self.group = model, level, group
         if group is not None:
             rank, world = dist.get_rank(group), dist.get_world_size(group)
         self.rank = get_rank() if rank is None else rank
         self.world = get_world_size() if world is None else world
         named = jax_leaf_pieces(model)
-        # Under TP / EP: how many model-axis ranks hold each leaf whole
-        # (the clip's weights; None without either) and those axes' groups.
+        # Under TP / EP / PP: how many model-axis ranks hold each leaf whole
+        # (the clip's weights; None without any) and those axes' groups.  A
+        # pipeline stage holds its own layers and every replicated leaf.
         self.dup = ([(1 if flax_tp_dim(path) is not None else n_tp) * (1 if flax_ep_dim(path) is not None else n_ep)
-                     for path, _ in named] if n_tp > 1 or n_ep > 1 else None)
-        self.model_groups = [axis_group(a) for a, n in ((tp_axis, n_tp), (ep_axis, n_ep)) if n > 1]
+                     * (1 if path.split("/")[0] == "layers" else n_pp)
+                     for path, _ in named] if n_tp > 1 or n_ep > 1 or n_pp > 1 else None)
+        self.model_groups = [axis_group(a) for a, n in ((tp_axis, n_tp), (ep_axis, n_ep), (pp_axis, n_pp)) if n > 1]
         leaf_pieces = [[(p, kind) for p, kind, _ in pieces] for _, pieces in named]
         self.sizes = [sum(p.numel() for p, _ in pieces) for pieces in leaf_pieces]
         self.plan = (flat_plan(self.sizes, self.world) if level == 1
@@ -519,7 +524,7 @@ class LowBitMoments:
 
 def zero_state(model: nn.Module, build_optimizer, *, level: int = 1, moment_dtype: str | None = None,
                bucket_bytes: int | None = None, seed: int = 0, group=None, tp_axis: str | None = None,
-               ep_axis: str | None = None):
+               ep_axis: str | None = None, pp_axis: str | None = None):
     """A ``TrainState`` whose optimizer state is ZeRO-sharded: ``model``'s
     parameters in ``ZeroLayout(level)``, and ``build_optimizer(params)``
     (returning ``(optimizer, scheduler)``) called on this rank's shard
@@ -527,8 +532,10 @@ def zero_state(model: nn.Module, build_optimizer, *, level: int = 1, moment_dtyp
     ``LowBitMoments`` (``None``/``"f32"``: unchanged).  ``bucket_bytes``
     sizes the level 2/3 buckets.  ``group``: the data axis's process group
     (None: the world); ``tp_axis`` / ``ep_axis``: the mesh axes the
-    model's parameters are tensor- / expert-parallel over (level 1 only)."""
-    layout = ZeroLayout(model, level, bucket_bytes=bucket_bytes, group=group, tp_axis=tp_axis, ep_axis=ep_axis)
+    model's parameters are tensor- / expert-parallel over, ``pp_axis`` the
+    pipe axis of a pipeline stage's model (level 1 only)."""
+    layout = ZeroLayout(model, level, bucket_bytes=bucket_bytes, group=group, tp_axis=tp_axis, ep_axis=ep_axis,
+                        pp_axis=pp_axis)
     optimizer, scheduler = build_optimizer(layout.shard_params)
     moments = None
     if moment_dtype not in (None, "f32"):

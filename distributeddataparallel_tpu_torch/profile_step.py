@@ -22,6 +22,19 @@ sort and dispatch/combine ops, the expert GEMMs, attention (K1-K3), the LM
 head, AdamW and the rest (``moe_split``): each kernel is charged to the op
 that launched it (the profiler's self device time of that op, with its
 input shapes), so a forward op and its backward's ops land together.
+
+A pipeline (``--pp``) runs one process per GPU, so its split comes from the
+per-rank traces of a ``dpp --pp N --events-dir DIR --profile-steps A:B``
+run (``pp_split``):
+
+    python -m distributeddataparallel_tpu_torch.profile_step --pp-traces DIR/xprof \
+        --profile-steps B-A
+
+prints each stage's device ms a step: compute (every kernel but NCCL's),
+P2P (NCCL's send/recv kernels: the transfer and the wait for the peer,
+since such a kernel spins until its peer joins), the other collectives
+(the pipe completion, the data mean) and the span from the first kernel to
+the last.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -104,10 +118,42 @@ def moe_split(key_averages, groups: dict, n: int, experts: int, vocab: int) -> d
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+P2P_KERNEL = re.compile(r"nccl.*(sendrecv|send|recv)", re.IGNORECASE)
+
+
+def pp_split(trace_paths, steps: int) -> list[dict]:
+    """Each pipeline rank's device ms a step from its trace of ``steps``
+    steps (module docstring), in the order of ``trace_paths``."""
+    out = []
+    for path in trace_paths:
+        kernels = trace_kernels(path)
+        ms = lambda ks: sum(k["end"] - k["start"] for k in ks) / 1e3 / steps
+        nccl = [k for k in kernels if "nccl" in k["name"].lower()]
+        p2p = [k for k in nccl if P2P_KERNEL.search(k["name"])]
+        out.append({
+            "trace": os.path.basename(path),
+            "compute_ms": ms([k for k in kernels if "nccl" not in k["name"].lower()]),
+            "p2p_ms": ms(p2p),
+            "collectives_ms": ms([k for k in nccl if not P2P_KERNEL.search(k["name"])]),
+            "span_ms": ((max(k["end"] for k in kernels) - min(k["start"] for k in kernels)) / 1e3 / steps
+                        if kernels else None),
+        })
+    return out
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(add_help=False)
     p.add_argument("--profile-steps", type=int, default=3)
+    p.add_argument("--pp-traces", default=None, metavar="DIR",
+                   help="split the per-rank traces of a dpp --pp run (module docstring)")
     own, rest = p.parse_known_args(argv)
+    if own.pp_traces:
+        import glob
+
+        out = {"pp_split": pp_split(sorted(glob.glob(os.path.join(own.pp_traces, "trace_*_p*.json"))),
+                                    own.profile_steps)}
+        print(json.dumps(out), flush=True)
+        return out
     args = dpp.parse_args(rest)
     if args.device != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("profile_step measures the GPU: it needs --device cuda and a GPU")

@@ -105,9 +105,9 @@ def destroy_process_group() -> None:
 
 #: The mesh's axis names, the reference's (``dpp.py:511-533``), in its
 #: canonical order: the data-parallel replicas outermost, then the sequence
-#: shards (``--cp``), the expert shards (``--ep``), the tensor-parallel
-#: shards (``--tp``).
-DATA_AXIS, SEQ_AXIS, EXPERT_AXIS, MODEL_AXIS = "data", "seq", "expert", "model"
+#: shards (``--cp``), the pipeline stages (``--pp``), the expert shards
+#: (``--ep``), the tensor-parallel shards (``--tp``).
+DATA_AXIS, SEQ_AXIS, PIPE_AXIS, EXPERT_AXIS, MODEL_AXIS = "data", "seq", "pipe", "expert", "model"
 #: The joint data x seq axis: every (data, seq) rank of one model line.
 #: One mean over it is the seq mean followed by the data mean (equal group
 #: sizes), which ``--overlap`` launches from backward under ``--cp``.

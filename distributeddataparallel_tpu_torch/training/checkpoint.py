@@ -23,12 +23,13 @@ collective: every rank calls it, rank 0 gathers each rank's part into the
 payload's ``ranks`` list (and, under ZeRO-3, the model's gathered
 parameters) and gets the payload, the others None.  ``load_into`` gives each
 rank its own part back, at the same world size only (resharding to another
-is ROADMAP item 13).  Under tensor or expert parallelism each model shard
-(a rank's heads and hidden units, its experts; without ZeRO, its optimizer
-state too) is gathered once, from the ranks at data and seq index 0; the
-payload's ``model`` is the shards merged, the whole model (so a plain MoE
-model loads an ``--ep`` checkpoint's), and each rank cuts its shard out of
-it on resume.  The payload records the mesh: a resume needs the same mesh.
+is ROADMAP item 13).  Under tensor, expert or pipeline parallelism each
+model shard (a rank's heads and hidden units, its experts, its stage's
+layers with the replicated leaves; without ZeRO, its optimizer state too)
+is gathered once, from the ranks at data and seq index 0; the payload's
+``model`` is the shards merged, the whole model (so a plain model loads an
+``--ep`` or ``--pp`` checkpoint's), and each rank cuts its shard out of it
+on resume.  The payload records the mesh: a resume needs the same mesh.
 Under FSDP (``parallel.fsdp``) the payload's ``model`` is the whole model
 from the host gather (a collective), its ``layout`` is ``"fsdp"`` (the
 reference's ``topology_meta`` name) and ``ranks`` holds each rank's
@@ -53,8 +54,11 @@ import torch
 import torch.distributed as dist
 
 from distributeddataparallel_tpu_torch.parallel.expert_parallel import merge_ep_shards, shard_model_axes
+from distributeddataparallel_tpu_torch.parallel.pipeline_parallel import merge_pp_shards, shard_state_dict_pp
 from distributeddataparallel_tpu_torch.parallel.tensor_parallel import merge_tp_shards
 from distributeddataparallel_tpu_torch.runtime.distributed import (
+    PIPE_AXIS,
+    axis_index,
     axis_size,
     current_mesh,
     get_rank,
@@ -104,10 +108,12 @@ def _cpu(tree):
 
 
 def _model_axes(state: TrainState) -> dict:
-    """The mesh axes the model is sharded over, ``{"tp": axis, "ep":
-    axis}`` for those of size > 1 (empty: unsharded)."""
+    """The mesh axes the model is sharded over, ``{"tp": axis, "ep": axis,
+    "pp": axis}`` for those of size > 1 (empty: unsharded; ``pp``: a
+    pipeline stage's model)."""
     cfg = getattr(state.model, "cfg", None)
-    axes = {"tp": getattr(cfg, "tp_axis", None), "ep": getattr(cfg, "ep_axis", None)}
+    axes = {"tp": getattr(cfg, "tp_axis", None), "ep": getattr(cfg, "ep_axis", None),
+            "pp": PIPE_AXIS if getattr(state.model, "n_stages", 1) > 1 else None}
     return {k: a for k, a in axes.items() if axis_size(a) > 1}
 
 
@@ -120,15 +126,20 @@ def _shard_owner(axes) -> int:
 
 def _merge_model(parts: list, axes: dict) -> dict:
     """The whole model from the owners' shards (``parts``: every rank's
-    part, those of the owners holding ``model``)."""
+    part, those of the owners holding ``model``): TP shards merged per
+    expert index, then the experts, then the pipeline stages."""
     mesh = current_mesh()
     owned = {r: p.pop("model") for r, p in enumerate(parts) if "model" in p}
     index = lambda r, k: mesh.coords_of(r)[axes[k]] if k in axes else 0
-    rows = []
-    for e in range(axis_size(axes.get("ep"))):
-        row = [sd for r, sd in sorted(owned.items(), key=lambda kv: index(kv[0], "tp")) if index(r, "ep") == e]
-        rows.append(merge_tp_shards(row))
-    return merge_ep_shards(rows)
+    stages = []
+    for s in range(axis_size(axes.get("pp"))):
+        rows = []
+        for e in range(axis_size(axes.get("ep"))):
+            row = [sd for r, sd in sorted(owned.items(), key=lambda kv: index(kv[0], "tp"))
+                   if index(r, "ep") == e and index(r, "pp") == s]
+            rows.append(merge_tp_shards(row))
+        stages.append(merge_ep_shards(rows))
+    return merge_pp_shards(stages) if len(stages) > 1 else stages[0]
 
 
 def per_rank(state: TrainState) -> bool:
@@ -303,6 +314,8 @@ class CheckpointFiles:
                              f"{_mesh_record()}: resume on the same mesh (resharding is ROADMAP item 13)")
         axes = _model_axes(state)
         model_sd = shard_model_axes(payload["model"], axes.get("tp"), axes.get("ep"))
+        if "pp" in axes:
+            model_sd = shard_state_dict_pp(model_sd, axis_index(PIPE_AXIS), axis_size(PIPE_AXIS))
         with state.full_params():
             state.model.load_state_dict(model_sd)
             if state.zero is not None:

@@ -132,11 +132,14 @@ class Telemetry:
         if self.prof is not None:
             self.prof.on_step_start(gstep)
 
-    def step_end(self, gstep: int, gauges: dict | None = None) -> None:
+    def step_end(self, gstep: int, gauges: dict | None = None, pp_phase: dict | None = None) -> None:
         """After a step: the counters, ``gauges`` (the step's host-side
         values by name, e.g. ``moe_aux``, set on the registry's gauges for
         the metrics snapshots), the profiler window, the StepTimer and,
-        where its window closes, the meters."""
+        where its window closes, the meters.  ``pp_phase`` (a pipeline
+        step's unit counts, ``observability.pipeline.phase_counts_payload``)
+        is emitted once, after the first step's ``warm_start``, as the
+        reference emits it (``dpp.py:2645-2662``)."""
         if self.steps_total is not None:
             self.steps_total.inc()
         if self.registry is not None:
@@ -154,6 +157,8 @@ class Telemetry:
             if self.events is not None:
                 self.events.emit("warm_start", mode="eager", first_step_s=self.timer.compile_s,
                                  attempt=self.counters.restarts)
+                if pp_phase is not None:
+                    self.events.emit("pp_phase", **pp_phase)
             if self.goodput is not None:
                 self.goodput.add("compile", self.timer.compile_s)
         if reading:

@@ -18,6 +18,9 @@
   and layout checks, build the MoE configs the phase names, 14c's runs keep
   one data replica, and 14a's 1-layer model holds the 2.50 B parameters
   its memory reckoning counts.
+- Phase 15's replays at tiny widths (the module's GPipe and 1F1B, stages
+  as threads) within the phase's bounds, with the launches, held
+  microbatches and unit counts the schedules imply; 15c's runs parse.
 """
 
 import importlib.util
@@ -154,3 +157,57 @@ def test_phase14_flags_parse_and_the_reckoning_holds():
     assert dpp.build_config(dpp.parse_args(chip_smoke.MOE_ENTRY_ARGS)).moe_capacity_factor == 8.0  # = E
     n = sum(p.numel() for p in tfm.TransformerLM(llama, device="meta").parameters())
     assert abs(n - 2.50e9) < 0.01e9, n
+
+
+def test_phase15_replays_hold_on_the_cpu(monkeypatch):
+    """Phase 15's replays at tiny widths on CPU tensors: the module's GPipe
+    and 1F1B, every stage a thread (``LocalPipe``), within the phase's own
+    bounds of the unpipelined step; each stage alone (``CannedPipe``)
+    launches what ``pp_expected`` says (the kernels' plain versions stand in,
+    counted here); 1F1B holds n - s microbatches, GPipe M; 15c's runs parse
+    with the mesh they name."""
+    import torch
+
+    from distributeddataparallel_tpu_torch import dpp
+    from distributeddataparallel_tpu_torch.models import transformer as tfm
+    from distributeddataparallel_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    peaks = iter([3, 1] * 2)  # the 15b order: GPipe, then 1F1B, at each M
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: next(peaks))
+    small = dict(vocab_size=64, num_heads=2, d_model=32, d_ff=64, attn_impl="kernel")
+    gpt2, llama = tfm.gpt2_124m, tfm.llama3_8b
+    monkeypatch.setattr(tfm, "gpt2_124m", lambda **kw: gpt2(**{**small, "max_seq_len": 64, "num_layers": 4, **kw}))
+    monkeypatch.setattr(tfm, "llama3_8b", lambda **kw: llama(**{**small, "num_kv_heads": 1, **kw}))
+    monkeypatch.setattr(chip_smoke, "LLAMA_LAYERS", 4)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setattr(chip_smoke, "PP_GPT2", dict(B=4, S=16, M=4, stages=(2, 4)))
+    monkeypatch.setattr(chip_smoke, "PP_LLAMA", dict(B=4, S=16, n=2, M=(2, 4)))
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        real = getattr(fa, key)
+
+        def counted(*a, _real=real, _key=key, **kw):
+            fa.LAUNCHES[_key] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(fa, key, counted)
+    try:
+        out = chip_smoke.pp_phase(torch, fa, tfm, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    a, b = out["gpt2_12_layers"], out["llama_8_layers"]
+    assert a["n4"]["1f1b"]["held"] == [4, 3, 2, 1] and a["n4"]["gpipe"]["held"] == [4] * 4
+    assert a["n2"]["1f1b"]["counts"] == [[4, 4, 0], [4, 4, 0]] and a["n2"]["1f1b"]["bubble"] == 0.3333
+    assert b["1f1b_m4"]["launches"] == {"flash_fwd": 40, "flash_bwd_dq": 16, "flash_bwd_dkv": 16}
+    assert out["entry"] == {"ran": False, "gpus": 0}
+    for argv, want in ((chip_smoke.PP_DEEP_ARGS + ["--pp", "4"], (32, 8, 8, 0.0)),
+                       (chip_smoke.PP_ENTRY_ARGS + ["--pp", "2", "--tp", "2"], (8, 4, None, 0.0)),
+                       (chip_smoke.PP_MOE_ARGS + ["--pp", "2", "--ep", "2"], (2, 2, None, 8.0))):
+        args = dpp.parse_args(argv)
+        cfg = dpp.build_config(args)
+        assert (cfg.num_layers, args.batch_size, args.pp_microbatches, cfg.moe_capacity_factor) == want
+        assert cfg.scan_layers and args.seq_len == 2048

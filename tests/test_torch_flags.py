@@ -78,10 +78,10 @@ def test_both_parsers_have_the_same_flags_defaults_and_choices():
 
 # Each unported flag at a value the reference accepts, and its item.
 UNPORTED = [
-    (["--model", "gpt2", "--pp", "2"], "16"),
-    (["--pp-microbatches", "4"], "16"),
-    (["--pp-schedule", "1f1b"], "16"),
-    (["--model", "gpt2", "--layers", "4", "--pp", "2", "--pp-schedule", "1f1b", "--pp-virtual", "2"], "16"),
+    (["--model", "gpt2", "--pp", "2", "--pp-schedule", "zb"], "16b"),
+    (["--model", "gpt2", "--pp", "2", "--cp", "2", "--seq-len", "16"], "16b"),
+    (["--pp-schedule", "zb"], "16b"),
+    (["--model", "gpt2", "--layers", "4", "--pp", "2", "--pp-schedule", "1f1b", "--pp-virtual", "2"], "16b"),
     (["--compile-cache", "cache"], "11b"),
     (["--dispatch-depth", "0"], "11b"),
     (["--elastic", "--checkpoint-dir", "ck"], "13"),
@@ -95,13 +95,17 @@ UNPORTED = [
 ]
 
 
-# Item 17's cases, ported since: each parses and validates as the reference's
-# does, with its values, and builds the MoE config.
-PORTED_MOE = [
+# Item 17's and 16a's cases, ported since: each parses and validates as the
+# reference's does, with its values, and builds the MoE or pipeline config.
+PORTED = [
     ["--model", "gpt2", "--moe-experts", "2", "--ep", "2"],
     ["--model", "gpt2", "--moe-experts", "4"],
     ["--moe-aux-weight", "0"],
     ["--model", "gpt2", "--moe-experts", "4", "--moe-top-k", "2", "--moe-capacity-factor", "1.25"],
+    ["--model", "gpt2", "--pp", "2"],
+    ["--pp-microbatches", "4"],
+    ["--pp-schedule", "1f1b"],
+    ["--model", "llama", "--layers", "4", "--pp", "2", "--pp-schedule", "1f1b", "--pp-microbatches", "4"],
 ]
 
 
@@ -112,21 +116,26 @@ def test_unported_flags_raise_naming_their_item():
         jdpp.validate_args(jdpp.parse_args(argv))  # the reference accepts the value
         with pytest.raises(NotImplementedError, match=rf"ROADMAP.md Queue 1, item {item}$"):
             tdpp.parse_args(argv)
-    for argv in PORTED_MOE:
+    for argv in PORTED:
         argv = ["--device", "cpu", *argv]
         jargs = jdpp.parse_args(argv)
         jdpp.validate_args(jargs)
         args = tdpp.parse_args(argv)
-        for dest in ("ep", "moe_experts", "moe_top_k", "moe_aux_weight", "moe_capacity_factor"):
+        for dest in ("ep", "moe_experts", "moe_top_k", "moe_aux_weight", "moe_capacity_factor", "pp",
+                     "pp_microbatches", "pp_schedule"):
             assert getattr(args, dest) == getattr(jargs, dest), dest
+        if args.pp > 1:
+            assert tdpp.build_config(args).scan_layers  # the stages' slices of the stacked layout
         if args.moe_experts:
             cfg = tdpp.build_config(args)
             assert (cfg.moe_experts, cfg.moe_top_k, cfg.moe_capacity_factor) == (
                 args.moe_experts, args.moe_top_k, args.moe_capacity_factor)
             assert cfg.ep_axis == ("expert" if args.ep > 1 else None)
     seen = {d for dests in tdpp.UNPORTED_FLAGS.values() for d in dests}
-    assert len(seen) == 17  # the 21 flags the parser lacked, less --fsdp-gather and item 17's four, and --pp
-    assert "17" not in tdpp.UNPORTED_FLAGS
+    # the 21 flags the parser lacked, less --fsdp-gather, item 17's four and
+    # item 16a's --pp, --pp-microbatches, --pp-schedule
+    assert len(seen) == 14
+    assert "17" not in tdpp.UNPORTED_FLAGS and "16" not in tdpp.UNPORTED_FLAGS
 
 
 REFERENCE_CHECKS = [
