@@ -552,8 +552,18 @@ MOE_ENTRY_ATOL = 1.6e-2
 # ~1e-6 relative; the bounds are 1e-5 of the loss and 1e-4 of each
 # gradient's largest |value|.  A missing or doubled pipe sum moves the
 # embedding's gradient by half of itself, a wrong stage slice every layer's.
-PP_GPT2 = dict(B=8, S=1024, M=8, stages=(2, 4))
+PP_GPT2 = dict(B=8, S=1024, M=8)
 PP_F32_TOL = dict(loss_rtol=1e-5, grad_rtol=1e-4)
+# 15a's runs, (stages, schedule, virtual chunks a stage): GPipe, 1F1B and zb
+# on 2 and 4 stages, and interleaved 1F1B on 2 stages at 3 and 2 layers a
+# chunk.  zb's gradients are held to 1F1B's on the same stages within
+# PP_F32_TOL (the same GEMMs in the same order: equal on the CPU; cuBLAS
+# may pick another algorithm for a call on the card).
+PP_GPT2_RUNS = [(2, "gpipe", 1), (2, "1f1b", 1), (2, "zb", 1), (2, "1f1b", 2), (2, "1f1b", 3),
+                (4, "gpipe", 1), (4, "1f1b", 1), (4, "zb", 1)]
+# 15d: 15a's weights and batch under --pp 2 --cp 2, ring and Ulysses inside
+# each stage, GPipe and 1F1B, four threads; f32, so PP_F32_TOL.
+PP_CP = dict(n=2, cp=2, impls=("ring", "ulysses"), schedules=("gpipe", "1f1b"))
 # 15b: phase 7's Llama-3 8B width x 8 layers (bf16, remat) at 8 x 2048 on 2
 # stages (4 layers each; the memory reckoning is in PERF.md), M = 4 and 8.
 # bf16 GEMMs at other row counts round elsewhere.  The first run on an H100
@@ -562,6 +572,10 @@ PP_F32_TOL = dict(loss_rtol=1e-5, grad_rtol=1e-4)
 # bounds are 2e-2 (a margin of 3.6) and the CPU tests' 2e-3 on the loss.
 PP_LLAMA = dict(B=8, S=2048, n=2, M=(4, 8))
 PP_BF16_TOL = dict(loss_atol=2e-3, grad_rtol=2e-2)
+# 15b's runs at M = 8 after GPipe and 1F1B: zb (its gradients against
+# 1F1B's, whose copy the run holds), then 1F1B with 2 chunks a stage over
+# the same parameter tensors (``restage``).
+PP_LLAMA_MORE = (("zb", 1), ("1f1b", 2))
 # 15c, with two GPUs or more: the entry point over NCCL.  With four,
 # Llama-3 8B at all 32 layers under --pp 4 (GPipe and 1F1B, 8 x 2048, M = 8,
 # 3 steps, eval, steps 1-2 traced), and at 8 layers --pp 4, --pp 2 --tp 2
@@ -574,6 +588,16 @@ PP_DEEP_ARGS = _set(_set(_set(_set(LLAMA_ARGS, "--layers", "32"), "--batch-size"
 PP_ENTRY_ARGS = _set(_set([a for a in LLAMA_ARGS if a != "--eval"], "--batch-size", "4"), "--steps-per-epoch", "3")
 PP_MOE_ARGS = _set(_set(MOE_ENTRY_ARGS, "--layers", "2"), "--batch-size", "2")
 PP_ENTRY_ATOL = CP_TP_ENTRY_ATOL
+# 15c+: zb, virtual stages and PP x CP over NCCL against one GPU on
+# PP_ENTRY_ARGS (M = 2), steps 1-2 traced for each rank's P2P wait; name ->
+# (flags, GPUs).  --pp 2 --pp-virtual 2 puts a stage's two messages to its
+# one peer in each exchange (the wrap link's posting order).
+PP_ENTRY_16B = {
+    "pp2_v2": (["--pp", "2", "--pp-schedule", "1f1b", "--pp-virtual", "2"], 2),
+    "pp2_zb": (["--pp", "2", "--pp-schedule", "zb"], 2),
+    "pp2_cp2_ring": (["--pp", "2", "--cp", "2", "--cp-impl", "ring"], 4),
+    "pp2_cp2_ulysses": (["--pp", "2", "--cp", "2", "--cp-impl", "ulysses"], 4),
+}
 
 DEVICE = "cuda"  # phases 10, 12 and 15's device
 
@@ -1487,24 +1511,38 @@ def checkpoint_cost(torch, dpp, smi) -> dict:
     return out
 
 
-def fault_watchdog(smi) -> dict:
-    """[9d] The step watchdog under supervision."""
-    with tempfile.TemporaryDirectory(prefix="fault_9d_") as d:
-        summary = run_entry(FAULT_R18_ARGS + [
-            "--epochs", "2", "--steps-per-epoch", "5", "--step-timeout", "5", "--max-restarts", "1",
-            "--chaos", "slow-step@3:30", "--checkpoint-dir", os.path.join(d, "ck"),
-            "--events-dir", os.path.join(d, "ev")], "9d watchdog")
+def start_watchdog():
+    """[9d] The step watchdog under supervision, in a fresh process started
+    beside 9b's resumed run: it checks and times nothing alone (9a's
+    restart is the phase's restart latency)."""
+    d = tempfile.mkdtemp(prefix="fault_9d_")
+    args = FAULT_R18_ARGS + ["--epochs", "2", "--steps-per-epoch", "5", "--step-timeout", "5", "--max-restarts", "1",
+                             "--chaos", "slow-step@3:30", "--checkpoint-dir", os.path.join(d, "ck"),
+                             "--events-dir", os.path.join(d, "ev")]
+    log("    9d watchdog: python -m distributeddataparallel_tpu_torch.dpp " + " ".join(args))
+    return start_entry(args), d
+
+
+def finish_watchdog(started, smi) -> dict:
+    import shutil
+
+    proc, d = started
+    try:
+        summary = finish_entry(proc, "9d watchdog")
         records = timeline(os.path.join(d, "ev"))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
     fires = [r for r in records if r["kind"] == "watchdog_fire"]
     restarts = [r["failed"] for r in records if r["kind"] == "restart_attempt"]
     first = [r["ts"] for r in records if r["kind"] == "warm_start" and r["attempt"] == 1]
     if len(fires) != 1 or restarts != [[[0, 75]]] or summary["train_steps"] != 5:
         raise AssertionError(f"9d: fires {fires}, restarts {restarts}, {summary['train_steps']} steps after it")
     out = {"exit_code": 75, "seconds_since_heartbeat": fires[0]["seconds_since_heartbeat"],
-           "fire_to_first_step_s": first[0] - fires[0]["ts"], "resumed_start_epoch": summary["start_epoch"]}
+           "fire_to_first_step_s_beside_others": first[0] - fires[0]["ts"],
+           "resumed_start_epoch": summary["start_epoch"]}
     log(f"    9d: watchdog fired {out['seconds_since_heartbeat']:.2f} s after the last heartbeat, exit 75, "
-        f"the restart completed; fire to the next incarnation's first step {out['fire_to_first_step_s']:.2f} s "
-        f"on {smi}")
+        f"the restart completed (fire to the next incarnation's first step "
+        f"{out['fire_to_first_step_s_beside_others']:.2f} s, beside 9b, 9c, 9e and 9a's uninterrupted run) on {smi}")
     return out
 
 
@@ -1534,9 +1572,9 @@ def finish_coordinator(proc, phase4_losses, smi) -> dict:
 
 def fault_path_phase(torch, dpp, phase4_losses, smi) -> dict:
     """[9] The fault path.  Checks that time something (9a's restart, 9b's
-    stop, 9d's restart, the guard's and the hash's cost) run alone; 9b's
-    resumed run, 9c, 9e and 9a's uninterrupted run, which only check, run
-    side by side."""
+    stop, the guard's and the hash's cost) run alone; 9b's resumed run, 9c,
+    9d, 9e and 9a's uninterrupted run, which only check, run side by
+    side."""
     import gc
 
     gc.collect()
@@ -1549,19 +1587,17 @@ def fault_path_phase(torch, dpp, phase4_losses, smi) -> dict:
         coordinator = start_coordinator()
         log("    9a uninterrupted: python -m distributeddataparallel_tpu_torch.dpp " + " ".join(REPLAY_ARGS))
         straight = start_entry(REPLAY_ARGS)
+        watchdog = start_watchdog()
         guard = fault_guard(torch, dpp)
         coordinated = finish_coordinator(coordinator, phase4_losses, smi)
-        return guard, coordinated, finish_entry(straight, "9a uninterrupted")
+        return guard, coordinated, finish_entry(straight, "9a uninterrupted"), finish_watchdog(watchdog, smi)
 
     t = time.perf_counter()
     chaotic, records = fault_replay(smi)
     seconds["9a"] = time.perf_counter() - t
-    out["sigterm"], (out["guard"], out["coordinator"], straight) = fault_sigterm(smi, beside)
+    out["sigterm"], (out["guard"], out["coordinator"], straight, out["watchdog"]) = fault_sigterm(smi, beside)
     out["replay"] = check_replay(chaotic, records, straight, smi)
-    seconds["9b_9c_9e_9a_uninterrupted"] = time.perf_counter() - t - seconds["9a"]
-    t = time.perf_counter()
-    out["watchdog"] = fault_watchdog(smi)
-    seconds["9d"] = time.perf_counter() - t
+    seconds["9b_9c_9d_9e_9a_uninterrupted"] = time.perf_counter() - t - seconds["9a"]
     t = time.perf_counter()
     out["guard"]["guard_cost"] = guard_cost(dpp, smi)
     out["guard"]["checkpoint_cost"] = checkpoint_cost(torch, dpp, smi)
@@ -2043,11 +2079,12 @@ class LocalRing:
     this process: ``post`` puts copies of the tensors in the next rank's
     mailbox, ``wait`` takes the previous rank's in post order (each rank
     posts the same sequence, as over a process group).  It keeps what it
-    received, for ``CannedRing``.  A wait that outlasts EXCHANGE_TIMEOUT_S
-    raises: a replay fails, it never hangs."""
+    received, for ``CannedRing``.  With ``a2a`` (a mailbox per (receiver,
+    sender) pair) it is also Ulysses' exchange: ``all_to_all``.  A wait that
+    outlasts EXCHANGE_TIMEOUT_S raises: a replay fails, it never hangs."""
 
-    def __init__(self, boxes, idx: int):
-        self.boxes, self.idx, self.n = boxes, idx, len(boxes)
+    def __init__(self, boxes, idx: int, a2a=None):
+        self.boxes, self.idx, self.n, self.a2a = boxes, idx, len(boxes), a2a
         self.sent, self.received = 0, []
 
     def post(self, tensors):
@@ -2062,6 +2099,45 @@ class LocalRing:
             raise AssertionError(f"rank {self.idx} waited for exchange {tag}, got {got}")
         self.received.append(tensors)
         return tensors
+
+    def all_to_all(self, x):
+        """Ulysses' exchange among the replay's ranks, differentiable (its
+        backward is the same exchange of the gradient): block j of ``x``
+        goes to rank j, block j of the result came from rank j."""
+        import torch
+
+        if not _ALL_TO_ALL:
+            class AllToAll(torch.autograd.Function):
+                @staticmethod
+                def forward(ctx, x, ring):
+                    ctx.ring = ring
+                    return ring.exchange_blocks(x)
+
+                @staticmethod
+                def backward(ctx, g):
+                    return ctx.ring.exchange_blocks(g), None
+
+            _ALL_TO_ALL.append(AllToAll)
+        return _ALL_TO_ALL[0].apply(x, self)
+
+    def exchange_blocks(self, x):
+        import queue
+
+        for j in range(self.n):
+            if j != self.idx:
+                self.a2a[j, self.idx].put(x[j].detach().clone())
+        out = x.detach().clone()
+        for j in range(self.n):
+            if j != self.idx:
+                try:
+                    out[j] = self.a2a[self.idx, j].get(timeout=EXCHANGE_TIMEOUT_S)
+                except queue.Empty:
+                    raise AssertionError(f"rank {self.idx} waited {EXCHANGE_TIMEOUT_S} s for rank {j}'s "
+                                         f"all-to-all block") from None
+        return out
+
+
+_ALL_TO_ALL: list = []  # LocalRing.all_to_all's autograd Function, made at its first use
 
 
 class CannedRing:
@@ -2706,14 +2782,16 @@ def moe_phase(torch, dpp, fa, tfm, smi) -> dict:
 class LocalPipe:
     """``pipeline_parallel._Pipe``'s members among the stages of a replay,
     each a thread of this process: a send puts a copy of the tensor in the
-    neighbour's mailbox (``fwd[s]`` holds what stage s receives from s - 1,
-    ``bwd[s]`` what it receives from s + 1), a receive takes the oldest, as
-    over a process group.  It keeps what it received, for ``CannedPipe``.
-    A receive that outlasts EXCHANGE_TIMEOUT_S raises: a replay fails, it
-    never hangs."""
+    neighbour's mailbox (``fwd[s]`` holds what stage s receives from its
+    previous stage, ``bwd[s]`` what it receives from its next; ``wrap``
+    joins stage n-1 and stage 0, as virtual stages do), a receive takes the
+    oldest, as over a process group.  It keeps what it received, for
+    ``CannedPipe``.  A receive that outlasts EXCHANGE_TIMEOUT_S raises: a
+    replay fails, it never hangs."""
 
-    def __init__(self, fwd, bwd, stage: int):
+    def __init__(self, fwd, bwd, stage: int, wrap: bool = False):
         self.fwd, self.bwd, self.stage, self.n = fwd, bwd, stage, len(fwd)
+        self.has_prev, self.has_next = stage > 0 or wrap, stage < self.n - 1 or wrap
         self.like, self.received = None, []
 
     def _take(self, box, what: str):
@@ -2726,27 +2804,33 @@ class LocalPipe:
         self.received.append(t)
         return t
 
+    def exchange(self, send_next=None, send_prev=None, recv_prev=False, recv_next=False):
+        if send_next is not None:
+            self.fwd[(self.stage + 1) % self.n].put(send_next.detach().clone())
+        if send_prev is not None:
+            self.bwd[(self.stage - 1) % self.n].put(send_prev.detach().clone())
+        got_prev = self._take(self.fwd[self.stage], "activations") if recv_prev else None
+        return got_prev, self._take(self.bwd[self.stage], "cotangent") if recv_next else None
+
     def recv_forward(self):
-        return None if self.stage == 0 else self._take(self.fwd[self.stage], "activations")
+        return self.exchange(recv_prev=True)[0] if self.has_prev else None
 
     def send_forward(self, y) -> None:
-        if self.stage < self.n - 1:
-            self.fwd[self.stage + 1].put(y.detach().clone())
+        if self.has_next:
+            self.exchange(send_next=y)
 
     def recv_backward(self):
-        return None if self.stage == self.n - 1 else self._take(self.bwd[self.stage], "cotangent")
+        return self.exchange(recv_next=True)[1] if self.has_next else None
 
     def send_backward(self, dx) -> None:
-        if self.stage > 0:
-            self.bwd[self.stage - 1].put(dx.detach().clone())
+        if self.has_prev:
+            self.exchange(send_prev=dx)
 
     def send_forward_recv_backward(self, y):
-        self.send_forward(y)
-        return self.recv_backward()
+        return self.exchange(send_next=y, recv_next=True)[1] if self.has_next else None
 
     def send_backward_recv_forward(self, dx):
-        self.send_backward(dx)
-        return self.recv_forward()
+        return self.exchange(send_prev=dx, recv_prev=True)[0] if self.has_prev else None
 
 
 class CannedPipe:
@@ -2757,16 +2841,21 @@ class CannedPipe:
 
     def __init__(self, local: LocalPipe):
         self.stage, self.n, self.received, self.i, self.like = local.stage, local.n, local.received, 0, None
+        self.has_prev, self.has_next = local.has_prev, local.has_next
 
     def _next(self):
         self.i += 1
         return self.received[self.i - 1].detach().clone()
 
+    def exchange(self, send_next=None, send_prev=None, recv_prev=False, recv_next=False):
+        got_prev = self._next() if recv_prev else None
+        return got_prev, self._next() if recv_next else None
+
     def recv_forward(self):
-        return None if self.stage == 0 else self._next()
+        return self._next() if self.has_prev else None
 
     def recv_backward(self):
-        return None if self.stage == self.n - 1 else self._next()
+        return self._next() if self.has_next else None
 
     def send_forward(self, y) -> None:
         pass
@@ -2781,33 +2870,70 @@ class CannedPipe:
         return self.recv_forward()
 
 
-def pp_replay(torch, pp, stages, inputs, targets, M: int, schedule: str):
-    """The module's schedule for every stage at once, a thread a stage:
-    each stage's ``StageRun`` and ``LocalPipe``.  Gradients accumulate in
-    the stages' ``.grad``."""
-    import queue
+def pp_threads(torch, pp, jobs, M: int, schedule: str, what: str):
+    """The module's schedule for every rank of a replay at once, a thread a
+    rank; ``jobs`` holds each rank's (stage, pipe, inputs, targets, seq
+    exchange).  Each thread runs its own backward (autograd's per-device
+    worker thread, shared by every thread, would queue one rank's ring
+    backward behind its peer's, which waits for it).  Gradients accumulate
+    in the stages' ``.grad``; returns each rank's ``StageRun``."""
     import threading
 
-    n = len(stages)
-    fwd, bwd = [queue.Queue() for _ in range(n)], [queue.Queue() for _ in range(n)]
-    pipes = [LocalPipe(fwd, bwd, s) for s in range(n)]
-    runs, errors = [None] * n, []
+    runs, errors = [None] * len(jobs), []
 
-    def work(s):
+    def work(i):
+        stage, pipe, inputs, targets, seq = jobs[i]
         try:
-            runs[s] = pp.run_schedule(stages[s], pipes[s], inputs, targets, microbatches=M, schedule=schedule)
+            with torch.autograd.set_multithreading_enabled(False):
+                runs[i] = pp.run_schedule(stage, pipe, inputs, targets, microbatches=M, schedule=schedule, seq=seq)
         except BaseException as e:  # noqa: BLE001 — reported below, the replay fails
-            errors.append(f"stage {s}: {type(e).__name__}: {e}")
+            errors.append(f"rank {i}: {type(e).__name__}: {e}")
 
-    threads = [threading.Thread(target=work, args=(s,)) for s in range(n)]
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(len(jobs))]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     torch.cuda.synchronize()
     if errors:
-        raise AssertionError(f"{schedule} replay on {n} stages: {errors}")
+        raise AssertionError(f"{what}: {errors}")
+    return runs
+
+
+def local_pipes(n: int, wrap: bool) -> list:
+    import queue
+
+    fwd, bwd = [queue.Queue() for _ in range(n)], [queue.Queue() for _ in range(n)]
+    return [LocalPipe(fwd, bwd, s, wrap) for s in range(n)]
+
+
+def pp_replay(torch, pp, stages, inputs, targets, M: int, schedule: str):
+    """The module's schedule for every stage at once, a thread a stage:
+    each stage's ``StageRun`` and ``LocalPipe``."""
+    pipes = local_pipes(len(stages), stages[0].virtual > 1)
+    runs = pp_threads(torch, pp, [(st, pipes[s], inputs, targets, None) for s, st in enumerate(stages)], M,
+                      schedule, f"{schedule} replay on {len(stages)} stages")
     return runs, pipes
+
+
+def restage(torch, pp, cfg, stages, virtual: int) -> list:
+    """The stages of ``virtual`` chunks a stage over the same parameter
+    tensors as ``stages`` (no copy: 15b's model does not fit twice): each
+    new stage takes its layers from whichever old stage holds them, its
+    replicated leaves and RoPE tables from the old stage of its index."""
+    n = len(stages)
+    merged = pp.merge_pp_shards([dict(st.named_parameters()) for st in stages])
+    out = []
+    for s, old in enumerate(stages):
+        sd = pp.shard_state_dict_pp(merged, s, n, virtual)
+        sd.update({k: p for k, p in old.named_parameters() if pp.is_replicated(k)})
+        with torch.device("meta"):
+            new = pp.StageLM(cfg, s, n, virtual=virtual)
+        new.load_state_dict(sd, assign=True)
+        for name, buf in old.named_buffers():
+            setattr(new, name, buf)
+        out.append(new)
+    return out
 
 
 def zero_stage_grads(torch, stages) -> None:
@@ -2818,31 +2944,52 @@ def zero_stage_grads(torch, stages) -> None:
             p.grad = torch.zeros_like(p)
 
 
-def stage_grad(named, per: int, name: str):
-    """The whole model's gradient ``name`` from the stages' parameters
-    (``named``: each stage's ``named_parameters`` dict): a layer's from its
-    stage, a replicated leaf's summed over the stages (the pipe sum)."""
+def layer_home(stages) -> dict:
+    """Global layer index -> (stage, index in the stage) for a replay's
+    stages, chunk-major under virtual chunks (``stage_layers``' order)."""
+    home = {}
+    for s, st in enumerate(stages):
+        per, n = len(st.layers), st.n_stages
+        lc = per // st.virtual
+        for i in range(per):
+            home[(i // lc * n + s) * lc + i % lc] = (s, i)
+    return home
+
+
+def stage_grad(stages, name: str, home=None):
+    """The whole model's gradient ``name`` from the stages' parameters: a
+    layer's from the stage that holds it, a replicated leaf's summed over
+    the stages (the pipe sum)."""
     m = re.match(r"layers\.(\d+)\.(.*)", name)
     if m:
-        i = int(m.group(1))
-        return named[i // per][f"layers.{i % per}.{m.group(2)}"].grad
-    return sum(nd[name].grad for nd in named)
+        s, i = (home or layer_home(stages))[int(m.group(1))]
+        return dict(stages[s].named_parameters())[f"layers.{i}.{m.group(2)}"].grad
+    return sum(dict(st.named_parameters())[name].grad for st in stages)
 
 
-def pp_grad_error(stages, want: dict) -> tuple[float, str]:
-    """The largest |pipelined - want| over each gradient's largest |want|
-    (at least 1e-3 of the model's largest: a gradient that is 0 in exact
+def grad_error(grad_of, want: dict) -> tuple[float, str]:
+    """The largest |got - want| over each gradient's largest |want| (at
+    least 1e-3 of the model's largest: a gradient that is 0 in exact
     arithmetic, such as a key bias's under the softmax, holds rounding
-    alone), and where it is."""
-    named, per = [dict(st.named_parameters()) for st in stages], len(stages[0].layers)
+    alone), and where it is; ``grad_of(name)`` is the pipelined gradient."""
     floor = 1e-3 * max(float(w.float().abs().max()) for w in want.values())
     worst, where = 0.0, None
     for k, w in want.items():
-        g = stage_grad(named, per, k)
+        g = grad_of(k)
         err = float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()), floor)
         if err >= worst:
             worst, where = err, k
     return worst, where
+
+
+def pp_grad_error(stages, want: dict) -> tuple[float, str]:
+    home = layer_home(stages)
+    return grad_error(lambda k: stage_grad(stages, k, home), want)
+
+
+def stage_grads(stages, names) -> dict:
+    home = layer_home(stages)
+    return {k: stage_grad(stages, k, home).clone() for k in names}
 
 
 def pp_oracle(torch, model, inputs, targets):
@@ -2855,19 +3002,36 @@ def pp_oracle(torch, model, inputs, targets):
     return float(loss.detach()), {k: p.grad for k, p in model.named_parameters()}
 
 
-def pp_expected(per: int, M: int, n: int, s: int, schedule: str, remat: bool) -> dict:
+def pp_expected(per: int, M: int, n: int, s: int, schedule: str, remat: bool, virtual: int = 1,
+                hops: int = 1) -> dict:
     """K1-K3 launches of stage s: every unit's forward with gradients runs
-    K1 once a layer (twice under remat: the recompute), and 1F1B's forward
-    unit a no-gradient forward first on every stage but the last; K2 and K3
-    once a layer a microbatch."""
-    k1 = (2 if remat else 1) + (1 if schedule == "1f1b" and s < n - 1 else 0)
-    return {"flash_fwd": k1 * per * M, "flash_bwd_dq": per * M, "flash_bwd_dkv": per * M}
+    K1 once a layer (twice under remat: the recompute); 1F1B's and zb's
+    forward units a no-gradient forward first, but for the model's last
+    chunk (the last stage's, of ``per / virtual`` layers); K2 and K3 once a
+    layer a microbatch.  Under CP each count is per live ring hop
+    (``hops``: 1 + the seq rank on the ring, 1 under Ulysses)."""
+    k1 = (2 if remat else 1) * per * M
+    if schedule != "gpipe":
+        k1 += per * M - (per // virtual * M if s == n - 1 else 0)
+    return {"flash_fwd": hops * k1, "flash_bwd_dq": hops * per * M, "flash_bwd_dkv": hops * per * M}
 
 
-def pp_gpt2(torch, fa, tfm, pp, smi) -> dict:
-    """[15a] GPT-2 124M (12 layers, f32) on 2 and 4 stages, GPipe and 1F1B,
-    against the unpipelined step; each stage alone through its received
-    tensors (``CannedPipe``) for its launches and its time."""
+def check_counts(pp, runs, n: int, M: int, virtual: int, schedule: str, what: str) -> None:
+    """Each stage's executed [F, B, W] units are the reference table's:
+    M v forwards and backwards, M v weight units under zb, their sum the
+    stage's useful slots in ``pp_bubble_fraction``."""
+    want = [M * virtual, M * virtual, M * virtual if schedule == "zb" else 0]
+    useful = pp.pp_bubble_fraction(n, M, virtual, schedule)["useful_slots"] if schedule != "gpipe" else 2 * M
+    if any(r.counts != want or sum(r.counts) != useful for r in runs):
+        raise AssertionError(f"{what}: units {[r.counts for r in runs]}, want {want} ({useful} useful slots)")
+
+
+def pp_gpt2(torch, fa, tfm, pp, smi):
+    """[15a] GPT-2 124M (12 layers, f32): the runs of PP_GPT2_RUNS against
+    the unpipelined step, zb's gradients against 1F1B's on the same stages,
+    1F1B's against GPipe's; each stage alone through its received tensors
+    (``CannedPipe``) for its launches and its time.  Returns the record
+    and what 15d reuses (the weights, the batch, the oracle)."""
     B, S, M = PP_GPT2["B"], PP_GPT2["S"], PP_GPT2["M"]
     cfg = tfm.gpt2_124m(scan_layers=True)
     gen = torch.Generator(device=DEVICE).manual_seed(15)
@@ -2876,70 +3040,140 @@ def pp_gpt2(torch, fa, tfm, pp, smi) -> dict:
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     want_loss, want = pp_oracle(torch, model, inputs, targets)
     full = model.state_dict()
+    del model
     out, launches = {"oracle_loss": want_loss, "tolerance": PP_F32_TOL}, {k: 0 for k in fa.LAUNCHES}
-    for n in PP_GPT2["stages"]:
-        stages = [pp.stage_model(cfg, full, s, n, device=DEVICE) for s in range(n)]
+    stages, kept = None, {}
+    for n, schedule, v in PP_GPT2_RUNS:
+        if stages is None or (stages[0].n_stages, stages[0].virtual) != (n, v):
+            stages = None  # the last layout's memory goes before the next is made
+            stages = [pp.stage_model(cfg, full, s, n, virtual=v, device=DEVICE) for s in range(n)]
         per = cfg.num_layers // n
-        res, gpipe = {}, None
-        for schedule in ("gpipe", "1f1b"):
-            zero_stage_grads(torch, stages)
+        name = schedule + (f"_v{v}" if v > 1 else "")
+        zero_stage_grads(torch, stages)
+        fa.reset_launches()
+        runs, pipes = pp_replay(torch, pp, stages, inputs, targets, M, schedule)
+        total = dict(fa.LAUNCHES)
+        loss = float(runs[-1].loss_sum) / M
+        grad_err, where = pp_grad_error(stages, want)
+        rec = {"loss": loss, "loss_abs_err": abs(loss - want_loss), "grad_rel_err": grad_err, "worst": where,
+               "launches": total, "held": [r.max_held for r in runs], "counts": [r.counts for r in runs]}
+        if not (rec["loss_abs_err"] <= PP_F32_TOL["loss_rtol"] * abs(want_loss)
+                and grad_err <= PP_F32_TOL["grad_rtol"]):
+            raise AssertionError(f"15a n={n} {name}: {rec}")
+        check_counts(pp, runs, n, M, v, schedule, f"15a n={n} {name}")
+        # 1F1B against GPipe, zb against 1F1B: the same stages' gradients.
+        against = {"1f1b": "gpipe", "zb": "1f1b"}.get(schedule) if v == 1 else None
+        if against:
+            other_loss, other = kept[n, against]
+            gap = pp_grad_error(stages, other)[0]
+            rec[f"vs_{against}"] = {"loss_abs_diff": abs(loss - other_loss), "grad_rel_err": gap,
+                                    "bitwise": all(torch.equal(stage_grad(stages, k), g) for k, g in other.items())}
+            if not (rec[f"vs_{against}"]["loss_abs_diff"] <= PP_F32_TOL["loss_rtol"] * abs(want_loss)
+                    and gap <= PP_F32_TOL["grad_rtol"]):
+                raise AssertionError(f"15a n={n}: {name} against {against} {rec[f'vs_{against}']}")
+        if v == 1 and schedule != "zb":
+            kept[n, schedule] = (loss, stage_grads(stages, want))
+        # Each stage alone: its launches exactly, and its time.
+        rec["stage_ms"], rec["stage_launches"] = [], []
+        for s, st in enumerate(stages):
             fa.reset_launches()
-            runs, pipes = pp_replay(torch, pp, stages, inputs, targets, M, schedule)
-            total = dict(fa.LAUNCHES)
-            loss = float(runs[-1].loss_sum) / M
-            grad_err, where = pp_grad_error(stages, want)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pp.run_schedule(st, CannedPipe(pipes[s]), inputs, targets, microbatches=M, schedule=schedule)
+            torch.cuda.synchronize()
+            rec["stage_ms"].append((time.perf_counter() - t0) * 1e3)
+            got, exp = dict(fa.LAUNCHES), pp_expected(per, M, n, s, schedule, cfg.remat, v)
+            if got != exp:
+                raise AssertionError(f"15a n={n} {name} stage {s}: launches {got} != {exp}")
+            rec["stage_launches"].append(got)
+            for k, c in got.items():
+                launches[k] += c
+        if total != {k: sum(x[k] for x in rec["stage_launches"]) for k in total}:
+            raise AssertionError(f"15a n={n} {name}: the replay's launches {total} are not its stages'")
+        for k, c in total.items():
+            launches[k] += c
+        if schedule != "gpipe":
+            rec["bubble"] = pp.pp_bubble_fraction(n, M, v, schedule)["bubble_fraction"]
+        out.setdefault(f"n{n}", {})[name] = rec
+        log(f"    15a n={n} {name}: loss {loss:.6f} (|err| {rec['loss_abs_err']:.1e}), gradients within "
+            f"{grad_err:.1e} of their largest (worst {where})"
+            + (f", against {against} {rec[f'vs_{against}']['grad_rel_err']:.1e}"
+               f"{' (bit for bit)' if rec[f'vs_{against}']['bitwise'] else ''}" if against else "")
+            + f", units {rec['counts'][0]} a stage, held {rec['held']}, stage ms "
+            f"{['%.1f' % x for x in rec['stage_ms']]}, launches a stage {rec['stage_launches']}")
+    out["attention_launches"] = launches
+    del stages, kept
+    release(torch)
+    return out, (full, inputs, targets, want_loss, want)
+
+
+def pp_cp(torch, fa, tfm, pp, full, inputs, targets, want_loss, want, smi) -> dict:
+    """[15d] 15a's GPT-2 weights and batch under --pp 2 --cp 2: ring and
+    Ulysses inside each stage, GPipe and 1F1B, every (stage, seq rank) a
+    thread of this process, its pipe a ``LocalPipe`` among its seq rank's
+    stages and its seq exchange a ``LocalRing`` among its stage's seq ranks
+    (passed to ``run_schedule(seq=)``), against the unpipelined step: the
+    loss (the seq ranks' mean), the gradients (their mean, pipe-summed),
+    K1-K3 launches per live hop."""
+    n, ncp, M = PP_CP["n"], PP_CP["cp"], PP_GPT2["M"]
+    S = inputs.shape[1] // ncp
+    ins = [inputs[:, q * S : (q + 1) * S].contiguous() for q in range(ncp)]
+    tgts = [targets[:, q * S : (q + 1) * S].contiguous() for q in range(ncp)]
+    out, launches = {"tolerance": PP_F32_TOL}, {k: 0 for k in fa.LAUNCHES}
+    for impl in PP_CP["impls"]:
+        import queue
+
+        cfg = tfm.gpt2_124m(scan_layers=True, cp_axis="seq", cp_impl=impl)
+        per = cfg.num_layers // n
+        grid = [[pp.stage_model(cfg, full, s, n, device=DEVICE) for s in range(n)] for _ in range(ncp)]
+        for schedule in PP_CP["schedules"]:
+            for stages in grid:
+                zero_stage_grads(torch, stages)
+            pipes = [local_pipes(n, False) for _ in range(ncp)]
+            rings = []
+            for _ in range(n):
+                boxes = [queue.Queue() for _ in range(ncp)]
+                a2a = {(i, j): queue.Queue() for i in range(ncp) for j in range(ncp)}
+                rings.append([LocalRing(boxes, q, a2a) for q in range(ncp)])
+            jobs = [(grid[q][s], pipes[q][s], ins[q], tgts[q], rings[s][q]) for q in range(ncp) for s in range(n)]
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            runs = pp_threads(torch, pp, jobs, M, schedule, f"15d {impl} {schedule}")
+            wall = time.perf_counter() - t0
+            got = dict(fa.LAUNCHES)
+            exp = {k: sum(pp_expected(per, M, n, s, schedule, False, 1, 1 + q if impl == "ring" else 1)[k]
+                          for q in range(ncp) for s in range(n)) for k in got}
+            loss = sum(float(runs[q * n + n - 1].loss_sum) for q in range(ncp)) / (ncp * M)
+            homes = [layer_home(stages) for stages in grid]
+            grad_err, where = grad_error(
+                lambda k: sum(stage_grad(grid[q], k, homes[q]) for q in range(ncp)) / ncp, want)
             rec = {"loss": loss, "loss_abs_err": abs(loss - want_loss), "grad_rel_err": grad_err, "worst": where,
-                   "launches": total, "held": [r.max_held for r in runs], "counts": [r.counts for r in runs]}
+                   "launches": got, "wall_ms": wall * 1e3}
+            if got != exp:
+                raise AssertionError(f"15d {impl} {schedule}: launches {got} != {exp}")
             if not (rec["loss_abs_err"] <= PP_F32_TOL["loss_rtol"] * abs(want_loss)
                     and grad_err <= PP_F32_TOL["grad_rtol"]):
-                raise AssertionError(f"15a n={n} {schedule}: {rec}")
-            if schedule == "gpipe":
-                named = [dict(st.named_parameters()) for st in stages]
-                gpipe = (loss, {k: stage_grad(named, per, k).clone() for k in want})
-            else:
-                rec["vs_gpipe"] = {"loss_abs_diff": abs(loss - gpipe[0]),
-                                   "grad_rel_err": pp_grad_error(stages, gpipe[1])[0]}
-                if not (rec["vs_gpipe"]["loss_abs_diff"] <= PP_F32_TOL["loss_rtol"] * abs(want_loss)
-                        and rec["vs_gpipe"]["grad_rel_err"] <= PP_F32_TOL["grad_rtol"]):
-                    raise AssertionError(f"15a n={n}: 1F1B against GPipe {rec['vs_gpipe']}")
-            # Each stage alone: its launches exactly, and its time.
-            rec["stage_ms"], rec["stage_launches"] = [], []
-            for s, st in enumerate(stages):
-                fa.reset_launches()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                pp.run_schedule(st, CannedPipe(pipes[s]), inputs, targets, microbatches=M, schedule=schedule)
-                torch.cuda.synchronize()
-                rec["stage_ms"].append((time.perf_counter() - t0) * 1e3)
-                got, exp = dict(fa.LAUNCHES), pp_expected(per, M, n, s, schedule, cfg.remat)
-                if got != exp:
-                    raise AssertionError(f"15a n={n} {schedule} stage {s}: launches {got} != {exp}")
-                rec["stage_launches"].append(got)
-                for k, v in got.items():
-                    launches[k] += v
-            if total != {k: sum(x[k] for x in rec["stage_launches"]) for k in total}:
-                raise AssertionError(f"15a n={n} {schedule}: the replay's launches {total} are not its stages'")
-            for k, v in total.items():
-                launches[k] += v
-            if schedule == "1f1b":
-                rec["bubble"] = pp.pp_bubble_fraction(n, M)["bubble_fraction"]
-            res[schedule] = rec
-            log(f"    15a n={n} {schedule}: loss {loss:.6f} (|err| {rec['loss_abs_err']:.1e}), gradients within "
-                f"{grad_err:.1e} of their largest (worst {where}), held {rec['held']}, stage ms "
-                f"{['%.1f' % x for x in rec['stage_ms']]}, launches a stage {rec['stage_launches']}")
-        out[f"n{n}"] = res
-        del stages, gpipe
+                raise AssertionError(f"15d {impl} {schedule}: {rec}")
+            if schedule != "gpipe":
+                check_counts(pp, runs, n, M, 1, schedule, f"15d {impl} {schedule}")
+            for k, c in got.items():
+                launches[k] += c
+            out[f"{impl}_{schedule}"] = rec
+            log(f"    15d --pp {n} --cp {ncp} {impl} {schedule}: loss {loss:.6f} (|err| {rec['loss_abs_err']:.1e}), "
+                f"gradients within {grad_err:.1e} of their largest (worst {where}), launches {got}, "
+                f"{rec['wall_ms']:.0f} ms on {smi}")
+        del grid
     out["attention_launches"] = launches
-    del model, full, want
     release(torch)
     return out
 
 
 def pp_llama(torch, fa, tfm, pp, smi) -> dict:
     """[15b] Llama-3 8B width x 8 layers (bf16, remat) on 2 stages, GPipe
-    and 1F1B at M = 4 and 8, against the unpipelined step; the peak memory
-    above the resident stages and gradients, and the microbatches each
-    stage held."""
+    and 1F1B at M = 4 and 8, then zb and 1F1B with 2 chunks a stage at M =
+    8, against the unpipelined step; zb's gradients against 1F1B's; the
+    peak memory above the resident stages and gradients, and the
+    microbatches each stage held."""
     B, S, n = PP_LLAMA["B"], PP_LLAMA["S"], PP_LLAMA["n"]
     cfg = tfm.llama3_8b(num_layers=LLAMA_LAYERS, max_seq_len=S)
     gen = torch.Generator(device=DEVICE).manual_seed(16)
@@ -2953,35 +3187,53 @@ def pp_llama(torch, fa, tfm, pp, smi) -> dict:
     release(torch)
     per = cfg.num_layers // n
     out, launches = {"oracle_loss": want_loss, "tolerance": PP_BF16_TOL, "stages": n}, {k: 0 for k in fa.LAUNCHES}
-    for M in PP_LLAMA["M"]:
-        for schedule in ("gpipe", "1f1b"):
-            zero_stage_grads(torch, stages)
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            fa.reset_launches()
-            t0 = time.perf_counter()
-            runs, _ = pp_replay(torch, pp, stages, inputs, targets, M, schedule)
-            wall = time.perf_counter() - t0
-            got = dict(fa.LAUNCHES)
-            exp = {k: sum(pp_expected(per, M, n, s, schedule, True)[k] for s in range(n)) for k in got}
-            loss = float(runs[-1].loss_sum) / M
-            grad_err, where = pp_grad_error(stages, want)
-            rec = {"loss": loss, "loss_abs_err": abs(loss - want_loss), "grad_rel_err": grad_err, "worst": where,
-                   "launches": got, "held": [r.max_held for r in runs], "wall_ms": wall * 1e3,
-                   "peak_above_resident_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
-                   "resident_gib": base / 2**30}
-            if got != exp:
-                raise AssertionError(f"15b M={M} {schedule}: launches {got} != {exp}")
-            if not (rec["loss_abs_err"] <= PP_BF16_TOL["loss_atol"] and grad_err <= PP_BF16_TOL["grad_rtol"]):
-                raise AssertionError(f"15b M={M} {schedule}: {rec}")
-            for k, v in got.items():
-                launches[k] += v
-            out[f"{schedule}_m{M}"] = rec
-            log(f"    15b M={M} {schedule}: loss {loss:.5f} (|err| {rec['loss_abs_err']:.1e}), gradients within "
-                f"{grad_err:.2e} of their largest (worst {where}), held {rec['held']}, "
-                f"{rec['peak_above_resident_gib']:.2f} GiB above {rec['resident_gib']:.2f} resident, "
-                f"{rec['wall_ms']:.0f} ms on {smi}")
+    f1b = None
+    runs_15b = [(M, schedule, 1) for M in PP_LLAMA["M"] for schedule in ("gpipe", "1f1b")]
+    runs_15b += [(PP_LLAMA["M"][-1], schedule, v) for schedule, v in PP_LLAMA_MORE]
+    for M, schedule, v in runs_15b:
+        if stages[0].virtual != v:
+            stages = restage(torch, pp, cfg, stages, v)
+        name = f"{schedule}_m{M}" + (f"_v{v}" if v > 1 else "")
+        zero_stage_grads(torch, stages)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        runs, _ = pp_replay(torch, pp, stages, inputs, targets, M, schedule)
+        wall = time.perf_counter() - t0
+        got = dict(fa.LAUNCHES)
+        exp = {k: sum(pp_expected(per, M, n, s, schedule, True, v)[k] for s in range(n)) for k in got}
+        loss = float(runs[-1].loss_sum) / M
+        grad_err, where = pp_grad_error(stages, want)
+        rec = {"loss": loss, "loss_abs_err": abs(loss - want_loss), "grad_rel_err": grad_err, "worst": where,
+               "launches": got, "held": [r.max_held for r in runs], "counts": [r.counts for r in runs],
+               "wall_ms": wall * 1e3, "peak_above_resident_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+               "resident_gib": base / 2**30}
+        if got != exp:
+            raise AssertionError(f"15b {name}: launches {got} != {exp}")
+        if not (rec["loss_abs_err"] <= PP_BF16_TOL["loss_atol"] and grad_err <= PP_BF16_TOL["grad_rtol"]):
+            raise AssertionError(f"15b {name}: {rec}")
+        if schedule != "gpipe":
+            check_counts(pp, runs, n, M, v, schedule, f"15b {name}")
+        if schedule == "zb":
+            gap = pp_grad_error(stages, f1b[1])[0]
+            rec["vs_1f1b"] = {"loss_abs_diff": abs(loss - f1b[0]), "grad_rel_err": gap,
+                              "bitwise": all(torch.equal(stage_grad(stages, k), g) for k, g in f1b[1].items())}
+            if not (rec["vs_1f1b"]["loss_abs_diff"] <= PP_BF16_TOL["loss_atol"] and gap <= PP_BF16_TOL["grad_rtol"]):
+                raise AssertionError(f"15b {name} against 1F1B: {rec['vs_1f1b']}")
+            f1b = None  # its 14 GiB go before the next run
+        elif (M, schedule, v) == (PP_LLAMA["M"][-1], "1f1b", 1) and any(sc == "zb" for sc, _ in PP_LLAMA_MORE):
+            f1b = (loss, stage_grads(stages, want))
+        for k, c in got.items():
+            launches[k] += c
+        out[name] = rec
+        log(f"    15b {name}: loss {loss:.5f} (|err| {rec['loss_abs_err']:.1e}), gradients within "
+            f"{grad_err:.2e} of their largest (worst {where})"
+            + (f", against 1F1B {rec['vs_1f1b']['grad_rel_err']:.1e}"
+               f"{' (bit for bit)' if rec['vs_1f1b']['bitwise'] else ''}" if "vs_1f1b" in rec else "")
+            + f", held {rec['held']}, {rec['peak_above_resident_gib']:.2f} GiB above {rec['resident_gib']:.2f} "
+            f"resident, {rec['wall_ms']:.0f} ms on {smi}")
     # 1F1B holds at most n - s microbatches on stage s whatever M; GPipe all M.
     for M in PP_LLAMA["M"]:
         if out[f"1f1b_m{M}"]["held"] != [min(n - s, M) for s in range(n)] or out[f"gpipe_m{M}"]["held"] != [M] * n:
@@ -3047,10 +3299,47 @@ def pp_entry(torch, smi) -> dict:
     return out
 
 
+def pp_entry_16b(torch, smi) -> dict:
+    """[15c+] Only where two GPUs are visible: the runs of PP_ENTRY_16B that
+    the visible GPUs hold, each in fresh processes against one GPU; the
+    losses, step ms and each rank's P2P wait (``profile_step.pp_split``
+    over steps 1-2)."""
+    import glob
+
+    from distributeddataparallel_tpu_torch.profile_step import pp_split
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"    15c+ needs two GPUs and was not run: {count} visible")
+        return {"ran": False, "gpus": count}
+    base = run_entry(PP_ENTRY_ARGS, "15c+ one GPU")
+    out = {"ran": True, "gpus": count, "atol": PP_ENTRY_ATOL,
+           "one_gpu": {"losses": base["losses"], "step_ms": base["step_time_s"] * 1e3}}
+    for name, (extra, gpus) in PP_ENTRY_16B.items():
+        if gpus > count:
+            log(f"    15c+ {name} needs {gpus} GPUs and was not run: {count} visible")
+            out[name] = {"ran": False, "gpus": gpus}
+            continue
+        with tempfile.TemporaryDirectory(prefix="pp16b_") as ev:
+            s = run_entry(PP_ENTRY_ARGS + extra + ["--num-processes", str(gpus), "--events-dir", ev,
+                                                   "--profile-steps", "1:3"], f"15c+ {name}")
+            split = pp_split(sorted(glob.glob(os.path.join(ev, "xprof", "trace_*_p*.json"))), 2)
+        diff = max(abs(a - b) for a, b in zip(s["losses"], base["losses"]))
+        out[name] = {"ran": True, "gpus": gpus, "losses": s["losses"], "step_ms": s["step_time_s"] * 1e3,
+                     "max_abs_diff": diff, "peak_memory_bytes_rank0": s["peak_memory_bytes"],
+                     "p2p_ms_by_rank": [r["p2p_ms"] for r in split],
+                     "compute_ms_by_rank": [r["compute_ms"] for r in split]}
+        if not diff <= PP_ENTRY_ATOL:
+            raise AssertionError(f"15c+ {name}: losses {s['losses']} vs {base['losses']}")
+        log(f"    15c+ {name}: step {out[name]['step_ms']:.1f} ms (one GPU {out['one_gpu']['step_ms']:.1f}), "
+            f"|loss - base| {diff:.2e}, P2P ms a rank {['%.1f' % x for x in out[name]['p2p_ms_by_rank']]} on {smi}")
+    return out
+
+
 def pp_phase(torch, fa, tfm, smi) -> dict:
-    """[15] Pipeline parallelism: 15a and 15b replay the module's own
+    """[15] Pipeline parallelism: 15a, 15b and 15d replay the module's own
     schedules on this card (the kernels' counters summed over the replays,
-    the oracles left out); 15c with two GPUs or more."""
+    the oracles left out); 15c and 15c+ with two GPUs or more."""
     from distributeddataparallel_tpu_torch.parallel import pipeline_parallel as pp
 
     t0 = time.perf_counter()
@@ -3063,11 +3352,14 @@ def pp_phase(torch, fa, tfm, smi) -> dict:
         seconds[name] = time.perf_counter() - t
         return result
 
-    out = {"gpt2_12_layers": timed("15a", pp_gpt2, torch, fa, tfm, pp, smi),
-           "llama_8_layers": timed("15b", pp_llama, torch, fa, tfm, pp, smi)}
-    out["attention_launches"] = {k: out["gpt2_12_layers"]["attention_launches"][k]
-                                 + out["llama_8_layers"]["attention_launches"][k] for k in fa.LAUNCHES}
+    gpt2, reused = timed("15a", pp_gpt2, torch, fa, tfm, pp, smi)
+    out = {"gpt2_12_layers": gpt2, "cp": timed("15d", pp_cp, torch, fa, tfm, pp, *reused, smi)}
+    del reused
+    out["llama_8_layers"] = timed("15b", pp_llama, torch, fa, tfm, pp, smi)
+    out["attention_launches"] = {k: sum(out[part]["attention_launches"][k]
+                                        for part in ("gpt2_12_layers", "cp", "llama_8_layers")) for k in fa.LAUNCHES}
     out["entry"] = timed("15c", pp_entry, torch, smi)
+    out["entry_16b"] = timed("15c+", pp_entry_16b, torch, smi)
     out["seconds"] = time.perf_counter() - t0
     out["seconds_by_part"] = seconds
     log(f"    phase 15 in {out['seconds']:.1f} s ({seconds}); K1-K3 launches {out['attention_launches']} on {smi}")
@@ -3121,9 +3413,9 @@ def main() -> int:
     for line in ptxas_report(so.with_suffix(".log").read_text()):
         log("    " + line)
     if "--multi-gpu" in sys.argv[1:]:
-        # Only the entry-point runs over several GPUs (12c, 13c, 14c, or
-        # those named after the flag): what a one-card run skips.
-        entries = {"12c": cp_tp_entry, "13c": fsdp_entry, "14c": moe_entry, "15c": pp_entry}
+        # Only the entry-point runs over several GPUs (12c, 13c, 14c, 15c,
+        # 15c+, or those named after the flag): what a one-card run skips.
+        entries = {"12c": cp_tp_entry, "13c": fsdp_entry, "14c": moe_entry, "15c": pp_entry, "15c+": pp_entry_16b}
         picked = [a for a in sys.argv[sys.argv.index("--multi-gpu") + 1:] if a in entries] or list(entries)
         out = {name: entries[name](torch, smi) for name in picked}
         log(json.dumps({"multi_gpu": out, "card": smi, "seconds": time.perf_counter() - t_all}))

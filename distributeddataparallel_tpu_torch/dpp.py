@@ -84,17 +84,18 @@ choice (``models.transformer.MoEMLP``, ``ops.moe``); the loss adds
 
 Pipeline parallelism, with the reference's flags and checks: ``--pp N``
 splits the layers into N stages over a ``pipe`` axis (the mesh: data, seq,
-pipe, expert, model) and ``--pp-schedule gpipe|1f1b`` runs
+pipe, expert, model) and ``--pp-schedule gpipe|1f1b|zb`` runs
 ``--pp-microbatches`` microbatches through them
-(``parallel.pipeline_parallel``), with ``--tp`` or ``--ep``, ``--zero 1``,
-``--grad-clip``, ``--eval`` (pipelined) and checkpoints; 1F1B emits one
-``pp_phase`` event.
+(``parallel.pipeline_parallel``; zb is the zero-bubble schedule), each
+stage in ``--pp-virtual`` interleaved chunks under 1f1b and zb, with
+``--tp``, ``--ep`` or ``--cp`` (ring or Ulysses inside each stage; not
+with zb), ``--zero 1``, ``--grad-clip``, ``--eval`` (pipelined) and
+checkpoints; 1F1B and zb emit one ``pp_phase`` event.
 
-The reference's flags whose feature is not ported yet (``--pp-virtual``,
-``--elastic*``, ``--integrity-*``, ...) parse with its defaults and checks;
-a value off the default raises ``NotImplementedError`` naming its ROADMAP
-item (``UNPORTED_FLAGS``), as do ``--pp-schedule zb`` and ``--pp`` with
-``--cp``.
+The reference's flags whose feature is not ported yet (``--elastic*``,
+``--integrity-*``, ...) parse with its defaults and checks; a value off the
+default raises ``NotImplementedError`` naming its ROADMAP item
+(``UNPORTED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -292,11 +293,13 @@ def parse_args(argv=None):
     p.add_argument("--pp-microbatches", type=int, default=None,
                    help="pipeline microbatches per step (default: --pp); --batch-size divisible by it")
     p.add_argument("--pp-schedule", default="gpipe", choices=["gpipe", "1f1b", "zb"],
-                   help="pipeline schedule: gpipe (all forwards, then all backwards) or 1f1b (one "
-                        "forward, one backward; at most --pp microbatches held); zb is not ported "
-                        "yet (ROADMAP item 16b)")
+                   help="pipeline schedule: gpipe (all forwards, then all backwards), 1f1b (one "
+                        "forward, one backward; at most --pp microbatches held) or zb (1f1b with each "
+                        "backward split into the input gradient, sent upstream at once, and the weight "
+                        "gradients after it; needs --pp-microbatches >= --pp)")
     p.add_argument("--pp-virtual", type=int, default=1,
-                   help="virtual layer chunks per pipeline stage: not ported yet (ROADMAP item 16b)")
+                   help="virtual layer chunks per pipeline stage (interleaved 1f1b/zb): stage s runs "
+                        "the round-robin chunks s, s+pp, ...; --layers divisible by --pp x this")
     p.add_argument("--moe-experts", type=int, default=0,
                    help="replace every block's MLP with this many routed experts (LM only; "
                         "0 = dense MLP)")
@@ -480,7 +483,6 @@ def parse_args(argv=None):
 #: raises ``NotImplementedError`` naming the item (after the reference's own
 #: checks of the value, ``_validate_reference_rules``).
 UNPORTED_FLAGS = {
-    "16b": ("pp_virtual",),
     "11b": ("compile_cache", "dispatch_depth"),
     "13": ("elastic", "elastic_dir", "min_procs"),
     "20": ("integrity_every", "integrity_shadow"),
@@ -496,11 +498,6 @@ def _refuse_unported(p, args) -> None:
             if getattr(args, dest) != p.get_default(dest):
                 raise NotImplementedError(f"--{dest.replace('_', '-')} is not ported yet: "
                                           f"ROADMAP.md Queue 1, item {item}")
-    # Values of ported flags whose feature is not ported yet.
-    if args.pp_schedule == "zb":
-        raise NotImplementedError("--pp-schedule zb is not ported yet: ROADMAP.md Queue 1, item 16b")
-    if args.pp > 1 and args.cp > 1:
-        raise NotImplementedError("--pp with --cp is not ported yet: ROADMAP.md Queue 1, item 16b")
 
 
 def _bad(*pairs) -> list[str]:
@@ -964,8 +961,9 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
             if args.batch_size % (args.pp_microbatches or args.pp):
                 raise SystemExit(f"--batch-size {args.batch_size} must be divisible by "
                                  f"--pp-microbatches {args.pp_microbatches or args.pp}")
-            if cfg.num_layers % args.pp:
-                raise SystemExit(f"model layer count {cfg.num_layers} must be divisible by --pp {args.pp}")
+            if cfg.num_layers % (args.pp * args.pp_virtual):
+                raise SystemExit(f"model layer count {cfg.num_layers} must be divisible by --pp {args.pp}"
+                                 + (f" x --pp-virtual {args.pp_virtual}" if args.pp_virtual > 1 else ""))
         model = tfm.TransformerLM(dataclasses.replace(cfg, tp_axis=None, ep_axis=None), device=device,
                                   generator=gen)
     else:
@@ -979,7 +977,8 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
         full = shard_model_axes(model.state_dict(), cfg.tp_axis, cfg.ep_axis)
         del model
         if pp:  # this stage's layers and the replicated leaves
-            model = pipeline_parallel.stage_model(cfg, full, mesh.index(rt.PIPE_AXIS), args.pp, device=device)
+            model = pipeline_parallel.stage_model(cfg, full, mesh.index(rt.PIPE_AXIS), args.pp,
+                                                  virtual=args.pp_virtual, device=device)
         else:
             model = tfm.TransformerLM(cfg, device=device)
             model.load_state_dict(full)
@@ -1027,7 +1026,8 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
         # The microbatch loop is the accumulation (dpp.py:1606-1629).
         step_fn = pipeline_parallel.make_pp_train_step(
             cfg, microbatches=args.pp_microbatches or args.pp, schedule=args.pp_schedule, zero=args.zero,
-            grad_clip=args.grad_clip, moe_aux_weight=args.moe_aux_weight if args.moe_experts else 0.0)
+            grad_clip=args.grad_clip, moe_aux_weight=args.moe_aux_weight if args.moe_experts else 0.0,
+            virtual=args.pp_virtual)
     else:
         step_fn = make_train_step(
             lm_loss_fn(args) if lm else _image_loss_fn, accum_steps=args.accum_steps,
@@ -1171,7 +1171,7 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
                     if bad:
                         tel.nan_skip(gstep, epoch, i)
                     faults.breaker.observe(bad)
-                counts = metrics.get("pp_phase_counts")  # 1F1B's units a stage, once per run
+                counts = metrics.get("pp_phase_counts")  # 1F1B's or zb's units a stage, once per run
                 tel.step_end(gstep, None if aux is None else {"moe_aux": aux}, pp_phase=None if counts is None else
                              phase_counts_payload(counts, schedule=args.pp_schedule, n_stages=args.pp,
                                                   virtual=args.pp_virtual,

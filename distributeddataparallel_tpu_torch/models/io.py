@@ -110,7 +110,7 @@ def unstack_scanned_layers(params: Mapping, num_layers: int, prefix: str = "laye
 
 def from_jax_params(params, cfg: TransformerConfig | nn.Module, *, tp_rank: int = 0,
                     tp_size: int = 1, ep_rank: int = 0, ep_size: int = 1, pp_rank: int = 0,
-                    pp_size: int = 1) -> dict[str, torch.Tensor]:
+                    pp_size: int = 1, virtual: int = 1) -> dict[str, torch.Tensor]:
     """Reference flax tree -> this port's state_dict (CPU float32 tensors).
     An LM tree may be in either layer layout.  With ``tp_size > 1`` the
     result is tensor-parallel rank ``tp_rank``'s shard of it
@@ -120,7 +120,9 @@ def from_jax_params(params, cfg: TransformerConfig | nn.Module, *, tp_rank: int 
     experts ``[r*E/ep, (r+1)*E/ep)`` of each MoE block); with ``pp_size >
     1`` pipeline stage ``pp_rank``'s
     (``parallel.pipeline_parallel.shard_state_dict_pp``: its layers,
-    renumbered from 0, and the replicated leaves; a ``StageLM``'s)."""
+    renumbered from 0, and the replicated leaves; a ``StageLM``'s), its
+    ``virtual`` round-robin chunks in chunk-major order with ``virtual >
+    1`` (as the reference's ``shard_state_pp(virtual=)`` places them)."""
     if not isinstance(cfg, TransformerConfig):
         return _tensors(_image_from_jax(params, cfg))
     if "layers" in params:
@@ -170,7 +172,7 @@ def from_jax_params(params, cfg: TransformerConfig | nn.Module, *, tp_rank: int 
     if pp_size > 1:
         from distributeddataparallel_tpu_torch.parallel.pipeline_parallel import shard_state_dict_pp
 
-        sd = shard_state_dict_pp(sd, pp_rank, pp_size)
+        sd = shard_state_dict_pp(sd, pp_rank, pp_size, virtual)
     return sd
 
 

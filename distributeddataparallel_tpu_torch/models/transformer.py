@@ -61,7 +61,11 @@ flash kernels for CUDA tensors).
   (``parallel.expert_parallel``).
 - ``forward`` is ``embed``, ``blocks`` and ``head`` in turn: a pipeline
   stage (``parallel.pipeline_parallel.StageLM``, a ``TransformerLM`` of its
-  layers) calls them one by one.
+  layers) calls them one by one, ``blocks`` over a run of its layers (a
+  virtual chunk) and with the sequence-parallel exchange it was handed
+  (``seq=``).  A schedule sets a ``WeightGradStore`` on the stage's dense
+  layers (``weight_grad_store``): their products then run through
+  ``_Dense``, whose weight gradients the zero-bubble schedule defers.
 
 Config fields of the reference that this port does not run yet are kept so
 configs carry over, and raise ``NotImplementedError`` naming the ROADMAP
@@ -196,10 +200,77 @@ def check_ported(cfg: TransformerConfig) -> None:
             )
 
 
+class WeightGradStore:
+    """Where a pipeline stage's dense products put their weight gradients
+    (``parallel.pipeline_parallel`` sets one on every ``nn.Linear`` of a
+    stage for the length of a schedule, as ``weight_grad_store``).  Each
+    such product runs through ``_Dense``: its backward computes ``dx`` and
+    the bias gradient, and the weight gradient ``dy^T x`` (with the f32
+    cast's backward) either at once (``defer=False``: 1F1B, GPipe) or into
+    ``queue`` (``defer=True``: the zero-bubble schedule's B unit, Megatron's
+    ``WeightGradStore``); ``flush`` is the W unit, the queued products in
+    the order the backward queued them.  The GEMMs are the same either way,
+    so deferred and immediate gradients agree bit for bit."""
+
+    def __init__(self, defer: bool):
+        self.defer, self.queue = defer, []
+
+    def flush(self) -> int:
+        """Run the queued weight-gradient products into the weights'
+        ``.grad``; returns how many ran."""
+        ran = len(self.queue)
+        for weight, dy, x in self.queue:
+            _accumulate(weight, (dy.t() @ x).to(weight.dtype))
+        self.queue.clear()
+        return ran
+
+
+def _accumulate(p: torch.Tensor, g: torch.Tensor) -> None:
+    """``p.grad += g`` as autograd's accumulation does it."""
+    if p.grad is None:
+        p.grad = g
+    else:
+        p.grad.add_(g)
+
+
+class _Dense(torch.autograd.Function):
+    """``x @ w.T (+ b)`` with ``w`` and ``b`` cast to ``x``'s dtype, whose
+    weight gradient goes through a ``WeightGradStore``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, store):
+        w = weight.to(x.dtype)
+        ctx.save_for_backward(x, w)
+        ctx.weight, ctx.store, ctx.has_bias = weight, store, bias is not None
+        return F.linear(x, w, None if bias is None else bias.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dy @ w if ctx.needs_input_grad[0] else None
+        dy2, x2 = dy.reshape(-1, dy.shape[-1]), x.reshape(-1, x.shape[-1])
+        db = dy2.sum(0).to(ctx.weight.dtype) if ctx.has_bias else None
+        dw = None
+        if ctx.store.defer:
+            ctx.store.queue.append((ctx.weight, dy2, x2))
+        else:
+            dw = (dy2.t() @ x2).to(ctx.weight.dtype)
+        return dx, dw, db, None
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor, bias) -> torch.Tensor:
+    """``layer``'s product on ``x`` (already in the compute dtype) with
+    ``bias`` (f32, or None), through its weight-gradient store when a
+    pipeline schedule set one and gradients are recorded."""
+    store = getattr(layer, "weight_grad_store", None)
+    if store is not None and torch.is_grad_enabled():
+        return _Dense.apply(x, layer.weight, bias, store)
+    return F.linear(x, layer.weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+
+
 def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Linear with cfg.dtype operands (f32 params cast per use)."""
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return _linear(layer, x.to(dtype), layer.bias)
 
 
 class _F32Product(torch.autograd.Function):
@@ -283,8 +354,7 @@ def _row_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp_axis
     """A row-parallel Linear (ref ``_RowParallelOut``): the partial product
     of this rank's input features summed over the TP axis, then the
     replicated bias added once."""
-    y = F.linear(x.to(dtype), layer.weight.to(dtype))
-    y = reduce_from_tp(y, tp_axis)
+    y = reduce_from_tp(_linear(layer, x.to(dtype), None), tp_axis)
     return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
@@ -307,7 +377,11 @@ class Attention(nn.Module):
         self.v_proj = lin(d, self.kv_heads * D)
         self.o_proj = lin(self.heads * D, d)
 
-    def forward(self, x, rope=None, positions=None):
+    def forward(self, x, rope=None, positions=None, seq=None):
+        """``seq``: the sequence-parallel exchange to attend over (an
+        object with ``context_parallel``'s exchange members, ranks of one
+        process); without it, the ``cp_axis`` group when that axis is
+        bound."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, D = self.heads, self.kv_heads, cfg.dims_per_head
@@ -323,11 +397,12 @@ class Attention(nn.Module):
         # GQA kv stays at its own head count: the kernels index the shared
         # head natively; the plain path expands internally.  So do both
         # sequence-parallel collectives (the ring carries kv at Hkv heads).
-        if axis_size(cfg.cp_axis) > 1:
+        if seq is not None or axis_size(cfg.cp_axis) > 1:
+            over = seq if seq is not None else axis_group(cfg.cp_axis)
             if cfg.cp_impl == "ulysses":
-                out = cp.ulysses_attention(q, k, v, axis_group(cfg.cp_axis), causal=True, impl=cfg.attn_impl)
+                out = cp.ulysses_attention(q, k, v, over, causal=True, impl=cfg.attn_impl)
             elif cfg.cp_impl == "ring":
-                out = cp.ring_attention(q, k, v, axis_group(cfg.cp_axis), causal=True, impl=cfg.attn_impl)
+                out = cp.ring_attention(q, k, v, over, causal=True, impl=cfg.attn_impl)
             else:
                 raise ValueError(f"unknown cp_impl {cfg.cp_impl!r}")
         else:
@@ -556,15 +631,16 @@ class DecoderBlock(nn.Module):
         self.mlp_norm = _make_norm(cfg, device)
         self.mlp = MoEMLP(cfg, device=device) if self.moe else MLP(cfg, device=device)
 
-    def forward(self, x, rope=None, seed=None, positions=None, kv=None):
+    def forward(self, x, rope=None, seed=None, positions=None, kv=None, seq=None):
         """``seed`` (an int) turns on dropout of both residual branches;
         ``kv`` (this layer's cache pair) selects KV-cache attention at
         ``positions`` (without it, ``positions`` are the tokens' global
-        positions for RoPE: a sequence chunk's under ``cp_axis``).  An MoE
-        block returns ``(x, aux)``: the aux term is an output, so
+        positions for RoPE: a sequence chunk's under ``cp_axis``); ``seq``
+        is the attention's sequence-parallel exchange (``Attention``).  An
+        MoE block returns ``(x, aux)``: the aux term is an output, so
         checkpointing's recompute carries it."""
         y = self.attn_norm(x)
-        h = self.attn(y, rope, positions) if kv is None else self.attn.decode(y, rope, positions, kv)
+        h = self.attn(y, rope, positions, seq) if kv is None else self.attn.decode(y, rope, positions, kv)
         if seed is not None:
             h = dropout(h, self.rate, fold_seed(seed, 0))
         x = x + h
@@ -677,19 +753,21 @@ class TransformerLM(nn.Module):
             x = dropout(x, cfg.dropout_rate, fold_seed(dropout_seed, 0))
         return x
 
-    def blocks(self, x, positions=None, dropout_seed=None):
+    def blocks(self, x, positions=None, dropout_seed=None, *, layers=None, seq=None):
         """The decoder blocks on ``x`` (checkpointed under ``remat`` while
         gradients are recorded): ``(x, auxes)``, the MoE blocks'
-        load-balance terms in layer order (empty without MoE)."""
+        load-balance terms in layer order (empty without MoE).  ``layers``:
+        a run of ``self.layers`` (all of them by default); ``seq``: the
+        attention's sequence-parallel exchange (``Attention.forward``)."""
         cfg = self.cfg
         rope = (self.rope_cos, self.rope_sin) if cfg.positional == "rope" else None
         auxes = []
-        for i, layer in enumerate(self.layers):
+        for i, layer in enumerate(self.layers if layers is None else layers):
             seed = None if dropout_seed is None else fold_seed(dropout_seed, i + 1)
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, rope, seed, positions, use_reentrant=False)
+                x = checkpoint(layer, x, rope, seed, positions, None, seq, use_reentrant=False)
             else:
-                x = layer(x, rope, seed, positions)
+                x = layer(x, rope, seed, positions, None, seq)
             if cfg.moe_experts:
                 x, aux = x
                 auxes.append(aux)

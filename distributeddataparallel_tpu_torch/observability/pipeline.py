@@ -2,11 +2,12 @@
 
 Counterpart of ``distributeddataparallel_tpu/observability/pipeline.py``,
 copied so that ``scripts/ddp_report.py`` reads the port's ``pp_phase``
-events unchanged.  The 1F1B train step (``parallel.pipeline_parallel``)
-counts each stage's executed units (``pp_phase_counts`` in the step
-metrics: an ``(n_stages, 3)`` [F, B, W] table); the trainer emits that
-table once per run as a ``pp_phase`` event, with the schedule's slot
-accounting (``pp_bubble_fraction``).  ``measured_bubble_fraction``
+events unchanged.  The 1F1B and zero-bubble train steps, interleaved or
+not (``parallel.pipeline_parallel``), count each stage's executed units
+(``pp_phase_counts`` in the step metrics: an ``(n_stages, 3)`` [F, B, W]
+table, W zb's deferred weight-gradient units); the trainer emits that table
+once per run as a ``pp_phase`` event with the schedule, its virtual chunks
+and its slot accounting (``pp_bubble_fraction``).  ``measured_bubble_fraction``
 rebuilds the per-stage useful fraction and the gang bubble from the
 merged timeline: the measured and analytic numbers agreeing is the
 verification; them disagreeing is a schedule bug the counters caught.

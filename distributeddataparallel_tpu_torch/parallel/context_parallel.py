@@ -33,7 +33,12 @@ zeroes a dead one).
 Both collectives take their exchange as an argument, so the module's own
 loops also run for ``n`` ranks inside one process: ``flash_ring_forward`` /
 ``flash_ring_backward`` take a ring exchange (``_Ring`` over a process
-group), ``ulysses_ranks`` an all-to-all over a list of ranks' blocks.
+group), ``ulysses_ranks`` an all-to-all over a list of ranks' blocks.  The
+model's entry points (``ring_attention`` and ``ulysses_attention``, which
+``Attention`` calls) take either a process group or such an exchange
+object, passed down from the caller (``is_exchange``): ``idx`` and ``n``,
+the ring's ``post`` and ``wait``, and Ulysses' differentiable
+``all_to_all`` (dim 0 in equal blocks).
 """
 
 from __future__ import annotations
@@ -47,8 +52,17 @@ from distributeddataparallel_tpu_torch.ops import flash_attention as fa
 from distributeddataparallel_tpu_torch.ops.attention import NEG_INF, attention, causal_mask_bias, repeat_kv
 
 
+def is_exchange(group) -> bool:
+    """Is ``group`` an exchange object (module docstring), not a process
+    group?"""
+    return hasattr(group, "post")
+
+
 def group_coords(group) -> tuple[int, int]:
-    """(this rank's index, size) of ``group`` (None: the world)."""
+    """(this rank's index, size) of ``group`` (None: the world; an
+    exchange object: its ``idx`` and ``n``)."""
+    if is_exchange(group):
+        return group.idx, group.n
     if not dist.is_initialized():
         return 0, 1
     return dist.get_rank(group), dist.get_world_size(group)
@@ -173,7 +187,7 @@ class FlashRingAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, group):
-        out, lse = flash_ring_forward(q, k, v, _Ring(group))
+        out, lse = flash_ring_forward(q, k, v, _ring(group))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.group = group
         return out
@@ -181,8 +195,14 @@ class FlashRingAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_ring_backward(q, k, v, out, lse, do.contiguous(), _Ring(ctx.group))
+        dq, dk, dv = flash_ring_backward(q, k, v, out, lse, do.contiguous(), _ring(ctx.group))
         return dq, dk, dv, None
+
+
+def _ring(group):
+    """The ring exchange over ``group``: an exchange object as it is, a
+    process group's ``_Ring``."""
+    return group if is_exchange(group) else _Ring(group)
 
 
 def flash_ring_attention(q, k, v, group=None):
@@ -214,6 +234,9 @@ def _plain_ring(q, k, v, group, causal: bool):
     visiting chunks in f32, differentiated through the rotations.  Every
     hop is computed, a dead one (wholly in the future) zeroed by the causal
     bias, so every rank runs every rotation forward and backward."""
+    if is_exchange(group):
+        raise TypeError("the einsum ring rotates over a process group; an exchange object runs the flash ring "
+                        "(impl='kernel')")
     idx, n = group_coords(group)
     B, S, H, D = q.shape
     scale = 1.0 / math.sqrt(D)
@@ -245,7 +268,8 @@ def _plain_ring(q, k, v, group, causal: bool):
 
 
 def ring_attention(q, k, v, group=None, causal: bool = True, impl: str = "auto"):
-    """Blockwise ring attention over ``group``'s ranks (None: the world).
+    """Blockwise ring attention over ``group``'s ranks (None: the world;
+    an exchange object, module docstring, for the flash ring).
 
     q (B, S_local, H, D), k/v (B, S_local, Hkv, D) local chunks; returns
     the local chunk of attention over the global sequence.  ``impl``:
@@ -343,7 +367,8 @@ def ulysses_ranks(qs, ks, vs, n: int, exchange, causal: bool = True, impl: str =
 
 
 def ulysses_attention(q, k, v, group=None, causal: bool = True, impl: str = "auto"):
-    """All-to-all (DeepSpeed-Ulysses) sequence-parallel attention.
+    """All-to-all (DeepSpeed-Ulysses) sequence-parallel attention over
+    ``group`` (a process group, or an exchange object with ``all_to_all``).
 
     Over the ring's layout (local chunks (B, S/N, H, D)) two exchanges
     trade the N-1 hops: the first scatters heads and gathers the sequence,
@@ -360,4 +385,5 @@ def ulysses_attention(q, k, v, group=None, causal: bool = True, impl: str = "aut
         raise ValueError(f"ulysses requires num_heads % axis size == 0, got {H} % {n}")
     if n == 1:
         return attention(q, k, v, causal=causal, impl=impl)
-    return ulysses_ranks([q], [k], [v], n, lambda ys: [_AllToAll.apply(ys[0], group)], causal, impl)[0]
+    exchange = group.all_to_all if is_exchange(group) else (lambda y: _AllToAll.apply(y, group))
+    return ulysses_ranks([q], [k], [v], n, lambda ys: [exchange(ys[0])], causal, impl)[0]

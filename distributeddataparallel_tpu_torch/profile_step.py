@@ -34,7 +34,10 @@ prints each stage's device ms a step: compute (every kernel but NCCL's),
 P2P (NCCL's send/recv kernels: the transfer and the wait for the peer,
 since such a kernel spins until its peer joins), the other collectives
 (the pipe completion, the data mean) and the span from the first kernel to
-the last.
+the last; and, from the run's ``timeline.jsonl`` beside ``xprof/``, its
+schedule's measured bubble (``observability.pipeline``'s
+``measured_bubble_fraction``: the schedule, the virtual chunks, each
+stage's executed F, B and W units against the analytic table).
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ from collections import defaultdict
 import torch
 
 from distributeddataparallel_tpu_torch import dpp
+from distributeddataparallel_tpu_torch.observability.events import TIMELINE_NAME, read_events
+from distributeddataparallel_tpu_torch.observability.pipeline import measured_bubble_fraction
 from distributeddataparallel_tpu_torch.parallel.overlap import overlap_report, trace_kernels
 from distributeddataparallel_tpu_torch.runtime import distributed as rt
 
@@ -152,6 +157,9 @@ def main(argv=None) -> dict:
 
         out = {"pp_split": pp_split(sorted(glob.glob(os.path.join(own.pp_traces, "trace_*_p*.json"))),
                                     own.profile_steps)}
+        timeline = os.path.join(os.path.dirname(os.path.abspath(own.pp_traces)), TIMELINE_NAME)
+        if os.path.exists(timeline):
+            out["bubble"] = measured_bubble_fraction(read_events(timeline))
         print(json.dumps(out), flush=True)
         return out
     args = dpp.parse_args(rest)

@@ -29,7 +29,11 @@ layers with the replicated leaves; without ZeRO, its optimizer state too)
 is gathered once, from the ranks at data and seq index 0; the payload's
 ``model`` is the shards merged, the whole model (so a plain model loads an
 ``--ep`` or ``--pp`` checkpoint's), and each rank cuts its shard out of it
-on resume.  The payload records the mesh: a resume needs the same mesh.
+on resume.  The payload records the mesh: a resume needs the same mesh.  A
+pipeline's payload also records its virtual chunks a stage
+(``pp_virtual``): the stages' layers and optimizer state are in that
+geometry's storage order, so a resume at another ``(pp, virtual)`` is
+refused, as the reference's restore guard refuses it.
 Under FSDP (``parallel.fsdp``) the payload's ``model`` is the whole model
 from the host gather (a collective), its ``layout`` is ``"fsdp"`` (the
 reference's ``topology_meta`` name) and ``ranks`` holds each rank's
@@ -124,7 +128,7 @@ def _shard_owner(axes) -> int:
     return mesh.rank_at({a: mesh.index(a) for a in axes})
 
 
-def _merge_model(parts: list, axes: dict) -> dict:
+def _merge_model(parts: list, axes: dict, virtual: int = 1) -> dict:
     """The whole model from the owners' shards (``parts``: every rank's
     part, those of the owners holding ``model``): TP shards merged per
     expert index, then the experts, then the pipeline stages."""
@@ -139,7 +143,26 @@ def _merge_model(parts: list, axes: dict) -> dict:
                    if index(r, "ep") == e and index(r, "pp") == s]
             rows.append(merge_tp_shards(row))
         stages.append(merge_ep_shards(rows))
-    return merge_pp_shards(stages) if len(stages) > 1 else stages[0]
+    return merge_pp_shards(stages, virtual) if len(stages) > 1 else stages[0]
+
+
+def _virtual(state: TrainState) -> int:
+    """A pipeline stage's virtual chunks (1 for any other model)."""
+    return getattr(state.model, "virtual", 1)
+
+
+def _check_pp_geometry(state: TrainState, payload: dict) -> None:
+    """The reference's restore guard (``training/elastic.py:293-308``): a
+    pipeline's layers are stored in its ``(pp, virtual)`` order, so an
+    interleaved checkpoint resumes only at that geometry, and an
+    interleaved run only from a checkpoint of its own geometry."""
+    old_v, new_v = int(payload.get("pp_virtual", 1)), _virtual(state)
+    mesh = payload.get("mesh") or {"axes": [], "shape": []}
+    old_pp, new_pp = dict(zip(mesh["axes"], mesh["shape"])).get(PIPE_AXIS, 1), axis_size(PIPE_AXIS)
+    if old_v != new_v or (new_v > 1 and old_pp != new_pp):
+        raise ValueError(f"checkpoint layer storage is interleaved for (pp={old_pp}, virtual={old_v}) but this run "
+                         f"is (pp={new_pp}, virtual={new_v}) — interleaved layouts resume only at their exact "
+                         f"pipeline geometry")
 
 
 def per_rank(state: TrainState) -> bool:
@@ -212,6 +235,8 @@ def host_payload(state: TrainState, epoch: int) -> dict | None:
     if _mesh_record() is not None:
         payload["mesh"] = _mesh_record()
     axes = _model_axes(state)
+    if "pp" in axes:
+        payload["pp_virtual"] = _virtual(state)
     if state.zero is None and not axes:  # the optimizer state is the same on every rank
         payload["optimizer"] = _cpu(state.optimizer.state_dict())
     if not per_rank(state):
@@ -220,7 +245,7 @@ def host_payload(state: TrainState, epoch: int) -> dict | None:
     if get_rank() != 0:
         return None
     if axes:
-        payload["model"] = _merge_model(parts, axes)
+        payload["model"] = _merge_model(parts, axes, _virtual(state))
     payload["ranks"] = parts
     return payload
 
@@ -306,6 +331,7 @@ class CheckpointFiles:
                 state.scheduler.load_state_dict(payload["scheduler"])
             state.step = payload["step"]
             return payload["epoch"] + 1
+        _check_pp_geometry(state, payload)
         if per_rank(state) != ("ranks" in payload):
             raise ValueError("the checkpoint's layout (per-rank ZeRO/PowerSGD/TP/EP state or not) is not "
                              "this run's: resume with the flags it was saved with")
@@ -315,7 +341,7 @@ class CheckpointFiles:
         axes = _model_axes(state)
         model_sd = shard_model_axes(payload["model"], axes.get("tp"), axes.get("ep"))
         if "pp" in axes:
-            model_sd = shard_state_dict_pp(model_sd, axis_index(PIPE_AXIS), axis_size(PIPE_AXIS))
+            model_sd = shard_state_dict_pp(model_sd, axis_index(PIPE_AXIS), axis_size(PIPE_AXIS), _virtual(state))
         with state.full_params():
             state.model.load_state_dict(model_sd)
             if state.zero is not None:

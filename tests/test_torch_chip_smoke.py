@@ -18,9 +18,11 @@
   and layout checks, build the MoE configs the phase names, 14c's runs keep
   one data replica, and 14a's 1-layer model holds the 2.50 B parameters
   its memory reckoning counts.
-- Phase 15's replays at tiny widths (the module's GPipe and 1F1B, stages
-  as threads) within the phase's bounds, with the launches, held
-  microbatches and unit counts the schedules imply; 15c's runs parse.
+- Phase 15's replays at tiny widths (the module's GPipe, 1F1B, zb and
+  interleaved 1F1B, stages as threads; 15d's PP x CP with ring and Ulysses,
+  every (stage, seq rank) a thread) within the phase's bounds, with the
+  launches, held microbatches and unit counts the schedules imply; zb's
+  gradients 1F1B's bit for bit; 15c's and 15c+'s runs parse.
 """
 
 import importlib.util
@@ -160,12 +162,14 @@ def test_phase14_flags_parse_and_the_reckoning_holds():
 
 
 def test_phase15_replays_hold_on_the_cpu(monkeypatch):
-    """Phase 15's replays at tiny widths on CPU tensors: the module's GPipe
-    and 1F1B, every stage a thread (``LocalPipe``), within the phase's own
-    bounds of the unpipelined step; each stage alone (``CannedPipe``)
-    launches what ``pp_expected`` says (the kernels' plain versions stand in,
-    counted here); 1F1B holds n - s microbatches, GPipe M; 15c's runs parse
-    with the mesh they name."""
+    """Phase 15's replays at tiny widths on CPU tensors: the module's GPipe,
+    1F1B, zb and interleaved 1F1B, every stage a thread (``LocalPipe``),
+    within the phase's own bounds of the unpipelined step; each stage alone
+    (``CannedPipe``) launches what ``pp_expected`` says (the kernels' plain
+    versions stand in, counted here); 1F1B holds n - s microbatches, GPipe
+    M; zb's gradients are 1F1B's bit for bit; 15d's four threads (ring and
+    Ulysses over ``LocalRing``) launch K1-K3 per live hop; 15c's and 15c+'s
+    runs parse with the mesh they name."""
     import torch
 
     from distributeddataparallel_tpu_torch import dpp
@@ -176,7 +180,7 @@ def test_phase15_replays_hold_on_the_cpu(monkeypatch):
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
-    peaks = iter([3, 1] * 2)  # the 15b order: GPipe, then 1F1B, at each M
+    peaks = iter([3, 1] * 2 + [1, 1])  # the 15b order: GPipe, then 1F1B, at each M; zb, 1F1B v=2
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: next(peaks))
     small = dict(vocab_size=64, num_heads=2, d_model=32, d_ff=64, attn_impl="kernel")
     gpt2, llama = tfm.gpt2_124m, tfm.llama3_8b
@@ -185,7 +189,9 @@ def test_phase15_replays_hold_on_the_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "LLAMA_LAYERS", 4)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    monkeypatch.setattr(chip_smoke, "PP_GPT2", dict(B=4, S=16, M=4, stages=(2, 4)))
+    monkeypatch.setattr(chip_smoke, "PP_GPT2", dict(B=4, S=16, M=4))
+    monkeypatch.setattr(chip_smoke, "PP_GPT2_RUNS", [(2, "gpipe", 1), (2, "1f1b", 1), (2, "zb", 1), (2, "1f1b", 2),
+                                                     (4, "gpipe", 1), (4, "1f1b", 1), (4, "zb", 1)])
     monkeypatch.setattr(chip_smoke, "PP_LLAMA", dict(B=4, S=16, n=2, M=(2, 4)))
     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         real = getattr(fa, key)
@@ -199,11 +205,17 @@ def test_phase15_replays_hold_on_the_cpu(monkeypatch):
         out = chip_smoke.pp_phase(torch, fa, tfm, "cpu")
     finally:
         torch.set_num_threads(threads)
-    a, b = out["gpt2_12_layers"], out["llama_8_layers"]
+    a, b, d = out["gpt2_12_layers"], out["llama_8_layers"], out["cp"]
     assert a["n4"]["1f1b"]["held"] == [4, 3, 2, 1] and a["n4"]["gpipe"]["held"] == [4] * 4
     assert a["n2"]["1f1b"]["counts"] == [[4, 4, 0], [4, 4, 0]] and a["n2"]["1f1b"]["bubble"] == 0.3333
+    assert a["n2"]["zb"]["counts"] == [[4, 4, 4], [4, 4, 4]] and a["n2"]["1f1b_v2"]["counts"] == [[8, 8, 0]] * 2
+    assert a["n2"]["zb"]["vs_1f1b"]["bitwise"] and a["n4"]["zb"]["vs_1f1b"]["bitwise"]
     assert b["1f1b_m4"]["launches"] == {"flash_fwd": 40, "flash_bwd_dq": 16, "flash_bwd_dkv": 16}
-    assert out["entry"] == {"ran": False, "gpus": 0}
+    assert b["zb_m4"]["vs_1f1b"]["bitwise"] and b["1f1b_m4_v2"]["counts"] == [[8, 8, 0]] * 2
+    # 15d: 2 layers a stage, M = 4, 2 seq ranks; the ring's seq rank q runs 1 + q hops.
+    assert d["ring_gpipe"]["launches"] == {"flash_fwd": 48, "flash_bwd_dq": 48, "flash_bwd_dkv": 48}
+    assert d["ulysses_1f1b"]["launches"] == {"flash_fwd": 48, "flash_bwd_dq": 32, "flash_bwd_dkv": 32}
+    assert out["entry"] == {"ran": False, "gpus": 0} and out["entry_16b"] == {"ran": False, "gpus": 0}
     for argv, want in ((chip_smoke.PP_DEEP_ARGS + ["--pp", "4"], (32, 8, 8, 0.0)),
                        (chip_smoke.PP_ENTRY_ARGS + ["--pp", "2", "--tp", "2"], (8, 4, None, 0.0)),
                        (chip_smoke.PP_MOE_ARGS + ["--pp", "2", "--ep", "2"], (2, 2, None, 8.0))):
@@ -211,3 +223,6 @@ def test_phase15_replays_hold_on_the_cpu(monkeypatch):
         cfg = dpp.build_config(args)
         assert (cfg.num_layers, args.batch_size, args.pp_microbatches, cfg.moe_capacity_factor) == want
         assert cfg.scan_layers and args.seq_len == 2048
+    for extra, gpus in chip_smoke.PP_ENTRY_16B.values():
+        args = dpp.parse_args(chip_smoke.PP_ENTRY_ARGS + extra + ["--num-processes", str(gpus)])
+        assert args.pp * args.cp == gpus and dpp.build_config(args).num_layers % (args.pp * args.pp_virtual) == 0

@@ -459,7 +459,7 @@ FLAG_ERRORS = [
     (["--model", "gpt2", "--tp", "2", "--generate", "4"], SystemExit, "--generate needs replicated params"),
     (["--model", "gpt2", "--cp", "2", "--overlap", "--grad-compress", "powersgd"], SystemExit,
      "pick one mechanism"),
-    (["--model", "gpt2", "--pp", "2", "--cp", "2"], NotImplementedError, "item 16b"),
+    (["--model", "gpt2", "--pp", "2", "--cp", "2", "--eval"], SystemExit, "--pp --eval does not support --cp"),
     (["--model", "gpt2", "--moe-experts", "2", "--ep", "2", "--cp", "2", "--tp", "2"], SystemExit,
      "--ep with --cp composes pairwise only"),
 ]

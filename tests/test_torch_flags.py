@@ -78,10 +78,6 @@ def test_both_parsers_have_the_same_flags_defaults_and_choices():
 
 # Each unported flag at a value the reference accepts, and its item.
 UNPORTED = [
-    (["--model", "gpt2", "--pp", "2", "--pp-schedule", "zb"], "16b"),
-    (["--model", "gpt2", "--pp", "2", "--cp", "2", "--seq-len", "16"], "16b"),
-    (["--pp-schedule", "zb"], "16b"),
-    (["--model", "gpt2", "--layers", "4", "--pp", "2", "--pp-schedule", "1f1b", "--pp-virtual", "2"], "16b"),
     (["--compile-cache", "cache"], "11b"),
     (["--dispatch-depth", "0"], "11b"),
     (["--elastic", "--checkpoint-dir", "ck"], "13"),
@@ -95,9 +91,13 @@ UNPORTED = [
 ]
 
 
-# Item 17's and 16a's cases, ported since: each parses and validates as the
-# reference's does, with its values, and builds the MoE or pipeline config.
+# Item 17's, 16a's and 16b's cases, ported since: each parses and validates as
+# the reference's does, with its values, and builds the MoE or pipeline config.
 PORTED = [
+    ["--model", "gpt2", "--pp", "2", "--pp-schedule", "zb"],
+    ["--model", "gpt2", "--pp", "2", "--cp", "2", "--seq-len", "16"],
+    ["--pp-schedule", "zb"],
+    ["--model", "gpt2", "--layers", "4", "--pp", "2", "--pp-schedule", "1f1b", "--pp-virtual", "2"],
     ["--model", "gpt2", "--moe-experts", "2", "--ep", "2"],
     ["--model", "gpt2", "--moe-experts", "4"],
     ["--moe-aux-weight", "0"],
@@ -122,20 +122,22 @@ def test_unported_flags_raise_naming_their_item():
         jdpp.validate_args(jargs)
         args = tdpp.parse_args(argv)
         for dest in ("ep", "moe_experts", "moe_top_k", "moe_aux_weight", "moe_capacity_factor", "pp",
-                     "pp_microbatches", "pp_schedule"):
+                     "pp_microbatches", "pp_schedule", "pp_virtual", "cp"):
             assert getattr(args, dest) == getattr(jargs, dest), dest
         if args.pp > 1:
-            assert tdpp.build_config(args).scan_layers  # the stages' slices of the stacked layout
+            cfg = tdpp.build_config(args)
+            assert cfg.scan_layers  # the stages' slices of the stacked layout
+            assert cfg.cp_axis == ("seq" if args.cp > 1 else None)
         if args.moe_experts:
             cfg = tdpp.build_config(args)
             assert (cfg.moe_experts, cfg.moe_top_k, cfg.moe_capacity_factor) == (
                 args.moe_experts, args.moe_top_k, args.moe_capacity_factor)
             assert cfg.ep_axis == ("expert" if args.ep > 1 else None)
     seen = {d for dests in tdpp.UNPORTED_FLAGS.values() for d in dests}
-    # the 21 flags the parser lacked, less --fsdp-gather, item 17's four and
-    # item 16a's --pp, --pp-microbatches, --pp-schedule
-    assert len(seen) == 14
-    assert "17" not in tdpp.UNPORTED_FLAGS and "16" not in tdpp.UNPORTED_FLAGS
+    # the 21 flags the parser lacked, less --fsdp-gather, item 17's four,
+    # item 16a's --pp, --pp-microbatches, --pp-schedule and 16b's --pp-virtual
+    assert len(seen) == 13
+    assert not {"17", "16", "16b"} & set(tdpp.UNPORTED_FLAGS)
 
 
 REFERENCE_CHECKS = [

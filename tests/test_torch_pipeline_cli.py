@@ -19,8 +19,9 @@ Eight gloo ranks are spawned once for the file (data 4 x pipe 2).
   is refused naming item 13.
 - The ``pp_phase`` event of a ``--pp 2 --pp-schedule 1f1b`` run, read by
   the reference's ``measured_bubble_fraction``.
-- The flag refusals: the reference's messages, then item 16b's
-  ``NotImplementedError``.
+- The flag refusals: the reference's messages, its zb and virtual value
+  checks included; what it takes (zb, virtual stages, ``--pp`` with
+  ``--cp``) the port takes too.
 
 Tolerances: the GPT-2 run computes in f32 (summation order only): losses
 within 1e-5, each parameter within 2e-5, the eval means 1e-5.  The Llama
@@ -35,6 +36,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import math
 import sys
 from pathlib import Path
 from types import SimpleNamespace
@@ -50,7 +52,10 @@ from test_torch_context_parallel import Ranks  # noqa: E402
 from distributeddataparallel_tpu_torch import dpp as tdpp  # noqa: E402
 from distributeddataparallel_tpu_torch.models import transformer as ttfm  # noqa: E402
 from distributeddataparallel_tpu_torch.models.io import to_jax_params  # noqa: E402
-from distributeddataparallel_tpu_torch.parallel.pipeline_parallel import merge_pp_shards  # noqa: E402
+from distributeddataparallel_tpu_torch.parallel.pipeline_parallel import (  # noqa: E402
+    interleave_layer_perm,
+    merge_pp_shards,
+)
 from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa: E402
 
 COMMON = ["--layers", "4", "--seq-len", "16", "--vocab-size", "64", "--num-examples", "64", "--batch-size", "2",
@@ -83,13 +88,13 @@ def ref():
 
     import distributeddataparallel_tpu as ddp
     import dpp as jdpp
-    from distributeddataparallel_tpu.data.loader import DataLoader
+    from distributeddataparallel_tpu.data.loader import DataLoader, shard_lm_batch
     from distributeddataparallel_tpu.models import transformer as jtfm
     from distributeddataparallel_tpu.observability.pipeline import measured_bubble_fraction
     from distributeddataparallel_tpu.parallel import pipeline_parallel as jpp
 
     return SimpleNamespace(jax=jax, jnp=jnp, ddp=ddp, jdpp=jdpp, DataLoader=DataLoader, jtfm=jtfm, jpp=jpp,
-                           measured_bubble_fraction=measured_bubble_fraction)
+                           shard_lm_batch=shard_lm_batch, measured_bubble_fraction=measured_bubble_fraction)
 
 
 def cpu_args(flags):
@@ -105,16 +110,19 @@ def initial_state_dict(args) -> dict:
 # ------------------------------------------------------------- rank side --
 
 def dpp_run(flags, rank, world) -> dict:
-    """3 steps and the eval of ``dpp``'s trainer for ``flags``: losses,
-    this stage's parameters, its coordinates, the eval means."""
+    """3 steps (and with ``--eval`` the eval) of ``dpp``'s trainer for
+    ``flags``: losses, this stage's parameters, its coordinates, the eval
+    means."""
     trainer = tdpp.build_trainer(cpu_args(flags), torch.device("cpu"), rank, world)
     trainer.loader.set_epoch(0)
     losses = [float(trainer.step_fn(trainer.state, b)["loss"]) for b in itertools.islice(trainer.loader, 3)]
-    parts = [trainer.eval_step(trainer.state.model, b) for b in trainer.eval_loader]
-    total = sum(float(c) for _, c in parts)
-    return {"losses": losses, "params": {k: v.detach().clone() for k, v in trainer.state.model.state_dict().items()},
-            "coords": dict(rt.current_mesh().coords),
-            "eval": {k: sum(float(m[k]) * float(c) for m, c in parts) / total for k in parts[0][0]}}
+    out = {"losses": losses, "params": {k: v.detach().clone() for k, v in trainer.state.model.state_dict().items()},
+           "coords": dict(rt.current_mesh().coords), "eval": None}
+    if trainer.eval_step is not None:
+        parts = [trainer.eval_step(trainer.state.model, b) for b in trainer.eval_loader]
+        total = sum(float(c) for _, c in parts)
+        out["eval"] = {k: sum(float(m[k]) * float(c) for m, c in parts) / total for k in parts[0][0]}
+    return out
 
 
 def ckpt_roundtrip(rank, world, directory) -> dict:
@@ -198,38 +206,61 @@ def ranks(tmp_path_factory):
 
 # ------------------------------------------------------------- JAX side --
 
+def logical_layers(params, L: int, n: int, v: int):
+    """A reference pipelined state's params with the stacked layer leaves
+    back in logical order (``shard_state_pp(virtual=v)`` stores them in
+    ``interleave_layer_perm`` order)."""
+    if v == 1:
+        return params
+    inv = np.argsort(np.asarray(interleave_layer_perm(L, n, v)))
+    return {**params, "layers": ref().jax.tree.map(lambda a: np.asarray(a)[inv], params["layers"])}
+
+
 def jax_dpp_pp_run(flags, world=8, steps=3) -> dict:
     """The reference ``dpp.py``'s PP path for ``flags`` on ``world`` fake
     devices (``dpp.py:1459-1470``, ``:1606-1629``, ``:2000-2015``): its
-    mesh, model, optimizer, loaders, ``make_pp_train_step`` and
-    ``make_pp_eval_step``, from the port's seeded initial weights."""
+    mesh (data, seq, pipe), model, optimizer, loaders (``shard_lm_batch``
+    under ``--cp``), ``make_pp_train_step`` and, with ``--eval``,
+    ``make_pp_eval_step``, from the port's seeded initial weights; the final
+    params in logical layer order."""
     R = ref()
-    jax, jnp, ddp = R.jax, R.jnp, R.ddp
+    jax, ddp = R.jax, R.ddp
     jargs = R.jdpp.parse_args(["--device", "cpu", *flags])
     targs = cpu_args(flags)
     tcfg = tdpp.build_config(targs)
     params0 = to_jax_params(initial_state_dict(targs), tcfg)
-    mesh = ddp.make_mesh(("data", "pipe"), shape=(world // jargs.pp, jargs.pp), devices=jax.devices()[:world])
+    axes, sizes = ["data"], []
+    for degree, axis in ((jargs.cp, "seq"), (jargs.pp, "pipe")):
+        if degree > 1:
+            axes.append(axis)
+            sizes.append(degree)
+    mesh = ddp.make_mesh(tuple(axes), shape=(world // math.prod(sizes), *sizes), devices=jax.devices()[:world])
     dataset = R.jdpp.build_dataset(jargs, train=True)
     jcfg = dataclasses.replace(R.jdpp.build_model(jargs, vocab_size=dataset.vocab_size).cfg, attn_impl="xla")
-    M = jargs.pp_microbatches or jargs.pp
+    M, v = jargs.pp_microbatches or jargs.pp, jargs.pp_virtual
     state = R.jpp.shard_state_pp(ddp.TrainState.create(apply_fn=None, params=params0,
-                                                       tx=R.jdpp.build_optimizer(jargs, total_steps=steps)), mesh)
+                                                       tx=R.jdpp.build_optimizer(jargs, total_steps=steps)), mesh,
+                                 virtual=v)
     step = R.jpp.make_pp_train_step(jcfg, mesh=mesh, microbatches=M, donate=False, schedule=jargs.pp_schedule,
-                                    grad_clip=jargs.grad_clip, moe_aux_weight=0.0)
-    loader = R.DataLoader(dataset, per_replica_batch=jargs.batch_size, mesh=mesh, shuffle=True, seed=jargs.seed)
+                                    grad_clip=jargs.grad_clip, moe_aux_weight=0.0, virtual=v)
+    place = (lambda b: R.shard_lm_batch(b["tokens"], mesh)) if jargs.cp > 1 else None
+    loader = R.DataLoader(dataset, per_replica_batch=jargs.batch_size, mesh=mesh, shuffle=True, seed=jargs.seed,
+                          place_fn=place)
     loader.set_epoch(0)
     losses = []
     for batch in itertools.islice(loader, steps):
         state, m = step(state, batch, jax.random.PRNGKey(0))
         losses.append(float(m["loss"]))
-    evaluate = R.jpp.make_pp_eval_step(jcfg, mesh=mesh, microbatches=M)
-    eval_loader = R.DataLoader(R.jdpp.build_dataset(jargs, train=False), per_replica_batch=jargs.batch_size,
-                               mesh=mesh, shuffle=False, seed=jargs.seed, drop_last=False, with_mask=True)
-    parts = [evaluate(state.params, b) for b in eval_loader]
-    total = sum(float(c) for _, c in parts)
-    return {"losses": losses, "params0": params0, "params": jax.tree.map(np.asarray, state.params),
-            "eval": {k: sum(float(m[k]) * float(c) for m, c in parts) / total for k in parts[0][0]}, "cfg": tcfg}
+    out = {"losses": losses, "params0": params0, "cfg": tcfg, "virtual": v, "eval": None,
+           "params": logical_layers(jax.tree.map(np.asarray, state.params), tcfg.num_layers, jargs.pp, v)}
+    if jargs.eval:
+        evaluate = R.jpp.make_pp_eval_step(jcfg, mesh=mesh, microbatches=M)
+        eval_loader = R.DataLoader(R.jdpp.build_dataset(jargs, train=False), per_replica_batch=jargs.batch_size,
+                                   mesh=mesh, shuffle=False, seed=jargs.seed, drop_last=False, with_mask=True)
+        parts = [evaluate(state.params, b) for b in eval_loader]
+        total = sum(float(c) for _, c in parts)
+        out["eval"] = {k: sum(float(m[k]) * float(c) for m, c in parts) / total for k in parts[0][0]}
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -238,10 +269,12 @@ def want(ranks):
     return {name: jax_dpp_pp_run(flags) for name, flags in RUNS.items()}
 
 
-def port_params(runs, cfg) -> dict:
-    """The whole model as the reference's tree: the data-0 ranks' stages."""
-    stages = sorted((r["coords"]["pipe"], r["params"]) for r in runs if r["coords"]["data"] == 0)
-    return to_jax_params(merge_pp_shards([sd for _, sd in stages]), cfg)
+def port_params(runs, cfg, virtual: int = 1) -> dict:
+    """The whole model as the reference's tree, in logical layer order: the
+    stages of the ranks at data (and seq) index 0."""
+    stages = sorted((r["coords"]["pipe"], r["params"]) for r in runs
+                    if r["coords"]["data"] == 0 and r["coords"].get("seq", 0) == 0)
+    return to_jax_params(merge_pp_shards([sd for _, sd in stages], virtual), cfg)
 
 
 def check_run(ranks, want, name):
@@ -312,8 +345,20 @@ REFUSALS = [
     (["--model", "gpt2", "--pp", "2", "--cp", "2", "--eval"], SystemExit, "--pp --eval does not support --cp"),
     (["--model", "gpt2", "--pp", "2", "--pp-schedule", "zb", "--pp-microbatches", "1"], SystemExit,
      "--pp-schedule zb needs --pp-microbatches >= --pp"),
+    (["--model", "gpt2", "--pp", "2", "--cp", "2", "--pp-schedule", "zb"], SystemExit,
+     "--pp-schedule zb does not compose with --cp yet"),
+    (["--model", "gpt2", "--pp", "2", "--pp-schedule", "zb", "--moe-experts", "2"], SystemExit,
+     "--pp-schedule zb does not support the MoE aux loss"),
+    (["--model", "gpt2", "--layers", "4", "--pp", "2", "--pp-virtual", "2"], SystemExit,
+     "--pp-virtual requires --pp-schedule 1f1b or zb"),
+    (["--model", "gpt2", "--layers", "4", "--pp", "2", "--pp-schedule", "zb", "--pp-virtual", "2", "--zero", "1"],
+     SystemExit, "--pp-virtual does not compose with --zero yet"),
+    (["--model", "gpt2", "--layers", "4", "--pp", "2", "--pp-schedule", "1f1b", "--pp-virtual", "2", "--eval"],
+     SystemExit, "--pp-virtual does not support --eval/--generate"),
+    (["--model", "gpt2", "--layers", "4", "--pp", "2", "--pp-schedule", "1f1b", "--pp-virtual", "3"], SystemExit,
+     "--layers 4 must be divisible by --pp 2 x --pp-virtual 3"),
 ]
-NOT_PORTED = [
+ACCEPTED = [
     ["--model", "gpt2", "--pp", "2", "--pp-schedule", "zb"],
     ["--model", "gpt2", "--layers", "4", "--pp", "2", "--pp-schedule", "1f1b", "--pp-virtual", "2"],
     ["--model", "gpt2", "--pp", "2", "--cp", "2"],
@@ -323,8 +368,7 @@ NOT_PORTED = [
 def test_pp_flag_refusals(ranks):
     """What the reference refuses, the port refuses with its message
     (parse time; the batch check at the trainer's build, as the
-    reference's); what it takes and the port does not run yet names item
-    16b."""
+    reference's); what it takes, the port takes."""
     jdpp = ref().jdpp
     for flags, err, match in REFUSALS:
         argv = ["--device", "cpu", *flags]
@@ -332,10 +376,11 @@ def test_pp_flag_refusals(ranks):
             jdpp.validate_args(jdpp.parse_args(argv))
         with pytest.raises(err, match=match):
             tdpp.parse_args(argv)
-    for flags in NOT_PORTED:
+    for flags in ACCEPTED:
         argv = ["--device", "cpu", *flags]
-        jdpp.validate_args(jdpp.parse_args(argv))
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1, item 16b$"):
-            tdpp.parse_args(argv)
+        jargs = jdpp.parse_args(argv)
+        jdpp.validate_args(jargs)
+        args = tdpp.parse_args(argv)
+        assert (args.pp_schedule, args.pp_virtual, args.cp) == (jargs.pp_schedule, jargs.pp_virtual, jargs.cp)
     for r in ranks.get():
         assert r["bad_batch"] == "--batch-size 3 must be divisible by --pp-microbatches 2"
