@@ -69,7 +69,7 @@ Phases (any failure exits non-zero; nothing is caught):
    (``python -m distributeddataparallel_tpu_torch.dpp``); 9b's resumed run,
    9c's two runs (``dpp.main`` in this process) and 9e, which time
    nothing, run side by side:
-   a. supervised chaos replay: ``--max-restarts 2`` with
+   a. supervised chaos replay: ``--max-restarts 1`` with
       ``DDP_CHAOS=ckpt-io@0,preempt@6``, 3 epochs of 4 steps, beside the
       same run uninterrupted: it exits 0 after one restart and one IO
       retry, its merged timeline validates against the port's schema, its
@@ -82,10 +82,8 @@ Phases (any failure exits non-zero; nothing is caught):
    c. the guard: ResNet-18 with ``--nan-guard --chaos nan-grad@2``, 3
       one-step epochs with checkpoints, then ``--resume`` to 5: one step
       skipped, the state after step 2 bitwise the state after step 1, the
-      other losses finite; then the guard's cost, phase 4's step and phase
-      6's step timed with and without ``--nan-guard`` (in this process,
-      off, on, on, off), and a checkpoint save at GPT-2's AdamW state with
-      and without its content hash;
+      other losses finite; then a checkpoint save at GPT-2's AdamW state
+      with and without its content hash (the guard's cost is 16b's);
    d. the watchdog: ResNet-18 with ``--step-timeout 5 --max-restarts 1
       --chaos slow-step@3:30``: the worker exits 75 after ``watchdog_fire``
       and the restart completes the run; the seconds from the fire to the
@@ -162,13 +160,30 @@ Phases (any failure exits non-zero; nothing is caught):
       capacity factor 8 under ``--ep 2``, ``--ep 4``, ``--ep 2 --tp 2`` and
       ``--cp 2 --ep 2`` against one GPU, with each rank's all-to-all ms;
       with one, a line saying it was not run.
+15. pipelines (see ``pp_phase``).
+16. bounded dispatch and the warm start (every run above already runs at
+   the default ``--dispatch-depth 2``, and its kernels were built in phase 2
+   into a fresh ``--compile-cache``):
+   a. phase 4's GPT-2 and phase 6's ResNet-18 through ``dpp.main`` at
+      depths 0 and 2: losses and parameters bit for bit, the step and
+      wall-clock ms and the traced window's device idle share;
+   b. GPT-2 under ``--nan-guard`` at depth 2, its loss poisoned at step 3,
+      each step under ``torch.cuda.set_sync_debug_mode("error")``:
+      the state after the skipped step bitwise the state before it; the
+      guard's cost with the same fused AdamW on and off;
+   c. phase 4's run reported ``cold``; 9a's supervised GPT-2, whose worker
+      dies once (``--max-restarts 1``) under the same cache: both
+      incarnations ``cache-hit``, and the restart's seconds split into
+      the notice, backoff, spawn, imports, CUDA context, model, checkpoint
+      read, the kernel library's load and the first step.
 
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
 ``llama_path`` line (phase 7), one ``reference_workload`` line (phase 8),
 one ``fault_path`` line (phase 9), one ``layouts`` line (phase 11: each
 run's step ms, peak memory and losses), one ``cp_tp_path`` line (phase 12:
 each replay's max errors, launches and times, the GPU count), one
-``fsdp_path`` line (phase 13), one ``moe_path`` line (phase 14), one ``phase_seconds`` line, one
+``fsdp_path`` line (phase 13), one ``moe_path`` line (phase 14), one ``pp_path`` line (phase 15),
+one ``warm_start_path`` line (phase 16), one ``phase_seconds`` line, one
 ``serving_path`` line (phase 10,
 each run's TTFT p50/p99, tokens/s, per-token latency, decode-step ms,
 preemptions, evictions, prefix hits, acceptance, pool bytes against the
@@ -179,6 +194,7 @@ the card's name and power limit, and as its last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -599,7 +615,29 @@ PP_ENTRY_16B = {
     "pp2_cp2_ulysses": (["--pp", "2", "--cp", "2", "--cp-impl", "ulysses"], 4),
 }
 
-DEVICE = "cuda"  # phases 10, 12 and 15's device
+# Phase 16: bounded dispatch and the warm start.  16a: phase 4's GPT-2 and
+# phase 6's ResNet-18 (20 steps) at --dispatch-depth 0 and 2 (the step and
+# wall ms; ResNet-18, whose host time varies by several ms from run to run,
+# in the order 0, 2, 2, 0), then each once more at each depth with steps
+# 3-5 (of 6) and 10-19 traced for the device's idle share (a traced run's
+# wall clock holds the trace's export);
+# ResNet-18 under cuDNN's
+# deterministic algorithms at both depths (its default weight-gradient
+# kernels sum with atomics, so two runs differ in the last bits whatever
+# the depth, RESUME_ATOL above), so the losses compare bit for bit.
+DEPTH_RUNS = {"gpt2_phase4": (FAULT_LM_ARGS, ["--steps-per-epoch", "6", "--profile-steps", "3:6"], (0, 2)),
+              "resnet18_phase6": (FAULT_R18_ARGS + ["--epochs", "1", "--steps-per-epoch", "20"],
+                                  ["--profile-steps", "10:20"], (0, 2, 2, 0))}
+# 16b: phase 4's GPT-2 under --nan-guard at depth 2, its loss poisoned at
+# step GUARD_POISON (chaos nan-grad needs a float input; GPT-2's are token
+# ids), every step under sync debug mode "error"; then the
+# guard's cost, with the same fused AdamW on and off (runs off, on, on, off).
+GUARD_ARGS = FAULT_LM_ARGS + ["--nan-guard", "--dispatch-depth", "2"]
+GUARD_POISON = 3
+# 16c reads phase 9a's supervised restart, which runs under the script's
+# --compile-cache.
+
+DEVICE = "cuda"  # phases 10, 12, 15 and 16's device
 
 KERNELS = [
     # name, replaces, matmuls per visible (q, k) pair
@@ -1291,7 +1329,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 def _entry_env(extra: dict | None = None) -> dict:
     """The environment of an entry-point process: this one's, without the
     variables that would turn on telemetry or chaos it was not asked for."""
-    env = {k: v for k, v in os.environ.items() if not k.startswith(("DDP_", "_DDP_"))}
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("DDP_", "_DDP_")) or k == "DDP_COMPILE_CACHE"}
     env.update(extra or {})
     return env
 
@@ -1345,10 +1384,40 @@ def fault_replay(smi) -> tuple[dict, list[dict]]:
     timed); its summary and merged timeline."""
     with tempfile.TemporaryDirectory(prefix="fault_9a_") as d:
         sup = REPLAY_ARGS + ["--checkpoint-dir", os.path.join(d, "ck"), "--events-dir", os.path.join(d, "ev"),
-                             "--max-restarts", "2"]
+                             "--max-restarts", "1"]
         chaotic = run_entry(sup, "9a supervised, DDP_CHAOS=ckpt-io@0,preempt@6",
                             env={"DDP_CHAOS": "ckpt-io@0,preempt@6"})
         return chaotic, timeline(os.path.join(d, "ev"))
+
+
+def restart_record(summary: dict, records: list[dict]) -> dict:
+    """A supervised run's ``warm_start`` mode by attempt and its restart's
+    seconds, from the chaos death to the next incarnation's first step:
+    the supervisor's notice and backoff, the spawn, the interpreter and
+    imports, the CUDA context, the process group with the model and
+    loader, the checkpoint read, the kernel library's load and the first
+    step (the last incarnation's ``startup`` against the timeline)."""
+    from distributeddataparallel_tpu_torch.runtime.launcher import RESTART_BACKOFF_S
+
+    warm = {r["attempt"]: r for r in records if r["kind"] == "warm_start"}
+    start = [r["ts"] for r in records if r["kind"] == "run_start" and r["attempt"] == 1][0]
+    death = [r["ts"] for r in records if r["kind"] == "chaos_inject" and r["entry"].startswith("preempt")][0]
+    notice = [r["ts"] for r in records if r["kind"] == "restart_attempt"][0]
+    st = summary["startup"]
+    split = {
+        "notice_s": notice - death,
+        "backoff_s": RESTART_BACKOFF_S,
+        "spawn_s": st["process_start_unix"] - notice - RESTART_BACKOFF_S,
+        "interpreter_and_imports_s": st["run_entry_unix"] - st["process_start_unix"],
+        "cuda_context_s": st["cuda_context_s"],
+        "group_model_loader_s": start - st["run_entry_unix"] - st["cuda_context_s"],
+        "checkpoint_read_s": st["restore_s"],
+        "kernel_library_load_s": st["kernel_build_s"],
+        "first_step_s": st["first_step_s"],
+        "death_to_first_step_s": warm[1]["ts"] - death,
+    }
+    return {"modes": {a: r["mode"] for a, r in sorted(warm.items())}, "split": split,
+            "kernel_builds": summary["kernel_builds"]}
 
 
 def check_replay(chaotic, records, straight, smi) -> dict:
@@ -1370,6 +1439,7 @@ def check_replay(chaotic, records, straight, smi) -> dict:
         "final_loss_abs_diff": diff, "atol": REPLAY_ATOL, "restarts": 1, "io_retries": 1,
         "death_to_first_step_s": first[0] - death[0], "last_incarnation_launches": launches,
         "last_incarnation_step_ms": chaotic["step_time_s"] * 1e3,
+        "restart": restart_record(chaotic, records),  # phase 16c reads it
     }
     log(f"    9a: exit 0 after 1 restart and 1 IO retry; final loss {chaotic['losses'][-1]:.6f} vs "
         f"{straight['losses'][-1]:.6f} (|diff| {diff:.2e}, atol {REPLAY_ATOL}); death to the next "
@@ -1451,23 +1521,6 @@ def fault_guard(torch, dpp) -> dict:
         f"step 1 ({same}); losses {['%.4f' % x for x in losses]}")
     return {"nonfinite_steps": 1, "state_equal_after_skip": same,
             "losses": [x if math.isfinite(x) else None for x in losses]}
-
-
-def guard_cost(dpp, smi) -> dict:
-    """Phase 4's GPT-2 step and phase 6's ResNet-18 step (20 steps) with and
-    without --nan-guard, in this process, in the order off, on, on, off."""
-    out = {}
-    for name, args in (("gpt2_phase4", FAULT_LM_ARGS),
-                       ("resnet18_phase6", FAULT_R18_ARGS + ["--epochs", "1", "--steps-per-epoch", "20"])):
-        runs = {"off": [], "on": []}
-        for which in ("off", "on", "on", "off"):
-            s = dpp.main(args + (["--nan-guard"] if which == "on" else []))
-            runs[which].append(s["step_time_s"] * 1e3)
-        mean = {k: sum(v) / len(v) for k, v in runs.items()}
-        out[name] = {"step_ms_off": mean["off"], "step_ms_on": mean["on"], "runs_ms": runs,
-                     "cost_ms": mean["on"] - mean["off"]}
-        log(f"    guard cost {name}: {mean['off']:.2f} ms off, {mean['on']:.2f} ms on (runs {runs}) on {smi}")
-    return out
 
 
 def checkpoint_cost(torch, dpp, smi) -> dict:
@@ -1599,7 +1652,6 @@ def fault_path_phase(torch, dpp, phase4_losses, smi) -> dict:
     out["replay"] = check_replay(chaotic, records, straight, smi)
     seconds["9b_9c_9d_9e_9a_uninterrupted"] = time.perf_counter() - t - seconds["9a"]
     t = time.perf_counter()
-    out["guard"]["guard_cost"] = guard_cost(dpp, smi)
     out["guard"]["checkpoint_cost"] = checkpoint_cost(torch, dpp, smi)
     seconds["costs"] = time.perf_counter() - t
     out["check_seconds"] = seconds
@@ -3366,6 +3418,211 @@ def pp_phase(torch, fa, tfm, smi) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def sync_errors(torch):
+    """Any host synchronisation inside raises (``set_sync_debug_mode``)."""
+    if DEVICE != "cuda":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def idle_share(trace_path: str, steps: int) -> dict:
+    """The device's busy ms a step (the union of its kernels) and its idle
+    share over the traced window, first kernel to last."""
+    from distributeddataparallel_tpu_torch.parallel.overlap import trace_kernels
+
+    spans = sorted((k["start"], k["end"]) for k in trace_kernels(trace_path))
+    if not spans:  # a CPU dry run: no device kernels
+        return {"busy_ms_per_step": None, "window_ms_per_step": None, "idle_share": None}
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    window = spans[-1][1] - spans[0][0]
+    return {"busy_ms_per_step": busy / 1e3 / steps, "window_ms_per_step": window / 1e3 / steps,
+            "idle_share": 1.0 - busy / window}
+
+
+def depth_runs(torch, dpp, smi) -> dict:
+    """[16a] Each DEPTH_RUNS run at its depths: the losses and the final
+    parameter norm bit for bit across every run, the step ms (CUDA events
+    past depth 0, the host clock around each synchronised step at 0) and
+    the wall-clock step; then a traced run at each depth: the device's
+    busy ms a step and its idle share over the traced window."""
+    import glob
+
+    out = {}
+    for name, (args, traced, order) in DEPTH_RUNS.items():
+        window = [int(x) for x in traced[traced.index("--profile-steps") + 1].split(":")]
+        runs = {0: [], 2: []}
+        first = None
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = name.startswith("resnet")
+        try:
+            for depth in order:
+                s = dpp.main(args + ["--device", DEVICE, "--dispatch-depth", str(depth)])
+                release(torch)
+                first = first or (s["losses"], s["param_norm"])
+                if (s["losses"], s["param_norm"]) != first:
+                    raise AssertionError(f"16a {name}: depth {depth} {s['losses']} != {first[0]}")
+                runs[depth].append({"step_ms": s["step_time_s"] * 1e3, "wall_ms": s["wall_step_time_s"] * 1e3})
+            traces = {}
+            for depth in (0, 2):
+                with tempfile.TemporaryDirectory(prefix="depth_ev_") as ev:
+                    dpp.main(args + ["--device", DEVICE, "--dispatch-depth", str(depth)] + traced
+                             + ["--events-dir", ev])
+                    (trace,) = glob.glob(os.path.join(ev, "xprof", "trace_*_p0.json"))
+                    traces[depth] = idle_share(trace, window[1] - window[0])
+                release(torch)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        mean = {d: {k: sum(r[k] for r in rs) / len(rs) for k in ("step_ms", "wall_ms")} for d, rs in runs.items()}
+        out[name] = {"bitwise": True, "losses": first[0], "order": list(order),
+                     **{f"depth{d}": {**mean[d], "runs": runs[d], "traced": traces[d]} for d in (0, 2)}}
+
+        def pair(get):
+            vals = [get(d) for d in (0, 2)]
+            return " / ".join("-" if v is None else f"{v:.3f}" for v in vals)
+
+        log(f"    16a {name}: losses and parameters bitwise across depths {list(order)}; step "
+            f"{pair(lambda d: mean[d]['step_ms'])} ms, wall {pair(lambda d: mean[d]['wall_ms'])} ms "
+            f"(runs {runs}); traced: device idle {pair(lambda d: traces[d]['idle_share'])}, busy "
+            f"{pair(lambda d: traces[d]['busy_ms_per_step'])} of {pair(lambda d: traces[d]['window_ms_per_step'])} "
+            f"ms a step; at depth 0 / 2 on {smi}")
+    return out
+
+
+def _in_group(torch, dpp, fn):
+    """``fn(args)`` inside an NCCL group of one (the process group
+    ``dpp.run`` forms)."""
+    from distributeddataparallel_tpu_torch.runtime import distributed as rt
+
+    rt.init_process_group(device=torch.device("cuda", 0) if DEVICE == "cuda" else torch.device("cpu"))
+    try:
+        return fn()
+    finally:
+        rt.destroy_process_group()
+
+
+def _snapshot(state) -> list:
+    """Device copies of the whole train state (no host read)."""
+    opt = [t for st in state.optimizer.state.values() for t in st.values() if hasattr(t, "clone")]
+    bufs = [b for b in state.model.buffers()]
+    return [t.detach().clone() for t in [*state.model.parameters(), *opt, *bufs, state.scheduler.count]]
+
+
+def guard_run(torch, dpp, smi) -> dict:
+    """[16b] GUARD_ARGS with the loss poisoned at step GUARD_POISON: every
+    step under sync debug mode "error" (the step reads nothing from the
+    card; the loop's settles and drains do, outside it), the state after
+    the skipped step bitwise the state before it, the breaker's one skip;
+    then the guard's cost."""
+    from distributeddataparallel_tpu_torch.training.optim import build_optimizer
+    from distributeddataparallel_tpu_torch.training.train_step import make_train_step
+
+    device = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device("cpu")
+    args = dpp.parse_args(GUARD_ARGS + ["--device", DEVICE])
+    snaps = {}
+
+    def poisoned():
+        trainer = dpp.build_trainer(args, device)
+        calls = []
+
+        def loss_fn(model, batch, **kw):
+            loss, aux = dpp._loss_fn(model, batch)
+            return (loss * float("nan") if len(calls) == GUARD_POISON else loss), aux
+
+        inner = make_train_step(loss_fn, nonfinite_guard=True)
+
+        def step_fn(state, batch, seed=None):
+            with sync_errors(torch):
+                if len(calls) == GUARD_POISON:
+                    snaps["before"] = _snapshot(state)
+                m = inner(state, batch, seed)
+                if len(calls) == GUARD_POISON:
+                    snaps["after"] = _snapshot(state)
+            calls.append(None)
+            return m
+
+        trainer.step_fn = step_fn
+        return dpp.train(args, trainer, device)
+
+    s = _in_group(torch, dpp, poisoned)
+    exact = len(snaps["before"]) == len(snaps["after"]) and all(
+        torch.equal(a, b) for a, b in zip(snaps["before"], snaps["after"]))
+    losses = s["losses"]
+    if not exact or s["faults"]["nonfinite_steps"] != 1 or not math.isnan(losses[GUARD_POISON]) or not all(
+            math.isfinite(x) for i, x in enumerate(losses) if i != GUARD_POISON):
+        raise AssertionError(f"16b: skip exact {exact}, faults {s['faults']}, losses {losses}")
+    del snaps["before"], snaps["after"]
+    release(torch)
+    log(f"    16b: step {GUARD_POISON} skipped on the card; params, AdamW moments and steps, the LR count and "
+        f"buffers after it bitwise before it ({len(s['losses'])} steps under sync debug \"error\", one nan_skip)")
+
+    def timed(guard):
+        a = dpp.parse_args(FAULT_LM_ARGS + ["--device", DEVICE, "--steps-per-epoch", "6"]
+                           + (["--nan-guard"] if guard else []))
+
+        def go():
+            trainer = dpp.build_trainer(a, device)
+            if not guard:  # the guard's fused AdamW, unguarded
+                state = trainer.state
+                state.optimizer, state.scheduler = build_optimizer(
+                    a, state.model.parameters(), trainer.steps_per_epoch * a.epochs, fused=True)
+            return dpp.train(a, trainer, device)["step_time_s"] * 1e3
+
+        ms = _in_group(torch, dpp, go)
+        release(torch)
+        return ms
+
+    runs = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        runs[which].append(timed(which == "on"))
+    mean = {k: sum(v) / len(v) for k, v in runs.items()}
+    log(f"    16b guard cost, fused AdamW both: {mean['off']:.2f} ms off, {mean['on']:.2f} ms on "
+        f"(runs {runs}) on {smi}")
+    return {"poisoned_step": GUARD_POISON, "skip_exact": exact, "losses": [x if math.isfinite(x) else None
+                                                                          for x in losses],
+            "sync_debug": "error", "step_ms_off": mean["off"], "step_ms_on": mean["on"],
+            "cost_ms": mean["on"] - mean["off"], "runs_ms": runs}
+
+
+def warm_restart(phase4_faults: dict, restart: dict, smi) -> dict:
+    """[16c] The kernels' first build went into this script's fresh
+    ``--compile-cache`` in phase 2 (``cold``, as phase 4's run reports);
+    9a's supervised run under the same cache (``DDP_COMPILE_CACHE``, its
+    worker dead once at step 6 and restarted) must say ``cache-hit`` in
+    both incarnations with no build, and its restart is split
+    (``restart_record``)."""
+    modes, split = restart["modes"], restart["split"]
+    if phase4_faults.get("warm_start") != "cold" or modes != {0: "cache-hit", 1: "cache-hit"} \
+            or restart["kernel_builds"]["misses"] != 0:
+        raise AssertionError(f"16c: phase 4 {phase4_faults.get('warm_start')}, 9a's modes {modes}, "
+                             f"builds {restart['kernel_builds']}")
+    log(f"    16c: phase 4 cold (built in phase 2), 9a's attempt 0 {modes[0]}, attempt 1 {modes[1]} "
+        f"({restart['kernel_builds']}); its restart " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f" on {smi}")
+    return {"phase4_mode": "cold", **restart}
+
+
+def warm_start_phase(torch, dpp, phase4_faults, restart, smi) -> dict:
+    """[16] Bounded dispatch and the warm start (16a, 16b; 16c from phase
+    9a's supervised run, ``restart``)."""
+    log("[16] bounded dispatch and the warm start")
+    release(torch)
+    return {"depths": depth_runs(torch, dpp, smi), "guard": guard_run(torch, dpp, smi),
+            "restart": warm_restart(phase4_faults, restart, smi)}
+
+
 def release(torch) -> None:
     """Free what earlier runs left (a model held by a reference cycle, say,
     the reducer's hooks) before the next run's peak is measured."""
@@ -3407,9 +3664,16 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"[1] card: {kind} x{count}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
+    from distributeddataparallel_tpu_torch.training import warm_start
+
+    # The kernels' first build goes into a fresh compile cache, which every
+    # later run of this script (in this process, or a fresh one through
+    # DDP_COMPILE_CACHE) loads from: phase 16c's cold, then cache-hit.
+    cache = warm_start.enable_compile_cache(tempfile.mkdtemp(prefix="chip_smoke_cache_"))
     t0 = time.perf_counter()
     so = fa.build()
-    log(f"[2] build: {so.name} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2] build: {so.name} in {time.perf_counter() - t0:.1f} s into the fresh --compile-cache {cache} "
+        f"({warm_start.warm_start_mode()}: {warm_start.STATS.misses} built, {warm_start.STATS.hits} found)")
     for line in ptxas_report(so.with_suffix(".log").read_text()):
         log("    " + line)
     if "--multi-gpu" in sys.argv[1:]:
@@ -3481,6 +3745,9 @@ def main() -> int:
     fsdp_path = timed("13", fsdp_phase, torch, dpp, fa, llama["losses"], layouts["gpt2"]["plain"]["losses"], smi)
     moe_path = timed("14", moe_phase, torch, dpp, fa, tfm, smi)
     pp_path = timed("15", pp_phase, torch, fa, tfm, smi)
+    fa.reset_launches()
+    warm_path = timed("16", warm_start_phase, torch, dpp, summary["faults"], fault["replay"]["restart"], smi)
+    warm_path["attention_launches"] = dict(fa.LAUNCHES)
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -3499,6 +3766,7 @@ def main() -> int:
             "launches_fsdp_path": fsdp_path["attention_launches"][name],
             "launches_moe_path": moe_path["attention_launches"][name],
             "launches_pp_path": pp_path["attention_launches"][name],
+            "launches_warm_start_path": warm_path["attention_launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3533,6 +3801,7 @@ def main() -> int:
     log(json.dumps({"fsdp_path": fsdp_path, "card": smi}))
     log(json.dumps({"moe_path": moe_path, "card": smi}))
     log(json.dumps({"pp_path": pp_path, "card": smi}))
+    log(json.dumps({"warm_start_path": warm_path, "card": smi}))
     log(json.dumps({"phase_seconds": seconds, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")

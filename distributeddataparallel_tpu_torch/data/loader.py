@@ -17,7 +17,12 @@ normalizes them); smaller integer columns (token ids, labels) become int64.
 Batches bound for a GPU are copied from pinned host memory without
 blocking, so the host gathers the next batch while the device works (a
 copy from pageable memory would first wait for the device to finish).
-``workers=True`` moves the gather (and augmentation) to a background thread.
+``workers=True`` moves the gather (and augmentation) to a background thread;
+``prefetch_depth`` is then the number of batches its queue holds ahead of
+the train loop (the ``loader_prefetch_depth`` gauge), and when the loop finds
+that queue empty ``starvation_window`` times in a row the loader warns once
+and emits one ``loader_starved`` event (``window``, ``epoch``) into
+``events``, as the reference's loader does.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from distributeddataparallel_tpu_torch import native
+from distributeddataparallel_tpu_torch.utils.logging import warn_all
 from distributeddataparallel_tpu_torch.parallel.sampler import DistributedSampler
 
 
@@ -82,8 +88,13 @@ class DataLoader:
         augment=None,
         workers: bool = False,
         seq_shard: tuple[int, int] | None = None,
+        starvation_window: int = 50,
     ):
         self.dataset = dataset
+        self.starvation_window = starvation_window
+        self.events = None  # an EventLog for ``loader_starved`` (the trainer binds it)
+        self._starved_warned = False
+        self._depth_fn = None
         self.seq_shard = seq_shard
         self.per_replica_batch = per_replica_batch
         self.device = torch.device(device)
@@ -110,6 +121,24 @@ class DataLoader:
 
     def __len__(self) -> int:
         return self.steps_per_epoch
+
+    @property
+    def prefetch_depth(self) -> int:
+        """Batches the background worker holds ahead of the consumer; 0
+        without a worker or between iterations."""
+        fn = self._depth_fn
+        return int(fn()) if fn is not None else 0
+
+    def _starving(self, streak: int) -> None:
+        """The consumer found the queue empty ``streak`` times in a row:
+        the input pipeline is starving the train loop.  Once a loader."""
+        if streak < self.starvation_window or self._starved_warned:
+            return
+        self._starved_warned = True
+        warn_all("loader prefetch queue empty for %d consecutive steps — input pipeline is starving "
+                 "the train loop (consider more workers or faster storage)", streak)
+        if self.events is not None:
+            self.events.emit("loader_starved", window=streak, epoch=self.sampler.epoch)
 
     def _gather(self, idx: np.ndarray, image_gather=None) -> dict:
         """Rows ``idx`` as a dict of columns; ``image_gather(column, idx)``
@@ -139,7 +168,7 @@ class DataLoader:
     def __iter__(self) -> Iterator[dict]:
         host = self._host_batches()
         if self.workers:
-            host = _background(host)
+            host = _background(host, self)
         for batch in host:
             yield {k: self._to_device(v) for k, v in batch.items()}
 
@@ -178,10 +207,11 @@ def _seq_chunk(host: dict, index: int, n: int) -> dict:
     return host
 
 
-def _background(items: Iterator) -> Iterator:
+def _background(items: Iterator, loader: DataLoader | None = None) -> Iterator:
     """``items`` produced on a daemon thread, one ahead.  An exception in
     the producer is raised at the consumer; a consumer that stops early
-    stops the producer."""
+    stops the producer.  ``loader`` reads the queue's depth while it runs
+    and hears of every consecutive empty arrival (``DataLoader._starving``)."""
     q: queue.Queue = queue.Queue(maxsize=1)
     stop = threading.Event()
     done = object()
@@ -208,11 +238,24 @@ def _background(items: Iterator) -> Iterator:
 
     thread = threading.Thread(target=produce, daemon=True)
     thread.start()
+    if loader is not None:
+        loader._depth_fn = q.qsize
+    streak = 0
     try:
-        while (item := q.get()) is not done:
+        while True:
+            if loader is not None:
+                # One empty arrival is normal pipelining; a window of them
+                # in a row is an input-bound loop.
+                streak = streak + 1 if q.empty() else 0
+                if streak:
+                    loader._starving(streak)
+            if (item := q.get()) is done:
+                break
             if isinstance(item, BaseException):
                 raise item
             yield item
     finally:
+        if loader is not None:
+            loader._depth_fn = None
         stop.set()
         thread.join(timeout=10.0)

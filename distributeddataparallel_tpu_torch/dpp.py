@@ -92,6 +92,17 @@ stage in ``--pp-virtual`` interleaved chunks under 1f1b and zb, with
 with zb), ``--zero 1``, ``--grad-clip``, ``--eval`` (pipelined) and
 checkpoints; 1F1B and zb emit one ``pp_phase`` event.
 
+Bounded dispatch and the warm start, with the reference's flags
+(``training.warm_start``): the loop keeps up to ``--dispatch-depth`` K steps
+(default 2) in flight and settles each step's handle (the nonfinite flag
+under ``--nan-guard``, else the loss) when it leaves the window, draining
+everything at a throughput window, a log line, a checkpoint and the epoch
+edge; K = 0 settles every step at once.  The guard decides its skip on the
+device.  ``--compile-cache DIR`` (env ``DDP_COMPILE_CACHE``) roots the
+kernels' builds at ``DIR/build/``, inherited by spawned and restarted
+processes; the ``warm_start`` event says ``cold``, ``cache-hit`` or
+``eager``.
+
 The reference's flags whose feature is not ported yet (``--elastic*``,
 ``--integrity-*``, ...) parse with its defaults and checks; a value off the
 default raises ``NotImplementedError`` naming its ROADMAP item
@@ -155,6 +166,7 @@ from distributeddataparallel_tpu_torch.parallel.expert_parallel import shard_mod
 from distributeddataparallel_tpu_torch.parallel.zero import zero_state
 from distributeddataparallel_tpu_torch.runtime import distributed as rt
 from distributeddataparallel_tpu_torch.runtime import launcher
+from distributeddataparallel_tpu_torch.training import warm_start
 from distributeddataparallel_tpu_torch.training.fault_tolerance import (
     NonFiniteBreaker,
     ResilientCheckpointer,
@@ -403,10 +415,15 @@ def parse_args(argv=None):
                    help="capture a torch.profiler trace of global steps [A, B) into "
                         "--profile-dir if set, else EVENTS_DIR/xprof")
     p.add_argument("--compile-cache", default=None, metavar="DIR",
-                   help="persistent step cache: not ported yet (ROADMAP item 11b)")
+                   help="kernel build cache rooted at DIR (env: DDP_COMPILE_CACHE): the hand-written "
+                        "kernels are built into DIR/build/ once and loaded from there after, by this "
+                        "process and by spawned and restarted ones (the reference also stored its "
+                        "compiled train step there; an eager PyTorch step is no such program)")
     p.add_argument("--dispatch-depth", type=int, default=2,
-                   help="steps in flight before the host syncs: not ported yet (ROADMAP item 11b; "
-                        "the port's loop syncs after every step)")
+                   help="bounded dispatch: keep up to K steps in flight; the host syncs only at "
+                        "throughput-window, log-line, checkpoint and epoch boundaries (the nan guard "
+                        "then observes each step's flag with a lag of at most K).  0 = a synchronous "
+                        "per-step loop")
     p.add_argument("--elastic", action="store_true",
                    help="elastic gang resize: not ported yet (ROADMAP item 13)")
     p.add_argument("--min-procs", type=int, default=1,
@@ -434,6 +451,8 @@ def parse_args(argv=None):
         args.events_dir = os.environ.get("DDP_EVENTS_DIR") or None
     if args.runs_dir is None:
         args.runs_dir = os.environ.get("DDP_RUNS_DIR") or None
+    if args.compile_cache is None:
+        args.compile_cache = os.environ.get(warm_start.ENV) or None
     if args.alerts is None and os.environ.get("DDP_ALERTS") is not None:
         args.alerts = os.environ.get("DDP_ALERTS")
     if args.alerts is not None:
@@ -483,7 +502,6 @@ def parse_args(argv=None):
 #: raises ``NotImplementedError`` naming the item (after the reference's own
 #: checks of the value, ``_validate_reference_rules``).
 UNPORTED_FLAGS = {
-    "11b": ("compile_cache", "dispatch_depth"),
     "13": ("elastic", "elastic_dir", "min_procs"),
     "20": ("integrity_every", "integrity_shadow"),
     "10's remainder": ("bw_probe",),
@@ -863,6 +881,18 @@ def step_seed(args, epoch: int, step: int) -> int | None:
     return fold_seed(args.seed + 1, epoch, step) if args.dropout else None
 
 
+def _process_started() -> float | None:
+    """This process's start on the wall clock (Linux ``/proc``), or None."""
+    try:
+        with open("/proc/self/stat") as fh:
+            ticks = int(fh.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as fh:
+            uptime = float(fh.read().split()[0])
+        return time.time() - uptime + ticks / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        return None
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -885,13 +915,26 @@ def run(args, *, local_rank: int = 0, nprocs: int = 1, store_address: str | None
     also writes to ``result_file`` as JSON.  A chaos preemption exits 1
     without a parting checkpoint, as a real one that sends no SIGTERM
     (ref ``dpp.py:2966-2980``)."""
+    entered = time.time()
     device = device_for(args, local_rank)
+    if args.compile_cache:
+        warm_start.enable_compile_cache(args.compile_cache)
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # the CUDA context, made here and timed
+    context_s = time.perf_counter() - t0
     rank, world_size = rt.init_process_group(
         store_address=store_address, world_size=nprocs, rank=local_rank, device=device,
         coordinator_address=args.coordinator, num_processes=args.num_processes,
         process_id=args.process_id)
     try:
         summary = train(args, build_trainer(args, device, rank, world_size), device, rank, world_size)
+        # Where a (re)start's time went, up to the first step (the restart
+        # path's split): the process's start and this function's entry on
+        # the wall clock, the CUDA context, the checkpoint read, the kernel
+        # libraries' builds or loads, and the first step (``train``'s).
+        summary["startup"].update(process_start_unix=_process_started(), run_entry_unix=entered,
+                                  cuda_context_s=context_s)
     except SimulatedPreemption as pe:
         warn_all("%s", pe)
         raise SystemExit(1) from pe
@@ -1084,6 +1127,7 @@ def build_telemetry(args, trainer: Trainer, device: torch.device, rank: int,
                     dtype=model.cfg.dtype if lm else torch.float32, n_chips=world_size)
     if args.memory_telemetry:
         tel.arm_memory(device)
+    tel.bind_loader(trainer.loader)
     return tel
 
 
@@ -1131,16 +1175,91 @@ def _preempt_agreed(faults: Faults, batch_idx: int, world_size: int) -> bool:
     return rt.any_rank(faults.signal is not None)
 
 
+@dataclasses.dataclass
+class _InFlight:
+    """One dispatched step until the loop settles it: where it is in the
+    run, its handles (the loss, ``moe_aux``, the guard's flag) and how its
+    time is read.  On the card past depth 0 the handles are copied to
+    pinned host memory without blocking and the step is bracketed by CUDA
+    events, so settling it waits for that step alone."""
+    epoch: int
+    batch: int
+    gstep: int
+    keys: tuple
+    values: torch.Tensor
+    host_s: float | None = None
+    events: tuple | None = None
+
+
+def _dispatched(metrics: dict, where: tuple, t0: float, device: torch.device, depth: int,
+                start=None) -> _InFlight:
+    """The step's handles, queued for their host read: stacked on the
+    device, then (on the card past depth 0) copied to pinned memory behind
+    an event; elsewhere the host clock times the step."""
+    keys = tuple(k for k in ("loss", "moe_aux", "nonfinite_grad") if k in metrics)
+    vec = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32, device=device).reshape(())
+                       for k in keys])
+    if start is None:
+        if depth == 0:
+            _sync(device)
+        return _InFlight(*where, keys, vec, host_s=time.perf_counter() - t0)
+    host = torch.empty(len(keys), dtype=torch.float32, pin_memory=True)
+    host.copy_(vec, non_blocking=True)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    return _InFlight(*where, keys, host, events=(start, end))
+
+
 def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, faults: Faults,
           start_epoch: int, rank: int, world_size: int):
     """The epochs: train steps, eval and checkpoint, under telemetry and the
     fault-tolerance wiring.  Returns early, with the epoch, when a SIGTERM
-    was agreed and its checkpoint saved."""
+    was agreed and its checkpoint saved.
+
+    Up to ``--dispatch-depth`` steps are in flight (``BoundedDispatch``):
+    a step is settled (its loss, ``moe_aux`` and guard flag read on the
+    host, the breaker fed, ``nan_skip`` emitted with its epoch and batch,
+    its time read) when it leaves the window, and every step in flight at
+    a drain: the telemetry's device sync (its throughput windows and the
+    first step), a log line, a checkpoint and the epoch's edge.  The
+    device is synchronised only there.  Depth 0 settles each step right
+    after it, as a synchronous loop."""
     state, step_fn, loader, spe = trainer.state, trainer.step_fn, trainer.loader, trainer.steps_per_epoch
     eval_step, eval_loader, model = trainer.eval_step, trainer.eval_loader, trainer.state.model
     injector, ckpt, watchdog = faults.injector, faults.checkpointer, faults.watchdog
     losses, step_times, eval_batches, evals, moe_aux = [], [], 0, [], []
     wall, wall_steps, preempted = 0.0, 0, None
+    depth = args.dispatch_depth
+    dispatch = warm_start.BoundedDispatch(depth)
+    on_events = device.type == "cuda" and depth > 0
+
+    def settle(rec: _InFlight) -> None:
+        if rec.events is not None:
+            rec.events[1].synchronize()
+            step_times.append(rec.events[0].elapsed_time(rec.events[1]) / 1e3)
+        else:
+            step_times.append(rec.host_s)
+        got = dict(zip(rec.keys, rec.values.tolist()))
+        losses.append(got["loss"])
+        if "moe_aux" in got:
+            moe_aux.append(got["moe_aux"])
+            tel.gauge("moe_aux", got["moe_aux"])
+        if faults.breaker is not None:
+            bad = got["nonfinite_grad"]
+            if bad:
+                tel.nan_skip(rec.gstep, rec.epoch, rec.batch)
+            faults.breaker.observe(bad)
+        if watchdog is not None and not watchdog.running:
+            # Armed once the first step is settled: it builds the kernels.
+            watchdog.start(epoch=rec.epoch, batch=rec.batch, gstep=rec.gstep)
+
+    def drain() -> None:
+        for rec, _ in dispatch.drain():
+            settle(rec)
+        _sync(device)
+
+    tel.sync = drain  # the telemetry's device syncs (windows, first step, traces) are drains
+    counts = None  # the first pipeline step's unit counts (on the device)
     for epoch in range(start_epoch, args.epochs):
         loader.set_epoch(epoch)
         ends = []
@@ -1158,36 +1277,34 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
                         batch = injector.corrupt_batch(batch, gstep)
                 t0 = time.perf_counter()
                 with tel.span("step", step=gstep):
+                    start = None
+                    if on_events:
+                        start = torch.cuda.Event(enable_timing=True)
+                        start.record()
                     metrics = step_fn(state, batch, step_seed(args, epoch, i))
-                    _sync(device)
-                step_times.append(time.perf_counter() - t0)
+                    rec = _dispatched(metrics, (epoch, i, gstep), t0, device, depth, start)
+                for old, _ in dispatch.push(rec):
+                    settle(old)
+                if watchdog is not None and watchdog.running:
+                    watchdog.beat(epoch=epoch, batch=i, gstep=gstep)
+                if counts is None and "pp_phase_counts" in metrics:
+                    counts = metrics["pp_phase_counts"]
+                    # 1F1B's or zb's units a stage: read once, when telemetry
+                    # emits them after the first step (a drained device).
+                    tel.step_end(gstep, pp_phase=lambda: phase_counts_payload(
+                        counts.cpu(), schedule=args.pp_schedule, n_stages=args.pp, virtual=args.pp_virtual,
+                        microbatches=args.pp_microbatches or args.pp, accounting=step_fn.bubble_accounting,
+                        step=gstep))
+                else:
+                    tel.step_end(gstep)
                 ends.append(time.perf_counter())
-                losses.append(metrics["loss"])
-                aux = float(metrics["moe_aux"]) if "moe_aux" in metrics else None
-                if aux is not None:
-                    moe_aux.append(aux)
-                if faults.breaker is not None:
-                    bad = metrics["nonfinite_grad"]  # a host float: the step read the flag
-                    if bad:
-                        tel.nan_skip(gstep, epoch, i)
-                    faults.breaker.observe(bad)
-                counts = metrics.get("pp_phase_counts")  # 1F1B's or zb's units a stage, once per run
-                tel.step_end(gstep, None if aux is None else {"moe_aux": aux}, pp_phase=None if counts is None else
-                             phase_counts_payload(counts, schedule=args.pp_schedule, n_stages=args.pp,
-                                                  virtual=args.pp_virtual,
-                                                  microbatches=args.pp_microbatches or args.pp,
-                                                  accounting=step_fn.bubble_accounting, step=gstep))
-                if watchdog is not None:
-                    # Armed after the first step, which builds the kernels.
-                    if watchdog.running:
-                        watchdog.beat(epoch=epoch, batch=i, gstep=gstep)
-                    else:
-                        watchdog.start(epoch=epoch, batch=i, gstep=gstep)
                 if (state.step % args.log_every == 0) or i == spe - 1:
-                    log(f"epoch {epoch} step {state.step} loss {float(metrics['loss']):.4f} "
-                        f"acc {float(metrics['accuracy']):.4f}"
-                        + ("" if aux is None else f" moe_aux {aux:.4f}") + f" {step_times[-1] * 1e3:.1f} ms")
+                    drain()
+                    aux = f" moe_aux {moe_aux[-1]:.4f}" if "moe_aux" in rec.keys else ""
+                    log(f"epoch {epoch} step {state.step} loss {losses[-1]:.4f} "
+                        f"acc {float(metrics['accuracy']):.4f}{aux} {step_times[-1] * 1e3:.1f} ms")
                 if ckpt is not None and _preempt_agreed(faults, i, world_size):
+                    drain()  # checkpoint edge: every step settled
                     t_ck = time.perf_counter()
                     with tel.span("ckpt_save", epoch=epoch):
                         ckpt.save(state, epoch)
@@ -1199,6 +1316,8 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
                         f"from epoch {epoch + 1}")
                     preempted = epoch
                     break
+        drain()  # the epoch's edge: eval and checkpoint see every step settled
+        ends[-1] = time.perf_counter()
         # Steps 2.. of the epoch on the wall clock, the loader's time included.
         wall, wall_steps = wall + ends[-1] - ends[0], wall_steps + len(ends) - 1
         if preempted is not None:
@@ -1284,14 +1403,16 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         torch.cuda.reset_peak_memory_stats(device)
     tel = build_telemetry(args, trainer, device, rank, world_size)
     launches0 = dict(flash_attention.LAUNCHES)
+    builds0 = (warm_start.STATS.hits, warm_start.STATS.misses)
     buckets0 = dict(overlap.COUNTS)
     fsdp0 = dict(fsdp.COUNTS)
     status, faults = "ok", None
     try:
         faults = build_faults(args, state, tel, rank, world_size)
-        start_epoch = 0
+        start_epoch, t_restore = 0, time.perf_counter()
         if args.resume:
             _, start_epoch = faults.checkpointer.restore_latest(state)
+        restore_s = time.perf_counter() - t_restore
         if start_epoch >= args.epochs:
             raise SystemExit(f"the newest checkpoint is of epoch {start_epoch - 1}: "
                              f"nothing left to train for --epochs {args.epochs}")
@@ -1306,9 +1427,9 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
     finally:
         if faults is not None and faults.watchdog is not None:
             faults.watchdog.stop()
+        tel.sync = lambda: _sync(device)  # the loop's drain ends with the loop
         tel.close(status)
 
-    losses = [float(x) for x in losses]
     # Step 1 pays the one-time costs (kernel build and load, allocator
     # warm-up); the steady-state step time excludes it when there are more.
     steady = step_times[1:] or step_times
@@ -1351,6 +1472,12 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         "overlap_buckets": {k: n - buckets0[k] for k, n in overlap.COUNTS.items()},
         # FSDP's flat gathers (forward and remat's recompute) and scatters.
         "fsdp_collectives": {k: n - fsdp0[k] for k, n in fsdp.COUNTS.items()},
+        "dispatch_depth": args.dispatch_depth,
+        # This run's kernel library builds: found in the cache, or compiled.
+        "kernel_builds": {"cache": args.compile_cache, "hits": warm_start.STATS.hits - builds0[0],
+                          "misses": warm_start.STATS.misses - builds0[1]},
+        "startup": {"restore_s": restore_s, "first_step_s": tel.counters.compile_s,
+                    "kernel_build_s": sum(r["seconds"] for r in warm_start.STATS.records[sum(builds0):])},
     }
     log(f"train: {len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
         f"{step_time * 1e3:.1f} ms/step, {summary[rate[0]]:.0f} {rate[0]}")
@@ -1427,6 +1554,10 @@ def main(argv=None) -> dict | None:
     the budget spent, it raises (ref ``dpp.py:3120-3160``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
+    if args.compile_cache:
+        # Exported before any child starts: every spawned or restarted
+        # process builds into (and loads from) the same cache.
+        warm_start.enable_compile_cache(args.compile_cache)
     n = local_ranks(args)
     if args.device == "cuda":
         if not torch.cuda.is_available():

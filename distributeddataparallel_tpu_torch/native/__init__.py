@@ -24,9 +24,12 @@ follow numpy's rules: negatives count from the end, and one out of range
 raises ``IndexError``.
 
 The library is compiled with ``g++`` on first use into
-``distributeddataparallel_tpu_torch/_build/`` (git-ignored), under a name
-keyed by the source's and the flags' hash: a temporary name, then an atomic
-rename, under a lock.  Unlike the reference there is no quiet fallback: a
+``training.warm_start.build_root()`` (the package's git-ignored ``_build/``,
+or ``DIR/build/`` under ``--compile-cache DIR``), under a name keyed by the
+source's digest, the flags and the compiler's version: a temporary name,
+then an atomic rename, under a lock (``warm_start.build_library``, which
+also rebuilds a cached library that fails its digest or its load).  Unlike
+the reference there is no quiet fallback: a
 missing compiler or a failed build or load raises with the compiler's
 message.  ``CALLS`` counts the native calls of each function since the last
 ``reset_calls()``.
@@ -35,7 +38,6 @@ message.  ``CALLS`` counts the native calls of each function since the last
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
@@ -44,9 +46,10 @@ from pathlib import Path
 
 import numpy as np
 
+from distributeddataparallel_tpu_torch.training import warm_start
+
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "ddp_native.cpp"
-BUILD_DIR = _PKG / "_build"
 # The reference's Makefile flags, with products and sums kept apart
 # (-ffp-contract=off): a fused multiply-add would round once where numpy
 # rounds twice.
@@ -72,36 +75,37 @@ def reset_calls() -> None:
         CALLS[name] = 0
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libddp_native_{digest}.so"
+def _cxx() -> str | None:
+    return os.environ.get("CXX") or shutil.which("g++")
+
+
+def _toolchain() -> dict:
+    cxx = _cxx()
+    return {"cxx": os.path.basename(cxx) if cxx else None,
+            "version": warm_start._first_line([cxx, "--version"]) if cxx else None}
 
 
 def build() -> Path:
-    """Compile the library unless an up-to-date one exists; return it.
+    """The library, compiled unless it is in the build cache intact.
     Raises ``RuntimeError`` with the compiler's output when it fails."""
-    so = library_path()
-    if so.exists():
-        return so
-    cxx = os.environ.get("CXX") or shutil.which("g++")
+    cxx = _cxx()
     if not cxx:
         raise RuntimeError(
             f"g++ not found (set CXX or put g++ on PATH): the native input kernels "
             f"are built from {SOURCE} on first use")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"building {SOURCE.name} failed: {' '.join(cmd)}: {e}") from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"{os.path.basename(cxx)} failed ({proc.returncode}) building {SOURCE.name}:\n"
-            f"{proc.stderr[-4000:]}")
-    os.replace(tmp, so)  # atomic: concurrent builds each publish a whole file
-    return so
+
+    def compile_to(tmp: Path) -> None:
+        cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise RuntimeError(f"building {SOURCE.name} failed: {' '.join(cmd)}: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{os.path.basename(cxx)} failed ({proc.returncode}) building {SOURCE.name}:\n"
+                f"{proc.stderr[-4000:]}")
+
+    return warm_start.build_library("ddp_native", SOURCE, CXX_FLAGS, _toolchain(), compile_to)
 
 
 def _load():

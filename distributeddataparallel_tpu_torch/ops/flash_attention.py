@@ -21,17 +21,16 @@ layout is not carried over).  ``delta = rowsum(do * out)`` is ordinary torch,
 as it is XLA in the reference (``pallas_attention.py:370``).
 
 The kernels build on first use: ``nvcc`` compiles the source into
-``distributeddataparallel_tpu_torch/_build/`` (git-ignored) under a name keyed
-by the source's hash, and an up-to-date library is reused.
+``training.warm_start.build_root()`` (the package's git-ignored ``_build/``,
+or ``DIR/build/`` under ``--compile-cache DIR``) under a name keyed by the
+source's digest, the flags and ``warm_start.runtime_versions()``, and a
+library found there intact is reused (``warm_start.build_library``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
 import subprocess
 import threading
 import time
@@ -40,10 +39,10 @@ from pathlib import Path
 import torch
 
 from distributeddataparallel_tpu_torch.ops.attention import NEG_INF
+from distributeddataparallel_tpu_torch.training import warm_start
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "flash_attention.cu"
-BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,50 +64,41 @@ def reset_launches() -> None:
 # --------------------------------------------------------------- build ----
 
 def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the flash "
-        "attention kernels are built from csrc/flash_attention.cu on first use"
-    )
+    nvcc = warm_start.nvcc_path()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the flash "
+            "attention kernels are built from csrc/flash_attention.cu on first use"
+        )
+    return nvcc
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"libflash_attention_{digest}.so"
+    return warm_start.library_path("flash_attention", SOURCE, NVCC_FLAGS, warm_start.runtime_versions())
 
 
 def build() -> Path:
-    """Compile the kernels unless an up-to-date library exists; return it.
+    """The kernels' library, compiled unless it is in the build cache
+    intact; raises with the compiler's message when the build fails.
 
     The compiler's per-kernel register and shared-memory report (``ptxas
     -v``) is kept beside the library as ``<name>.log``."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = so.with_suffix(".log")
-    log.write_text(
-        f"$ {' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s, rc "
-        f"{proc.returncode}\n{proc.stdout}{proc.stderr}"
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
-            f"{proc.stderr[-4000:]}"
+    def compile_to(tmp: Path) -> None:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        tmp.with_name(library_path().stem + ".log").write_text(
+            f"$ {' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s, rc "
+            f"{proc.returncode}\n{proc.stdout}{proc.stderr}"
         )
-    os.replace(tmp, so)  # atomic: concurrent builds each publish a whole file
-    return so
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
+                f"{proc.stderr[-4000:]}"
+            )
+
+    return warm_start.build_library("flash_attention", SOURCE, NVCC_FLAGS, warm_start.runtime_versions(),
+                                    compile_to)
 
 
 def _load():

@@ -682,6 +682,7 @@ def make_pp_train_step(cfg, *, microbatches: int, schedule: str = "gpipe", zero:
     M = microbatches
     resolved: list[_Groups] = []
     exchanges: dict = {}
+    count_rows: dict = {}
 
     def step(state, batch: dict, seed=None) -> dict:
         if not resolved:
@@ -712,7 +713,12 @@ def make_pp_train_step(cfg, *, microbatches: int, schedule: str = "gpipe", zero:
         # accuracy from the last stage, every stage's aux terms and counts.
         vec = torch.zeros(3 + 3 * g.n, device=inputs.device)
         vec[0], vec[1], vec[2] = run.loss_sum, run.acc_sum, run.aux_sum
-        vec[3 + 3 * g.stage : 6 + 3 * g.stage] = torch.tensor(run.counts, dtype=torch.float32)
+        # The schedule's unit counts are the same every step: copied to the
+        # device once, not each step from pageable host memory (a sync).
+        row = count_rows.get(tuple(run.counts))
+        if row is None:
+            row = count_rows[tuple(run.counts)] = torch.tensor(run.counts, dtype=torch.float32).to(inputs.device)
+        vec[3 + 3 * g.stage : 6 + 3 * g.stage] = row
         if group_active(g.pipe):
             dist.all_reduce(vec, group=g.pipe)
         _pipe_complete(state, g)
@@ -744,7 +750,8 @@ def make_pp_train_step(cfg, *, microbatches: int, schedule: str = "gpipe", zero:
             dist.all_reduce(means, group=g.data)
             metrics = dict(zip(keys, (means / dist.get_world_size(g.data)).unbind()))
         if schedule != "gpipe":
-            metrics["pp_phase_counts"] = vec[3:].reshape(g.n, 3).to(torch.int64).cpu()
+            # On the device: the train loop reads the first step's, once.
+            metrics["pp_phase_counts"] = vec[3:].reshape(g.n, 3).to(torch.int64)
         return metrics
 
     step.last = None

@@ -191,3 +191,17 @@ def sync_model_grads(pieces, state: list, group=None) -> list:
             view.copy_(part.reshape(view.shape))
         new_state.append(ns)
     return new_state
+
+
+@torch.no_grad()
+def select_state(ok: torch.Tensor, new: list, old: list) -> list:
+    """The nonfinite guard's select over the hook state: ``new`` where
+    ``ok`` (a 0-d tensor on the device, 1.0 for a good step), else
+    ``old``, written into ``new`` leaf by leaf with no host read.  Beyond
+    the two states it allocates one tensor of a leaf at a time."""
+    keep = ok.reshape(()) > 0
+    for n, o in zip(new, old):
+        if n is not None:
+            n.q.copy_(torch.where(keep, n.q, o.q))
+            n.err.copy_(torch.where(keep, n.err, o.err))
+    return new

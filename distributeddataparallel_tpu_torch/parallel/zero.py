@@ -475,19 +475,31 @@ class LowBitMoments:
                                           else v.float())
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, ok: torch.Tensor | None = None) -> None:
+        """The optimizer's step, one parameter at a time.  With the
+        nonfinite guard's verdict ``ok`` (a 0-d tensor on the device; the
+        optimizer then skips through its ``found_inf``), a skipped step's
+        recompressed moments are put back to the stored ones by a select on
+        the device: the stored piece is kept until its select, one
+        parameter's compressed moments at a time (bf16: 2 bytes an element
+        a moment; int8: 1 byte and 4 a block of 256)."""
         params = self.params
         grads = [p.grad for p in params]
         for p in params:
             p.grad = None
+        keep = None if ok is None else ok.reshape(()) > 0
         try:
             for i, (p, g) in enumerate(zip(params, grads)):
                 if g is None:
                     continue
                 p.grad = g
+                old = self.packed.get(i)
                 self._unpack(i, p)
                 self.optimizer.step()
                 self._pack(i, p)
+                if keep is not None and old is not None:
+                    new = self.packed[i]
+                    self.packed[i] = {k: _select(keep, new[k], old[k]) for k in new}
                 p.grad = None
         finally:
             for p, g in zip(params, grads):
@@ -520,6 +532,15 @@ class LowBitMoments:
 
         self.packed = {int(i): {k: dev(v) for k, v in d.items()} for i, d in sd["packed"].items()}
         self.generator.set_state(sd["generator"])
+
+
+def _select(keep: torch.Tensor, new, old):
+    """``new`` where ``keep`` (a 0-d bool tensor), else ``old``: a
+    compressed moment of ``LowBitMoments``."""
+    if isinstance(new, quant.Q8Moment):
+        return quant.Q8Moment(q=torch.where(keep, new.q, old.q), scale=torch.where(keep, new.scale, old.scale),
+                              n=new.n)
+    return torch.where(keep, new, old)
 
 
 def zero_state(model: nn.Module, build_optimizer, *, level: int = 1, moment_dtype: str | None = None,
@@ -567,21 +588,22 @@ def _clip_shard(state, clip_norm: float | None) -> None:
         g.mul_(scale)
 
 
-def _step_shard(state, clip_norm: float | None) -> None:
+def _step_shard(state, clip_norm: float | None, ok=None) -> None:
     state.zero.finish_grads()
     _clip_shard(state, clip_norm)
-    state.apply_gradients()
+    state.apply_gradients(ok)
 
 
-def zero_update(state, clip_norm: float | None = None, *, reduced: bool = False) -> None:
+def zero_update(state, clip_norm: float | None = None, *, reduced: bool = False, ok=None) -> None:
     """Level 1 after the backward: reduce-scatter of the flat gradient, the
     optimizer step on this rank's shard (clipped to ``clip_norm``, exactly:
     the shards partition the gradient), all-gather of the parameters.
-    ``reduced``: the reduce-scatters already ran."""
-    zero2_update(state, clip_norm, reduced=reduced)
+    ``reduced``: the reduce-scatters already ran.  ``ok``: the nonfinite
+    guard's verdict on the device (``TrainState.apply_gradients``)."""
+    zero2_update(state, clip_norm, reduced=reduced, ok=ok)
 
 
-def zero2_update(state, clip_norm: float | None = None, *, reduced: bool = False) -> None:
+def zero2_update(state, clip_norm: float | None = None, *, reduced: bool = False, ok=None) -> None:
     """Level 2 after the backward: one reduce-scatter per bucket into this
     rank's slice of the gradient buffer, the sharded step, one all-gather
     per bucket into the parameter buffer."""
@@ -589,11 +611,11 @@ def zero2_update(state, clip_norm: float | None = None, *, reduced: bool = False
     if not reduced:
         for b in range(layout.plan.n_buckets):
             layout.reduce_scatter(b)
-    _step_shard(state, clip_norm)
+    _step_shard(state, clip_norm, ok)
     layout.all_gather_params()
 
 
-def zero3_update(state, clip_norm: float | None = None, *, reduced: bool = False) -> None:
+def zero3_update(state, clip_norm: float | None = None, *, reduced: bool = False, ok=None) -> None:
     """Level 3 after the backward: one reduce-scatter per bucket, the
     gathered parameters dropped, the sharded step; the updated shard is the
     next step's parameters (gathered at its top)."""
@@ -602,4 +624,4 @@ def zero3_update(state, clip_norm: float | None = None, *, reduced: bool = False
         for b in range(layout.plan.n_buckets):
             layout.reduce_scatter(b)
     layout.release_params()
-    _step_shard(state, clip_norm)
+    _step_shard(state, clip_norm, ok)

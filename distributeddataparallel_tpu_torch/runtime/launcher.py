@@ -5,7 +5,9 @@ Counterpart of the spawn-and-supervise part of the JAX package's
 20).  ``spawn(fn, args, nprocs)`` starts ``nprocs`` child processes through
 the ``spawn`` start method (a fresh interpreter each: a forked CUDA context
 is unusable, and this process never initialises CUDA) and calls
-``fn(i, nprocs, store_address, *args)`` in child ``i``.  A gang of
+``fn(i, nprocs, store_address, *args)`` in child ``i``, after enabling an
+inherited kernel build cache (``DDP_COMPILE_CACHE``,
+``training.warm_start.enable_compile_cache``).  A gang of
 several forms its process group on a ``TCPStore`` that this process binds
 to a port the kernel picks (``127.0.0.1:<port>``, ``store_address``) and
 holds while the gang runs, a fresh one per gang; a gang of one needs no
@@ -49,6 +51,13 @@ RESTART_BACKOFF_S = 1.0
 
 def _child(fn, i, nprocs, store_address, env, args):
     os.environ.update(env)
+    if os.environ.get("DDP_COMPILE_CACHE"):
+        # Inherit the parent's kernel build cache before the child's first
+        # build: a supervised respawn then loads the kernels instead of
+        # compiling them, whatever the worker function is.
+        from distributeddataparallel_tpu_torch.training.warm_start import enable_compile_cache
+
+        enable_compile_cache(os.environ["DDP_COMPILE_CACHE"])
     fn(i, nprocs, store_address, *args)
 
 

@@ -20,8 +20,12 @@ the fast path (prefix cache + speculative decoding on a shared-prefix
 Zipf trace) must hit the cache and accept drafts.  ``--virtual-dt`` makes
 any run deterministic (the clock advances per engine step).
 
-``--fleet``, ``--kill-engine``, ``--kill-after`` and ``--store`` are the
-reference's too and raise, naming the ROADMAP item that ports them.
+``--store DIR`` roots the process's kernel builds at ``DIR`` (the
+``--compile-cache`` switch, ``training.warm_start``).  The reference stored
+its compiled decode, prefill and verify programs there; the port's eager
+engine has no such program.  ``--fleet``, ``--kill-engine`` and
+``--kill-after`` are the reference's too and raise, naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -37,7 +41,6 @@ _NOT_PORTED = {
     "fleet": "ROADMAP.md Queue 1 item 19b (serving/{handoff,router,fleet}.py)",
     "kill_engine": "ROADMAP.md Queue 1 item 19b (the fleet's fault injection)",
     "kill_after": "ROADMAP.md Queue 1 item 19b (the fleet's fault injection)",
-    "store": "ROADMAP.md Queue 1 item 11b (the warm start)",
 }
 
 
@@ -86,7 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kill-after", type=float, default=None,
                     help="fleet fault injection (not ported yet)")
     ap.add_argument("--events-dir", default=None)
-    ap.add_argument("--store", default=None, help="warm-start program store (not ported yet)")
+    ap.add_argument("--store", default=None, metavar="DIR",
+                    help="kernel build cache root (the --compile-cache switch); the reference stored "
+                         "its compiled decode/prefill/verify programs here, which the port's eager "
+                         "engine does not have")
     ap.add_argument("--virtual-dt", type=float, default=None,
                     help="deterministic mode: seconds per engine step")
     ap.add_argument("--smoke", action="store_true",
@@ -135,6 +141,7 @@ def engine_config(args, **over):
         prefill_chunk=args.chunk, max_prefill_chunks_per_step=args.max_prefill_chunks,
         quantized_kv=args.quantize_kv, quantize_weights=args.quantize_weights,
         prefix_cache=args.prefix_cache, spec_k=args.spec_k, spec_ngram=args.spec_ngram,
+        store_dir=args.store,
     )
     kw.update(over)
     return EngineConfig(**kw)

@@ -42,9 +42,14 @@ emitting ``request_admit`` / ``prefill_chunk`` / ``decode_step`` /
 Greedy decoding only: the engine's contract with the parity tests is the
 same continuations as ``generate()`` at temperature 0.
 
+``EngineConfig.store_dir`` roots this process's kernel builds at the store
+(``training.warm_start.enable_compile_cache``).  The reference stored its
+compiled decode, prefill and verify programs there; the port's eager engine
+has no such program (its decode attention is plain PyTorch, as the
+reference's is XLA's), so the store holds only what the process builds.
+
 Not ported yet: the KV handoff between engines (``extract_handoff`` /
-``inject_handoff``, ROADMAP item 19b, with the fleet) and the warm-start
-program store (``EngineConfig.store_dir``, item 11b).
+``inject_handoff``, ROADMAP item 19b, with the fleet).
 """
 
 from __future__ import annotations
@@ -86,7 +91,7 @@ class EngineConfig:
     max_prefill_chunks_per_step: int = 1
     quantized_kv: bool = False
     quantize_weights: bool = False
-    store_dir: str | None = None  # warm-start program store: not ported (item 11b)
+    store_dir: str | None = None  # the kernel build cache's root (training.warm_start)
     # Serving fast path: radix prefix caching (share KV blocks across
     # requests with a common prompt prefix) and speculative decoding
     # (spec_k > 0: an n-gram self-draft proposer suggests spec_k tokens
@@ -130,9 +135,9 @@ class InferenceEngine:
         cfg = model.cfg
         self.model = model
         if config.store_dir:
-            raise NotImplementedError(
-                "EngineConfig.store_dir (the warm-start program store) is not ported yet: "
-                "ROADMAP.md Queue 1 item 11b")
+            from distributeddataparallel_tpu_torch.training.warm_start import enable_compile_cache
+
+            enable_compile_cache(config.store_dir)
         if cfg.max_seq_len % config.block_size:
             raise ValueError(
                 f"block_size ({config.block_size}) must divide "

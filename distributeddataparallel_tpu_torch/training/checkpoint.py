@@ -44,6 +44,13 @@ between the flats and the parameters (``parallel.fsdp``'s
 Nothing of the dropout stream is saved: each step's masks are a function
 of the run's seed, the epoch and the step (``dpp.step_seed``), so a resumed
 run draws the masks the uninterrupted run would have.
+Under ``--nan-guard`` the schedule's count lives on the device
+(``training.optim.DeviceSchedule``) and the optimizer is fused; a save
+reads the count (the train loop drains its in-flight steps before every
+save) and writes it, and the optimizer's LR, in ``LambdaLR``'s format, and
+a load keeps the loading run's kind of update
+(``training.optim.load_optimizer_state``): a guarded checkpoint resumes
+into an unguarded run, and the reverse.
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ from distributeddataparallel_tpu_torch.runtime.distributed import (
     get_rank,
     get_world_size,
 )
+from distributeddataparallel_tpu_torch.training.optim import load_optimizer_state, optimizer_state_dict
 from distributeddataparallel_tpu_torch.training.state import TrainState
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
@@ -183,9 +191,9 @@ def _rank_part(state: TrainState) -> dict:
     if axes and get_rank() == _shard_owner(axes.values()):
         out["model"] = state.model.state_dict()
         if state.zero is None:
-            out["optimizer"] = state.optimizer.state_dict()
+            out["optimizer"] = optimizer_state_dict(state.optimizer)
     if state.zero is not None:
-        out["optimizer"] = state.optimizer.state_dict()
+        out["optimizer"] = optimizer_state_dict(state.optimizer)
         out["zero_level"] = state.zero.level
         if state.moments is not None:
             out["moments"] = state.moments.state_dict()
@@ -207,7 +215,7 @@ def _fsdp_payload(state: TrainState, epoch: int) -> dict | None:
     from distributeddataparallel_tpu_torch.parallel.fsdp import fsdp_gather_params
 
     model = fsdp_gather_params(state.fsdp, host=True)
-    parts = _gather_parts(_cpu({"optimizer": state.optimizer.state_dict()}))
+    parts = _gather_parts(_cpu({"optimizer": optimizer_state_dict(state.optimizer)}))
     if get_rank() != 0:
         return None
     payload = {"model": model, "layout": "fsdp",
@@ -238,7 +246,7 @@ def host_payload(state: TrainState, epoch: int) -> dict | None:
     if "pp" in axes:
         payload["pp_virtual"] = _virtual(state)
     if state.zero is None and not axes:  # the optimizer state is the same on every rank
-        payload["optimizer"] = _cpu(state.optimizer.state_dict())
+        payload["optimizer"] = _cpu(optimizer_state_dict(state.optimizer))
     if not per_rank(state):
         return payload
     parts = _gather_parts(_rank_part(state))
@@ -347,7 +355,7 @@ class CheckpointFiles:
             if state.zero is not None:
                 state.zero.load_shard_from_flat()
         if "optimizer" in payload:
-            state.optimizer.load_state_dict(payload["optimizer"])
+            load_optimizer_state(state.optimizer, payload["optimizer"])
         if "ranks" in payload:
             _load_rank_part(state, payload["ranks"])
         if state.scheduler is not None:
@@ -361,19 +369,19 @@ def _load_fsdp(state: TrainState, payload: dict) -> None:
     state; a plain payload into an FSDP state."""
     from distributeddataparallel_tpu_torch.parallel import fsdp
 
-    groups = state.optimizer.state_dict()["param_groups"]
+    groups = optimizer_state_dict(state.optimizer)["param_groups"]
     if state.fsdp is not None and payload.get("layout") == "fsdp":
         if payload.get("mesh") != _mesh_record() or len(payload["ranks"]) != get_world_size():
             raise ValueError(f"the FSDP checkpoint was saved on {len(payload['ranks'])} ranks (mesh "
                              f"{payload.get('mesh')}), this run has {get_world_size()} (mesh {_mesh_record()}): "
                              f"resume on the same mesh (resharding is ROADMAP item 13)")
         state.fsdp.load_full(payload["model"])
-        state.optimizer.load_state_dict(payload["ranks"][get_rank()]["optimizer"])
+        load_optimizer_state(state.optimizer, payload["ranks"][get_rank()]["optimizer"])
     elif state.fsdp is not None:
         if "ranks" in payload:
             raise ValueError("an FSDP run loads an FSDP or a plain checkpoint (not ZeRO/TP/PowerSGD state)")
         state.fsdp.load_full(payload["model"])
-        state.optimizer.load_state_dict(fsdp.shard_optimizer_state(state.fsdp, payload["optimizer"], groups))
+        load_optimizer_state(state.optimizer, fsdp.shard_optimizer_state(state.fsdp, payload["optimizer"], groups))
     else:
         mesh = payload.get("mesh") or {"axes": [], "shape": []}
         if per_rank(state) or dict(zip(mesh["axes"], mesh["shape"])).get("model", 1) > 1:
@@ -382,7 +390,7 @@ def _load_fsdp(state: TrainState, payload: dict) -> None:
         cfg = dataclasses.replace(state.model.cfg, scan_layers=True, dropout_rate=0.0, cp_axis=None)
         meta = fsdp.FsdpMeta(cfg, len(payload["ranks"]))
         state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(
+        load_optimizer_state(state.optimizer, 
             fsdp.plain_optimizer_state(meta, [p["optimizer"] for p in payload["ranks"]], groups))
 
 
@@ -399,9 +407,9 @@ def _load_rank_part(state: TrainState, parts: list) -> None:
             state.moments.load_state_dict(part["moments"])
     axes = _model_axes(state)
     if state.zero is not None:
-        state.optimizer.load_state_dict(part["optimizer"])
+        load_optimizer_state(state.optimizer, part["optimizer"])
     elif axes:
-        state.optimizer.load_state_dict(parts[_shard_owner(axes.values())]["optimizer"])
+        load_optimizer_state(state.optimizer, parts[_shard_owner(axes.values())]["optimizer"])
     if state.comm_state is not None:
         from distributeddataparallel_tpu_torch.parallel.powersgd import PowerSGDLeaf
 

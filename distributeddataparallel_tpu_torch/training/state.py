@@ -37,16 +37,32 @@ class TrainState:
     comm_state: Any = None  # parallel.powersgd state: a list over the reference's leaves
     fsdp: Any = None        # parallel.fsdp.FsdpLM
 
-    def apply_gradients(self) -> None:
+    def apply_gradients(self, ok: torch.Tensor | None = None) -> None:
         """One optimizer step on the synced ``.grad`` buffers, then the
         schedule advances (optax's count convention: step k uses the
-        schedule's value at k)."""
-        if self.moments is not None:
-            self.moments.step()
-        else:
-            self.optimizer.step()
+        schedule's value at k).
+
+        ``ok`` (the nonfinite guard's verdict: a 0-d f32 tensor, 1.0 to
+        apply, 0.0 to skip) is decided on the device and never read here:
+        the fused optimizer gets ``found_inf = 1 - ok`` and skips inside its
+        kernel, ``LowBitMoments`` puts its moments back by a select, and the
+        ``DeviceSchedule``'s count advances by ``ok``.  ``step`` advances
+        either way, as the reference's skip advances it."""
+        if ok is not None:
+            self.optimizer.found_inf = (1.0 - ok).reshape(())
+        try:
+            if self.moments is not None:
+                self.moments.step(ok)
+            else:
+                self.optimizer.step()
+        finally:
+            if ok is not None:
+                del self.optimizer.found_inf
         if self.scheduler is not None:
-            self.scheduler.step()
+            if ok is None:
+                self.scheduler.step()
+            else:
+                self.scheduler.step(ok.to(torch.int64).reshape(()))
         self.step += 1
 
     def full_params(self):

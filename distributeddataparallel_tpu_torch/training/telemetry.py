@@ -25,10 +25,17 @@ The checkpointer (``ckpt_save``, ``ckpt_retry``, ``ckpt_fallback``), the
 fault injector (``chaos_inject``) and the supervisor (``restart_attempt``,
 ``restart_exhausted``) write their records into the same event logs.
 
-Nothing here reads a device value per step: the loop already drains the
-device after every step, and the meters run only where the StepTimer's
-window closes.  With no telemetry flag every call is a no-op but the
-StepTimer's clock reads.
+Nothing here reads a device value per step: ``sync`` is the loop's drain
+(``dpp._loop``: it settles every step in flight, then synchronises the
+device), called only by the StepTimer's first step and window edges and
+the profiler's window edges, and the meters run only where the StepTimer's
+window closes.  The values a step reports (``moe_aux``) reach the gauges
+when the loop settles the step (``gauge``).  With no telemetry flag every
+call is a no-op but the StepTimer's clock reads.
+
+``bind_loader(loader)`` binds the loader's ``prefetch_depth`` to the
+``loader_prefetch_depth`` gauge, feeds it to the ``loader_starved`` alert
+rule, and hands the loader the event log for its ``loader_starved`` event.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from distributeddataparallel_tpu_torch.observability import (
     peak_flops_for,
     profile_trace,
 )
+from distributeddataparallel_tpu_torch.training import warm_start
 from distributeddataparallel_tpu_torch.utils.logging import log0, warn0
 from distributeddataparallel_tpu_torch.utils.metrics import FaultCounters, StepTimer
 
@@ -102,6 +110,20 @@ class Telemetry:
         self.readings: list[dict] = []
         self.run_summary = None
         self._first_logged = False
+        self.loader = None
+
+    def bind_loader(self, loader) -> None:
+        """The loader's queue depth as a gauge and an alert signal, and its
+        ``loader_starved`` event into this run's event log."""
+        self.loader = loader
+        loader.events = self.events
+        if self.registry is not None:
+            self.registry.bind("loader_prefetch_depth", lambda: loader.prefetch_depth)
+
+    def gauge(self, name: str, value: float) -> None:
+        """A settled step's host value (``moe_aux``) on the registry's gauge."""
+        if self.registry is not None:
+            self.registry.gauge(name).set(value)
 
     def arm_mfu(self, step_flops: dict, *, device, dtype, n_chips: int) -> None:
         """Report MFU/HFU at every window from ``step_flops``
@@ -132,33 +154,34 @@ class Telemetry:
         if self.prof is not None:
             self.prof.on_step_start(gstep)
 
-    def step_end(self, gstep: int, gauges: dict | None = None, pp_phase: dict | None = None) -> None:
-        """After a step: the counters, ``gauges`` (the step's host-side
-        values by name, e.g. ``moe_aux``, set on the registry's gauges for
-        the metrics snapshots), the profiler window, the StepTimer and,
-        where its window closes, the meters.  ``pp_phase`` (a pipeline
-        step's unit counts, ``observability.pipeline.phase_counts_payload``)
-        is emitted once, after the first step's ``warm_start``, as the
+    def step_end(self, gstep: int, pp_phase=None) -> None:
+        """After a step's dispatch: the counters, the profiler window, the
+        StepTimer and, where its window closes, the meters.  ``pp_phase``
+        (a zero-argument callable giving a pipeline step's unit counts,
+        ``observability.pipeline.phase_counts_payload``) is called and
+        emitted once, after the first step's ``warm_start``, as the
         reference emits it (``dpp.py:2645-2662``)."""
         if self.steps_total is not None:
             self.steps_total.inc()
-        if self.registry is not None:
-            for name, value in (gauges or {}).items():
-                self.registry.gauge(name).set(value)
         if self.prof is not None:
             self.prof.on_step_end(gstep, sync=self.sync)
         reading = self.timer.tick(self.items_per_step, sync=self.sync)
         if self.timer.compile_s is not None and not self._first_logged:
-            # First step done: how this incarnation got its step (eager
-            # PyTorch builds its kernels on first use) and its time.
+            # First step done: how this incarnation got its kernels (built
+            # here, ``cold``; all found in --compile-cache, ``cache-hit``;
+            # ``eager`` without the cache) and the time to its first step.
             self._first_logged = True
-            self.counters.warm_start_mode = "eager"
+            mode = warm_start.warm_start_mode()
+            self.counters.warm_start_mode = mode
             self.counters.compile_s = self.timer.compile_s
+            self.counters.warm_start_attempt = self.counters.restarts
             if self.events is not None:
-                self.events.emit("warm_start", mode="eager", first_step_s=self.timer.compile_s,
+                self.events.emit("warm_start", mode=mode, first_step_s=self.timer.compile_s,
                                  attempt=self.counters.restarts)
                 if pp_phase is not None:
-                    self.events.emit("pp_phase", **pp_phase)
+                    self.events.emit("pp_phase", **pp_phase())
+            log0("warm start: attempt %d got its kernels %s (first step ready in %.2fs)",
+                 self.counters.restarts, mode, self.timer.compile_s)
             if self.goodput is not None:
                 self.goodput.add("compile", self.timer.compile_s)
         if reading:
@@ -191,12 +214,13 @@ class Telemetry:
                                         live_hwm_bytes=window_hwm, steps_total=gstep + 1)
         if self.alert_engine is not None:
             gsum = self.goodput.summary() if self.goodput is not None else {}
-            # The loader keeps no queue-depth gauge yet, so loader_starved
-            # has nothing to read.
+            # The queue depth only when a background worker keeps a queue
+            # (--workers > 0), as the reference reads it.
+            depth = self.loader.prefetch_depth if self.loader is not None and self.args.workers > 0 else None
             self.alert_engine.observe(
                 step=gstep, step_s=window_step_s, mfu=window_mfu, live_hwm_bytes=window_hwm,
                 goodput=gsum.get("goodput"), elapsed_s=gsum.get("total_s"),
-                prefetch_depth=None, restarts=self.counters.restarts,
+                prefetch_depth=depth, restarts=self.counters.restarts,
                 sdc_detects=self.counters.sdc_detects, gang_suspects=0)
         log0("throughput: %.0f %s/s (%.1f %s/s/chip)", reading["items_per_s"], self.unit,
              reading["items_per_s_per_chip"], self.unit)

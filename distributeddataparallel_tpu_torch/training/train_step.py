@@ -23,16 +23,25 @@ One step on one replica (one process per device):
 The reported metrics (loss and the loss_fn's aux values) are averaged over
 the microbatches and over ranks.
 
-``nonfinite_guard=True`` adds the reference's numerical fault guard: after
-the backward (after the last microbatch under ``accum_steps``) the step
-computes one "all gradients finite" flag on the device and agrees on it
-across ranks with one ``all_reduce(MIN)``, before any gradient enters the
-gradient all-reduce, so a NaN never reaches the wire.  A bad step discards
-the whole update: no gradient sync, no optimizer step (torch's per-parameter
-``step`` and moments keep their values), no schedule step (optax's count is
-part of the discarded state), the BatchNorm running buffers restored from a
-snapshot taken before the forward, and no buffer sync.  Only ``state.step``
-advances.  The step reports ``metrics["nonfinite_grad"]`` (0.0 or 1.0);
+``nonfinite_guard=True`` adds the reference's numerical fault guard, decided
+on the device with no host read: after the backward (after the last
+microbatch under ``accum_steps``) the step computes one "all gradients
+finite" flag and agrees on it across ranks with one ``all_reduce(MIN)``,
+before any gradient enters the gradient sync.  A bad step's gradients
+become exact zeros there (filled, not multiplied: NaN times 0 is NaN), so
+no NaN reaches the wire, PowerSGD's error feedback or ZeRO's
+reduce-scatter, and the sync, clip and update run on every step, as the
+reference's do.  The update skips on the device: the fused optimizer reads
+``found_inf`` (the parameters, moments and per-parameter ``step`` keep
+their bits), ``LowBitMoments``' stored moments, PowerSGD's error feedback
+and Q factors and the BatchNorm running buffers (snapshotted before the
+forward, synced as usual, then selected) are put back by a select, and the
+schedule's count (``training.optim.DeviceSchedule``) advances by the
+verdict.  ``state.step`` advances on every step.  The state must come from
+``build_optimizer`` with the guard (a fused optimizer and a
+``DeviceSchedule`` or no schedule).  The step reports
+``metrics["nonfinite_grad"]``, a device tensor (0.0 or 1.0) the train
+loop reads when the step leaves its dispatch window;
 ``training.fault_tolerance.NonFiniteBreaker`` turns a run of them into a
 hard stop.
 
@@ -92,7 +101,7 @@ from distributeddataparallel_tpu_torch.parallel.data_parallel import (
 )
 from distributeddataparallel_tpu_torch.parallel.expert_parallel import ep_dim
 from distributeddataparallel_tpu_torch.parallel.tensor_parallel import tp_dim
-from distributeddataparallel_tpu_torch.parallel.powersgd import sync_model_grads
+from distributeddataparallel_tpu_torch.parallel.powersgd import select_state, sync_model_grads
 from distributeddataparallel_tpu_torch.ops.dropout import fold_seed
 from distributeddataparallel_tpu_torch.runtime.distributed import (
     DATA_AXIS,
@@ -104,6 +113,7 @@ from distributeddataparallel_tpu_torch.runtime.distributed import (
     get_rank,
     get_world_size,
 )
+from distributeddataparallel_tpu_torch.training.optim import DeviceSchedule, is_fused
 from distributeddataparallel_tpu_torch.training.state import TrainState
 
 # loss_fn(model, batch[, seed=int]) -> (scalar loss, aux dict of scalars)
@@ -321,8 +331,8 @@ def make_train_step(
     ``overlap``, ``grad_compress`` rejects ``zero``, PowerSGD rejects
     ``overlap`` (``ValueError``).  Under ``nonfinite_guard`` the verdict
     comes before any gradient leaves the rank: the hooks launch nothing,
-    and a bad step reaches neither the wire, PowerSGD's error feedback nor
-    ZeRO's reduce-scatter.
+    and a bad step's gradients are zeros before the wire, PowerSGD's error
+    feedback or ZeRO's reduce-scatter see them.
     """
     zero_level = int(zero)
     _check_layout(zero_level, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync, cp_axis, tp_axis,
@@ -365,6 +375,10 @@ def make_train_step(
                              "the config and the factory")
         if grad_compress == "powersgd" and state.comm_state is None:
             raise ValueError("grad_compress='powersgd' needs state.comm_state (parallel.powersgd.powersgd_state)")
+        if nonfinite_guard and not (is_fused(state.optimizer)
+                                    and isinstance(state.scheduler, (DeviceSchedule, type(None)))):
+            raise ValueError("nonfinite_guard=True skips inside the fused optimizer: build the state with "
+                             "training.optim.build_optimizer under --nan-guard (fused=True, a DeviceSchedule)")
         if zero_level == 3:
             layout.gather_params()
         params = [p for p in model.parameters() if p.requires_grad]
@@ -411,32 +425,31 @@ def make_train_step(
             # ZeRO's shards are averaged over seq once their reduce-scatter
             # (a sum, so linear) is done.
             _seq_mean([layout.grad] if layout is not None else grads, ax.seq, ax.n_seq)
+        ok = None
         if nonfinite_guard:
             finite = _all_finite([layout.grad] if layout is not None else grads)
             if dist.is_initialized():
                 dist.all_reduce(finite, op=dist.ReduceOp.MIN)
-            # The host reads the agreed flag to branch.  The loop already
-            # synchronises after every step, so this adds no sync point; it
-            # moves the step's wait to before the update is enqueued, which
-            # leaves that enqueue on the critical path (chip_smoke.py phase
-            # 9 measures the cost).
-            if not bool(finite):
-                with torch.no_grad():
-                    for b, old in zip(buffers, saved):
-                        b.copy_(old)
-                if zero_level == 3:
-                    layout.release_params()
-                state.step += 1
-                return {**_mean_over_ranks(totals, ax.metric_groups), "nonfinite_grad": 1.0}
-        _reduce_and_update(state, grads, red, ax, armed)
+            ok = finite.reshape(())
+            # Zeroed, not skipped: every path below runs as on a good step,
+            # and the selects and found_inf undo its effect on the device.
+            bad = ok == 0
+            with torch.no_grad():
+                for g in ([layout.grad] if layout is not None else grads):
+                    g.masked_fill_(bad, 0.0)
+        _reduce_and_update(state, grads, red, ax, armed, ok)
         if get_world_size() > 1:  # one rank's buffers are already its own
             sync_buffers(model_buffers(model), buffer_sync)
         metrics = _mean_over_ranks(totals, ax.metric_groups)
         if nonfinite_guard:
-            metrics["nonfinite_grad"] = 0.0
+            with torch.no_grad():
+                for b, old in zip(buffers, saved):
+                    b.copy_(torch.where(bad, old, b))
+            metrics["nonfinite_grad"] = 1.0 - ok
         return metrics
 
-    def _reduce_and_update(state: TrainState, grads: list[torch.Tensor], red, ax: _Axes, armed: bool) -> None:
+    def _reduce_and_update(state: TrainState, grads: list[torch.Tensor], red, ax: _Axes, armed: bool,
+                           ok: torch.Tensor | None) -> None:
         if fsdp:
             # The backward's reduce-scatters summed the data ranks'
             # gradients into the shards: their mean, then the global clip.
@@ -461,12 +474,13 @@ def make_train_step(
                     layout = state.zero
                     _seq_mean([layout.grad_shard(b) for b in range(layout.plan.n_buckets)], ax.seq, ax.n_seq)
             update = {1: z.zero_update, 2: z.zero2_update, 3: z.zero3_update}[zero_level]
-            update(state, grad_clip, reduced=reduced)
+            update(state, grad_clip, reduced=reduced, ok=ok)
             return
         if red is not None:
             red.finish()
         elif grad_compress == "powersgd":
-            state.comm_state = sync_model_grads(jax_leaf_pieces(state.model), state.comm_state, ax.data)
+            new = sync_model_grads(jax_leaf_pieces(state.model), state.comm_state, ax.data)
+            state.comm_state = new if ok is None else select_state(ok, new, state.comm_state)
         else:
             all_reduce_gradients(grads, bucket_bytes=bucket_bytes, compress=grad_compress, group=ax.data)
         if grad_clip is not None:
@@ -478,7 +492,7 @@ def make_train_step(
             scale = clip_scale(torch.sqrt(sumsq), grad_clip)
             for g in grads:
                 g.mul_(scale.to(g.dtype))
-        state.apply_gradients()
+        state.apply_gradients(ok)
 
     return step
 

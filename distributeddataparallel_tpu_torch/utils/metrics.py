@@ -126,13 +126,14 @@ class FaultCounters:
         self.sdc_detects = 0
         self.sdc_evictions = 0
         # Warm-start accounting (training.warm_start): how this
-        # incarnation got its train step — "aot" (loaded executable),
-        # "cache-hit" (persistent compile cache), "cold" (full compile),
-        # "jit"/"jit-fallback" — and the wall seconds to the first step.
+        # incarnation got its kernels — "cache-hit" (all found in the
+        # --compile-cache), "cold" (built here), "eager" (no cache) — the
+        # wall seconds to the first step, and the attempt it was.
         # Not faults, so excluded from ``total``; surfaced in summary()
         # so a respawn that silently recompiles is visible per attempt.
         self.warm_start_mode: str | None = None
         self.compile_s: float | None = None
+        self.warm_start_attempt: int | None = None
 
     @property
     def total(self) -> int:
@@ -156,6 +157,8 @@ class FaultCounters:
             out["sdc_evictions"] = self.sdc_evictions
         if self.warm_start_mode is not None:
             out["warm_start"] = self.warm_start_mode
+        if self.warm_start_attempt is not None:
+            out["warm_start_attempt"] = self.warm_start_attempt
         if self.compile_s is not None:
             # compile_s may arrive as a numpy scalar or nan (warm-start
             # timing of a failed acquisition); round() keeps those alive,

@@ -226,3 +226,48 @@ def test_phase15_replays_hold_on_the_cpu(monkeypatch):
     for extra, gpus in chip_smoke.PP_ENTRY_16B.values():
         args = dpp.parse_args(chip_smoke.PP_ENTRY_ARGS + extra + ["--num-processes", str(gpus)])
         assert args.pp * args.cp == gpus and dpp.build_config(args).num_layers % (args.pp * args.pp_virtual) == 0
+
+
+def test_phase16_runs_on_the_cpu(monkeypatch, tmp_path):
+    """Phase 16 at tiny widths on the CPU: 16a's depths bit for bit, 16b's
+    poisoned step skipped exactly (sync debug mode is the card's alone);
+    16c's record of 9a's supervised replay (``fault_replay``: a worker dead
+    at step 6 of 12, one restart) under a fresh compile cache, both
+    incarnations' ``warm_start`` read from the merged timeline (no kernel
+    is built on the CPU, so both say ``cache-hit``) and the restart split."""
+    import torch
+
+    from distributeddataparallel_tpu_torch import dpp
+    from distributeddataparallel_tpu_torch.training import warm_start
+
+    lm = ["--model", "gpt2", "--layers", "2", "--d-model", "32", "--seq-len", "16", "--vocab-size", "64",
+          "--num-examples", "64", "--batch-size", "4", "--optimizer", "adamw", "--lr", "1e-2",
+          "--steps-per-epoch", "6", "--epochs", "1"]
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "DEPTH_RUNS", {
+        "gpt2": (lm, ["--profile-steps", "2:4"], (0, 2)),
+        "cnn": (["--model", "cnn", "--num-examples", "64", "--batch-size", "8", "--epochs", "1",
+                 "--steps-per-epoch", "6"], ["--profile-steps", "2:4"], (0, 2, 2, 0))})
+    monkeypatch.setattr(chip_smoke, "FAULT_LM_ARGS", lm)
+    monkeypatch.setattr(chip_smoke, "GUARD_ARGS", lm + ["--nan-guard", "--dispatch-depth", "2"])
+    monkeypatch.setattr(chip_smoke, "REPLAY_ARGS", chip_smoke._set(lm, "--steps-per-epoch", "4")
+                        + ["--device", "cpu", "--epochs", "3"])
+    monkeypatch.setattr(warm_start, "_cache_dir", None)
+    monkeypatch.setenv(warm_start.ENV, "")
+    warm_start.enable_compile_cache(str(tmp_path / "cache"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        chaotic, records = chip_smoke.fault_replay("cpu")
+        restart = chip_smoke.restart_record(chaotic, records)
+        out = chip_smoke.warm_start_phase(torch, dpp, {"warm_start": "cold"}, restart, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert all(r["bitwise"] and len(r["losses"]) == 6 for r in out["depths"].values())
+    assert len(out["depths"]["cnn"]["depth2"]["runs"]) == 2
+    g = out["guard"]
+    assert g["skip_exact"] and g["losses"][chip_smoke.GUARD_POISON] is None and len(g["runs_ms"]["on"]) == 2
+    r = out["restart"]
+    assert r["modes"] == {0: "cache-hit", 1: "cache-hit"} and chaotic["start_epoch"] == 1
+    split = r["split"]
+    assert split["checkpoint_read_s"] > 0 and split["death_to_first_step_s"] > split["first_step_s"] > 0

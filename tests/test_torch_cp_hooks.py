@@ -127,7 +127,7 @@ def guarded_nan(rank, world) -> dict:
     tov.reset_counts()
     out = {"flags": [], "params": []}
     for b in itertools.islice(trainer.loader, STEPS):
-        out["flags"].append(step(trainer.state, b)["nonfinite_grad"])
+        out["flags"].append(float(step(trainer.state, b)["nonfinite_grad"]))
         out["params"].append(_params(trainer.state.model))
     out["buckets"] = dict(tov.COUNTS)
     return out

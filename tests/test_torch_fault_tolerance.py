@@ -51,7 +51,7 @@ from distributeddataparallel_tpu_torch.models import simple_cnn as tcnn  # noqa:
 from distributeddataparallel_tpu_torch.models.io import from_jax_params, to_jax_params  # noqa: E402
 from distributeddataparallel_tpu_torch.training import checkpoint as ck  # noqa: E402
 from distributeddataparallel_tpu_torch.training import fault_tolerance as ft  # noqa: E402
-from distributeddataparallel_tpu_torch.training.optim import build_optimizer  # noqa: E402
+from distributeddataparallel_tpu_torch.training.optim import DeviceSchedule, build_optimizer, zero_momentum  # noqa: E402
 from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa: E402
 from distributeddataparallel_tpu_torch.training.train_step import make_train_step  # noqa: E402
 from distributeddataparallel_tpu_torch.utils.chaos import FaultInjector  # noqa: E402
@@ -215,7 +215,7 @@ def test_guard_matches_the_jax_skip_step():
         jlosses.append(float(m["loss"]))
         jbad.append(float(m["nonfinite_grad"]))
 
-    opt, sched = build_optimizer(tdpp.parse_args(ADAMW), tm.parameters(), STEPS)
+    opt, sched = build_optimizer(tdpp.parse_args(ADAMW + ["--nan-guard"]), tm.parameters(), STEPS)
     state = TrainState(tm, opt, sched)
     step = make_train_step(tdpp._image_loss_fn, nonfinite_guard=True)
     inj, losses, bad = FaultInjector("nan-grad@1"), [], []
@@ -223,7 +223,7 @@ def test_guard_matches_the_jax_skip_step():
         batch = {"image": torch.from_numpy(b["image"]), "label": torch.from_numpy(b["label"]).long()}
         m = step(state, inj.corrupt_batch(batch, i))
         losses.append(float(m["loss"]))
-        bad.append(m["nonfinite_grad"])
+        bad.append(float(m["nonfinite_grad"]))
 
     assert bad == jbad == [0.0, 1.0, 0.0, 0.0]
     np.testing.assert_allclose(losses, jlosses, atol=1e-5, rtol=0)  # NaN at step 1 on both
@@ -237,31 +237,38 @@ def test_guard_matches_the_jax_skip_step():
     assert sched.last_epoch == 3 and {int(s["step"]) for s in opt.state.values()} == {3}
 
 
-def _resnet_state():
+def _resnet_state(guard: bool):
+    """A ResNet's state with torch's fused momentum SGD (the update the
+    guard skips in) and the schedule ``1 / (s + 1)``: on the device's count
+    under the guard, ``LambdaLR`` without it."""
     model = tresnet.ResNet(block_cls=tresnet.BasicBlock, stage_sizes=(1, 1), num_classes=10, num_filters=4,
                            stem="cifar", generator=torch.Generator().manual_seed(1))
-    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9, fused=True)
+    if guard:
+        zero_momentum(opt)
+        return TrainState(model, opt, DeviceSchedule(opt, lambda s: 1.0 / (s + 1), 8))
     return TrainState(model, opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda s: 1.0 / (s + 1)))
 
 
 def _snapshot(state):
     return ({k: v.clone() for k, v in state.model.state_dict().items()},
             [s["momentum_buffer"].clone() for s in state.optimizer.state.values()],
-            state.scheduler.last_epoch, state.optimizer.param_groups[0]["lr"])
+            state.scheduler.last_epoch, float(state.optimizer.param_groups[0]["lr"]))
 
 
 def test_guard_keeps_batchnorm_buffers_bitwise_across_a_skipped_step():
     rng = np.random.default_rng(3)
     batches = [{"image": torch.from_numpy(rng.normal(size=(ROWS, 8, 8, 3)).astype(np.float32)),
                 "label": torch.from_numpy(rng.integers(0, 10, size=ROWS))} for _ in range(3)]
-    state, plain = _resnet_state(), _resnet_state()
+    state, plain = _resnet_state(True), _resnet_state(False)
     guarded = make_train_step(tdpp._image_loss_fn, nonfinite_guard=True)
     unguarded = make_train_step(tdpp._image_loss_fn)
     assert guarded(state, batches[0])["nonfinite_grad"] == 0.0
     unguarded(plain, batches[0])
-    # The guard on a finite step changes no bit.
+    # The guard on a finite step changes no bit (against the same fused update).
     for a, b in zip(_snapshot(state)[0].values(), _snapshot(plain)[0].values()):
         assert torch.equal(a, b)
+    assert _snapshot(state)[2:] == _snapshot(plain)[2:]
     before = _snapshot(state)
     assert any("running_var" in k for k in before[0])
     m = guarded(state, FaultInjector("nan-grad@1").corrupt_batch(batches[1], 1))

@@ -78,8 +78,6 @@ def test_both_parsers_have_the_same_flags_defaults_and_choices():
 
 # Each unported flag at a value the reference accepts, and its item.
 UNPORTED = [
-    (["--compile-cache", "cache"], "11b"),
-    (["--dispatch-depth", "0"], "11b"),
     (["--elastic", "--checkpoint-dir", "ck"], "13"),
     (["--elastic-dir", "gang"], "13"),
     (["--min-procs", "2"], "13"),
@@ -91,9 +89,13 @@ UNPORTED = [
 ]
 
 
-# Item 17's, 16a's and 16b's cases, ported since: each parses and validates as
-# the reference's does, with its values, and builds the MoE or pipeline config.
+# Item 17's, 16a's, 16b's and 11b's cases, ported since: each parses and
+# validates as the reference's does, with its values, and builds the MoE or
+# pipeline config.
 PORTED = [
+    ["--compile-cache", "cache"],
+    ["--dispatch-depth", "0"],
+    ["--dispatch-depth", "4", "--nan-guard"],
     ["--model", "gpt2", "--pp", "2", "--pp-schedule", "zb"],
     ["--model", "gpt2", "--pp", "2", "--cp", "2", "--seq-len", "16"],
     ["--pp-schedule", "zb"],
@@ -122,7 +124,7 @@ def test_unported_flags_raise_naming_their_item():
         jdpp.validate_args(jargs)
         args = tdpp.parse_args(argv)
         for dest in ("ep", "moe_experts", "moe_top_k", "moe_aux_weight", "moe_capacity_factor", "pp",
-                     "pp_microbatches", "pp_schedule", "pp_virtual", "cp"):
+                     "pp_microbatches", "pp_schedule", "pp_virtual", "cp", "compile_cache", "dispatch_depth"):
             assert getattr(args, dest) == getattr(jargs, dest), dest
         if args.pp > 1:
             cfg = tdpp.build_config(args)
@@ -135,9 +137,10 @@ def test_unported_flags_raise_naming_their_item():
             assert cfg.ep_axis == ("expert" if args.ep > 1 else None)
     seen = {d for dests in tdpp.UNPORTED_FLAGS.values() for d in dests}
     # the 21 flags the parser lacked, less --fsdp-gather, item 17's four,
-    # item 16a's --pp, --pp-microbatches, --pp-schedule and 16b's --pp-virtual
-    assert len(seen) == 13
-    assert not {"17", "16", "16b"} & set(tdpp.UNPORTED_FLAGS)
+    # item 16a's --pp, --pp-microbatches, --pp-schedule, 16b's --pp-virtual
+    # and 11b's --compile-cache and --dispatch-depth
+    assert len(seen) == 11
+    assert not {"17", "16", "16b", "11b"} & set(tdpp.UNPORTED_FLAGS)
 
 
 REFERENCE_CHECKS = [

@@ -26,6 +26,7 @@ from distributeddataparallel_tpu_torch.data import datasets as tds
 from distributeddataparallel_tpu_torch.data import sharded as tsh
 from distributeddataparallel_tpu_torch.data import transforms as ttr
 from distributeddataparallel_tpu_torch.data.loader import DataLoader
+from distributeddataparallel_tpu_torch.training import warm_start
 
 IDX = {
     "rows": np.array([3, 0, 7, 7, 11]),
@@ -165,7 +166,8 @@ def test_a_build_that_does_not_compile_raises(tmp_path, monkeypatch):
     bad = tmp_path / "ddp_native.cpp"
     bad.write_text('extern "C" void ddp_gather_norm_u8( { this does not compile }\n')
     monkeypatch.setattr(native, "SOURCE", bad)
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(warm_start, "_cache_dir", None)  # builds under DEFAULT_BUILD_DIR
+    monkeypatch.setattr(warm_start, "DEFAULT_BUILD_DIR", tmp_path / "_build")
     monkeypatch.setattr(native, "_lib", None)
     with pytest.raises(RuntimeError, match="error"):
         native.gather_normalize_u8(_u8(), np.array([0, 1]))

@@ -90,6 +90,8 @@ def test_reference_flag_checks():
     with pytest.raises(SystemExit, match="--generate requires an LM model"):
         dpp.parse_args(["--device", "cpu", "--model", "mlp", "--generate", "4"])
     for flag, value, item in (("--fleet", "1:1", "19b"), ("--kill-engine", "auto", "19b"),
-                              ("--kill-after", "1.0", "19b"), ("--store", "x", "11b")):
+                              ("--kill-after", "1.0", "19b")):
         with pytest.raises(NotImplementedError, match=item):
             serve.parse_args(["--device", "cpu", flag, value])
+    # --store (item 11b) is ported: it parses as the reference's does.
+    assert serve.parse_args(["--device", "cpu", "--store", "x"]).store == "x"

@@ -188,12 +188,19 @@ def test_serving_events_validate(tmp_path):
     assert registry.snapshot()["serve_requests_done"] == len(trace)
 
 
-def test_handoff_and_store_raise_with_their_items():
+def test_handoff_and_store_raise_with_their_items(tmp_path, monkeypatch):
     _, _, model = _pair("unrolled")
     engine = InferenceEngine(model, EngineConfig(num_slots=2, num_blocks=8, block_size=8, prefill_chunk=8))
     with pytest.raises(NotImplementedError, match="19b"):
         engine.extract_handoff(0)
     with pytest.raises(NotImplementedError, match="19b"):
         engine.inject_handoff(None)
-    with pytest.raises(NotImplementedError, match="11b"):
-        InferenceEngine(model, EngineConfig(store_dir="x"))
+    # store_dir (item 11b) is ported: it roots the process's kernel builds
+    # at the store, through the compile-cache switch.
+    from distributeddataparallel_tpu_torch.training import warm_start
+
+    monkeypatch.setattr(warm_start, "_cache_dir", None)
+    monkeypatch.setenv(warm_start.ENV, "")
+    InferenceEngine(model, EngineConfig(num_slots=2, num_blocks=8, block_size=8, prefill_chunk=8,
+                                        store_dir=str(tmp_path / "store")))
+    assert warm_start.build_root() == tmp_path / "store" / "build"
