@@ -175,7 +175,30 @@ Phases (any failure exits non-zero; nothing is caught):
       dies once (``--max-restarts 1``) under the same cache: both
       incarnations ``cache-hit``, and the restart's seconds split into
       the notice, backoff, spawn, imports, CUDA context, model, checkpoint
-      read, the kernel library's load and the first step.
+      read, the kernel library's load and the first step;
+   b also holds a guarded GPT-2 run with no bad step bit for bit to the
+   unguarded run (losses, parameters): one fused update for both.
+17. the disaggregated serving fleet at GPT-2 124M's full width (bf16, max
+   sequence 1024, blocks of 16):
+   a. a ``ServingFleet`` 1:2 in this process under a ``VirtualClock``: a
+      burst of block-exact and mid-block prompts and a second turn of
+      each, prefix cache on, ``BlockAllocator.check()`` on every step of
+      every engine; each request's tokens against a single
+      ``InferenceEngine`` of the same pool geometry (equal, or parted at a
+      tie of the forward's logits, each such position's gap stated); in a
+      second run one frame corrupted once (its one bad block NAKed and
+      re-sent) and ``decode-0`` killed mid-run (every request completes,
+      none dropped, the outputs the first run's); the handoffs' count, bytes a block against
+      the 589,824 of the model, and a handoff's extract, wire and land ms
+      at 1, 16 and 36 blocks;
+   b. ``python -m distributeddataparallel_tpu_torch.serve --fleet 1:2
+      --model gpt2_124m --seq-len 1024 --prefix-cache --turns 3
+      --kill-engine auto --smoke``: three engine processes on the card,
+      its smoke checks passed, its timeline valid against the port's
+      schema; per-tier TTFT, tokens/s, handoffs, the kill's requeues.
+      With ``CHIP_SMOKE_FLEET_TIMELINE=PATH`` the timeline is copied to
+      PATH (``scripts/check_events.py --conformance`` reads it on a machine
+      with the JAX package; this script imports none of it).
 
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
 ``llama_path`` line (phase 7), one ``reference_workload`` line (phase 8),
@@ -183,7 +206,8 @@ one ``fault_path`` line (phase 9), one ``layouts`` line (phase 11: each
 run's step ms, peak memory and losses), one ``cp_tp_path`` line (phase 12:
 each replay's max errors, launches and times, the GPU count), one
 ``fsdp_path`` line (phase 13), one ``moe_path`` line (phase 14), one ``pp_path`` line (phase 15),
-one ``warm_start_path`` line (phase 16), one ``phase_seconds`` line, one
+one ``warm_start_path`` line (phase 16), one ``fleet_path`` line (phase 17),
+one ``phase_seconds`` line, one
 ``serving_path`` line (phase 10,
 each run's TTFT p50/p99, tokens/s, per-token latency, decode-step ms,
 preemptions, evictions, prefix hits, acceptance, pool bytes against the
@@ -357,20 +381,19 @@ GEN_ARGS = [a for a in MAIN_ARGS if a != "--eval"]
 GEN_ARGS[GEN_ARGS.index("--steps-per-epoch") + 1] = "2"
 GEN_ARGS += ["--generate", "64", "--checkpoint-dir", "{ckpt}"]
 # 10b: the serving CLI at GPT-2 124M's full width and max_seq_len (bf16 on
-# the f32 init, as the reference's CLI), on the wall clock: 6 s of arrivals
-# at 16 requests/s (8 s until phase 13 bought its time back: the three
-# runs took 25.2, 26.2 and 53.2 s to serve 125-127 requests each), 3 s for
-# the int8 run since phase 14 bought its time back (its per-layer dequant
-# makes it the slowest: 47.3 s for 6 s of arrivals).
+# the f32 init, as the reference's CLI), on the wall clock: 2 s of arrivals
+# at 16 requests/s, 1 s for the int8 run, since phase 17 bought its time
+# back (at 6 s and 3 s the three runs served 102, 103 and 46 requests in
+# 19.1, 18.5 and 18.1 s; 8 s and 6 s before phases 13 and 14 did the same).
 SERVE_ARGS = [
     "--model", "gpt2_124m", "--seq-len", "1024", "--slots", "16", "--blocks", "640", "--block-size", "16",
-    "--chunk", "128", "--rate", "16", "--duration", "6", "--prompt-len", "64,768", "--output-len", "32,192",
+    "--chunk", "128", "--rate", "16", "--duration", "2", "--prompt-len", "64,768", "--output-len", "32,192",
     "--seed", "0", "--events-dir", "{events}",
 ]
 SERVE_RUNS = {
     "plain": [],
     "fast_path": ["--prefix-cache", "--spec-k", "3", "--prefix-pool", "8", "--prefix-len", "256"],
-    "int8": ["--quantize-kv", "--quantize-weights", "--duration", "3"],
+    "int8": ["--quantize-kv", "--quantize-weights", "--duration", "1"],
 }
 # The fast path's outputs against a plain engine's on the same prompts: every
 # FAST_SUBSET-th request of its trace (greedy outputs depend on the prompt
@@ -381,9 +404,10 @@ FAST_SUBSET = 8
 PROFILE_DECODE = dict(steps=10, prompt=64, new=128)
 # 10c: Llama-3 8B at full width and all 32 layers, bf16 cast once from the
 # port's f32 init; max_seq_len cut from 8192 to 2048 (the engine gathers
-# every slot's whole cache each step); a burst of 16 requests.
+# every slot's whole cache each step); a burst of 16 requests of 32 new
+# tokens (64 until phase 17 bought its time back: the burst took 18.3 s).
 SERVE_LLAMA = dict(max_seq_len=2048, num_slots=8, block_size=16, num_blocks=1040, chunk=256,
-                   requests=16, prompt_len=(512, 1024), output_len=64, seed=0)
+                   requests=16, prompt_len=(512, 1024), output_len=32, seed=0)
 # The teacher-forced check: every generated token's logit within an atol of
 # the maximum logit at its position, by a full forward over prompt +
 # continuation.  If a path's logits are within d of the forward's, the
@@ -637,7 +661,25 @@ GUARD_POISON = 3
 # 16c reads phase 9a's supervised restart, which runs under the script's
 # --compile-cache.
 
-DEVICE = "cuda"  # phases 10, 12, 15 and 16's device
+# Phase 17: the serving fleet at GPT-2 124M's full width (bf16 cast once
+# from the f32 init, max_seq_len 1024, blocks of 16).  17a: a 1:2 fleet in
+# this process under a VirtualClock (FLEET_DT a step): FLEET_BASE prompts at
+# t=0 (64, 128, 256 and 400 end on a block, the rest mid-block), then a
+# second turn of each at t=1 s extending it by FLEET_TURN tokens (the
+# router's affinity pins it to the decode engine holding the first turn's
+# blocks), FLEET_NEW tokens each; a second run corrupts one frame and kills
+# decode-0 at fleet step FLEET_KILL_STEP.  One GPT-2 block: 16 positions x 12
+# heads x 64 x 2 bytes (bf16) x 2 (k, v) x 12 layers.
+FLEET_ENGINE = dict(num_slots=8, num_blocks=256, block_size=16, prefill_chunk=128, prefix_cache=True)
+FLEET_BASE = (64, 77, 128, 200, 256, 333, 400, 511)
+FLEET_TURN, FLEET_NEW, FLEET_DT, FLEET_KILL_STEP = 24, 32, 0.01, 12
+FLEET_BLOCK_BYTES = 16 * 12 * 64 * 2 * 2 * 12
+# 17b: the multi-process fleet through its CLI, three engine processes on
+# the card (the smoke keeps --model and --seq-len).
+FLEET_ARGS = ["--fleet", "1:2", "--model", "gpt2_124m", "--seq-len", "1024", "--prefix-cache", "--turns", "3",
+              "--kill-engine", "auto", "--smoke", "--events-dir", "{events}"]
+
+DEVICE = "cuda"  # phases 10, 12, 15, 16 and 17's device
 
 KERNELS = [
     # name, replaces, matmuls per visible (q, k) pair
@@ -1527,8 +1569,9 @@ def checkpoint_cost(torch, dpp, smi) -> dict:
     """A save of GPT-2 124M's AdamW state (after one step) without the
     content hash (the host copy and ``torch.save``) and with it
     (``CheckpointFiles.write``: the copy, the hash and its sidecar, the file),
-    in the order without, with, with, without; the hash alone; and the read
-    with its verification."""
+    (one each since phase 17 bought its time back; two saves of one kind
+    spread 0.6-1.2 s, so the hash timed alone is the cost to read); the
+    hash alone; and the read with its verification."""
     from distributeddataparallel_tpu_torch.training import checkpoint as ck
 
     trainer = dpp.build_trainer(dpp.parse_args(FAULT_LM_ARGS), torch.device("cuda"))
@@ -1537,7 +1580,7 @@ def checkpoint_cost(torch, dpp, smi) -> dict:
     runs = {"without": [], "with": []}
     with tempfile.TemporaryDirectory(prefix="fault_ckpt_") as d:
         saver = ck.CheckpointFiles(d)
-        for which in ("without", "with", "with", "without"):
+        for which in ("without", "with"):
             t0 = time.perf_counter()
             if which == "with":
                 saver.write(trainer.state, 0)
@@ -3525,8 +3568,8 @@ def guard_run(torch, dpp, smi) -> dict:
     step under sync debug mode "error" (the step reads nothing from the
     card; the loop's settles and drains do, outside it), the state after
     the skipped step bitwise the state before it, the breaker's one skip;
-    then the guard's cost."""
-    from distributeddataparallel_tpu_torch.training.optim import build_optimizer
+    then the guard's cost over guarded and unguarded runs with no bad step,
+    each bit for bit the first."""
     from distributeddataparallel_tpu_torch.training.train_step import make_train_step
 
     device = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device("cpu")
@@ -3568,17 +3611,27 @@ def guard_run(torch, dpp, smi) -> dict:
     log(f"    16b: step {GUARD_POISON} skipped on the card; params, AdamW moments and steps, the LR count and "
         f"buffers after it bitwise before it ({len(s['losses'])} steps under sync debug \"error\", one nan_skip)")
 
+    first = {}
+
     def timed(guard):
+        """One 6-step GPT-2 run, guarded or not (the same fused AdamW:
+        ``build_optimizer`` builds one update kind); its step ms, and its
+        losses and parameters held bit for bit to the first run's."""
         a = dpp.parse_args(FAULT_LM_ARGS + ["--device", DEVICE, "--steps-per-epoch", "6"]
                            + (["--nan-guard"] if guard else []))
 
         def go():
             trainer = dpp.build_trainer(a, device)
-            if not guard:  # the guard's fused AdamW, unguarded
-                state = trainer.state
-                state.optimizer, state.scheduler = build_optimizer(
-                    a, state.model.parameters(), trainer.steps_per_epoch * a.epochs, fused=True)
-            return dpp.train(a, trainer, device)["step_time_s"] * 1e3
+            s = dpp.train(a, trainer, device)
+            params = [p.detach().clone() for p in trainer.state.model.parameters()]
+            if not first:
+                first.update(losses=s["losses"], params=params)
+            elif s["losses"] != first["losses"] or not all(torch.equal(x, y)
+                                                           for x, y in zip(params, first["params"])):
+                raise AssertionError(f"16b: a {'guarded' if guard else 'unguarded'} run with no bad step "
+                                     f"is not the first run bit for bit: losses {s['losses']} vs "
+                                     f"{first['losses']}")
+            return s["step_time_s"] * 1e3
 
         ms = _in_group(torch, dpp, go)
         release(torch)
@@ -3587,13 +3640,16 @@ def guard_run(torch, dpp, smi) -> dict:
     runs = {"off": [], "on": []}
     for which in ("off", "on", "on", "off"):
         runs[which].append(timed(which == "on"))
+    del first["params"]
+    release(torch)
     mean = {k: sum(v) / len(v) for k, v in runs.items()}
-    log(f"    16b guard cost, fused AdamW both: {mean['off']:.2f} ms off, {mean['on']:.2f} ms on "
-        f"(runs {runs}) on {smi}")
+    log(f"    16b guarded and unguarded runs bit for bit (losses, parameters; 4 runs of 6 steps); guard cost, "
+        f"fused AdamW both: {mean['off']:.2f} ms off, {mean['on']:.2f} ms on (runs {runs}) on {smi}")
     return {"poisoned_step": GUARD_POISON, "skip_exact": exact, "losses": [x if math.isfinite(x) else None
                                                                           for x in losses],
             "sync_debug": "error", "step_ms_off": mean["off"], "step_ms_on": mean["on"],
-            "cost_ms": mean["on"] - mean["off"], "runs_ms": runs}
+            "cost_ms": mean["on"] - mean["off"], "runs_ms": runs,
+            "guarded_equals_unguarded": {"runs": 4, "losses": first["losses"], "params_bitwise": True}}
 
 
 def warm_restart(phase4_faults: dict, restart: dict, smi) -> dict:
@@ -3621,6 +3677,258 @@ def warm_start_phase(torch, dpp, phase4_faults, restart, smi) -> dict:
     release(torch)
     return {"depths": depth_runs(torch, dpp, smi), "guard": guard_run(torch, dpp, smi),
             "restart": warm_restart(phase4_faults, restart, smi)}
+
+
+def fleet_trace(vocab: int) -> list[dict]:
+    """[17a] FLEET_BASE prompts at t=0 and a second turn of each at t=1 s
+    that extends it by FLEET_TURN tokens (a session a prompt)."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    base = [rng.integers(0, vocab, n, dtype=np.int32) for n in FLEET_BASE]
+    turns = [np.concatenate([p, rng.integers(0, vocab, FLEET_TURN, dtype=np.int32)]) for p in base]
+    return ([{"arrival_s": 0.0, "prompt": p, "max_new_tokens": FLEET_NEW, "session": i} for i, p in enumerate(base)]
+            + [{"arrival_s": 1.0, "prompt": p, "max_new_tokens": FLEET_NEW, "session": i} for i, p in enumerate(turns)])
+
+
+def drive_fleet(fleet, clock, trace, kill_step=None) -> int:
+    """[17a] ``loadgen.run_load``'s loop over a fleet (arrivals released on
+    the virtual clock, one fleet step a tick), killing decode-0 at fleet
+    step ``kill_step``; returns the requests the kill requeued."""
+    i = steps = 0
+    requeued = None
+    while i < len(trace) or fleet.has_work():
+        while i < len(trace) and trace[i]["arrival_s"] <= clock():
+            r = trace[i]
+            fleet.submit(r["prompt"], r["max_new_tokens"], arrival_s=r["arrival_s"], session=r["session"])
+            i += 1
+        if fleet.has_work():
+            fleet.step()
+            steps += 1
+            if steps == kill_step:
+                requeued = fleet.kill_engine("decode-0")
+        clock.tick()
+        if steps > 20_000:
+            raise AssertionError("17a: the fleet did not drain")
+    if kill_step is not None and requeued is None:
+        raise AssertionError(f"17a: the fleet drained before step {kill_step}: no kill")
+    return requeued
+
+
+class FlipOnce:
+    """[17a] A handoff channel that flips one byte of its ``nth`` frame."""
+
+    def __init__(self, chan, nth: int):
+        self._chan, self._nth, self._sends = chan, nth, 0
+
+    def send(self, frame):
+        self._sends += 1
+        if self._sends == self._nth:
+            frame = bytearray(frame)
+            frame[len(frame) // 2] ^= 0xFF
+        self._chan.send(bytes(frame))
+
+    def __getattr__(self, name):
+        return getattr(self._chan, name)
+
+
+def handoff_bench(torch, dm) -> dict:
+    """[17a] One handoff of n blocks of a GPT-2 pool, 12 times (the median
+    of the last 10): the extraction (a gather per leaf, one copy to pinned
+    host memory), the wire (the sender's digests and frames over a pipe,
+    the receiver's reassembly and digest checks, the ACK) and the landing
+    (one pinned copy to the card, a write per leaf), the card synchronised
+    around the device parts."""
+    import statistics
+
+    from distributeddataparallel_tpu_torch.serving.handoff import (
+        HandoffPayload,
+        HandoffReceiver,
+        HandoffSender,
+        PipeChannel,
+        block_nbytes,
+        extract_kv_blocks,
+        unpack_blocks,
+    )
+    from distributeddataparallel_tpu_torch.serving.kv_cache import make_pool, set_pool_blocks
+
+    pool = make_pool(dm, 80, FLEET_ENGINE["block_size"], device=DEVICE)
+    out = {}
+    for n in (1, 16, 36):
+        src, dst = list(range(1, n + 1)), torch.arange(80 - n, 80, device=DEVICE)
+        a, b = PipeChannel.pair()
+        sender, receiver = HandoffSender(a), HandoffReceiver(b)
+        runs = {"extract": [], "wire": [], "land": []}
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blocks = extract_kv_blocks(pool, src)
+            t1 = time.perf_counter()
+            sender.offer(HandoffPayload({"fid": 0}, blocks))
+            (got,) = receiver.poll()
+            (done,) = sender.poll()
+            t2 = time.perf_counter()
+            set_pool_blocks(pool, unpack_blocks(pool, got.blocks), dst)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for k, v in zip(runs, (t1 - t0, t2 - t1, t3 - t2)):
+                runs[k].append(v)
+        nbytes = n * block_nbytes(pool)
+        med = {k: statistics.median(v[2:]) for k, v in runs.items()}
+        out[n] = {"bytes": nbytes, **{f"{k}_ms": 1e3 * v for k, v in med.items()},
+                  **{f"{k}_GB_per_s": nbytes / v / 1e9 for k, v in med.items()}}
+    del pool
+    return out
+
+
+def fleet_inprocess(torch, fa, smi) -> dict:
+    """[17a] The in-process fleet at GPT-2 124M's full width: every request
+    completes with the allocator's invariants held on every step of every
+    engine; tokens against a single engine of the same pool geometry (a
+    differing request parts at a tie of the forward's logits, each gap
+    stated); a corrupted frame costs one re-sent block and no token, and a
+    kill of decode-0 drops nothing (one run for both).  K1-K3 are not on
+    this path: the engines' attention is plain attention over the cache."""
+    import numpy as np
+
+    from distributeddataparallel_tpu_torch import serve
+    from distributeddataparallel_tpu_torch.models.generate import decode_model
+    from distributeddataparallel_tpu_torch.serving import (
+        EngineConfig,
+        FleetConfig,
+        InferenceEngine,
+        ServingFleet,
+        VirtualClock,
+        run_load,
+    )
+    from distributeddataparallel_tpu_torch.serving.handoff import block_nbytes
+
+    args = serve.parse_args(["--model", "gpt2_124m", "--seq-len", "1024", "--device", DEVICE])
+    dm = decode_model(serve.build_model(args))  # bf16, cast once; every engine shares it
+    release(torch)
+    trace = fleet_trace(dm.cfg.vocab_size)
+    ecfg = EngineConfig(**FLEET_ENGINE)
+
+    def run(corrupt=False, kill=False):
+        clock = VirtualClock(FLEET_DT)
+        fleet = ServingFleet(dm, ecfg, FleetConfig(prefill=1, decode=2), time_fn=clock, check_invariants=True)
+        if corrupt:  # frame 2 of prefill-0 -> decode-1 (the link the kill's requeues take, which
+            # the kill leaves standing) is block 0 of its first handoff
+            snd = fleet._senders[("prefill-0", "decode-1")]
+            snd._chan = FlipOnce(snd._chan, 2)
+        t = time.perf_counter()
+        requeued = drive_fleet(fleet, clock, trace, FLEET_KILL_STEP if kill else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        s = fleet.summary()
+        if s["completed"] != len(trace) or s["dropped_req_total"] or sorted(fleet.completed) != list(range(len(trace))):
+            raise AssertionError(f"17a{' corrupt' if corrupt else ''}{' kill' if kill else ''}: {s}")
+        outs = [list(fleet.completed[f].generated) for f in range(len(trace))]
+        rejected = sum(r.rejected_blocks for r in fleet._receivers.values())
+        return fleet, s, outs, {"wall_s": wall, "requeued_by_kill": requeued, "rejected_blocks": rejected}
+
+    fa.reset_launches()
+    fleet, s, outs, meta = run()
+    pool_block = block_nbytes(fleet.engines["decode-0"].pool)
+    _, s_bad, outs_bad, meta_bad = run(corrupt=True, kill=True)
+    clock = VirtualClock(FLEET_DT)
+    single = InferenceEngine(dm, ecfg, time_fn=clock)
+    run_load(single, trace, clock=clock)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"17a: the fleet launched the flash kernels {launches}")
+    want = [list(single.completed[r].generated) for r in range(len(trace))]
+    if pool_block != FLEET_BLOCK_BYTES or s["handoff_bytes"] % FLEET_BLOCK_BYTES:
+        raise AssertionError(f"17a: {pool_block} bytes a block, {s['handoff_bytes']} handed off; a GPT-2 "
+                             f"block is {FLEET_BLOCK_BYTES}")
+    if outs_bad != outs or s_bad["re_handoff_blocks"] != 1 or meta_bad["rejected_blocks"] != 1:
+        raise AssertionError(f"17a corrupt and kill: outputs equal {outs_bad == outs}, re-sent "
+                             f"{s_bad['re_handoff_blocks']}, rejected {meta_bad['rejected_blocks']} (want 1 and 1)")
+    if s_bad["kills"] != 1 or not meta_bad["requeued_by_kill"]:
+        raise AssertionError(f"17a kill: {s_bad}, requeued {meta_bad['requeued_by_kill']}")
+    fwd = forward_twin(torch, dm)
+    parted = []
+    for i, (a, b) in enumerate(zip(outs, want)):
+        if a == b:
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        ctx = np.concatenate([trace[i]["prompt"], np.asarray(a[:t], np.int32)])
+        with torch.no_grad():
+            row = fwd(torch.as_tensor(ctx[None], device=DEVICE).long())[0, -1].float()
+        gap = float(row.max() - min(row[a[t]], row[b[t]]))
+        if not gap <= TF_ATOL["bfloat16"]:
+            raise AssertionError(f"17a: request {i} parts from the single engine at {t} where the forward's "
+                                 f"logits are {gap:.3e} apart (not a tie)")
+        parted.append({"request": i, "position": t, "gap": gap})
+    bench = handoff_bench(torch, dm)
+    del fwd, single, fleet
+    release(torch)
+    out = {
+        "requests": len(trace), "prompt_lens": list(FLEET_BASE), "turn_tokens": FLEET_TURN, "new_tokens": FLEET_NEW,
+        "engine": FLEET_ENGINE, "handoffs": s["handoffs"], "handoff_bytes": s["handoff_bytes"],
+        "handoff_blocks": s["handoff_bytes"] // pool_block, "bytes_per_block": pool_block,
+        "bytes_per_block_computed": FLEET_BLOCK_BYTES, "affinity_hits": s["affinity_hits"],
+        "wall_s": meta["wall_s"], "equal_to_single_engine": len(trace) - len(parted),
+        "parted_at_a_tie": parted, "allocator_checked_every_step": True,
+        "corrupt_and_kill": {"re_handoff_blocks": s_bad["re_handoff_blocks"],
+                             "rejected_blocks": meta_bad["rejected_blocks"], "kill_at_step": FLEET_KILL_STEP,
+                             "requeued": meta_bad["requeued_by_kill"], "completed": s_bad["completed"],
+                             "dropped_req_total": s_bad["dropped_req_total"], "outputs_equal_clean_run": True},
+        "handoff_ms_by_blocks": bench, "attention_launches": launches,
+    }
+    log(f"    17a: {out} on {smi}")
+    return out
+
+
+def fleet_service(smi) -> dict:
+    """[17b] ``serve --fleet 1:2`` at GPT-2 124M full width in a fresh
+    process: three engine processes on the card, the smoke's checks passed,
+    the timeline valid against the port's schema."""
+    import shutil
+
+    with tempfile.TemporaryDirectory(prefix="fleet_17b_") as d:
+        argv = [a.replace("{events}", d) for a in FLEET_ARGS]
+        log("    17b: python -m distributeddataparallel_tpu_torch.serve " + " ".join(argv))
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "distributeddataparallel_tpu_torch.serve", *argv], cwd=HERE,
+                              env=_entry_env(), capture_output=True, text=True, timeout=400)
+        wall = time.perf_counter() - t
+        keep = os.environ.get("CHIP_SMOKE_FLEET_TIMELINE")
+        if keep and os.path.exists(os.path.join(d, "timeline.jsonl")):
+            os.makedirs(os.path.dirname(os.path.abspath(keep)), exist_ok=True)
+            shutil.copy(os.path.join(d, "timeline.jsonl"), keep)
+        if proc.returncode != 0 or "fleet smoke OK" not in proc.stdout:
+            raise AssertionError(f"17b: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        text = proc.stdout
+        summary = json.loads(text[text.index("{"):text.rindex("}") + 1])
+        records = timeline(d)
+    tiers = {r["tier"]: {k: r[k] for k in ("completed", "p50_ttft_s", "p99_ttft_s")}
+             for r in records if r["kind"] == "tier_summary"}
+    verdicts = [{k: r[k] for k in ("engine", "rung", "requeued", "reason")}
+                for r in records if r["kind"] == "engine_verdict"]
+    out = {k: summary.get(k) for k in ("requests", "completed", "dropped_req_total", "handoffs", "requeued", "kills",
+                                       "elapsed_s", "tokens_out", "serve_tok_s", "serve_p50_ttft_s",
+                                       "serve_p99_ttft_s", "tpot_p50_s", "tpot_p99_s", "ttft_decomp")}
+    out.update(tiers=tiers, engine_verdicts=verdicts, wall_s=wall, args=FLEET_ARGS,
+               kv_handoff_events=sum(r["kind"] == "kv_handoff" for r in records),
+               affinity_routed=sum(r["kind"] == "route_admit" and bool(r.get("affinity")) for r in records))
+    log(f"    17b: {out} on {smi}")
+    return out
+
+
+def fleet_phase(torch, fa, smi) -> dict:
+    """[17] The disaggregated serving fleet (17a in this process, 17b
+    across processes)."""
+    log("[17] the serving fleet")
+    release(torch)
+    t = time.perf_counter()
+    out = {"inprocess": fleet_inprocess(torch, fa, smi)}
+    out["seconds_17a"] = time.perf_counter() - t
+    out["service"] = fleet_service(smi)
+    out["seconds_17b"] = time.perf_counter() - t - out["seconds_17a"]
+    out["attention_launches"] = out["inprocess"]["attention_launches"]
+    return out
 
 
 def release(torch) -> None:
@@ -3748,6 +4056,7 @@ def main() -> int:
     fa.reset_launches()
     warm_path = timed("16", warm_start_phase, torch, dpp, summary["faults"], fault["replay"]["restart"], smi)
     warm_path["attention_launches"] = dict(fa.LAUNCHES)
+    fleet_path = timed("17", fleet_phase, torch, fa, smi)
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -3767,6 +4076,7 @@ def main() -> int:
             "launches_moe_path": moe_path["attention_launches"][name],
             "launches_pp_path": pp_path["attention_launches"][name],
             "launches_warm_start_path": warm_path["attention_launches"][name],
+            "launches_fleet_path": fleet_path["attention_launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3802,6 +4112,7 @@ def main() -> int:
     log(json.dumps({"moe_path": moe_path, "card": smi}))
     log(json.dumps({"pp_path": pp_path, "card": smi}))
     log(json.dumps({"warm_start_path": warm_path, "card": smi}))
+    log(json.dumps({"fleet_path": fleet_path, "card": smi}))
     log(json.dumps({"phase_seconds": seconds, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")

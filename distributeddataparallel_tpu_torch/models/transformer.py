@@ -669,7 +669,14 @@ class TransformerLM(nn.Module):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
-        self.token_embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device)
+        # A meta skeleton (the decode and forward twins, which assign real
+        # tensors) is not initialized: ``normal_`` on a meta tensor imports
+        # torch._dynamo (seconds of a serving process's start-up).
+        meta = device is not None and torch.device(device).type == "meta"
+        self.token_embed = nn.Embedding(
+            cfg.vocab_size, cfg.d_model, device=device,
+            _weight=torch.empty(cfg.vocab_size, cfg.d_model, device=device) if meta else None,
+        )
         if cfg.positional == "learned":
             self.pos_embed = nn.Parameter(
                 torch.empty(cfg.max_seq_len, cfg.d_model, device=device)
@@ -688,7 +695,8 @@ class TransformerLM(nn.Module):
         self.final_norm = _make_norm(cfg, device)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False, device=device)
-        self.reset_parameters(generator)
+        if not meta:
+            self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator=None) -> None:

@@ -7,9 +7,10 @@ readers (``scripts/check_events.py``, ``scripts/ddp_report.py``,
 ``scripts/perf_gate.py``) read the port's files as they read the
 reference's.  ``schema``, ``events``, ``registry``, ``trace``,
 ``tracecontext``, ``goodput``, ``baseline`` and ``alerts`` are verbatim
-(stdlib only), as are ``trace_export`` (less ``write_trace``) and
-``critical_path``'s lineage check, which the serving CLI's ``--smoke``
-reads; ``cost_model`` takes the card's peaks,
+(stdlib only), as are ``trace_export`` (less ``write_trace``),
+``critical_path`` (the lineage check and the TTFT decomposition, which the
+serving CLI's ``--smoke`` reads) and ``httpmetrics`` (the fleet's loopback
+``/metrics`` endpoints); ``cost_model`` takes the card's peaks,
 ``memory`` reads the CUDA caching allocator and ``profiler`` drives
 ``torch.profiler``.
 

@@ -80,8 +80,8 @@ def _group(name: str) -> str:
     if any(k in low for k in ("batch_norm", "bn_fw", "bn_bw", "welford", "reduce_kernel",
                               "elementwise")):
         return "batchnorm/elementwise/reductions"
-    if "multi_tensor_apply" in low:
-        return "optimizer (foreach)"
+    if "multi_tensor_apply" in low:  # the fused optimizers launch through it too
+        return "optimizer (fused)"
     if "nccl" in low:
         return "nccl"
     if "memcpy" in low or "memset" in low:
@@ -118,7 +118,7 @@ def moe_split(key_averages, groups: dict, n: int, experts: int, vocab: int) -> d
         elif name in MM_OPS:
             out["LM head" if vocab in dims else "other GEMMs"] += e.self_device_time_total / 1e3 / n
     out["attention (K1-K3)"] = sum(ms for g, ms in groups.items() if g.startswith("flash_"))
-    out["AdamW (foreach)"] = groups.get("optimizer (foreach)", 0.0)
+    out["AdamW (fused)"] = groups.get("optimizer (fused)", 0.0)
     out["other"] = sum(groups.values()) - sum(out.values())
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 

@@ -61,6 +61,16 @@ def _child(fn, i, nprocs, store_address, env, args):
     fn(i, nprocs, store_address, *args)
 
 
+def _start(fn, args, nprocs, env, store_address) -> list:
+    ctx = mp.get_context("spawn")
+    procs = []
+    for i in range(nprocs):
+        p = ctx.Process(target=_child, args=(fn, i, nprocs, store_address, dict(env or {}), tuple(args)))
+        p.start()
+        procs.append(p)
+    return procs
+
+
 def _run_gang(fn, args, nprocs, env) -> list[tuple[int, int]]:
     """Run one gang to its end; returns [(rank, exitcode)] of the members
     that failed.  Once one fails, the others are killed and not listed.
@@ -68,12 +78,7 @@ def _run_gang(fn, args, nprocs, env) -> list[tuple[int, int]]:
     the dead one's keys) lives until the gang has ended."""
     store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False) if nprocs > 1 else None
     store_address = f"127.0.0.1:{store.port}" if store is not None else None
-    ctx = mp.get_context("spawn")
-    procs = []
-    for i in range(nprocs):
-        p = ctx.Process(target=_child, args=(fn, i, nprocs, store_address, dict(env or {}), tuple(args)))
-        p.start()
-        procs.append(p)
+    procs = _start(fn, args, nprocs, env, store_address)
     live = {p.sentinel: (i, p) for i, p in enumerate(procs)}
     failed = []
     while live and not failed:
@@ -96,20 +101,29 @@ def spawn(
     fn: Callable[..., Any],
     args: Sequence[Any] = (),
     nprocs: int = 1,
+    join: bool = True,
     *,
     env: dict[str, str] | None = None,
     max_restarts: int = 0,
     events_dir: str | None = None,
     runs_dir: str | None = None,
-) -> None:
+):
     """Run ``fn(i, nprocs, store_address, *args)`` for i in range(nprocs), each
     in a child process, and wait for all; raise ``RuntimeError`` naming the
     failed members when one fails (after ``max_restarts`` restarts of the
-    whole gang)."""
+    whole gang).  ``join=False`` starts the gang and returns its processes
+    at once, with no rendezvous store (``store_address`` None: members that
+    form no process group, as the serving fleet's engine workers); the
+    caller joins them."""
     if nprocs < 1:
         raise ValueError(f"nprocs must be >= 1, got {nprocs}")
     if max_restarts < 0:
         raise ValueError(f"max_restarts must be >= 0, got {max_restarts}")
+    if not join:
+        if max_restarts:
+            raise ValueError("max_restarts needs join=True: supervision is a blocking "
+                             "join-and-respawn loop, there is no handle to return")
+        return _start(fn, args, nprocs, env, None)
     if max_restarts == 0:
         failed = _run_gang(fn, args, nprocs, env)
         if failed:

@@ -23,9 +23,25 @@ any run deterministic (the clock advances per engine step).
 ``--store DIR`` roots the process's kernel builds at ``DIR`` (the
 ``--compile-cache`` switch, ``training.warm_start``).  The reference stored
 its compiled decode, prefill and verify programs there; the port's eager
-engine has no such program.  ``--fleet``, ``--kill-engine`` and
-``--kill-after`` are the reference's too and raise, naming the ROADMAP item
-that ports them.
+engine has no such program.
+
+``--fleet P:D`` runs the disaggregated fleet instead (``serving.fleet``):
+P prefill + D decode engine processes behind the session-affinity router,
+the KV handoff over TCP, each worker on ``--device`` (the GPU, or the CPU
+under ``--device cpu``).  ``--kill-engine NAME|auto`` terminates one
+worker ``--kill-after`` seconds into the drive (default: 60% through the
+arrival trace).  Its ``--smoke`` holds the reference's fleet contract:
+every request completes with zero dropped through the kill, at least one
+KV handoff and one affinity-routed follow-up turn, a valid, lineage-clean
+timeline whose TTFT decomposition covers every request within 5%, and a
+mid-run ``/metrics`` scrape of the router and every live engine.  It keeps
+``--model`` and ``--seq-len`` (the reference's fleet smoke forces ``tiny``),
+so the same checks run at GPT-2 124M width on the card:
+
+    python -m distributeddataparallel_tpu_torch.serve --fleet 1:2 --model gpt2_124m \
+        --seq-len 1024 --prefix-cache --turns 3 --kill-engine auto --smoke --events-dir DIR
+    python -m distributeddataparallel_tpu_torch.serve --fleet 1:2 --device cpu --smoke \
+        --kill-engine auto --turns 3
 """
 
 from __future__ import annotations
@@ -36,12 +52,6 @@ import os
 import sys
 
 import torch
-
-_NOT_PORTED = {
-    "fleet": "ROADMAP.md Queue 1 item 19b (serving/{handoff,router,fleet}.py)",
-    "kill_engine": "ROADMAP.md Queue 1 item 19b (the fleet's fault injection)",
-    "kill_after": "ROADMAP.md Queue 1 item 19b (the fleet's fault injection)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,11 +93,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--turn-gap", type=float, default=0.25,
                     help="mean seconds between a session's turns")
     ap.add_argument("--fleet", default=None, metavar="P:D",
-                    help="disaggregated fleet (not ported yet)")
+                    help="disaggregated fleet: P prefill + D decode engine processes behind the "
+                         "session-affinity router, KV handoff over TCP, each on --device")
     ap.add_argument("--kill-engine", default=None, metavar="NAME|auto",
-                    help="fleet fault injection (not ported yet)")
+                    help="fleet fault injection: terminate this engine worker mid-run ('auto' "
+                         "picks a decode engine)")
     ap.add_argument("--kill-after", type=float, default=None,
-                    help="fleet fault injection (not ported yet)")
+                    help="seconds into the drive to kill (default: 60%% through the arrival trace)")
     ap.add_argument("--events-dir", default=None)
     ap.add_argument("--store", default=None, metavar="DIR",
                     help="kernel build cache root (the --compile-cache switch); the reference stored "
@@ -107,13 +119,10 @@ def _range(spec: str) -> tuple[int, int]:
 
 def parse_args(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet: {item}")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: torch.cuda.is_available() is false; pass "
                            "--device cpu to run on the CPU")
-    if args.smoke:
+    if args.smoke and not args.fleet:
         args.model = "tiny"
         args.virtual_dt = args.virtual_dt or 0.005
         args.duration = min(args.duration, 2.0)
@@ -259,8 +268,134 @@ def _smoke_fastpath(args, model) -> tuple[dict, list[str]]:
     return out, failures
 
 
+def fleet_smoke_failures(args, out: dict, n_requests: int) -> list[str]:
+    """The reference's fleet smoke checks over a ``FleetService`` run's
+    summary and (with ``--events-dir``) its merged timeline; fills
+    ``out["ttft_decomp"]``."""
+    failures = []
+    if out["completed"] < n_requests:
+        failures.append(f"fleet smoke: only {out['completed']}/{n_requests} requests completed")
+    if out["dropped_req_total"] != 0:
+        failures.append(f"fleet smoke: {out['dropped_req_total']} dropped requests "
+                        "(engine-kill drain must requeue, not lose)")
+    if out["handoffs"] < 1:
+        failures.append("fleet smoke: no prefill->decode KV handoff")
+    if args.kill_engine and out["kills"] < 1:
+        failures.append("fleet smoke: engine kill did not fire")
+    if args.events_dir:
+        from distributeddataparallel_tpu_torch.observability.critical_path import (
+            request_decompositions,
+            ttft_rollup,
+        )
+        from distributeddataparallel_tpu_torch.observability.events import load_timeline
+
+        needed = ["route_admit", "kv_handoff", "tier_summary"]
+        if args.kill_engine:
+            needed.append("engine_verdict")
+        failures.extend(timeline_problems(args.events_dir, needed, "fleet smoke"))
+        records = load_timeline(args.events_dir)
+        if not any(r.get("kind") == "route_admit" and r.get("affinity") for r in records):
+            failures.append("fleet smoke: no affinity-routed follow-up turn")
+        # Each request's critical-path decomposition must account for its
+        # measured TTFT across the three process boundaries.
+        decomps = request_decompositions(records)
+        if len(decomps) < out["completed"]:
+            failures.append(f"fleet smoke: TTFT decomposition covers only "
+                            f"{len(decomps)}/{out['completed']} completed requests")
+        bad = [d for d in decomps if d["err_frac"] > 0.05]
+        if bad:
+            worst = max(bad, key=lambda d: d["err_frac"])
+            failures.append(f"fleet smoke: {len(bad)} request(s) decompose to more than 5% off "
+                            f"their measured TTFT (worst {worst['err_frac']:.1%}, req {worst['req']})")
+        out["ttft_decomp"] = ttft_rollup(decomps)
+    # The service scraped every live endpoint mid-run (at the first
+    # completion, while requests were still outstanding).
+    scraped = out.get("metrics_scrape") or {}
+    router_series = scraped.get("router")
+    if not isinstance(router_series, dict) or "_error" in router_series:
+        failures.append("fleet smoke: router /metrics scrape failed "
+                        f"({(router_series or {}).get('_error', 'never scraped')})")
+    else:
+        for name in ("router_queue_depth", "fleet_prefill_p50_ttft_s", "fleet_prefill_p99_ttft_s",
+                     "fleet_decode_p50_ttft_s", "fleet_decode_p99_ttft_s"):
+            if name not in router_series:
+                failures.append(f"fleet smoke: router /metrics missing {name}")
+    workers = {k: v for k, v in scraped.items() if k != "router"}
+    if not workers:
+        failures.append("fleet smoke: no engine /metrics endpoint scraped")
+    for wname, series in sorted(workers.items()):
+        if not isinstance(series, dict) or "_error" in series:
+            failures.append(f"fleet smoke: engine {wname} /metrics scrape failed "
+                            f"({(series or {}).get('_error', 'bad payload')})")
+        elif "serve_tok_s" not in series:
+            failures.append(f"fleet smoke: engine {wname} /metrics missing serve_tok_s")
+    return failures
+
+
+def run_fleet(args) -> int:
+    """``--fleet P:D``: spawn the disaggregated tiers as worker processes,
+    drive a (multi-turn) loadgen trace through the router, and under
+    ``--smoke`` assert the fleet contract (``fleet_smoke_failures``)."""
+    from distributeddataparallel_tpu_torch.models import transformer as tfm
+    from distributeddataparallel_tpu_torch.serving import make_trace
+    from distributeddataparallel_tpu_torch.serving.fleet import FleetConfig, FleetService
+
+    try:
+        n_prefill, n_decode = (int(x) for x in args.fleet.split(":"))
+    except ValueError:
+        print(f"serve: bad --fleet {args.fleet!r} (want P:D)", file=sys.stderr)
+        return 1
+    if args.smoke:
+        args.duration = min(args.duration, 1.5)
+        args.rate = min(args.rate, 6.0)
+        args.turns = max(args.turns, 2)
+        # Affinity keys hash the first KV block: keep prompts at least one
+        # block long so a follow-up's key matches its base turn's.
+        args.prompt_len = "20,40"
+        args.output_len = "6,12"
+        if args.kill_engine is None:
+            args.kill_engine = "auto"
+    vocab = (tfm.gpt2_124m() if args.model == "gpt2_124m" else tfm.tiny_lm()).vocab_size
+    trace = make_trace(load_config(args, vocab))
+    kill_after = kill_name = None
+    if args.kill_engine:
+        last_arrival = trace[-1]["arrival_s"] if trace else 0.0
+        kill_after = args.kill_after if args.kill_after is not None else 0.6 * last_arrival
+        kill_name = None if args.kill_engine == "auto" else args.kill_engine
+    svc = FleetService(
+        model=args.model, seq_len=args.seq_len, seed=args.seed,
+        # Affinity hits only pay off if the home decode engine's prefix
+        # cache actually holds the session's blocks.
+        engine_config=engine_config(args, prefix_cache=True),
+        fleet_config=FleetConfig(prefill=n_prefill, decode=n_decode),
+        device=args.device, events_dir=args.events_dir,
+        kill_after_s=kill_after, kill_engine=kill_name,
+    )
+    out = svc.run(trace)
+    out["fleet"] = f"{n_prefill}:{n_decode}"
+    if not args.smoke:
+        print(json.dumps(out, indent=1, sort_keys=True, default=str), flush=True)
+        return 0
+    failures = fleet_smoke_failures(args, out, len(trace))
+    print(json.dumps(out, indent=1, sort_keys=True, default=str), flush=True)
+    if failures:
+        print("SMOKE FAIL:\n  " + "\n  ".join(failures), file=sys.stderr)
+        return 1
+    roll = out.get("ttft_decomp") or {}
+    decomp_note = (f", ttft queue_share={roll['ttft_queue_share_frac']:.2f} "
+                   f"decomp_err={roll['ttft_decomp_err_frac']:.3f} over {roll['requests']} traced "
+                   "request(s)" if roll.get("requests") else "")
+    print("fleet smoke OK: "
+          f"{out['completed']}/{len(trace)} requests, {out['handoffs']} handoffs, "
+          f"{out['requeued']} requeued through {out['kills']} kill(s), "
+          f"p99_ttft={out.get('serve_p99_ttft_s', 0):.3f}s{decomp_note}", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.fleet:
+        return run_fleet(args)
     out, engine, _ = serve(args)
     print(json.dumps(out, indent=1, sort_keys=True, default=str), flush=True)
     if not args.smoke:

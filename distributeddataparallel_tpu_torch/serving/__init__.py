@@ -1,5 +1,5 @@
-"""Serving: continuous batching over a paged KV cache (the single-engine
-core of ``distributeddataparallel_tpu/serving``).
+"""Serving: continuous batching over a paged KV cache and the
+disaggregated fleet (the port of ``distributeddataparallel_tpu/serving``).
 
 A vLLM-style block KV pool over the TransformerLM decode twin
 (``kv_cache``), the host-side continuous-batching scheduler with chunked
@@ -10,9 +10,14 @@ generator with Zipf shared prefixes and multi-turn sessions (``loadgen``,
 a copy).  The fast path layers a refcounted radix prefix cache (shared KV
 blocks, copy-on-write) and n-gram speculative decoding on top.
 
-``python -m distributeddataparallel_tpu_torch.serve`` is the CLI.  The
-fleet (``handoff``, ``router``, ``fleet``: disaggregated prefill/decode
-behind a session-affinity router) is ROADMAP item 19b.
+The fleet layer disaggregates prefill from decode: ``handoff`` moves a
+finished prefill's KV blocks between engines (digest-verified frames over
+in-memory pipes or TCP, the reference's wire bytes), ``router`` is the
+session-affinity front door (least-loaded admission, heartbeat health,
+drain-and-requeue on engine death), and ``fleet`` wires P prefill + D
+decode engines behind one router, in one process (deterministic) or one
+process per engine.  ``python -m distributeddataparallel_tpu_torch.serve``
+is the CLI (``--fleet P:D``).
 """
 
 from distributeddataparallel_tpu_torch.serving.kv_cache import (  # noqa: F401
@@ -43,4 +48,25 @@ from distributeddataparallel_tpu_torch.serving.loadgen import (  # noqa: F401
     VirtualClock,
     make_trace,
     run_load,
+)
+from distributeddataparallel_tpu_torch.serving.handoff import (  # noqa: F401
+    HandoffError,
+    HandoffPayload,
+    HandoffReceiver,
+    HandoffSender,
+    PipeChannel,
+    SocketChannel,
+    block_nbytes,
+    extract_kv_blocks,
+)
+from distributeddataparallel_tpu_torch.serving.router import (  # noqa: F401
+    Router,
+    RouterError,
+    root_block_hash,
+)
+from distributeddataparallel_tpu_torch.serving.fleet import (  # noqa: F401
+    FleetConfig,
+    FleetService,
+    ServingFleet,
+    fleet_worker,
 )

@@ -48,14 +48,18 @@ compiled decode, prefill and verify programs there; the port's eager engine
 has no such program (its decode attention is plain PyTorch, as the
 reference's is XLA's), so the store holds only what the process builds.
 
-Not ported yet: the KV handoff between engines (``extract_handoff`` /
-``inject_handoff``, ROADMAP item 19b, with the fleet).
+The KV handoff of the disaggregated fleet (``serving.fleet``):
+``extract_handoff`` ships a finished prefill's context blocks as wire bytes
+(``serving.handoff``), and ``inject_handoff`` lands them on a decode-tier
+engine in one ``set_pool_blocks`` write per leaf and adopts the request
+straight into a decode slot, queueing it while slots or blocks are short.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -64,6 +68,12 @@ from distributeddataparallel_tpu_torch.observability.tracecontext import (
     SpanContext,
     from_fields,
     root_context,
+)
+from distributeddataparallel_tpu_torch.serving.handoff import (
+    HandoffError,
+    HandoffPayload,
+    extract_kv_blocks,
+    unpack_blocks,
 )
 from distributeddataparallel_tpu_torch.serving.kv_cache import (
     SCRATCH_BLOCK,
@@ -74,10 +84,9 @@ from distributeddataparallel_tpu_torch.serving.kv_cache import (
     scatter_decode,
     scatter_prefill,
     scatter_spec,
+    set_pool_blocks,
 )
 from distributeddataparallel_tpu_torch.serving.scheduler import Request, Scheduler
-
-_HANDOFF_ITEM = "ROADMAP.md Queue 1 item 19b (serving/handoff.py with the fleet)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,6 +207,9 @@ class InferenceEngine:
         # Host clock over each decode/verify call through its host read.
         self.decode_calls = 0
         self.decode_time_s = 0.0
+        # KV handoff: sequences waiting for a slot / blocks to land in.
+        self._pending_injections: deque = deque()
+        self.handoffs_in = 0
         self._chunk_pos = torch.arange(config.prefill_chunk, device=self.device)
         self._window = torch.arange(config.spec_k + 1, device=self.device)
 
@@ -280,14 +292,120 @@ class InferenceEngine:
         return ctx
 
     def has_work(self) -> bool:
-        return self.scheduler.has_work()
+        return bool(self._pending_injections) or self.scheduler.has_work()
 
-    # -- KV handoff (disaggregated prefill/decode) ---------------------
-    def extract_handoff(self, rid: int, *, max_new_tokens: int | None = None):
-        raise NotImplementedError(f"the KV handoff is not ported yet: {_HANDOFF_ITEM}")
+    # -- KV handoff (disaggregated prefill/decode, serving.fleet) -----
+    def extract_handoff(self, rid: int, *, max_new_tokens: int | None = None) -> HandoffPayload:
+        """Pull a just-completed request's context KV off this engine as a
+        :class:`HandoffPayload` for a decode-tier peer.
 
-    def inject_handoff(self, payload) -> int:
-        raise NotImplementedError(f"the KV handoff is not ported yet: {_HANDOFF_ITEM}")
+        Contract: call between the ``step()`` that completed ``rid`` and
+        this engine's NEXT ``step()``: the retired blocks keep their content
+        until a later plan reclaims them under allocation pressure, which
+        only happens inside ``plan_step``.  The request leaves
+        ``self.completed`` (the decode tier owns it from here).
+        ``max_new_tokens`` overrides the shipped budget: a prefill-tier
+        engine runs the request at ``max_new_tokens=1`` and restores the
+        fleet-level budget here.
+        """
+        req = self.completed.pop(rid)
+        meta = {
+            "rid": rid,
+            "session": req.session,
+            "prompt": [int(t) for t in req.prompt],
+            "generated": [int(t) for t in req.generated],
+            "max_new_tokens": int(max_new_tokens or req.max_new_tokens),
+            "arrival_s": req.arrival_s,
+            "first_token_s": req.first_token_s,
+            "ctx_len": req.ctx_len,
+            # Parent span-context fields ride the header frame as plain
+            # data: the decode engine derives ITS spans from the same
+            # parent, so the request's span tree stays connected across
+            # the process boundary.
+            "trace": req.trace,
+        }
+        return HandoffPayload(meta, extract_kv_blocks(self.pool, req.final_blocks,
+                                                      scanned=self._dm.cfg.scan_layers))
+
+    def inject_handoff(self, payload: HandoffPayload) -> int:
+        """Adopt a handed-off sequence: allocate a fresh table, land the
+        shipped blocks bitwise, and place the request straight into a
+        decode slot.  Queued when slots/pool are full; the queue drains here
+        and at each ``step()`` start, so a busy decode tier backpressures
+        instead of dropping."""
+        meta = payload.meta
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(
+            rid=rid,
+            prompt=np.asarray(meta["prompt"], np.int32),
+            max_new_tokens=int(meta["max_new_tokens"]),
+            arrival_s=float(meta.get("arrival_s") or 0.0),
+            session=meta.get("session"),
+            trace=self._parent_ctx(meta.get("trace"), rid).to_fields(),
+        )
+        req.generated = [int(t) for t in meta.get("generated") or ()]
+        req.first_token_s = meta.get("first_token_s")
+        req.handoff = True
+        if not req.generated:
+            raise HandoffError(
+                f"handoff for rid {meta.get('rid')!r} carries no "
+                "pending token (prefill tier must generate one)"
+            )
+        sched = self.scheduler
+        total = req.prompt_len + req.max_new_tokens
+        if total > sched.max_seq_len:
+            raise HandoffError(
+                f"handoff request {rid}: prompt {req.prompt_len} + "
+                f"budget {req.max_new_tokens} exceeds max_seq_len "
+                f"{sched.max_seq_len}"
+            )
+        want = self.allocator.blocks_for(req.ctx_len)
+        if want != len(payload.blocks):
+            raise HandoffError(
+                f"handoff request {rid}: ctx {req.ctx_len} needs "
+                f"{want} blocks, payload ships {len(payload.blocks)}"
+            )
+        self._pending_injections.append((req, payload))
+        self._drain_injections()
+        return rid
+
+    def _drain_injections(self) -> None:
+        sched = self.scheduler
+        while self._pending_injections:
+            req, payload = self._pending_injections[0]
+            tokens = min(req.ctx_len + 1 + sched.lookahead, sched.max_seq_len)
+            if not sched.can_adopt(tokens):
+                break
+            self._pending_injections.popleft()
+            for rid_, blocks in self.allocator.alloc(req.rid, tokens):
+                self.emit("kv_evict", blocks=blocks, req=rid_, reason="lru")
+            table = self.allocator.table_of(req.rid)
+            n = len(payload.blocks)
+            rows = unpack_blocks(self.pool, payload.blocks, scanned=self._dm.cfg.scan_layers)
+            set_pool_blocks(self.pool, rows, self._dev(np.asarray(table[:n])))
+            req.prefilled = req.ctx_len
+            sched.adopt(req)
+            req.admit_s = self._time()
+            self.handoffs_in += 1
+            self.emit(
+                "request_admit",
+                req=req.rid,
+                prompt_tokens=req.prompt_len,
+                ctx_tokens=req.ctx_len,
+                slot=req.slot,
+                queued_s=req.admit_s - req.arrival_s,
+                handoff=True,
+                engine=self.name,
+                **self._span_of(req, "decode"),
+            )
+            if self.config.prefix_cache:
+                # Publish the landed context into the prefix trie so
+                # session-affinity follow-ups hit it like any local
+                # prefill would.
+                self.prefix_admits += 1
+                self.prefix_ctx_tokens += req.ctx_len
+                self.allocator.register_progress(req.rid, req.ctx_tokens(), upto=req.ctx_len)
 
     # -- telemetry helpers --------------------------------------------
     def emit(self, kind: str, **fields) -> None:
@@ -429,6 +547,7 @@ class InferenceEngine:
     @torch.no_grad()
     def step(self) -> dict:
         """Execute one scheduler plan; returns host-side step stats."""
+        self._drain_injections()
         plan = self.scheduler.plan_step()
         for rid, blocks in plan.evicted:
             self.emit("kv_evict", blocks=blocks, req=rid, reason="lru")

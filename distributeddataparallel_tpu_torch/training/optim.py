@@ -20,7 +20,10 @@ reads ``found_inf`` (a bad step leaves the parameters, the moments and the
 per-parameter ``step`` as they were), and the schedule is a
 ``DeviceSchedule``, whose count lives on the device and advances by the
 verdict (optax's count, part of the discarded state in the reference's
-skip).  Unguarded runs keep the foreach update and ``LambdaLR``.
+skip).  Unguarded runs build the same fused update and keep ``LambdaLR``,
+whose learning rates round as ``DeviceSchedule``'s do (its docstring): a
+guarded run with no nonfinite step is the unguarded run bit for bit, as the
+reference's guard selects the update an unguarded step computes.
 """
 
 from __future__ import annotations
@@ -73,13 +76,13 @@ def lr_schedule(args, total_steps: int) -> Callable[[int], float]:
 def build_optimizer(args, params: Iterable[torch.nn.Parameter], total_steps: int, *,
                     fused: bool | None = None):
     """``(optimizer, scheduler)`` for ``args.optimizer`` and the schedule.
-    With ``args.nan_guard`` the optimizer is fused and the scheduler a
-    ``DeviceSchedule`` (module docstring); ``fused`` overrides the update's
-    kind alone (an unguarded fused run keeps ``LambdaLR``)."""
+    The update is torch's fused one, guarded or not; with ``args.nan_guard``
+    the scheduler is a ``DeviceSchedule``, else ``LambdaLR`` (module
+    docstring).  ``fused=False`` asks for the foreach update (a guarded
+    step refuses it)."""
     params = list(params)
     guard = bool(getattr(args, "nan_guard", False))
-    fused = guard if fused is None else fused
-    kw = {"fused": True} if fused else {}
+    kw = {"fused": True} if fused is None or fused else {}
     if args.optimizer == "sgd":
         opt = torch.optim.SGD(params, lr=args.lr, momentum=args.momentum or 0.0, **kw)
     elif args.optimizer == "adam":

@@ -11,7 +11,7 @@ distributeddataparallel_tpu_torch.serve`` (the twin of
   ``--decode-quant int8``) and returns the continuation of the first two
   training rows' first quarter in its summary.
 - Both default to the GPU and raise without one; the reference's flag
-  checks and the flags of items not ported yet raise with their messages.
+  checks raise with their messages, and the fleet's flags parse.
 """
 
 import json
@@ -89,9 +89,10 @@ def test_reference_flag_checks():
         dpp.parse_args(LM_ARGS + ["--decode-quant", "int8"])
     with pytest.raises(SystemExit, match="--generate requires an LM model"):
         dpp.parse_args(["--device", "cpu", "--model", "mlp", "--generate", "4"])
-    for flag, value, item in (("--fleet", "1:1", "19b"), ("--kill-engine", "auto", "19b"),
-                              ("--kill-after", "1.0", "19b")):
-        with pytest.raises(NotImplementedError, match=item):
-            serve.parse_args(["--device", "cpu", flag, value])
+    # The fleet's flags (item 19b) are ported: they parse as the
+    # reference's do (test_torch_fleet.py runs them).
+    args = serve.parse_args(["--device", "cpu", "--fleet", "1:1", "--kill-engine", "auto", "--kill-after", "1.0"])
+    assert (args.fleet, args.kill_engine, args.kill_after) == ("1:1", "auto", 1.0)
+    assert not hasattr(serve, "_NOT_PORTED")
     # --store (item 11b) is ported: it parses as the reference's does.
     assert serve.parse_args(["--device", "cpu", "--store", "x"]).store == "x"

@@ -17,8 +17,9 @@
   ``test_torch_kv_cache.py`` / ``test_torch_quant.py``).
 - The serving events validate against the port's schema, export to a
   valid Perfetto trace, and their span trees are lineage-clean.
-- The fleet's handoff and the warm-start store raise, naming their
-  ROADMAP items.
+- The fleet's handoff refuses what the reference refuses, and the
+  warm-start store roots the kernel builds (``test_torch_handoff.py`` and
+  ``test_torch_fleet.py`` hold the handoff and the fleet).
 """
 
 import functools
@@ -189,12 +190,17 @@ def test_serving_events_validate(tmp_path):
 
 
 def test_handoff_and_store_raise_with_their_items(tmp_path, monkeypatch):
+    """The KV handoff (item 19b) is ported: a request that is not a
+    completed one has nothing to extract, and a payload without a pending
+    token is refused with the reference's HandoffError."""
+    from distributeddataparallel_tpu_torch.serving.handoff import HandoffError, HandoffPayload
+
     _, _, model = _pair("unrolled")
     engine = InferenceEngine(model, EngineConfig(num_slots=2, num_blocks=8, block_size=8, prefill_chunk=8))
-    with pytest.raises(NotImplementedError, match="19b"):
+    with pytest.raises(KeyError):
         engine.extract_handoff(0)
-    with pytest.raises(NotImplementedError, match="19b"):
-        engine.inject_handoff(None)
+    with pytest.raises(HandoffError, match="carries no pending token"):
+        engine.inject_handoff(HandoffPayload({"rid": 0, "prompt": [1, 2], "max_new_tokens": 2}, []))
     # store_dir (item 11b) is ported: it roots the process's kernel builds
     # at the store, through the compile-cache switch.
     from distributeddataparallel_tpu_torch.training import warm_start

@@ -20,7 +20,9 @@ against the JAX package's, on the CPU.
   ranks: a NaN on one rank skips the step on both, leaving the int8
   moments, PowerSGD's error feedback and Q factors, the parameters and the
   schedule's count bitwise as they were.
-- A guarded checkpoint resumes into an unguarded run and the reverse.
+- A guarded run with no nonfinite step is the unguarded run bit for bit
+  (one fused update for both); a guarded checkpoint resumes into an
+  unguarded run and the reverse, bit for bit.
 - The build cache with the g++ host-kernel build: a miss, then a hit, a
   corrupted library rebuilt loudly, and a launcher child inheriting
   ``DDP_COMPILE_CACHE``.
@@ -252,12 +254,49 @@ def test_an_isolated_nan_survives_at_depth_2(tmp_path):
     assert runs[2][1] == runs[0][1]
 
 
+def test_guarded_run_without_a_bad_step_is_the_unguarded_run(tmp_path):
+    """One update kind for both: ``build_optimizer`` builds the fused AdamW
+    guarded or not, and ``DeviceSchedule``'s float64 LR rounds as
+    ``LambdaLR``'s Python float, so a guarded run with no nonfinite step is
+    the unguarded run bit for bit (losses, parameters, moments, steps), as
+    the reference's guard selects the unguarded update."""
+    base = ["--device", "cpu", "--model", "mlp", "--num-examples", "64", "--batch-size", "4",
+            "--steps-per-epoch", "4", "--epochs", "2", "--log-every", "1000", "--optimizer", "adamw",
+            "--weight-decay", "0.01", "--warmup-steps", "5"]
+    runs = {}
+    for name, extra in (("plain", []), ("guarded", ["--nan-guard"])):
+        d = tmp_path / name
+        s = tdpp.main(base + extra + ["--checkpoint-dir", str(d)])
+        runs[name] = (s, ck.CheckpointFiles(str(d)).read(1))
+    (plain, p_ck), (guarded, g_ck) = runs["plain"], runs["guarded"]
+    assert guarded["faults"]["nonfinite_steps"] == 0
+    np.testing.assert_array_equal(guarded["losses"], plain["losses"])
+    assert g_ck["scheduler"]["last_epoch"] == p_ck["scheduler"]["last_epoch"] == 8
+    for key in ("model", "optimizer"):
+        flat_p, flat_g = _tensors(p_ck[key]), _tensors(g_ck[key])
+        assert flat_p.keys() == flat_g.keys() and flat_p
+        for k in flat_p:
+            torch.testing.assert_close(flat_g[k], flat_p[k], rtol=0, atol=0, msg=f"{key} {k}")
+
+
+def _tensors(tree, prefix="") -> dict:
+    """Every tensor of a nested state dict by its path."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {}
+    return {k: v for key, sub in items for k, v in _tensors(sub, f"{prefix}/{key}").items()}
+
+
 def test_guarded_checkpoint_resumes_unguarded_and_back(tmp_path):
     """A guarded run's checkpoint (the device count saved as ``LambdaLR``'s
     ``last_epoch``: 7 of 8 steps applied) resumes into an unguarded run,
-    and an unguarded one's into a guarded run; each resumed epoch within
-    1e-6 of the uninterrupted run's (fused and foreach AdamW differ in the
-    last bits)."""
+    and an unguarded one's into a guarded run; each resumed epoch equals
+    the uninterrupted run's bit for bit (one fused update on both sides)."""
     # A warmup over 10 of the 12 steps: the resumed steps' LR is the saved
     # count's (a decay would also depend on --epochs, which the resume moves).
     base = ["--device", "cpu", "--model", "mlp", "--num-examples", "64", "--batch-size", "4",
@@ -272,7 +311,7 @@ def test_guarded_checkpoint_resumes_unguarded_and_back(tmp_path):
         assert isinstance(saved["optimizer"]["param_groups"][0]["lr"], float)
         resumed = tdpp.main(base + then + ["--epochs", "3", "--checkpoint-dir", str(d), "--resume"])
         assert resumed["start_epoch"] == 2
-        np.testing.assert_allclose(resumed["losses"], straight["losses"][8:], rtol=1e-6, atol=0)
+        np.testing.assert_array_equal(resumed["losses"], straight["losses"][8:])
 
 
 # --------------------------------------------------- two gloo ranks, guard --
