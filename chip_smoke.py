@@ -199,6 +199,25 @@ Phases (any failure exits non-zero; nothing is caught):
       With ``CHIP_SMOKE_FLEET_TIMELINE=PATH`` the timeline is copied to
       PATH (``scripts/check_events.py --conformance`` reads it on a machine
       with the JAX package; this script imports none of it).
+18. resharding on resume (``training/elastic.py``) and the elastic gang:
+   a. two CPU gloo ranks on 2 of the host's cores, started with phase 11
+      (the phases beside them keep to the other cores; the
+      ``elastic_path`` line names them), train GPT-2 124M at full width
+      under ``--zero 1`` with AdamW
+      (batch 1 a rank, sequence 128, 2 epochs of 2 steps) and checkpoint
+      each epoch; their epoch-0 checkpoint restored on the card at world 1
+      (its restored moment flats bitwise the two shards' contents
+      concatenated, the read and restore timed, the bytes resharded), then
+      ``dpp.main --resume`` at batch 2 trains epoch 1 through K1-K3, its
+      losses within 1e-5 of the gang's steps 3-4.  ``python3 chip_smoke.py
+      --elastic-faults`` runs 18a alone, then resumes the checkpoint with
+      a fault planted in it (the moments zeroed; the step counts reset)
+      and fails unless each lands above that limit;
+   c. only with ``--multi-gpu`` on 2+ GPUs: on 4, ``--zero 1 --elastic
+      --chaos worker-kill@3:2`` shrinks in place to 3 and its epoch 1 is
+      bitwise a 3-card ``--resume`` of a 4-card checkpoint, and
+      ``worker-kill@1:2`` at dispatch depth 2 shrinks mid-epoch; ``--fsdp --tp
+      2`` saved on 4 cards (2 with 2 GPUs) resumes on 2.
 
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
 ``llama_path`` line (phase 7), one ``reference_workload`` line (phase 8),
@@ -207,7 +226,7 @@ run's step ms, peak memory and losses), one ``cp_tp_path`` line (phase 12:
 each replay's max errors, launches and times, the GPU count), one
 ``fsdp_path`` line (phase 13), one ``moe_path`` line (phase 14), one ``pp_path`` line (phase 15),
 one ``warm_start_path`` line (phase 16), one ``fleet_path`` line (phase 17),
-one ``phase_seconds`` line, one
+one ``elastic_path`` line (phase 18), one ``phase_seconds`` line, one
 ``serving_path`` line (phase 10,
 each run's TTFT p50/p99, tokens/s, per-token latency, decode-step ms,
 preemptions, evictions, prefix hits, acceptance, pool bytes against the
@@ -678,6 +697,33 @@ FLEET_BLOCK_BYTES = 16 * 12 * 64 * 2 * 2 * 12
 # the card (the smoke keeps --model and --seq-len).
 FLEET_ARGS = ["--fleet", "1:2", "--model", "gpt2_124m", "--seq-len", "1024", "--prefix-cache", "--turns", "3",
               "--kill-engine", "auto", "--smoke", "--events-dir", "{events}"]
+
+# Phase 18: resharding on resume.  18a's gang: two CPU gloo ranks (started
+# with phase 11, beside phases 11-17) train GPT-2 124M at
+# full width under --zero 1 with AdamW, batch 1 a rank at sequence 128, 2
+# epochs of 2 steps, and checkpoint each epoch.  The card resumes their
+# epoch-0 checkpoint at world 1 with batch 2 (the same global batch, the
+# same rows in the same order) for epoch 1's 2 steps.  Its losses against
+# the gang's steps 3-4: f32 on both, in another reduction order (the two
+# ranks' gradient mean against one card's sum, K1-K3 against the CPU's
+# plain attention): 1e-5 on a loss of ~10.9, ten f32 ulps there (the
+# readings were 9.5e-7 and 0.0).  ``--elastic-faults`` plants a fault in
+# the checkpoint (the moments zeroed, the step counts reset) and shows that
+# each lands above it.
+ELASTIC_CPU_ARGS = ["--device", "cpu", "--fake-devices", "2", "--model", "gpt2", "--seq-len", "128",
+                    "--vocab-size", "50257", "--batch-size", "1", "--optimizer", "adamw", "--lr", "3e-4",
+                    "--zero", "1", "--epochs", "2", "--steps-per-epoch", "2", "--num-examples", "64"]
+ELASTIC_CARD_ARGS = _set(ELASTIC_CPU_ARGS[4:], "--batch-size", "2")
+# The gang runs on 2 of the host's cores (one thread a rank), and this
+# process and the ones it starts keep to the others while it runs.
+ELASTIC_CPU_CORES = 2
+ELASTIC_LOSS_ATOL = 1e-5
+# 18c (2+ GPUs): GPT-2 124M at sequence 256, batch 2 a rank, 2 epochs of 4
+# steps; the kill of member 2 after step 3, the last of epoch 0, and after
+# step 1, mid-epoch, at dispatch depth 2 (the hosts run up to two steps
+# apart).
+ELASTIC_ENTRY_ARGS = _set(_set(ELASTIC_CARD_ARGS, "--seq-len", "256"), "--steps-per-epoch", "4")
+ELASTIC_ENTRY_ATOL = 1e-4  # --fsdp --tp 2 at data 2 against data 1: f32, another reduction order
 
 DEVICE = "cuda"  # phases 10, 12, 15, 16 and 17's device
 
@@ -3931,6 +3977,196 @@ def fleet_phase(torch, fa, smi) -> dict:
     return out
 
 
+def _pin(cores: set) -> None:
+    """Every thread of this process onto ``cores`` (the processes it starts
+    later inherit them)."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), cores)
+        except OSError:  # the thread has ended
+            pass
+
+
+class ElasticGang:
+    """[18a] The CPU gang that writes the checkpoint the card resumes
+    (module constants), in the background on the host's last
+    ``ELASTIC_CPU_CORES`` cores.  While it runs, this process and those it
+    starts keep to the other cores; ``running()`` gives them back once it
+    has ended.  ``beside`` names the phases that started while it ran."""
+
+    def __init__(self):
+        self.ck = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+        self.all = os.sched_getaffinity(0)
+        self.cores = set(sorted(self.all)[-ELASTIC_CPU_CORES:])
+        self.beside: list[str] = []
+        log(f"    18a CPU gang on cores {sorted(self.cores)}: python -m distributeddataparallel_tpu_torch.dpp "
+            + " ".join(ELASTIC_CPU_ARGS))
+        cores = self.cores
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "distributeddataparallel_tpu_torch.dpp", *ELASTIC_CPU_ARGS, "--checkpoint-dir",
+             self.ck], cwd=HERE, env=_entry_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            preexec_fn=lambda: os.sched_setaffinity(0, cores))
+        if self.all - self.cores:
+            _pin(self.all - self.cores)
+
+    def running(self) -> bool:
+        if self.proc.poll() is None:
+            return True
+        _pin(self.all)
+        return False
+
+    def finish(self) -> dict:
+        try:
+            return finish_entry(self.proc, "18a CPU gang", timeout=900)
+        finally:
+            _pin(self.all)
+
+    def stop(self) -> None:
+        """Kill the gang if it still runs (a phase before 18 failed)."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        _pin(self.all)
+
+
+def elastic_phase(torch, dpp, fa, gang: ElasticGang, smi) -> dict:
+    """[18a] The CPU gang's ZeRO-1 epoch-0 checkpoint (2 ranks) restored on
+    the card at world 1: the moments bitwise the two shards' contents
+    concatenated, then ``dpp.main --resume`` trains epoch 1 through K1-K3,
+    its losses against the gang's own steps 3-4."""
+    from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles
+
+    cpu, ck = gang.finish(), gang.ck
+    d = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    for f in ("epoch_0.pt", "hash_0.json"):  # epoch 0 alone: --resume takes the newest
+        os.link(os.path.join(ck, f), os.path.join(d, f))
+    args = dpp.parse_args(ELASTIC_CARD_ARGS + ["--checkpoint-dir", d])
+    device = dpp.device_for(args)
+    t0 = time.perf_counter()
+    payload = CheckpointFiles(d).read(0)
+    read_s = time.perf_counter() - t0
+    trainer = dpp.build_trainer(args, device, 0, 1)
+    t0 = time.perf_counter()
+    CheckpointFiles.load_into(trainer.state, payload)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    layout, opt = trainer.state.zero, trainer.state.optimizer
+    true, moved = sum(layout.sizes), 0
+    for key in ("exp_avg", "exp_avg_sq"):
+        got = torch.cat([opt.state[p][key] for p in layout.shard_params]).cpu()
+        want = torch.cat([torch.cat([part["optimizer"]["state"][i][key] for i in sorted(part["optimizer"]["state"])])
+                          for part in payload["ranks"]])
+        if not (torch.equal(got[:true], want[:true]) and not got[true:].any()):
+            raise AssertionError(f"18a: the restored {key} is not the two shards' contents concatenated")
+        moved += want.numel() * want.element_size()
+    ranks = len(payload["ranks"])
+    del trainer, payload, opt, layout
+    release(torch)
+    fa.reset_launches()
+    log("    18a card: dpp.main " + " ".join(ELASTIC_CARD_ARGS + ["--checkpoint-dir", d, "--resume"]))
+    summary = dpp.main(ELASTIC_CARD_ARGS + ["--checkpoint-dir", d, "--resume"])
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    if summary["start_epoch"] != 1 or summary["train_steps"] != 2:
+        raise AssertionError(f"18a: resumed at epoch {summary['start_epoch']} for {summary['train_steps']} steps")
+    expect_launches(dict(summary, attention_launches=launches), "18a")
+    diff = max(abs(a - b) for a, b in zip(summary["losses"], cpu["losses"][2:4]))
+    if len(cpu["losses"]) != 4 or diff > ELASTIC_LOSS_ATOL:
+        raise AssertionError(f"18a: card losses {summary['losses']} against the CPU gang's {cpu['losses']}")
+    return {"saved_ranks": ranks, "world": summary["world_size"], "moments_bitwise": True,
+            "read_s": read_s, "restore_s": restore_s, "resume_restore_s": summary["startup"]["restore_s"],
+            "bytes_resharded": moved, "losses": summary["losses"], "cpu_losses": cpu["losses"],
+            "max_loss_diff": diff, "loss_atol": ELASTIC_LOSS_ATOL, "step_ms": summary["step_time_s"] * 1e3,
+            "attention_launches": launches, "gang_beside_phases": gang.beside}
+
+
+def elastic_faults(torch, dpp, gang: ElasticGang, cpu_losses: list) -> dict:
+    """[18a, ``--elastic-faults``] Faults planted in the CPU gang's epoch-0
+    checkpoint (the AdamW moments zeroed; the step counts, the run's and
+    the optimizer's, reset to 0), each resumed on the card as 18a resumes
+    the sound one: its losses must land above ``ELASTIC_LOSS_ATOL`` from
+    the gang's steps 3-4, or 18a's check could not tell it."""
+    from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles
+
+    out = {}
+    for fault in ("moments_zeroed", "step_reset"):
+        payload = CheckpointFiles(gang.ck).read(0)
+        for part in payload["ranks"]:
+            for st in part["optimizer"]["state"].values():
+                for key in (("exp_avg", "exp_avg_sq") if fault == "moments_zeroed" else ("step",)):
+                    st[key].zero_()
+        if fault == "step_reset":
+            payload["step"] = 0
+        d = tempfile.mkdtemp(prefix=f"chip_smoke_fault_{fault}_")
+        CheckpointFiles(d).write(None, 0, payload)
+        del payload
+        summary = dpp.main(ELASTIC_CARD_ARGS + ["--checkpoint-dir", d, "--resume"])
+        diff = max(abs(a - b) for a, b in zip(summary["losses"], cpu_losses[2:4]))
+        out[fault] = {"losses": summary["losses"], "max_loss_diff": diff, "caught": diff > ELASTIC_LOSS_ATOL}
+        log(f"    18a planted fault {fault}: losses {summary['losses']}, max diff {diff:.3g} against "
+            f"the limit {ELASTIC_LOSS_ATOL}")
+        release(torch)
+    if not all(r["caught"] for r in out.values()):
+        raise AssertionError(f"18a: a planted fault stays within {ELASTIC_LOSS_ATOL}: {out}")
+    return out
+
+
+def elastic_entry(torch, smi) -> dict:
+    """[18c] Only with 2+ GPUs.  With 4: GPT-2 ``--zero 1 --elastic --chaos
+    worker-kill@3:2`` shrinks in place to 3 after epoch 0's last step, and
+    its epoch-1 losses must equal, bit for bit, those of a 3-card
+    ``--resume`` from a 4-card run's epoch-0 checkpoint; ``worker-kill@1:2``
+    at dispatch depth 2 shrinks mid-epoch and runs the epoch's tail and
+    epoch 1 at 3 cards; and ``--fsdp --tp
+    2`` saved on 4 cards resumes on 2 (data 2 -> 1), its epoch-1 losses
+    against the uninterrupted 4-card run's."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"    18c: not run ({n} GPU visible; it needs 2 or more)")
+        return {"ran": False, "gpus": n}
+    out: dict = {"ran": True, "gpus": n}
+    base = ELASTIC_ENTRY_ARGS
+    if n >= 4:
+        g, a_ck, b_ck = (tempfile.mkdtemp(prefix=f"chip_smoke_18c_{x}_") for x in "gab")
+        a = run_entry(base + ["--num-processes", "4", "--elastic", "--elastic-dir", g, "--chaos", "worker-kill@3:2",
+                              "--checkpoint-dir", a_ck], "18c in-place shrink 4 -> 3")
+        run_entry(_set(base, "--epochs", "1") + ["--num-processes", "4", "--checkpoint-dir", b_ck], "18c 4-card save")
+        b = run_entry(base + ["--num-processes", "3", "--checkpoint-dir", b_ck, "--resume"], "18c 3-card resume")
+        if a["world_size"] != 3 or a["losses"][4:] != b["losses"]:
+            raise AssertionError(f"18c: the shrink's epoch 1 {a['losses'][4:]} (world {a['world_size']}) is not the "
+                                 f"3-card resume's {b['losses']} bit for bit")
+        out["zero1_shrink"] = {"losses": a["losses"], "resume_losses": b["losses"], "bitwise": True,
+                               "resizes": a["elastic"]["resizes"], "world": a["world_size"]}
+        m = run_entry(base + ["--num-processes", "4", "--elastic", "--elastic-dir", tempfile.mkdtemp(
+            prefix="chip_smoke_18c_m_"), "--chaos", "worker-kill@1:2", "--dispatch-depth", "2"],
+            "18c mid-epoch shrink 4 -> 3")
+        # Steps 0-1 at 4 cards are the first run's; the epoch's other 2 and
+        # epoch 1's 4 run at 3.
+        if m["world_size"] != 3 or len(m["elastic"]["resizes"]) != 1 or m["losses"][:2] != a["losses"][:2] \
+                or len(m["losses"]) != 8 or not all(math.isfinite(x) for x in m["losses"]):
+            raise AssertionError(f"18c: the mid-epoch shrink: world {m['world_size']}, resizes "
+                                 f"{m['elastic']['resizes']}, losses {m['losses']} (the first run's {a['losses']})")
+        out["zero1_mid_epoch_shrink"] = {"losses": m["losses"], "resizes": m["elastic"]["resizes"],
+                                         "world": m["world_size"]}
+    at = base.index("--zero")
+    fs = base[:at] + base[at + 2:] + ["--fsdp", "--tp", "2"]
+    c_ck = tempfile.mkdtemp(prefix="chip_smoke_18c_c_")
+    procs = 4 if n >= 4 else 2
+    straight = run_entry(fs + ["--num-processes", str(procs)], f"18c --fsdp --tp 2 on {procs} cards")
+    run_entry(_set(fs, "--epochs", "1") + ["--num-processes", str(procs), "--checkpoint-dir", c_ck],
+              f"18c --fsdp --tp 2 save on {procs}")
+    # The same global batch at data 1: the batch a rank doubles.
+    rows = str(int(fs[fs.index("--batch-size") + 1]) * (procs // 2))
+    d = run_entry(_set(fs, "--batch-size", rows) + ["--num-processes", "2", "--checkpoint-dir", c_ck, "--resume"],
+                  "18c --fsdp --tp 2 resume on 2")
+    diff = max(abs(x - y) for x, y in zip(d["losses"], straight["losses"][4:]))
+    if d["start_epoch"] != 1 or diff > ELASTIC_ENTRY_ATOL:
+        raise AssertionError(f"18c: the 2-card resume's {d['losses']} against {straight['losses'][4:]}")
+    out["fsdp_tp_resume"] = {"saved_on": procs, "losses": d["losses"], "straight": straight["losses"][4:],
+                             "max_diff": diff, "atol": ELASTIC_ENTRY_ATOL}
+    return out
+
+
 def release(torch) -> None:
     """Free what earlier runs left (a model held by a reference cycle, say,
     the reducer's hooks) before the next run's peak is measured."""
@@ -3984,10 +4220,25 @@ def main() -> int:
         f"({warm_start.warm_start_mode()}: {warm_start.STATS.misses} built, {warm_start.STATS.hits} found)")
     for line in ptxas_report(so.with_suffix(".log").read_text()):
         log("    " + line)
+    if "--elastic-faults" in sys.argv[1:]:
+        # Phase 18a alone, then the faults planted in its checkpoint.
+        gang = ElasticGang()
+        try:
+            fa.reset_launches()
+            sound = elastic_phase(torch, dpp, fa, gang, smi)
+        finally:
+            gang.stop()
+        faults = elastic_faults(torch, dpp, gang, sound["cpu_losses"])
+        log(json.dumps({"elastic_faults": {"sound": sound, "planted": faults}, "card": smi,
+                        "seconds": time.perf_counter() - t_all}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)
+        return 0
     if "--multi-gpu" in sys.argv[1:]:
         # Only the entry-point runs over several GPUs (12c, 13c, 14c, 15c,
-        # 15c+, or those named after the flag): what a one-card run skips.
-        entries = {"12c": cp_tp_entry, "13c": fsdp_entry, "14c": moe_entry, "15c": pp_entry, "15c+": pp_entry_16b}
+        # 15c+, 18c, or those named after the flag): what a one-card run
+        # skips.
+        entries = {"12c": cp_tp_entry, "13c": fsdp_entry, "14c": moe_entry, "15c": pp_entry, "15c+": pp_entry_16b,
+                   "18c": elastic_entry}
         picked = [a for a in sys.argv[sys.argv.index("--multi-gpu") + 1:] if a in entries] or list(entries)
         out = {name: entries[name](torch, smi) for name in picked}
         log(json.dumps({"multi_gpu": out, "card": smi, "seconds": time.perf_counter() - t_all}))
@@ -4033,8 +4284,11 @@ def main() -> int:
         f"{summary['peak_memory_bytes'] / 2**30:.2f} GiB on {smi}")
 
     seconds = {"1_4": time.perf_counter() - t_all}
+    gang = None
 
     def timed(name, fn, *a):
+        if gang is not None and gang.running():
+            gang.beside.append(name)
         t = time.perf_counter()
         out = fn(*a)
         seconds[name] = time.perf_counter() - t
@@ -4048,15 +4302,27 @@ def main() -> int:
     reference = timed("8", reference_workload_phase, torch, dpp, fa, smi)
     fault = timed("9", fault_path_phase, torch, dpp, losses, smi)
     serving = timed("10", serving_path_phase, torch, dpp, fa, smi)
-    layouts = timed("11", layouts_phase, torch, dpp, fa, smi)
-    cp_tp = timed("12", cp_tp_phase, torch, fa, tfm, smi)
-    fsdp_path = timed("13", fsdp_phase, torch, dpp, fa, llama["losses"], layouts["gpt2"]["plain"]["losses"], smi)
-    moe_path = timed("14", moe_phase, torch, dpp, fa, tfm, smi)
-    pp_path = timed("15", pp_phase, torch, fa, tfm, smi)
-    fa.reset_launches()
-    warm_path = timed("16", warm_start_phase, torch, dpp, summary["faults"], fault["replay"]["restart"], smi)
-    warm_path["attention_launches"] = dict(fa.LAUNCHES)
-    fleet_path = timed("17", fleet_phase, torch, fa, smi)
+    # Phase 18a's CPU gang, from phase 11 on, on 2 cores of its own, the
+    # phases beside it on the others (not beside 9 or 10, whose host-side
+    # latencies are figures of their own); the phases it ran beside are in
+    # the elastic_path line.
+    gang = ElasticGang()
+    try:
+        layouts = timed("11", layouts_phase, torch, dpp, fa, smi)
+        cp_tp = timed("12", cp_tp_phase, torch, fa, tfm, smi)
+        fsdp_path = timed("13", fsdp_phase, torch, dpp, fa, llama["losses"], layouts["gpt2"]["plain"]["losses"],
+                          smi)
+        moe_path = timed("14", moe_phase, torch, dpp, fa, tfm, smi)
+        pp_path = timed("15", pp_phase, torch, fa, tfm, smi)
+        fa.reset_launches()
+        warm_path = timed("16", warm_start_phase, torch, dpp, summary["faults"], fault["replay"]["restart"], smi)
+        warm_path["attention_launches"] = dict(fa.LAUNCHES)
+        fleet_path = timed("17", fleet_phase, torch, fa, smi)
+        fa.reset_launches()
+        elastic_path = timed("18", elastic_phase, torch, dpp, fa, gang, smi)
+    finally:
+        gang.stop()
+    log("    18c: only with --multi-gpu on 2+ GPUs (not run on this one-card call)")
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -4077,6 +4343,7 @@ def main() -> int:
             "launches_pp_path": pp_path["attention_launches"][name],
             "launches_warm_start_path": warm_path["attention_launches"][name],
             "launches_fleet_path": fleet_path["attention_launches"][name],
+            "launches_elastic_path": elastic_path["attention_launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -4113,6 +4380,7 @@ def main() -> int:
     log(json.dumps({"pp_path": pp_path, "card": smi}))
     log(json.dumps({"warm_start_path": warm_path, "card": smi}))
     log(json.dumps({"fleet_path": fleet_path, "card": smi}))
+    log(json.dumps({"elastic_path": elastic_path, "card": smi}))
     log(json.dumps({"phase_seconds": seconds, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")

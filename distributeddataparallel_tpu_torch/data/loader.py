@@ -64,6 +64,13 @@ class DataLoader:
     ``workers=True`` gathers host batches on a background thread, one batch
     ahead (one ordered producer, as in the reference).
 
+    ``index_shards`` (every replica's row indices, ``(num_replicas, n)``:
+    ``data.sharded.resize_index_plan``) replaces the sampler with row
+    ``rank`` of it: the rest of an epoch after an elastic resize.
+    ``set_epoch`` then changes nothing (the rows are one epoch's tail), and
+    the augment draws are keyed on epoch 0, as the reference's tail loader
+    draws them.
+
     Over a mesh, ``rank`` and ``num_replicas`` are the ``data`` axis's index
     and size: ranks that share a data index (the ``seq`` and ``model`` ranks
     of one replica) get the same rows.  ``seq_shard=(index, n)`` (context
@@ -89,6 +96,7 @@ class DataLoader:
         workers: bool = False,
         seq_shard: tuple[int, int] | None = None,
         starvation_window: int = 50,
+        index_shards=None,
     ):
         self.dataset = dataset
         self.starvation_window = starvation_window
@@ -107,6 +115,15 @@ class DataLoader:
             shuffle=shuffle, seed=seed, drop_last=False,
         )
         n = self.sampler.num_samples
+        self._index_shards = None
+        if index_shards is not None:
+            if with_mask:
+                raise ValueError("index_shards + with_mask is unsupported (pad-slot masks are a function of "
+                                 "sampler geometry)")
+            rows = np.asarray(index_shards, np.int64)
+            if rows.ndim != 2 or len(rows) != num_replicas:
+                raise ValueError(f"index_shards has {len(rows)} rows for {num_replicas} replicas")
+            self._index_shards, n = rows[rank], rows.shape[1]
         arrays = getattr(dataset, "arrays", None)
         self._fused_augment = bool(
             augment is not None and hasattr(augment, "gather_u8")
@@ -117,7 +134,8 @@ class DataLoader:
 
     def set_epoch(self, epoch: int) -> None:
         """Reshuffle for a new epoch."""
-        self.sampler.set_epoch(epoch)
+        if self._index_shards is None:
+            self.sampler.set_epoch(epoch)
 
     def __len__(self) -> int:
         return self.steps_per_epoch
@@ -174,7 +192,7 @@ class DataLoader:
 
     def _host_batches(self) -> Iterator[dict]:
         smp, B = self.sampler, self.per_replica_batch
-        own = smp.local_indices()
+        own = smp.local_indices() if self._index_shards is None else self._index_shards
         for step in range(self.steps_per_epoch):
             idx = own[step * B : (step + 1) * B]
             if self.augment is None:

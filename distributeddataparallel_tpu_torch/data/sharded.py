@@ -9,6 +9,9 @@ with the same on-disk format, so each package reads the other's directories:
 Image shards are memory-mapped: a batch reads only its rows, and the corpus
 is never held in host memory.  The writers generate shard by shard, so their
 peak memory is one shard.
+
+``resize_index_plan`` deals the rest of an epoch to a gang that changed
+size mid-epoch (the elastic resize), for any dataset.
 """
 
 from __future__ import annotations
@@ -148,3 +151,32 @@ normalize, ``native.gather_normalize_u8``), or with
     def __getitem__(self, idx):
         b = self.gather(np.asarray([idx]))
         return b["image"][0], b["label"][0]
+
+
+def resize_index_plan(dataset_len: int, *, per_replica_batch: int, old_world: int, new_world: int,
+                      consumed_steps: int, seed: int = 0, epoch: int = 0, membership_epoch: int = 0,
+                      shuffle: bool = True) -> np.ndarray:
+    """Per-replica index shards for the rest of an epoch after a mid-epoch
+    gang resize (the reference's ``resize_index_plan``): every sample is
+    still seen at most once in the epoch.
+
+    The epoch's permutation is the sampler's (``default_rng(seed +
+    epoch)``); after ``consumed_steps`` batches of ``per_replica_batch`` at
+    ``old_world`` replicas the strided shards have consumed its first
+    ``consumed_steps * B * old_world`` positions.  The rest is reshuffled
+    under a generator keyed on the membership epoch (a second resize in the
+    same data epoch reshuffles again) and dealt to ``new_world`` replicas,
+    strided, in whole batches.  Returns an int64 array ``(new_world, steps
+    * B)``: row r is replica r's indices."""
+    if per_replica_batch < 1 or old_world < 1 or new_world < 1:
+        raise ValueError("per_replica_batch / old_world / new_world must be >= 1")
+    B = per_replica_batch
+    perm = np.random.default_rng(seed + epoch).permutation(dataset_len) if shuffle else np.arange(dataset_len)
+    remaining = perm[min(consumed_steps * B * old_world, dataset_len):]
+    rng = np.random.default_rng((seed, 0xE1A57, epoch, membership_epoch))
+    remaining = remaining[rng.permutation(len(remaining))]
+    steps = len(remaining) // (B * new_world)
+    shards = np.empty((new_world, steps * B), dtype=np.int64)
+    for r in range(new_world):
+        shards[r] = remaining[r::new_world][: steps * B]
+    return shards

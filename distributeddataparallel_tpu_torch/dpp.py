@@ -103,8 +103,8 @@ kernels' builds at ``DIR/build/``, inherited by spawned and restarted
 processes; the ``warm_start`` event says ``cold``, ``cache-hit`` or
 ``eager``.
 
-The reference's flags whose feature is not ported yet (``--elastic*``,
-``--integrity-*``, ...) parse with its defaults and checks; a value off the
+The reference's flags whose feature is not ported yet (``--integrity-*``,
+...) parse with its defaults and checks; a value off the
 default raises ``NotImplementedError`` naming its ROADMAP item
 (``UNPORTED_FLAGS``).
 """
@@ -115,7 +115,6 @@ import argparse
 import contextlib
 import dataclasses
 import functools
-import itertools
 import json
 import math
 import os
@@ -425,11 +424,17 @@ def parse_args(argv=None):
                         "then observes each step's flag with a lag of at most K).  0 = a synchronous "
                         "per-step loop")
     p.add_argument("--elastic", action="store_true",
-                   help="elastic gang resize: not ported yet (ROADMAP item 13)")
+                   help="elastic gang runtime (runtime.elastic_gang): a member lost at a step boundary (chaos "
+                        "worker-kill) is resized around in place, its ZeRO-1 state resharded over the old "
+                        "gang, no checkpoint read; under --max-restarts a gang that died shrunk is "
+                        "respawned at the surviving size without spending the restart budget.  DP and "
+                        "--zero 1 only")
     p.add_argument("--min-procs", type=int, default=1,
-                   help="smallest gang --elastic resizes to: not ported yet (ROADMAP item 13)")
+                   help="with --elastic: smallest gang worth resizing to; fewer survivors fall back to "
+                        "the restart path")
     p.add_argument("--elastic-dir", default=None, metavar="DIR",
-                   help="rendezvous root for --elastic: not ported yet (ROADMAP item 13)")
+                   help="rendezvous store root for --elastic (env: DDP_ELASTIC_DIR); defaults to "
+                        "EVENTS_DIR/gang or CHECKPOINT_DIR/.gang")
     p.add_argument("--integrity-every", type=int, default=0, metavar="N",
                    help="state digests every N steps: not ported yet (ROADMAP item 20)")
     p.add_argument("--integrity-shadow", action="store_true",
@@ -455,6 +460,17 @@ def parse_args(argv=None):
         args.compile_cache = os.environ.get(warm_start.ENV) or None
     if args.alerts is None and os.environ.get("DDP_ALERTS") is not None:
         args.alerts = os.environ.get("DDP_ALERTS")
+    if args.elastic_dir is None:
+        args.elastic_dir = os.environ.get("DDP_ELASTIC_DIR") or None
+    if args.elastic and os.environ.get("DDP_ELASTIC_WORLD"):
+        # A resize-respawn from the elastic supervisor: the gang comes back
+        # at the surviving size, not the argv's (on the card: the first M).
+        m = int(os.environ["DDP_ELASTIC_WORLD"])
+        if args.num_processes:
+            args.num_processes = m
+        else:
+            args.fake_devices = m if args.device == "cpu" else 0
+            args.num_processes = None if args.device == "cpu" else m
     if args.alerts is not None:
         try:
             parse_alert_spec(args.alerts)
@@ -502,7 +518,6 @@ def parse_args(argv=None):
 #: raises ``NotImplementedError`` naming the item (after the reference's own
 #: checks of the value, ``_validate_reference_rules``).
 UNPORTED_FLAGS = {
-    "13": ("elastic", "elastic_dir", "min_procs"),
     "20": ("integrity_every", "integrity_shadow"),
     "10's remainder": ("bw_probe",),
     "21": ("lint_step",),
@@ -582,6 +597,9 @@ def _validate_reference_rules(args) -> None:
         if not (args.elastic_dir or args.events_dir or args.checkpoint_dir):
             raise SystemExit("--elastic needs a rendezvous root: --elastic-dir, or "
                              "--events-dir/--checkpoint-dir to derive one")
+        if args.coordinator:
+            raise NotImplementedError("--elastic across hosts (--coordinator) is hostgang's: ROADMAP.md "
+                                      "Queue 1, item 20")
     if args.integrity_every:
         if args.integrity_every < 0:
             raise SystemExit("--integrity-every must be >= 0")
@@ -933,14 +951,15 @@ def run(args, *, local_rank: int = 0, nprocs: int = 1, store_address: str | None
         # path's split): the process's start and this function's entry on
         # the wall clock, the CUDA context, the checkpoint read, the kernel
         # libraries' builds or loads, and the first step (``train``'s).
-        summary["startup"].update(process_start_unix=_process_started(), run_entry_unix=entered,
-                                  cuda_context_s=context_s)
+        if "startup" in summary:  # not on a member that left the gang
+            summary["startup"].update(process_start_unix=_process_started(), run_entry_unix=entered,
+                                      cuda_context_s=context_s)
     except SimulatedPreemption as pe:
         warn_all("%s", pe)
         raise SystemExit(1) from pe
     finally:
         rt.destroy_process_group()
-    if rank == 0 and result_file:
+    if summary.get("rank") == 0 and result_file:  # the rank after any elastic resize
         with open(result_file, "w") as fh:
             json.dump(summary, fh)
     return summary
@@ -967,6 +986,7 @@ def build_mesh(args, world_size: int):
             axes.append(name)
             sizes.append(degree)
     if not sizes:
+        rt.clear_mesh()
         return None
     if world_size % math.prod(sizes):
         raise SystemExit(
@@ -1147,6 +1167,142 @@ class Faults:
     checkpointer: ResilientCheckpointer | None = None
     watchdog: StepWatchdog | None = None
     signal: int | None = None  # set by the SIGTERM handler
+    gang: "Gang | None" = None
+
+
+@dataclasses.dataclass
+class Gang:
+    """This process's membership of the elastic gang (``--elastic``, ref
+    ``dpp.py:1815-1850``): the coordinator, this process's member name
+    (``proc{rank}`` at start), the members in rank order, and this
+    process's rank and world size now (each resize renumbers the
+    survivors in that order); ``left`` once a resize took it out."""
+    coordinator: object
+    member: str
+    order: list
+    rank: int
+    world: int
+    left: bool = False
+    resizes: list = dataclasses.field(default_factory=list)  # (old world, new world, seconds) of each
+
+
+def build_gang(args, injector: FaultInjector, events, rank: int, world_size: int) -> Gang:
+    """Join the elastic gang as ``proc{rank}`` and agree its first epoch;
+    the chaos worker-kill tombstones members through it, and every fired
+    chaos entry leaves a breadcrumb in the store for the supervisor's
+    verdict."""
+    from distributeddataparallel_tpu_torch.runtime.elastic_gang import ElasticGangCoordinator
+
+    root = elastic_store_dir(args)
+    hb, sus = os.environ.get("DDP_HEARTBEAT_TIMEOUT"), os.environ.get("DDP_SUSPECT_AFTER")
+    member = f"proc{rank}"
+    coordinator = ElasticGangCoordinator(root, world=[member], min_size=args.min_procs, events=events,
+                                         heartbeat_timeout_s=float(hb) if hb else None,
+                                         suspect_after_s=float(sus) if sus else None)
+    coordinator.store.join(member)
+    rt.barrier()  # every member has joined before the first epoch is proposed over the live set
+    coordinator.start()
+    injector.gang = coordinator
+    injector.hosts = {str(r): f"proc{r}" for r in range(world_size)}
+    if injector.fault_log is None:
+        injector.fault_log = os.path.join(root, "faults.jsonl")
+    return Gang(coordinator, member, [f"proc{r}" for r in range(world_size)], rank, world_size)
+
+
+class _SwappableStream:
+    """``(batch index, batch)`` of at most ``cap`` batches of a loader that
+    the elastic resize can swap mid-epoch for the rest of the epoch, dealt
+    to the new gang; the index keeps counting (ref ``dpp.py:880-902``)."""
+
+    def __init__(self, loader, cap: int):
+        self._it, self._idx, self.cap = iter(loader), -1, cap
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._idx + 1 >= self.cap:  # no batch is gathered past the cap
+            raise StopIteration
+        batch = next(self._it)
+        self._idx += 1
+        return self._idx, batch
+
+    def swap(self, loader) -> None:
+        close = getattr(self._it, "close", None)
+        if close is not None:
+            close()
+        self._it = iter(loader)
+
+
+def elastic_resize(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, gang: Gang, decision,
+                   epoch: int, consumed: int):
+    """The in-place resize after an agreed membership change (ref
+    ``dpp.py:2799-2925``), every step in flight drained: the live ZeRO-1
+    state resharded over the OLD group (the leaving member takes part), the
+    process group re-formed over the survivors in rank order, the trainer
+    rebuilt at the new world with the live parameters, optimizer state,
+    schedule and step, and the rest of this epoch dealt to the new gang
+    (``resize_index_plan``; ``consumed`` batches were trained).  Returns
+    the tail loader, or None on the member that left.  No checkpoint is
+    read."""
+    from distributeddataparallel_tpu_torch.data.sharded import resize_index_plan
+    from distributeddataparallel_tpu_torch.runtime.elastic_gang import measure_downtime, reshard_live_state
+    from distributeddataparallel_tpu_torch.training.elastic import saved_groups
+    from distributeddataparallel_tpu_torch.training.optim import load_optimizer_state, optimizer_state_dict
+
+    t_rs = time.perf_counter()
+    state, old_world = trainer.state, gang.world
+    survivors = [m for m in gang.order if m in set(decision.roster)]
+    new_rank = survivors.index(gang.member) if gang.member in survivors else None
+    zero = reshard_live_state(state, new_rank, len(survivors))  # a collective of the old group
+    live = None
+    if new_rank is not None:
+        live = {"model": state.model.state_dict(), "step": state.step,
+                "optimizer": None if zero else optimizer_state_dict(state.optimizer),
+                "scheduler": state.scheduler.state_dict() if state.scheduler is not None else None}
+    got = rt.rebuild_process_group([gang.order.index(m) for m in survivors], decision.epoch)
+    gang.order = survivors
+    if got is None:
+        gang.left = True
+        tel.rank, tel.world_size = None, 1  # no barrier with the gang it left, no timeline merge
+        return None
+    gang.rank, gang.world = got
+    new = build_trainer(args, device, gang.rank, gang.world)
+    with new.state.full_params():
+        new.state.model.load_state_dict(live["model"])
+    layout = new.state.zero
+    load_optimizer_state(new.state.optimizer, live["optimizer"] if zero is None else layout.optimizer_state(
+        zero["flats"], zero["scalars"], saved_groups(zero, new.state.optimizer)))
+    if new.state.scheduler is not None:
+        new.state.scheduler.load_state_dict(live["scheduler"])
+    new.state.step = live["step"]
+    del live, state
+    plan = resize_index_plan(len(new.loader.dataset), per_replica_batch=args.batch_size, old_world=old_world,
+                             new_world=gang.world, consumed_steps=consumed, seed=args.seed, epoch=epoch,
+                             membership_epoch=decision.epoch)
+    tail = DataLoader(new.loader.dataset, per_replica_batch=args.batch_size, rank=gang.rank,
+                      num_replicas=gang.world, device=device, shuffle=True, seed=args.seed, drop_last=True,
+                      workers=args.workers > 0, augment=CifarAugment() if args.augment else None,
+                      index_shards=plan)
+    for f in dataclasses.fields(Trainer):
+        setattr(trainer, f.name, getattr(new, f.name))
+    tel.rank, tel.world_size = gang.rank, gang.world
+    tel.items_per_step = args.batch_size * gang.world * (args.seq_len if is_lm(args) else 1)
+    tel.timer.n_chips = gang.world
+    tel.bind_loader(tail)
+    if tel.mfu_meter is not None:
+        tel.mfu_meter = None
+        log0("elastic resize: MFU meter disabled (chip count changed mid-run)")
+    downtime = measure_downtime(t_rs)
+    if tel.events is not None:
+        tel.events.emit("resize_downtime", epoch=decision.epoch, seconds=round(downtime, 3))
+    tel.add_goodput("resize", downtime)
+    gang.resizes.append({"old_size": old_world, "new_size": gang.world, "epoch": decision.epoch,
+                         "seconds": downtime})
+    log(f"elastic resize: {old_world} -> {gang.world} replicas (membership epoch {decision.epoch}, left: "
+        f"{list(decision.left)}) in {downtime:.2f}s — no checkpoint read")
+    tel.reset_window()
+    return tail
 
 
 def build_injector(args, rank: int, world_size: int, events=None) -> FaultInjector:
@@ -1226,7 +1382,7 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
     after it, as a synchronous loop."""
     state, step_fn, loader, spe = trainer.state, trainer.step_fn, trainer.loader, trainer.steps_per_epoch
     eval_step, eval_loader, model = trainer.eval_step, trainer.eval_loader, trainer.state.model
-    injector, ckpt, watchdog = faults.injector, faults.checkpointer, faults.watchdog
+    injector, ckpt, watchdog, gang = faults.injector, faults.checkpointer, faults.watchdog, faults.gang
     losses, step_times, eval_batches, evals, moe_aux = [], [], 0, [], []
     wall, wall_steps, preempted = 0.0, 0, None
     depth = args.dispatch_depth
@@ -1259,13 +1415,20 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
         _sync(device)
 
     tel.sync = drain  # the telemetry's device syncs (windows, first step, traces) are drains
+    if gang is not None:
+        # Every rank fires the same worker-kill@S: its tombstone waits for
+        # this barrier, so no rank whose host ran ahead by the dispatch
+        # depth shows it to a rank still polling an earlier step.
+        injector.sync = lambda: (drain(), rt.barrier())
     counts = None  # the first pipeline step's unit counts (on the device)
     for epoch in range(start_epoch, args.epochs):
         loader.set_epoch(epoch)
+        if tel.loader is not loader:
+            tel.bind_loader(loader)
         ends = []
         with tel.span("epoch", epoch=epoch), tel.epoch_trace(epoch == start_epoch):
-            # islice: the loader gathers no batch past the cap.
-            for i, batch in enumerate(itertools.islice(loader, spe)):
+            stream = _SwappableStream(loader, trainer.steps_per_epoch)
+            for i, batch in stream:
                 # Stable across restarts: (epoch, batch)-derived.
                 gstep = epoch * spe + i
                 tel.step_start(gstep)
@@ -1316,11 +1479,27 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
                         f"from epoch {epoch + 1}")
                     preempted = epoch
                     break
+                decision = None
+                if gang is not None:
+                    # Store files, no device value: the poll keeps the no
+                    # host read in a step rule.
+                    injector.after_step(gstep)
+                    c = gang.coordinator
+                    decision = c.await_departure() if c.leaving() else c.poll()
+                if decision is not None:
+                    drain()  # nothing in flight crosses the swap
+                    tail = elastic_resize(args, trainer, device, tel, log, gang, decision, epoch, i + 1)
+                    if tail is None:  # this member left the gang
+                        break
+                    stream.swap(tail)
+                    state, step_fn, loader = trainer.state, trainer.step_fn, trainer.loader
+                    eval_step, eval_loader, model = trainer.eval_step, trainer.eval_loader, state.model
+                    rank, world_size = gang.rank, gang.world
         drain()  # the epoch's edge: eval and checkpoint see every step settled
         ends[-1] = time.perf_counter()
         # Steps 2.. of the epoch on the wall clock, the loader's time included.
         wall, wall_steps = wall + ends[-1] - ends[0], wall_steps + len(ends) - 1
-        if preempted is not None:
+        if preempted is not None or (gang is not None and gang.left):
             break
         if eval_step is not None:
             t_ev = time.perf_counter()
@@ -1369,6 +1548,8 @@ def build_faults(args, state: TrainState, tel: Telemetry, rank: int, world_size:
                 warn_all("watchdog: emergency checkpoint failed")
 
         faults.watchdog = StepWatchdog(args.step_timeout, on_timeout=on_wedge)
+    if args.elastic:
+        faults.gang = build_gang(args, faults.injector, tel.events, rank, world_size)
     return faults
 
 
@@ -1396,8 +1577,14 @@ def _sigterm_sets(faults: Faults, enabled: bool):
 
 def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_size: int = 1) -> dict:
     """Run ``trainer`` for these flags on this rank, from the newest
-    checkpoint with ``--resume``; returns the run summary."""
-    log = (lambda *a: print(*a, flush=True)) if rank == 0 else (lambda *a: None)
+    checkpoint with ``--resume``; returns the run summary (under
+    ``--elastic``, of this rank after every resize; a member that left the
+    gang returns ``{"left_gang": True}`` with its losses)."""
+    def log(*a):
+        gang = faults.gang if faults is not None else None
+        if (rank if gang is None else -1 if gang.left else gang.rank) == 0:
+            print(*a, flush=True)
+
     state, model = trainer.state, trainer.state.model
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -1421,6 +1608,10 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         with _sigterm_sets(faults, enabled=faults.checkpointer is not None):
             losses, step_times, eval_batches, evals, wall, wall_steps, preempted, moe_aux = _loop(
                 args, trainer, device, tel, log, faults, start_epoch, rank, world_size)
+        if faults.gang is not None:
+            if not faults.gang.left:
+                rt.barrier()  # no survivor is still polling when the first one leaves the store
+            faults.gang.coordinator.stop()  # a later run in this store starts from an empty gang
     except BaseException as e:
         status = type(e).__name__
         raise
@@ -1429,6 +1620,11 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
             faults.watchdog.stop()
         tel.sync = lambda: _sync(device)  # the loop's drain ends with the loop
         tel.close(status)
+    if faults.gang is not None:
+        if faults.gang.left:
+            return {"left_gang": True, "rank": None, "losses": losses}
+        rank, world_size = faults.gang.rank, faults.gang.world
+    state, model = trainer.state, trainer.state.model
 
     # Step 1 pays the one-time costs (kernel build and load, allocator
     # warm-up); the steady-state step time excludes it when there are more.
@@ -1446,6 +1642,7 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         "model": args.model,
         "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "rank": rank,
         "world_size": world_size,
         "layout": layout_name(args),
         "num_params": state.num_params(),
@@ -1473,6 +1670,9 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         # FSDP's flat gathers (forward and remat's recompute) and scatters.
         "fsdp_collectives": {k: n - fsdp0[k] for k, n in fsdp.COUNTS.items()},
         "dispatch_depth": args.dispatch_depth,
+        # --elastic: each in-place resize of the gang (sizes, membership
+        # epoch, seconds from the agreed decision to the rebuilt trainer).
+        "elastic": {"resizes": faults.gang.resizes} if faults.gang is not None else None,
         # This run's kernel library builds: found in the cache, or compiled.
         "kernel_builds": {"cache": args.compile_cache, "hits": warm_start.STATS.hits - builds0[0],
                           "misses": warm_start.STATS.misses - builds0[1]},
@@ -1494,6 +1694,16 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
                 if rank == 0:
                     summary["generate"] = run_generate(args, model, trainer.loader.dataset, log)
     return summary
+
+
+def elastic_store_dir(args) -> str:
+    """The rendezvous root the trainers and their supervisor share (each
+    derives it from the same argv, so a respawn finds the same store)."""
+    if args.elastic_dir:
+        return args.elastic_dir
+    if args.events_dir:
+        return os.path.join(args.events_dir, "gang")
+    return os.path.join(args.checkpoint_dir, ".gang")
 
 
 def layout_name(args) -> str:
@@ -1530,8 +1740,9 @@ def _worker(local_rank: int, nprocs: int, store_address: str | None, argv: list[
     """One rank of this host's gang (``runtime.launcher.spawn``)."""
     args = parse_args(argv)
     if args.device == "cpu":
-        # Share the cores between the ranks instead of oversubscribing them.
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // nprocs))
+        # Share the cores this process may run on between the ranks
+        # instead of oversubscribing them.
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // nprocs))
     run(args, local_rank=local_rank, nprocs=nprocs, store_address=store_address, result_file=result_file)
 
 
@@ -1572,16 +1783,24 @@ def main(argv=None) -> dict | None:
         return run(args)
     if supervised and "--resume" not in argv:
         argv.append("--resume")
+    env = None
+    if supervised:
+        env = {"_DDP_SUPERVISED": "1"}
+        if args.elastic:
+            # One rendezvous root for every incarnation: the supervisor
+            # reads its tombstones to tell a shrunk gang from a crash.
+            env["DDP_ELASTIC_DIR"] = elastic_store_dir(args)
     with tempfile.TemporaryDirectory(prefix="ddp_summary_") as d:
         result = os.path.join(d, "summary.json")
         launcher.spawn(
-            _worker, args=(argv, result), nprocs=n,
-            env={"_DDP_SUPERVISED": "1"} if supervised else None,
+            _worker, args=(argv, result), nprocs=n, env=env,
             max_restarts=args.max_restarts if supervised else 0,
             # The supervisor writes the gang timeline and the runs-store
             # record: only its view spans every incarnation.
             events_dir=args.events_dir if supervised else None,
             runs_dir=args.runs_dir if supervised else None,
+            elastic_store=elastic_store_dir(args) if supervised and args.elastic else None,
+            min_procs=args.min_procs,
         )
         if not os.path.exists(result):
             return None

@@ -497,13 +497,13 @@ def _plain_names(meta: FsdpMeta) -> list[str]:
 
 def plain_optimizer_state(meta: FsdpMeta, shard_states: list[dict], param_groups: list) -> dict:
     """The optimizer ``state_dict`` of a plain run of the whole model from
-    each data rank's FSDP shard ``state_dict`` (in data-rank order, no TP):
-    every per-element state (moments, momentum) gathered into the flats
-    and unflattened per parameter, the scalars (AdamW's step) as they are.
-    ``param_groups``: the plain optimizer's own."""
-    if meta.n_tp != 1:
-        raise ValueError("FSDP x TP optimizer state loads at the same mesh only: resharding is ROADMAP "
-                         "item 13")
+    every FSDP shard ``state_dict``, model position major (each position's
+    data ranks in order; one position without TP): every per-element state
+    (moments, momentum) gathered into each position's flats, unflattened
+    per parameter and its TP shards merged (``merge_tp_shards``), the
+    scalars (AdamW's step) as they are.  ``param_groups``: the plain
+    optimizer's own."""
+    n = len(shard_states) // meta.n_tp
     per_name: dict[str, dict] = {}
     specs = [(meta.layer, f"layers.{i}.") for i in range(meta.L)] + [(meta.rest, "")]
     for idx, (spec, prefix) in enumerate(specs):
@@ -513,7 +513,9 @@ def plain_optimizer_state(meta: FsdpMeta, shard_states: list[dict], param_groups
                 for it in spec.items:
                     per_name.setdefault(prefix + it.name, {})[key] = v.clone()
                 continue
-            for name, t in spec.unflatten(torch.cat([s[key] for s in states]), prefix, True).items():
+            positions = [spec.unflatten(torch.cat([s[key] for s in states[j * n : (j + 1) * n]]), prefix, True)
+                         for j in range(meta.n_tp)]
+            for name, t in merge_tp_shards(positions).items():
                 per_name.setdefault(name, {})[key] = t
     names = _plain_names(meta)
     return {"state": {i: per_name[n] for i, n in enumerate(names) if n in per_name},
@@ -522,11 +524,10 @@ def plain_optimizer_state(meta: FsdpMeta, shard_states: list[dict], param_groups
 
 def shard_optimizer_state(model: FsdpLM, plain_state: dict, param_groups: list) -> dict:
     """Inverse of ``plain_optimizer_state`` for this rank: its FSDP shard
-    optimizer ``state_dict`` from a plain run's (no TP)."""
+    optimizer ``state_dict`` from a plain run's, each per-element state cut
+    to this rank's TP shard first."""
     meta, d = model.meta, model.data_index
-    if meta.n_tp != 1:
-        raise ValueError("FSDP x TP optimizer state loads at the same mesh only: resharding is ROADMAP "
-                         "item 13")
+    tp = axis_index(meta.tp_axis) if meta.n_tp > 1 else 0
     by_name = {n: plain_state["state"].get(i, {}) for i, n in enumerate(_plain_names(meta))}
     out = {}
     specs = [(meta.layer, f"layers.{i}.") for i in range(meta.L)] + [(meta.rest, "")]
@@ -537,7 +538,8 @@ def shard_optimizer_state(model: FsdpLM, plain_state: dict, param_groups: list) 
             if v.dim() == 0:
                 state[key] = v.clone()
                 continue
-            flat = spec.flatten({it.name: by_name[prefix + it.name][key] for it in spec.items})
+            whole = {it.name: by_name[prefix + it.name][key] for it in spec.items}
+            flat = spec.flatten(shard_state_dict_tp(whole, tp, meta.n_tp))
             state[key] = flat[d * spec.chunk : (d + 1) * spec.chunk].clone()
         if state:
             out[idx] = state

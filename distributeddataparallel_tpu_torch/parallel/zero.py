@@ -320,6 +320,20 @@ class ZeroLayout:
         self.shard_params = [nn.Parameter(base[offs[b] + a : offs[b] + a + n], requires_grad=True)
                              for b, a, n in self.piece_slices]
 
+    def optimizer_state(self, flats: dict, scalars: dict, param_groups: list) -> dict:
+        """An optimizer ``state_dict`` over ``shard_params`` from this
+        rank's whole shard of each per-element state (``flats[key]``, its
+        buckets' sub-chunks in order) and the scalars every piece shares
+        (AdamW's step): what a reshard loads (``training.elastic``,
+        ``runtime.elastic_gang``)."""
+        offs, state = self._shard_offsets(), {}
+        for i, (b, a, n) in enumerate(self.piece_slices):
+            st = {k: v[offs[b] + a : offs[b] + a + n].clone() for k, v in flats.items()}
+            st.update((k, v.clone()) for k, v in scalars.items())
+            if st:
+                state[i] = st
+        return {"state": state, "param_groups": param_groups}
+
     def _shard_offsets(self) -> list[int]:
         out, o = [], 0
         for s in self.plan.sub:

@@ -9,6 +9,11 @@ environment.  A multi-host job takes the reference's triple
 ``process_id``): each host runs one process per local device, so the world
 is hosts x local devices and a process's global rank is
 ``process_id * local_devices + local_rank``.
+
+A gang formed on a launcher's store can be re-formed at another size in
+the same processes (``rebuild_process_group``, the elastic resize): every
+group is destroyed and the surviving members join a new one on the same
+store, under a prefix of the membership epoch, ranked in roster order.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ def init_process_group(
     there is no port to race another process for), and a single process
     forms its group on an in-process store.  A CUDA device becomes this
     process's current device before the group forms."""
+    global _STORE_ADDRESS
     if dist.is_initialized():
         raise RuntimeError(
             "init_process_group called twice; call destroy_process_group first"
@@ -93,12 +99,47 @@ def init_process_group(
     dist.init_process_group(
         "nccl" if device.type == "cuda" else "gloo", world_size=world_size, rank=rank, **rendezvous,
     )
+    _STORE_ADDRESS = store_address
     return rank, world_size
 
 
+#: The launcher store this process's group formed on (``store_address``),
+#: which ``rebuild_process_group`` forms the next one on.
+_STORE_ADDRESS: str | None = None
+
+
+def rebuild_process_group(members: list[int], epoch: int) -> tuple[int, int] | None:
+    """Re-form the process group over ``members`` (global ranks of the
+    current group, in the new roster's order) after a membership change:
+    the mesh and every group (NCCL's communicators with them) are
+    destroyed, and each member joins a new group on the launcher's store
+    under the prefix ``gang{epoch}/``, as rank ``members.index(rank)`` of
+    ``len(members)``, on the backend and device it had.  Every rank of the
+    current group calls it; one that is not a member leaves (the store
+    stays the launcher's) and gets None, a member its ``(rank, world
+    size)``.  The caller builds the mesh again (``make_mesh``)."""
+    global _STORE_ADDRESS
+    if not dist.is_initialized():
+        raise RuntimeError("rebuild_process_group: no process group to rebuild")
+    if _STORE_ADDRESS is None:
+        raise RuntimeError("rebuild_process_group needs a group formed on a launcher's store "
+                           "(store_address): a --coordinator gang resizes through hostgang (ROADMAP item 20)")
+    old, backend = dist.get_rank(), dist.get_backend()
+    address = _STORE_ADDRESS
+    destroy_process_group()
+    if old not in members:
+        return None
+    rank, world = members.index(old), len(members)
+    host, port = address.rsplit(":", 1)
+    store = dist.PrefixStore(f"gang{epoch}/", dist.TCPStore(host, int(port), world, is_master=False))
+    dist.init_process_group(backend, store=store, world_size=world, rank=rank)
+    _STORE_ADDRESS = address
+    return rank, world
+
+
 def destroy_process_group() -> None:
-    global _MESH
-    _MESH = None
+    global _MESH, _STORE_ADDRESS
+    _MESH = _STORE_ADDRESS = None
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -217,6 +258,13 @@ def _strides(shape) -> list[int]:
 
 def current_mesh() -> Mesh | None:
     return _MESH
+
+
+def clear_mesh() -> None:
+    """No current mesh (plain DP): a trainer built after a meshed one in
+    the same process must not see that one's axes."""
+    global _MESH
+    _MESH = None
 
 
 def axis_size(axis: str | None) -> int:

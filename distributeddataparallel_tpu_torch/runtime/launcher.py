@@ -1,8 +1,9 @@
 """Launcher: one process per local device, optionally supervised.
 
 Counterpart of the spawn-and-supervise part of the JAX package's
-``runtime/launcher.py`` (without the elastic resize, ROADMAP items 13 and
-20).  ``spawn(fn, args, nprocs)`` starts ``nprocs`` child processes through
+``runtime/launcher.py``, with its resize rung (not the multi-host in-place
+absorption, ``_absorbed_resize``, which needs hostgang's rank bindings:
+ROADMAP item 20).  ``spawn(fn, args, nprocs)`` starts ``nprocs`` child processes through
 the ``spawn`` start method (a fresh interpreter each: a forked CUDA context
 is unusable, and this process never initialises CUDA) and calls
 ``fn(i, nprocs, store_address, *args)`` in child ``i``, after enabling an
@@ -25,8 +26,18 @@ budget; then it raises.  The worker owns resume
 correctness: it restores from its newest checkpoint on start-up
 (``--resume``).
 
+``elastic_store`` (a ``runtime.rendezvous`` root) adds the resize rung
+below the restart: when the dead gang's store shows tombstoned members (a
+chaos ``worker-kill``, a peer's failure detector), the supervisor respawns
+the gang at the surviving size (``DDP_ELASTIC_WORLD``) without spending the
+restart budget, and records ``gang_resize`` and ``resize_downtime``; a
+death with the roster intact takes the restart rung.  ``min_procs`` floors
+the resize.
+
 ``events_dir`` writes the supervisor's records (``restart_attempt``,
-``restart_exhausted``, ``gang_verdict``) to ``events-supervisor.jsonl``,
+``restart_exhausted``, ``gang_resize``, ``resize_downtime``,
+``gang_verdict`` naming the chaos fault behind it) to
+``events-supervisor.jsonl``,
 passes the directory to the workers as ``DDP_EVENTS_DIR``, and merges every
 per-writer file into ``timeline.jsonl`` on exit; ``runs_dir`` appends the
 run summary rebuilt from that timeline, which spans every incarnation and
@@ -35,6 +46,7 @@ the restart gaps, to the runs store (workers get ``DDP_RUNS_DIR``).
 
 from __future__ import annotations
 
+import json
 import multiprocessing as mp
 import os
 import time
@@ -97,6 +109,44 @@ def _run_gang(fn, args, nprocs, env) -> list[tuple[int, int]]:
     return failed
 
 
+def _last_fault(elastic_store: str | None) -> dict | None:
+    """The newest chaos breadcrumb in the store's ``faults.jsonl`` (the
+    injectors' ``fault_log``), or None: the fault a ``gang_verdict``
+    names."""
+    if not elastic_store:
+        return None
+    last = None
+    try:
+        with open(os.path.join(elastic_store, "faults.jsonl")) as fh:
+            for line in fh:
+                try:
+                    rec = json.loads(line)
+                except json.JSONDecodeError:
+                    continue
+                if isinstance(rec, dict):
+                    last = rec
+    except OSError:
+        return None
+    return last
+
+
+def _elastic_survivors(elastic_store: str):
+    """``(store, epoch, roster, survivors)`` of an elastic rendezvous store,
+    or None before its first epoch.  Survivorship is decided by tombstones
+    only: when a gang has just died every heartbeat still looks fresh, and
+    the tombstone is what tells a member removed from the gang from one
+    whose process merely went down with the rest."""
+    from distributeddataparallel_tpu_torch.runtime.rendezvous import RendezvousStore
+
+    store = RendezvousStore(elastic_store)
+    cur = store.epoch()
+    if cur["epoch"] < 0:
+        return None
+    dead = set(store.dead())
+    roster = list(cur["roster"])
+    return store, cur["epoch"], roster, [m for m in roster if m not in dead]
+
+
 def spawn(
     fn: Callable[..., Any],
     args: Sequence[Any] = (),
@@ -107,6 +157,8 @@ def spawn(
     max_restarts: int = 0,
     events_dir: str | None = None,
     runs_dir: str | None = None,
+    elastic_store: str | None = None,
+    min_procs: int = 1,
 ):
     """Run ``fn(i, nprocs, store_address, *args)`` for i in range(nprocs), each
     in a child process, and wait for all; raise ``RuntimeError`` naming the
@@ -114,7 +166,8 @@ def spawn(
     whole gang).  ``join=False`` starts the gang and returns its processes
     at once, with no rendezvous store (``store_address`` None: members that
     form no process group, as the serving fleet's engine workers); the
-    caller joins them."""
+    caller joins them.  ``elastic_store`` / ``min_procs``: the resize rung
+    (module docstring)."""
     if nprocs < 1:
         raise ValueError(f"nprocs must be >= 1, got {nprocs}")
     if max_restarts < 0:
@@ -135,30 +188,65 @@ def spawn(
         from distributeddataparallel_tpu_torch.observability.events import EventLog
 
         sup_events = EventLog(os.path.join(events_dir, "events-supervisor.jsonl"), "supervisor")
+    def verdict(rung: str, **detail) -> None:
+        """The run's terminal record: the rung it ended on, and the chaos
+        fault that led there (None for an organic failure)."""
+        if sup_events is not None:
+            fault = _last_fault(elastic_store) or {}
+            sup_events.emit("gang_verdict", rung=rung, fault=fault.get("entry"), fault_kind=fault.get("kind"),
+                            **detail)
+
     try:
-        attempt = 0
+        attempt = resizes = 0
+        world = nprocs
         while True:
             gang_env = dict(env or {})
             # The worker reads its incarnation (FaultCounters.restarts, its
             # run_start record) from here.
             gang_env["DDP_RESTART_ATTEMPT"] = str(attempt)
+            # This incarnation's start: a chaos entry one of its ranks fired
+            # before it (``utils.chaos``) has fired for every rank.
+            gang_env["DDP_GANG_START"] = repr(time.time())
+            if world != nprocs:
+                gang_env["DDP_ELASTIC_WORLD"] = str(world)
             if events_dir:
                 gang_env.setdefault("DDP_EVENTS_DIR", events_dir)
             if runs_dir:
                 gang_env.setdefault("DDP_RUNS_DIR", runs_dir)
-            failed = _run_gang(fn, args, nprocs, gang_env)
+            failed = _run_gang(fn, args, world, gang_env)
             if not failed:
-                if attempt > 0 and sup_events is not None:
-                    # The run's terminal record: which rung it ended on.
-                    sup_events.emit("gang_verdict", rung="restart", fault=None, fault_kind=None,
-                                    attempts=attempt)
+                if attempt > 0:
+                    verdict("restart", attempts=attempt)
+                elif resizes > 0 or _last_fault(elastic_store) is not None:
+                    verdict("resize", respawns=resizes)
                 return
+            t_died = time.perf_counter()
+            info = _elastic_survivors(elastic_store) if elastic_store is not None else None
+            if info is not None:
+                store, epoch, roster, survivors = info
+                if set(survivors) != set(roster) and len(survivors) >= max(min_procs, 1):
+                    # The resize rung: the gang lost members before it
+                    # died, so it comes back at the surviving size.  The
+                    # whole old roster is tombstoned first (every heartbeat
+                    # is a ghost now); the respawned members join again and
+                    # propose the next epoch over those that came back.
+                    world, resizes = len(survivors), resizes + 1
+                    for m in roster:
+                        store.leave(m)
+                    if sup_events is not None:
+                        sup_events.emit("gang_resize", epoch=epoch + 1, old_size=len(roster),
+                                        new_size=len(survivors), left=sorted(set(roster) - set(survivors)))
+                        sup_events.emit("resize_downtime", epoch=epoch + 1,
+                                        seconds=round(time.perf_counter() - t_died, 3))
+                    get_logger().warning("[supervisor] gang died with a shrunk roster (%d -> %d members) — "
+                                         "elastic resize-respawn, restart budget untouched (%d/%d used)",
+                                         len(roster), len(survivors), attempt, max_restarts)
+                    continue
             if attempt >= max_restarts:
                 if sup_events is not None:
                     sup_events.emit("restart_exhausted", attempt=attempt, failed=failed,
                                     max_restarts=max_restarts)
-                    sup_events.emit("gang_verdict", rung="fail", fault=None, fault_kind=None,
-                                    attempts=attempt, failed=failed, max_restarts=max_restarts)
+                verdict("fail", attempts=attempt, failed=failed, max_restarts=max_restarts)
                 raise RuntimeError(
                     f"spawned processes failed (rank, exitcode): {failed} "
                     f"— restart budget of {max_restarts} exhausted"

@@ -1,9 +1,10 @@
 """Bounded exponential backoff with jitter for transport calls.
 
 Copy of ``RetryPolicy`` / ``retry_call`` from the JAX package's
-``runtime/rendezvous.py`` (the rest of that module, the elastic rendezvous
-store, is ROADMAP item 20).  The fleet's handoff sockets and its workers'
-control connection dial through ``retry_call``.
+``runtime/rendezvous.py``, whose port (``runtime/rendezvous.py``) imports
+them from here.  The fleet's handoff sockets, its workers' control
+connection and the rendezvous store's TCP client dial through
+``retry_call``.
 
 Module-import rule: stdlib only.
 """

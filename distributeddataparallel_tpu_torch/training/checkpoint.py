@@ -3,8 +3,8 @@
 Counterpart of the file half of the reference's ``Checkpointer``
 (``distributeddataparallel_tpu/training/checkpoint.py``) for plain DP, where
 every rank holds the same state.  ``CheckpointFiles.write`` copies the model
-(parameters and buffers), the optimizer, the LR schedule, the step and the
-epoch to the host once, hashes that copy (``state_content_hash``) into the
+(parameters and buffers), the optimizer, the LR schedule, the step, the
+epoch and the topology record to the host once, hashes that copy (``state_content_hash``) into the
 sidecar ``hash_N.json``, then writes the copy to a temporary file and
 renames it into place as ``epoch_N.pt``, so a partial file is never visible
 under a checkpoint's name.  ``read`` verifies the content hash before the
@@ -21,26 +21,29 @@ its shard of the optimizer state (the low-bit moments with their noise
 generator), PowerSGD's error residual.  ``host_payload`` is then a
 collective: every rank calls it, rank 0 gathers each rank's part into the
 payload's ``ranks`` list (and, under ZeRO-3, the model's gathered
-parameters) and gets the payload, the others None.  ``load_into`` gives each
-rank its own part back, at the same world size only (resharding to another
-is ROADMAP item 13).  Under tensor, expert or pipeline parallelism each
-model shard (a rank's heads and hidden units, its experts, its stage's
-layers with the replicated leaves; without ZeRO, its optimizer state too)
-is gathered once, from the ranks at data and seq index 0; the payload's
-``model`` is the shards merged, the whole model (so a plain model loads an
-``--ep`` or ``--pp`` checkpoint's), and each rank cuts its shard out of it
-on resume.  The payload records the mesh: a resume needs the same mesh.  A
-pipeline's payload also records its virtual chunks a stage
-(``pp_virtual``): the stages' layers and optimizer state are in that
-geometry's storage order, so a resume at another ``(pp, virtual)`` is
-refused, as the reference's restore guard refuses it.
-Under FSDP (``parallel.fsdp``) the payload's ``model`` is the whole model
-from the host gather (a collective), its ``layout`` is ``"fsdp"`` (the
-reference's ``topology_meta`` name) and ``ranks`` holds each rank's
-optimizer shard.  It resumes at the same mesh; its model loads into a plain
-run, and a plain checkpoint into an FSDP run, the optimizer state moved
+parameters) and gets the payload, the others None.  Under tensor, expert or
+pipeline parallelism each model shard (a rank's heads and hidden units, its
+experts, its stage's layers with the replicated leaves; without ZeRO, its
+optimizer state too, with its parameters' names) is gathered once, from the
+ranks at data and seq index 0; the payload's ``model`` is the shards
+merged, the whole model (so a plain model loads an ``--ep`` or ``--pp``
+checkpoint's).  Under FSDP (``parallel.fsdp``) the payload's ``model`` is
+the whole model from the host gather (a collective), its ``layout`` is
+``"fsdp"`` and ``ranks`` holds each rank's optimizer shard.
+
+Every payload records its mesh and its topology (``training.elastic``'s
+``topology_meta``: the layout, the data, TP, EP and PP degrees, a
+pipeline's virtual chunks a stage).  ``load_into`` goes through
+``training.elastic.elastic_restore``: at the same mesh each rank takes its
+own part back; at another, the state is resharded as the reference's
+``elastic_restore`` reshards it (replicated, ``zero1`` and ``fsdp``
+layouts, across the data, TP, EP and PP degrees), and refused where the
+reference refuses (another layout, another interleaved pipeline geometry,
+ZeRO-2/3 at another degree).  A payload written before the topology record
+resumes only at its own mesh.  An FSDP payload without TP also loads into a
+plain run, and a plain one into an FSDP run, the optimizer state moved
 between the flats and the parameters (``parallel.fsdp``'s
-``plain_optimizer_state`` / ``shard_optimizer_state``; without TP).
+``plain_optimizer_state`` / ``shard_optimizer_state``).
 Nothing of the dropout stream is saved: each step's masks are a function
 of the run's seed, the epoch and the step (``dpp.step_seed``), so a resumed
 run draws the masks the uninterrupted run would have.
@@ -55,7 +58,6 @@ into an unguarded run, and the reverse.
 
 from __future__ import annotations
 
-import dataclasses
 import hashlib
 import json
 import os
@@ -64,18 +66,15 @@ import re
 import torch
 import torch.distributed as dist
 
-from distributeddataparallel_tpu_torch.parallel.expert_parallel import merge_ep_shards, shard_model_axes
-from distributeddataparallel_tpu_torch.parallel.pipeline_parallel import merge_pp_shards, shard_state_dict_pp
-from distributeddataparallel_tpu_torch.parallel.tensor_parallel import merge_tp_shards
 from distributeddataparallel_tpu_torch.runtime.distributed import (
     PIPE_AXIS,
-    axis_index,
     axis_size,
     current_mesh,
     get_rank,
     get_world_size,
 )
-from distributeddataparallel_tpu_torch.training.optim import load_optimizer_state, optimizer_state_dict
+from distributeddataparallel_tpu_torch.training.elastic import merge_positions, state_topology
+from distributeddataparallel_tpu_torch.training.optim import optimizer_state_dict
 from distributeddataparallel_tpu_torch.training.state import TrainState
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
@@ -138,39 +137,17 @@ def _shard_owner(axes) -> int:
 
 def _merge_model(parts: list, axes: dict, virtual: int = 1) -> dict:
     """The whole model from the owners' shards (``parts``: every rank's
-    part, those of the owners holding ``model``): TP shards merged per
-    expert index, then the experts, then the pipeline stages."""
+    part, those of the owners holding ``model``)."""
     mesh = current_mesh()
-    owned = {r: p.pop("model") for r, p in enumerate(parts) if "model" in p}
     index = lambda r, k: mesh.coords_of(r)[axes[k]] if k in axes else 0
-    stages = []
-    for s in range(axis_size(axes.get("pp"))):
-        rows = []
-        for e in range(axis_size(axes.get("ep"))):
-            row = [sd for r, sd in sorted(owned.items(), key=lambda kv: index(kv[0], "tp"))
-                   if index(r, "ep") == e and index(r, "pp") == s]
-            rows.append(merge_tp_shards(row))
-        stages.append(merge_ep_shards(rows))
-    return merge_pp_shards(stages, virtual) if len(stages) > 1 else stages[0]
+    owned = {(index(r, "tp"), index(r, "ep"), index(r, "pp")): p.pop("model")
+             for r, p in enumerate(parts) if "model" in p}
+    return merge_positions(owned, *(axis_size(axes.get(k)) for k in ("tp", "ep", "pp")), virtual)
 
 
 def _virtual(state: TrainState) -> int:
     """A pipeline stage's virtual chunks (1 for any other model)."""
     return getattr(state.model, "virtual", 1)
-
-
-def _check_pp_geometry(state: TrainState, payload: dict) -> None:
-    """The reference's restore guard (``training/elastic.py:293-308``): a
-    pipeline's layers are stored in its ``(pp, virtual)`` order, so an
-    interleaved checkpoint resumes only at that geometry, and an
-    interleaved run only from a checkpoint of its own geometry."""
-    old_v, new_v = int(payload.get("pp_virtual", 1)), _virtual(state)
-    mesh = payload.get("mesh") or {"axes": [], "shape": []}
-    old_pp, new_pp = dict(zip(mesh["axes"], mesh["shape"])).get(PIPE_AXIS, 1), axis_size(PIPE_AXIS)
-    if old_v != new_v or (new_v > 1 and old_pp != new_pp):
-        raise ValueError(f"checkpoint layer storage is interleaved for (pp={old_pp}, virtual={old_v}) but this run "
-                         f"is (pp={new_pp}, virtual={new_v}) — interleaved layouts resume only at their exact "
-                         f"pipeline geometry")
 
 
 def per_rank(state: TrainState) -> bool:
@@ -185,6 +162,11 @@ def _mesh_record():
     return None if mesh is None else {"axes": list(mesh.axes), "shape": list(mesh.shape)}
 
 
+def _param_names(state: TrainState) -> list[str]:
+    """The model's parameter names in the optimizer's order."""
+    return [n for n, _ in state.model.named_parameters()]
+
+
 def _rank_part(state: TrainState) -> dict:
     out: dict = {}
     axes = _model_axes(state)
@@ -192,6 +174,7 @@ def _rank_part(state: TrainState) -> dict:
         out["model"] = state.model.state_dict()
         if state.zero is None:
             out["optimizer"] = optimizer_state_dict(state.optimizer)
+            out["param_names"] = _param_names(state)
     if state.zero is not None:
         out["optimizer"] = optimizer_state_dict(state.optimizer)
         out["zero_level"] = state.zero.level
@@ -220,7 +203,7 @@ def _fsdp_payload(state: TrainState, epoch: int) -> dict | None:
         return None
     payload = {"model": model, "layout": "fsdp",
                "scheduler": state.scheduler.state_dict() if state.scheduler is not None else None,
-               "step": state.step, "epoch": epoch, "ranks": parts}
+               "step": state.step, "epoch": epoch, "ranks": parts, "topology": state_topology(state)}
     if _mesh_record() is not None:
         payload["mesh"] = _mesh_record()
     return payload
@@ -239,6 +222,7 @@ def host_payload(state: TrainState, epoch: int) -> dict | None:
         "scheduler": state.scheduler.state_dict() if state.scheduler is not None else None,
         "step": state.step,
         "epoch": epoch,
+        "topology": state_topology(state),
     }
     if _mesh_record() is not None:
         payload["mesh"] = _mesh_record()
@@ -247,6 +231,7 @@ def host_payload(state: TrainState, epoch: int) -> dict | None:
         payload["pp_virtual"] = _virtual(state)
     if state.zero is None and not axes:  # the optimizer state is the same on every rank
         payload["optimizer"] = _cpu(optimizer_state_dict(state.optimizer))
+        payload["param_names"] = _param_names(state)
     if not per_rank(state):
         return payload
     parts = _gather_parts(_rank_part(state))
@@ -331,91 +316,12 @@ class CheckpointFiles:
 
     @staticmethod
     def load_into(state: TrainState, payload: dict) -> int:
-        """Copy a checkpoint payload into ``state`` in place; returns the
-        next epoch."""
-        if state.fsdp is not None or payload.get("layout") == "fsdp":
-            _load_fsdp(state, payload)
-            if state.scheduler is not None:
-                state.scheduler.load_state_dict(payload["scheduler"])
-            state.step = payload["step"]
-            return payload["epoch"] + 1
-        _check_pp_geometry(state, payload)
-        if per_rank(state) != ("ranks" in payload):
-            raise ValueError("the checkpoint's layout (per-rank ZeRO/PowerSGD/TP/EP state or not) is not "
-                             "this run's: resume with the flags it was saved with")
-        if payload.get("mesh") != _mesh_record():
-            raise ValueError(f"the checkpoint was saved on the mesh {payload.get('mesh')}, this run's is "
-                             f"{_mesh_record()}: resume on the same mesh (resharding is ROADMAP item 13)")
-        axes = _model_axes(state)
-        model_sd = shard_model_axes(payload["model"], axes.get("tp"), axes.get("ep"))
-        if "pp" in axes:
-            model_sd = shard_state_dict_pp(model_sd, axis_index(PIPE_AXIS), axis_size(PIPE_AXIS), _virtual(state))
-        with state.full_params():
-            state.model.load_state_dict(model_sd)
-            if state.zero is not None:
-                state.zero.load_shard_from_flat()
-        if "optimizer" in payload:
-            load_optimizer_state(state.optimizer, payload["optimizer"])
-        if "ranks" in payload:
-            _load_rank_part(state, payload["ranks"])
-        if state.scheduler is not None:
-            state.scheduler.load_state_dict(payload["scheduler"])
-        state.step = payload["step"]
-        return payload["epoch"] + 1
+        """Copy a checkpoint payload into ``state`` in place, resharded to
+        this run's geometry (``training.elastic.elastic_restore``); returns
+        the next epoch."""
+        from distributeddataparallel_tpu_torch.training.elastic import elastic_restore
 
-
-def _load_fsdp(state: TrainState, payload: dict) -> None:
-    """An FSDP payload into an FSDP state at the same mesh, or into a plain
-    state; a plain payload into an FSDP state."""
-    from distributeddataparallel_tpu_torch.parallel import fsdp
-
-    groups = optimizer_state_dict(state.optimizer)["param_groups"]
-    if state.fsdp is not None and payload.get("layout") == "fsdp":
-        if payload.get("mesh") != _mesh_record() or len(payload["ranks"]) != get_world_size():
-            raise ValueError(f"the FSDP checkpoint was saved on {len(payload['ranks'])} ranks (mesh "
-                             f"{payload.get('mesh')}), this run has {get_world_size()} (mesh {_mesh_record()}): "
-                             f"resume on the same mesh (resharding is ROADMAP item 13)")
-        state.fsdp.load_full(payload["model"])
-        load_optimizer_state(state.optimizer, payload["ranks"][get_rank()]["optimizer"])
-    elif state.fsdp is not None:
-        if "ranks" in payload:
-            raise ValueError("an FSDP run loads an FSDP or a plain checkpoint (not ZeRO/TP/PowerSGD state)")
-        state.fsdp.load_full(payload["model"])
-        load_optimizer_state(state.optimizer, fsdp.shard_optimizer_state(state.fsdp, payload["optimizer"], groups))
-    else:
-        mesh = payload.get("mesh") or {"axes": [], "shape": []}
-        if per_rank(state) or dict(zip(mesh["axes"], mesh["shape"])).get("model", 1) > 1:
-            raise ValueError("an FSDP checkpoint without TP loads into an FSDP run or a plain one (not "
-                             "ZeRO/TP/PowerSGD state)")
-        cfg = dataclasses.replace(state.model.cfg, scan_layers=True, dropout_rate=0.0, cp_axis=None)
-        meta = fsdp.FsdpMeta(cfg, len(payload["ranks"]))
-        state.model.load_state_dict(payload["model"])
-        load_optimizer_state(state.optimizer, 
-            fsdp.plain_optimizer_state(meta, [p["optimizer"] for p in payload["ranks"]], groups))
-
-
-def _load_rank_part(state: TrainState, parts: list) -> None:
-    if len(parts) != get_world_size():
-        raise ValueError(f"the checkpoint holds {len(parts)} ranks' shards, this run has "
-                         f"{get_world_size()}: resharding to another world size is ROADMAP item 13")
-    part = parts[get_rank()]
-    if state.zero is not None:
-        if part.get("zero_level") != state.zero.level:
-            raise ValueError(f"checkpoint of ZeRO level {part.get('zero_level')}, this run is at "
-                             f"{state.zero.level}")
-        if state.moments is not None:
-            state.moments.load_state_dict(part["moments"])
-    axes = _model_axes(state)
-    if state.zero is not None:
-        load_optimizer_state(state.optimizer, part["optimizer"])
-    elif axes:
-        load_optimizer_state(state.optimizer, parts[_shard_owner(axes.values())]["optimizer"])
-    if state.comm_state is not None:
-        from distributeddataparallel_tpu_torch.parallel.powersgd import PowerSGDLeaf
-
-        device = next(state.model.parameters()).device
-        state.comm_state = [None if s is None else PowerSGDLeaf(q=s["q"].to(device), err=s["err"].to(device))
-                            for s in part["comm_state"]]
+        return elastic_restore(payload, state)
 
 
 def _dump_json(path: str, obj) -> None:

@@ -23,18 +23,41 @@ Spec grammar (comma-separated entries, all steps 0-based)::
     preempt@S          raise SimulatedPreemption before step S: under
                        supervision (``--max-restarts``) the worker dies and
                        resumes from the last checkpoint
+    worker-kill@S[:R]  mark gang member R (default 1) dead in the elastic
+                       rendezvous store at step S: with ``--elastic`` the
+                       gang resizes in place around it after step S (or,
+                       killed together with a ``preempt``, the supervisor
+                       respawns it at the surviving size); without a gang
+                       coordinator the entry warns and does nothing.  The
+                       tombstone is written after step S (``after_step``),
+                       behind the injector's ``sync`` (``dpp``: a drain and
+                       a barrier of the gang, on every rank, since each
+                       fires the same entry), so every rank, one process
+                       each, sees it at the same step boundary: a rank
+                       whose host runs ahead (``--dispatch-depth``) cannot
+                       show it to one still polling after S - 1
 
-The parser also accepts the reference's elastic-gang and replica-digest
-kinds (``worker-kill``, ``worker-join``, ``host-kill``, ``proposer-kill``,
+The parser also accepts the reference's other elastic-gang and
+replica-digest kinds (``worker-join``, ``host-kill``, ``proposer-kill``,
 ``rdzv-kill``, ``slow-heartbeat``, ``partition``, ``torn-epoch``,
 ``bitflip``), with the reference's argument rules.  Their runtimes are not
-ported (``NOT_PORTED`` names the ROADMAP item of each), and an injector
+ported (``NOT_PORTED`` names the ROADMAP item of each: a grow needs a new
+process holding live state, which is hostgang's work), and an injector
 refuses them rather than skipping them.
+
+With ``fault_log`` (or ``DDP_FAULT_LOG``) every entry that fires is
+appended to a JSONL breadcrumb file, from which the supervisor names the
+fault behind its ``gang_verdict``.
 
 Determinism across restarts: with a ``state_dir``, each entry fires AT MOST
 ONCE across process restarts: a marker file records the firing, so a
 restarted worker does not hit the same preemption again and crash-loop.
-Without a state dir, entries fire once per process.
+Without a state dir, entries fire once per process.  With one state dir a
+rank (``<dir>/rank{r}``) each rank fires each entry once, and under a
+supervisor (``DDP_GANG_START``, the wall-clock start of this incarnation of
+the gang) an entry another rank fired in an earlier incarnation counts as
+fired too: a rank killed before it reached the entry, or renumbered by a
+resize-respawn, does not fire it again.
 
 Import-light (no torch at module import): the supervisor parses specs.
 """
@@ -60,12 +83,12 @@ KINDS = (
     "slow-heartbeat", "partition", "torn-epoch",
 )
 
-_GANG = ("ROADMAP.md Queue 1 items 13 and 20: training/elastic.py and "
-         "runtime/{rendezvous,elastic_gang,hostgang}.py")
+_GANG = ("ROADMAP.md Queue 1 item 20: runtime/hostgang.py, the grow path and "
+         "the other gang chaos kinds")
 #: Kinds the parser accepts but this port cannot inject yet, each with the
 #: ROADMAP item that ports its runtime.
 NOT_PORTED = {
-    **{k: _GANG for k in ("worker-kill", "worker-join", "host-kill", "proposer-kill",
+    **{k: _GANG for k in ("worker-join", "host-kill", "proposer-kill",
                           "rdzv-kill", "slow-heartbeat", "partition", "torn-epoch")},
     "bitflip": "ROADMAP.md Queue 1 item 20: training/integrity.py (the replica digest)",
 }
@@ -172,6 +195,16 @@ class FaultInjector:
         check_ported(self._entries)
         self._state_dir = state_dir
         self.events = events
+        # The elastic gang coordinator (``runtime.elastic_gang``) a
+        # worker-kill tombstones a member through, and the chaos rank ->
+        # member name map; ``dpp`` wires both under ``--elastic``.
+        self.gang = None
+        self.hosts: dict[str, str] = {}
+        self.fault_log = os.environ.get("DDP_FAULT_LOG") or None
+        self._kills: list[str] = []  # members to tombstone after the step
+        # Called on every rank before a worker-kill's tombstones are
+        # written: ``dpp`` sets it to a drain and a barrier of the gang.
+        self.sync = None
         self._fired_local: set[str] = set()
         # Entries this PROCESS started firing (a multi-attempt ckpt-io entry
         # keeps failing attempts here after its cross-restart marker is
@@ -198,7 +231,22 @@ class FaultInjector:
         if key in self._fired_local:
             return True
         m = self._marker(key)
-        return m is not None and os.path.exists(m)
+        if m is None:
+            return False
+        if os.path.exists(m):
+            return True
+        start = os.environ.get("DDP_GANG_START")
+        parent, me = os.path.split(self._state_dir)
+        if not start or not me.startswith("rank"):
+            return False
+        for sib in os.listdir(parent):
+            other = os.path.join(parent, sib, os.path.basename(m))
+            try:
+                if sib.startswith("rank") and os.path.getmtime(other) < float(start):
+                    return True
+            except OSError:
+                continue
+        return False
 
     def _mark(self, key: str) -> None:
         self._fired_local.add(key)
@@ -214,21 +262,52 @@ class FaultInjector:
         for e in self._entries:
             if e.kind == kind and e.step == step and not self._already_fired(e.key):
                 self._mark(e.key)
+                self._breadcrumb(e, step)
                 if self.events is not None:
                     self.events.emit("chaos_inject", entry=e.key, step=step)
                 return e
         return None
 
+    def _breadcrumb(self, e: _Entry, step: int) -> None:
+        if not self.fault_log:
+            return
+        try:
+            with open(self.fault_log, "a") as fh:
+                fh.write('{"entry": "%s", "kind": "%s", "step": %d, "ts": %f}\n'
+                         % (e.key, e.kind, step, time.time()))
+        except OSError:
+            pass  # attribution is best-effort, never a new failure
+
     # -- injection hooks ----------------------------------------------
     def before_step(self, step: int) -> None:
         """Call at the top of each train-loop iteration with the global step
-        index.  May sleep (slow-step) or raise SimulatedPreemption."""
+        index.  May sleep (slow-step), tombstone a gang member
+        (worker-kill) or raise SimulatedPreemption."""
         e = self._take("slow-step", step)
         if e is not None:
             time.sleep(float(e.arg or 30.0))
+        e = self._take("worker-kill", step)
+        if e is not None:
+            if self.gang is not None:
+                self._kills.append(self.hosts.get(e.arg or "1", e.arg or "1"))
+            else:
+                from distributeddataparallel_tpu_torch.utils.logging import warn0
+
+                warn0("chaos %s: no elastic gang coordinator wired (--elastic not set?) — kill not injected",
+                      e.key)
         e = self._take("preempt", step)
         if e is not None:
+            self.after_step(step)  # a member killed at this step is dead in the store when the gang dies
             raise SimulatedPreemption(f"chaos: simulated worker preemption at step {step}")
+
+    def after_step(self, step: int) -> None:
+        """Call after each train step, before the gang's poll: tombstones
+        the members a ``worker-kill`` of this step named, once ``sync``
+        has ordered every rank's earlier polls before them."""
+        if self._kills and self.sync is not None:
+            self.sync()
+        while self._kills:
+            self.gang.kill(self._kills.pop(0))
 
     def corrupt_batch(self, batch: dict, step: int) -> dict:
         """``batch`` with one NaN planted at index 0 of its first floating

@@ -118,14 +118,15 @@ def test_corrupt_batch_needs_a_float_tensor(batch):
 
 
 def test_gang_and_digest_kinds_are_refused_naming_their_item(monkeypatch):
-    with pytest.raises(NotImplementedError, match="items 13 and 20"):
-        chaos.FaultInjector("preempt@3,worker-kill@5")
+    chaos.FaultInjector("preempt@3,worker-kill@5")  # ported: the elastic gang's kill
+    with pytest.raises(NotImplementedError, match="item 20: runtime/hostgang.py"):
+        chaos.FaultInjector("preempt@3,worker-join@5")
     with pytest.raises(SystemExit, match=r"--chaos: .*bitflip.*item 20: training/integrity.py"):
         dpp.parse_args(["--device", "cpu", "--chaos", "bitflip@4:1"])
     with pytest.raises(SystemExit, match="--chaos: bad chaos entry 'bogus@2'"):
         dpp.parse_args(["--device", "cpu", "--chaos", "bogus@2"])
     monkeypatch.setenv("DDP_CHAOS", "host-kill@2")
-    with pytest.raises(SystemExit, match="DDP_CHAOS: .*host-kill.*items 13 and 20"):
+    with pytest.raises(SystemExit, match="DDP_CHAOS: .*host-kill.*item 20"):
         dpp.parse_args(["--device", "cpu"])
 
 

@@ -26,7 +26,7 @@ within 1e-5 relative, parameters within 2e-5 (f32, summation order).
   state come back bit for bit and the next step's loss is the
   uninterrupted run's; the payload's merged model loads into a plain MoE
   model, whose logits equal the EP model's (atol 1e-6: the partial blends
-  are summed over the ranks); another mesh is refused.
+  are summed over the ranks); another layout is refused.
 - ``dpp --moe-experts 4 --ep 2 --eval`` (GPT-2 shape, aux weight 0.01) for
   3 steps against the reference's aux loss on the same batches: losses
   within 1e-5, parameters 2e-5, the eval means 1e-5.
@@ -205,7 +205,7 @@ def dropout_case() -> dict:
 def ckpt_roundtrip(rank, world, directory) -> dict:
     """Save after 2 steps, load into a fresh trainer: parameters, AdamW
     state and the third step's loss against the trainer that goes on; the
-    merged model in a plain MoE model; a payload of another mesh."""
+    merged model in a plain MoE model; a payload of another layout."""
     from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles, host_payload
 
     args = tdpp.parse_args(["--device", "cpu", *CKPT_FLAGS])
@@ -232,7 +232,7 @@ def ckpt_roundtrip(rank, world, directory) -> dict:
     opt_a, opt_b = a.state.optimizer.state_dict()["state"], b.state.optimizer.state_dict()["state"]
     same_opt = len(opt_a) > 0 and all(torch.equal(opt_a[i][k], opt_b[i][k]) for i in opt_a for k in opt_a[i])
     losses = [float(t.step_fn(t.state, batches[2])["loss"]) for t in (a, b)]
-    other = dict(saved, mesh={"axes": ["data", "expert"], "shape": [2, 4]})
+    other = dict(saved, topology=dict(saved["topology"], layout="zero1"))
     try:
         CheckpointFiles.load_into(b.state, other)
         refusal = "none"
@@ -437,7 +437,8 @@ def test_ep_checkpoint_round_trip(ranks):
         assert c["same_params"] and c["same_opt"], c
         assert c["losses"][0] == c["losses"][1], c["losses"]
         assert c["experts_in_payload"] == 4 and c["plain_logits_err"] <= 1e-6, c
-        assert "resume on the same mesh" in c["refusal"], c["refusal"]
+        assert "checkpoint layout 'zero1' does not match the current run's 'replicated'" in c["refusal"], \
+            c["refusal"]
 
 
 def test_dpp_moe_ep_eval_matches_reference(ranks, want):

@@ -21,6 +21,7 @@ the port inherits from the reference, on the CPU.
 """
 
 import argparse
+import json
 import sys
 from pathlib import Path
 from unittest import mock
@@ -78,9 +79,6 @@ def test_both_parsers_have_the_same_flags_defaults_and_choices():
 
 # Each unported flag at a value the reference accepts, and its item.
 UNPORTED = [
-    (["--elastic", "--checkpoint-dir", "ck"], "13"),
-    (["--elastic-dir", "gang"], "13"),
-    (["--min-procs", "2"], "13"),
     (["--integrity-every", "2", "--integrity-shadow"], "20"),
     (["--bw-probe"], "10's remainder"),
     (["--lint-step"], "21"),
@@ -93,6 +91,11 @@ UNPORTED = [
 # validates as the reference's does, with its values, and builds the MoE or
 # pipeline config.
 PORTED = [
+    # item 13's --elastic, --elastic-dir and --min-procs
+    ["--elastic", "--checkpoint-dir", "ck"],
+    ["--elastic-dir", "gang"],
+    ["--min-procs", "2"],
+    ["--elastic", "--elastic-dir", "gang", "--zero", "1", "--min-procs", "2"],
     ["--compile-cache", "cache"],
     ["--dispatch-depth", "0"],
     ["--dispatch-depth", "4", "--nan-guard"],
@@ -111,7 +114,7 @@ PORTED = [
 ]
 
 
-def test_unported_flags_raise_naming_their_item():
+def test_unported_flags_raise_naming_their_item(tmp_path):
     jdpp, _ = reference_parser()
     for argv, item in UNPORTED:
         argv = ["--device", "cpu", *argv]
@@ -124,7 +127,8 @@ def test_unported_flags_raise_naming_their_item():
         jdpp.validate_args(jargs)
         args = tdpp.parse_args(argv)
         for dest in ("ep", "moe_experts", "moe_top_k", "moe_aux_weight", "moe_capacity_factor", "pp",
-                     "pp_microbatches", "pp_schedule", "pp_virtual", "cp", "compile_cache", "dispatch_depth"):
+                     "pp_microbatches", "pp_schedule", "pp_virtual", "cp", "compile_cache", "dispatch_depth",
+                     "elastic", "elastic_dir", "min_procs"):
             assert getattr(args, dest) == getattr(jargs, dest), dest
         if args.pp > 1:
             cfg = tdpp.build_config(args)
@@ -137,10 +141,17 @@ def test_unported_flags_raise_naming_their_item():
             assert cfg.ep_axis == ("expert" if args.ep > 1 else None)
     seen = {d for dests in tdpp.UNPORTED_FLAGS.values() for d in dests}
     # the 21 flags the parser lacked, less --fsdp-gather, item 17's four,
-    # item 16a's --pp, --pp-microbatches, --pp-schedule, 16b's --pp-virtual
-    # and 11b's --compile-cache and --dispatch-depth
-    assert len(seen) == 11
-    assert not {"17", "16", "16b", "11b"} & set(tdpp.UNPORTED_FLAGS)
+    # item 16a's --pp, --pp-microbatches, --pp-schedule, 16b's --pp-virtual,
+    # 11b's --compile-cache and --dispatch-depth and item 13's --elastic,
+    # --elastic-dir and --min-procs
+    assert len(seen) == 8
+    assert not {"17", "16", "16b", "11b", "13"} & set(tdpp.UNPORTED_FLAGS)
+    # Item 13's flags run: a gang of one joins its store, trains, and leaves it.
+    summary = tdpp.main(["--device", "cpu", "--model", "mlp", "--epochs", "1", "--steps-per-epoch", "2",
+                         "--num-examples", "32", "--batch-size", "4", "--elastic", "--elastic-dir",
+                         str(tmp_path / "gang"), "--min-procs", "1"])
+    assert summary["train_steps"] == 2 and summary["world_size"] == 1
+    assert json.loads((tmp_path / "gang" / "epoch.json").read_text())["roster"] == ["proc0"]
 
 
 REFERENCE_CHECKS = [

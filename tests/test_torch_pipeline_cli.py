@@ -15,8 +15,8 @@ Eight gloo ranks are spawned once for the file (data 4 x pipe 2).
 - A checkpoint under ``--pp 2 --pp-schedule 1f1b`` with AdamW: each stage's
   parameters and optimizer state come back bit for bit and the next step's
   loss is the uninterrupted run's; the payload's merged model loads into a
-  plain model whose masked eval equals the pipelined eval's; another mesh
-  is refused naming item 13.
+  plain model whose masked eval equals the pipelined eval's; a checkpoint of
+  another interleaved geometry is refused with the reference's message.
 - The ``pp_phase`` event of a ``--pp 2 --pp-schedule 1f1b`` run, read by
   the reference's ``measured_bubble_fraction``.
 - The flag refusals: the reference's messages, its zb and virtual value
@@ -128,7 +128,8 @@ def dpp_run(flags, rank, world) -> dict:
 def ckpt_roundtrip(rank, world, directory) -> dict:
     """Save after 2 steps, load into a fresh trainer: parameters, AdamW
     state and the third step's loss against the trainer that goes on; the
-    merged model's plain eval against the pipelined eval; another mesh."""
+    merged model's plain eval against the pipelined eval; an interleaved
+    geometry's payload."""
     from distributeddataparallel_tpu_torch.ops.losses import per_example_cross_entropy
     from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles, host_payload
 
@@ -158,7 +159,7 @@ def ckpt_roundtrip(rank, world, directory) -> dict:
     pp_loss = float(eval_step(b.state.model, {"tokens": tokens, "valid": torch.ones(len(tokens))})[0]["loss"])
     losses = [float(t.step_fn(t.state, batches[2])["loss"]) for t in (a, b)]
     try:
-        CheckpointFiles.load_into(b.state, dict(saved, mesh={"axes": ["data", "pipe"], "shape": [2, 4]}))
+        CheckpointFiles.load_into(b.state, dict(saved, pp_virtual=2))
         refusal = "none"
     except ValueError as e:
         refusal = str(e)
@@ -312,7 +313,9 @@ def test_pp_checkpoint_round_trip(ranks):
         assert c["same_params"] and c["same_opt"], c
         assert c["losses"][0] == c["losses"][1], c["losses"]
         assert c["layers_in_payload"] == 4 and abs(c["plain_loss"] - c["pp_loss"]) <= 1e-6, c
-        assert "resume on the same mesh (resharding is ROADMAP item 13)" in c["refusal"], c["refusal"]
+        assert c["refusal"] == ("checkpoint layer storage is interleaved for (pp=2, virtual=2) but this run is "
+                                "(pp=2, virtual=1) — interleaved layouts resume only at their exact pipeline "
+                                "geometry"), c["refusal"]
 
 
 def test_pp_phase_event_is_read_by_the_reference_report(ranks, tmp_path_factory):

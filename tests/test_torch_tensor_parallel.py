@@ -21,8 +21,8 @@ inputs and weights go through the reference on its fake CPU devices.
   the reference's ``make_train_step(cp_axis, tp_axis)`` on the same mesh.
 - Checkpoints under ``--cp 2 --tp 2 --optimizer adamw``: every rank's TP
   shard and optimizer state come back bit for bit and the next step's loss
-  is the uninterrupted run's exactly; a checkpoint of another mesh is
-  refused.
+  is the uninterrupted run's exactly; a checkpoint of another layout is
+  refused with the reference's message.
 - ``dpp --tp 2`` and ``dpp --cp 2 --tp 2`` (Llama, bf16) and ``dpp --model
   gpt2 --tp 2 --zero 1 --grad-clip 0.5 --accum-steps 2`` (f32; the tied
   embedding and the biases added after the reduction) for 3 steps against
@@ -128,7 +128,7 @@ def xp_train(sd) -> dict:
 def ckpt_roundtrip(rank, world, directory) -> dict:
     """Save after 2 steps, load into a fresh trainer: parameters, AdamW
     state and the third step's loss against the trainer that goes on; then
-    a payload recorded on another mesh."""
+    a payload of another layout (which no reshard converts)."""
     import itertools
 
     from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles, host_payload
@@ -152,7 +152,7 @@ def ckpt_roundtrip(rank, world, directory) -> dict:
     opt_a, opt_b = a.state.optimizer.state_dict()["state"], b.state.optimizer.state_dict()["state"]
     same_opt = all(torch.equal(opt_a[i][k], opt_b[i][k]) for i in opt_a for k in opt_a[i])
     losses = [float(t.step_fn(t.state, batches[2])["loss"]) for t in trainers]
-    other = dict(saved, mesh={"axes": ["data", "model"], "shape": [4, 2]})
+    other = dict(saved, topology=dict(saved["topology"], layout="zero1"))
     try:
         CheckpointFiles.load_into(b.state, other)
         refusal = "none"
@@ -303,7 +303,8 @@ def test_checkpoint_keeps_each_ranks_tp_shard(ranks):
         c = r["ckpt"]
         assert c["same_params"] and c["same_opt"], c
         assert c["losses"][0] == c["losses"][1], c["losses"]
-        assert "resume on the same mesh" in c["refusal"], c["refusal"]
+        assert "checkpoint layout 'zero1' does not match the current run's 'replicated'" in c["refusal"], \
+            c["refusal"]
 
 
 @pytest.mark.parametrize("name", list(DPP_RUNS))
