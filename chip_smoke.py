@@ -5,9 +5,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py --multi-gpu [12c] [13c] [14c]`` on a machine with
-four runs only the entry-point runs over several GPUs (all three, or those
-named) after the build.
+``python3 chip_smoke.py --multi-gpu [12c] [13c] [14c] [15c] [15c+] [18c]
+[19b]`` on a machine with four runs only the entry-point runs over several
+GPUs (all of them, or those named) after the build.
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -218,6 +218,26 @@ Phases (any failure exits non-zero; nothing is caught):
       bitwise a 3-card ``--resume`` of a 4-card checkpoint, and
       ``worker-kill@1:2`` at dispatch depth 2 shrinks mid-epoch; ``--fsdp --tp
       2`` saved on 4 cards (2 with 2 GPUs) resumes on 2.
+19. the silent-data-corruption defence (``training/integrity.py``) and the
+   elastic grow:
+   a. GPT-2 124M at phase 4's width and batch, 8 steps at dispatch depth 2
+      with ``--integrity-every 2 --integrity-shadow --nan-guard``: every
+      shadow re-run's digest equal to the live step's, the losses bitwise
+      those of the same run without integrity, K1-K3 launched (8 + 4) x 12
+      times each, off-cadence step 3 under sync debug "error"; the
+      digest's and a state copy's device ms, the cadence and off-cadence
+      steps' ms, the shadow's ms, the copy's bytes and the peak memory
+      beside the plain run's; then a transient fault planted in the
+      shadow's copy of step 4's input (``integrity.apply_bitflip``): one
+      ``sdc_detect`` by ``shadow``, the live losses unchanged;
+   b. only with ``--multi-gpu`` on 4 GPUs: GPT-2 124M at phase 4's width
+      and batch under ``--zero 1 --elastic --integrity-every 2 --nan-guard``
+      with ``bitflip@4:2,worker-join@6:2`` goes 4 -> 3 -> 4 (the vote names
+      rank 2 at step 4, no restart, no checkpoint read) and its epoch 1 is
+      bitwise a 4-card ``--resume`` of its own epoch-0 checkpoint, written
+      on 3; the join's seconds split and its bytes; the same flip and join
+      on ``--model mlp``, whose checkpoints are bitwise those of its
+      control (``nan-grad@4,worker-kill@4:2,worker-join@6:2``).
 
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
 ``llama_path`` line (phase 7), one ``reference_workload`` line (phase 8),
@@ -226,7 +246,8 @@ run's step ms, peak memory and losses), one ``cp_tp_path`` line (phase 12:
 each replay's max errors, launches and times, the GPU count), one
 ``fsdp_path`` line (phase 13), one ``moe_path`` line (phase 14), one ``pp_path`` line (phase 15),
 one ``warm_start_path`` line (phase 16), one ``fleet_path`` line (phase 17),
-one ``elastic_path`` line (phase 18), one ``phase_seconds`` line, one
+one ``elastic_path`` line (phase 18), one ``integrity_path`` line (phase
+19), one ``phase_seconds`` line, one
 ``serving_path`` line (phase 10,
 each run's TTFT p50/p99, tokens/s, per-token latency, decode-step ms,
 preemptions, evictions, prefix hits, acceptance, pool bytes against the
@@ -724,6 +745,38 @@ ELASTIC_LOSS_ATOL = 1e-5
 # apart).
 ELASTIC_ENTRY_ARGS = _set(_set(ELASTIC_CARD_ARGS, "--seq-len", "256"), "--steps-per-epoch", "4")
 ELASTIC_ENTRY_ATOL = 1e-4  # --fsdp --tp 2 at data 2 against data 1: f32, another reduction order
+
+# Phase 19: the silent-data-corruption defence.  19a: GPT-2 124M at phase
+# 4's model and batch (f32, B=8, S=1024, AdamW), 8 steps at dispatch depth 2
+# under the guard, with the digest every 2 steps and the shadow re-run of
+# each cadence step, against the same run without integrity: the losses
+# bit for bit (the shadow compares two runs of one step bit for bit, so the
+# step must be deterministic on the card; nothing is loosened).  Off-cadence
+# step INTEGRITY_SYNC_STEP runs under sync debug "error".  Then a transient
+# fault is planted in the shadow's copy of step INTEGRITY_PLANT_STEP's input
+# (``integrity.apply_bitflip`` on the copy): one ``sdc_detect`` by
+# ``shadow`` and the live run's losses unchanged.
+INTEGRITY_PLAIN_ARGS = _set(FAULT_LM_ARGS, "--steps-per-epoch", "8") + ["--nan-guard", "--dispatch-depth", "2"]
+INTEGRITY_ARGS = INTEGRITY_PLAIN_ARGS + ["--integrity-every", "2", "--integrity-shadow"]
+INTEGRITY_SYNC_STEP = 3
+INTEGRITY_PLANT_STEP = 4
+INTEGRITY_PLANT_STEPS = 6
+# 19b (4 GPUs), 2 epochs of 6 steps under --zero 1 --elastic
+# --integrity-every 2 --nan-guard: rank 2's parameters flipped before step 4
+# (caught at that cadence step), a new process for it taken back before
+# step 6, epoch 1's first.  GPT-2 124M at phase 4's width and batch (B=8 a
+# rank) carries the flip and the grow (the live ZeRO-1 reshard and the
+# joiner's state transfer at that size), its epoch 1 against a 4-card
+# --resume of its own epoch-0 checkpoint, written on 3 cards.  The
+# control, which skips step 4 by a NaN and kills member 2 after it, needs
+# a float batch (an LM's tokens are not; both packages refuse it), so the
+# flip run's checkpoints are held bitwise to the control's on the
+# reference's acceptance model, ``--model mlp`` at batch 32 a rank.
+INTEGRITY_ENTRY_FLAGS = ["--zero", "1", "--elastic", "--integrity-every", "2", "--nan-guard", "--log-every", "1000"]
+INTEGRITY_GPT2_ARGS = _set(_set(FAULT_LM_ARGS, "--steps-per-epoch", "6"), "--epochs", "2") + INTEGRITY_ENTRY_FLAGS
+INTEGRITY_ENTRY_ARGS = ["--model", "mlp", "--batch-size", "32", "--optimizer", "adamw", "--lr", "1e-3",
+                        "--epochs", "2", "--steps-per-epoch", "6", "--num-examples", "1024"] + INTEGRITY_ENTRY_FLAGS
+INTEGRITY_ENTRY_CHAOS = {"flip": "bitflip@4:2,worker-join@6:2", "control": "nan-grad@4,worker-kill@4:2,worker-join@6:2"}
 
 DEVICE = "cuda"  # phases 10, 12, 15, 16 and 17's device
 
@@ -4167,6 +4220,235 @@ def elastic_entry(torch, smi) -> dict:
     return out
 
 
+def integrity_phase(torch, dpp, fa, smi) -> dict:
+    """[19a] The SDC defence on one card (INTEGRITY_ARGS): every shadow
+    re-run's digest equal to the live step's, the losses bitwise the run
+    without integrity's, K1-K3 launched (8 steps + 4 shadow re-runs) x 12
+    times each, off-cadence step INTEGRITY_SYNC_STEP with no host sync; the
+    digest's device ms, the cadence and off-cadence steps' device ms (CUDA
+    events around the step function), the shadow's ms, the state copy's
+    bytes and the peak memory beside the plain run's.  Then the planted
+    transient: one ``sdc_detect`` by ``shadow``, the counters to match, the
+    live losses unchanged."""
+    from distributeddataparallel_tpu_torch.training import integrity
+
+    device = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device("cpu")
+
+    def run(argv, wrap=None):
+        args = dpp.parse_args(argv + ["--device", DEVICE])
+
+        def go():
+            trainer = dpp.build_trainer(args, device)
+            if wrap is not None:
+                trainer.step_fn = wrap(trainer.step_fn)
+            return dpp.train(args, trainer, device)
+
+        out = _in_group(torch, dpp, go)
+        release(torch)
+        return out
+
+    plain = run(INTEGRITY_PLAIN_ARGS)
+    record = {"step": [], "shadow": [], "copies": [], "in_shadow": False}
+
+    def timed_step(inner):
+        def step_fn(state, batch, seed=None):
+            live = not record["in_shadow"]
+            ctx = sync_errors(torch) if live and state.step == INTEGRITY_SYNC_STEP else contextlib.nullcontext()
+            start = end = None
+            if live and DEVICE == "cuda":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+            cadence = state.step % 2 == 0
+            with ctx:
+                m = inner(state, batch, seed)
+            if start is not None:
+                end.record()
+                record["step"].append((cadence, start, end))
+            return m
+        return step_fn
+
+    real_shadow, real_copy = dpp.IntegrityLoop.shadow, integrity.copy_tree
+
+    def shadow(self, state, pend, batch, seed):
+        record["in_shadow"] = True
+        t0 = time.perf_counter()
+        try:
+            agree = real_shadow(self, state, pend, batch, seed)
+        finally:
+            record["in_shadow"] = False
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        record["shadow"].append((agree, (time.perf_counter() - t0) * 1e3))
+        return agree
+
+    def copy_tree(state):
+        c = real_copy(state)
+        record["copies"].append(c.nbytes())
+        return c
+
+    fa.reset_launches()
+    dpp.IntegrityLoop.shadow, integrity.copy_tree = shadow, copy_tree
+    try:
+        armed = run(INTEGRITY_ARGS, timed_step)
+    finally:
+        dpp.IntegrityLoop.shadow, integrity.copy_tree = real_shadow, real_copy
+    launches = dict(fa.LAUNCHES)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    steps, shadows = armed["train_steps"], len(record["shadow"])
+    want = {k: 12 * (steps + shadows) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    faults = armed["faults"]
+    if steps != 8 or shadows != 4 or not all(a for a, _ in record["shadow"]) \
+            or (DEVICE == "cuda" and launches != want) \
+            or faults.get("sdc_checks") != 4 or faults.get("sdc_detects") != 0:
+        raise AssertionError(f"19a: {steps} steps, shadows {record['shadow']}, launches {launches} != {want}, "
+                             f"faults {faults}")
+    if armed["losses"] != plain["losses"]:
+        raise AssertionError(f"19a: losses with integrity {armed['losses']} != without {plain['losses']}")
+    times = {True: [], False: []}
+    for cadence, a, b in record["step"][1:]:  # step 0 pays the first step's one-time costs
+        times[cadence].append(a.elapsed_time(b))
+    cadence_ms = sum(times[True]) / max(len(times[True]), 1)
+    off_ms = sum(times[False]) / max(len(times[False]), 1)
+    shadow_ms = sum(ms for _, ms in record["shadow"]) / shadows
+
+    # The digest of a GPT-2 124M state (its parameters and AdamW moments)
+    # and one state copy, timed on the card.
+    args = dpp.parse_args(INTEGRITY_ARGS + ["--device", DEVICE])
+
+    def digest_cost():
+        trainer = dpp.build_trainer(args, device)
+        state = trainer.state
+        trainer.loader.set_epoch(0)
+        trainer.step_fn(state, next(iter(trainer.loader)))  # the moments exist
+        fn = integrity.make_digest_fn(None, 0)
+        n_cols = int(fn(state).shape[1])
+        if DEVICE != "cuda":
+            return {"columns": n_cols}
+        digest_ms, digest_host_ms = time_ms(torch, lambda: fn(state), 5)
+        copy_ms, copy_host_ms = time_ms(torch, lambda: integrity.copy_tree(state), 3)
+        return {"columns": n_cols, "digest_ms": digest_ms, "digest_host_ms": digest_host_ms, "copy_ms": copy_ms,
+                "copy_host_ms": copy_host_ms}
+
+    cost = _in_group(torch, dpp, digest_cost)
+    release(torch)
+
+    # The planted transient: a bit of the shadow's copy of step
+    # INTEGRITY_PLANT_STEP's input flipped on the card.
+    planted = {"n": 0}
+
+    def flipped_copy(state):
+        c = real_copy(state)
+        if state.step == INTEGRITY_PLANT_STEP and not planted["n"]:
+            integrity.apply_bitflip(state, rank=0, copy=c)
+            planted["n"] += 1
+        return c
+
+    ev = tempfile.mkdtemp(prefix="chip_smoke_19a_")
+    integrity.copy_tree = flipped_copy
+    try:
+        hit = run(_set(INTEGRITY_ARGS, "--steps-per-epoch", str(INTEGRITY_PLANT_STEPS)) + ["--events-dir", ev])
+    finally:
+        integrity.copy_tree = real_copy
+    detects = [r for r in timeline(ev) if r["kind"] == "sdc_detect"]
+    hf = hit["faults"]
+    if planted["n"] != 1 or [(r["step"], r["method"], r["rank"]) for r in detects] != [
+            (INTEGRITY_PLANT_STEP, "shadow", -1)] or hf.get("sdc_detects") != 1 or hf.get("sdc_evictions", 0) != 0 \
+            or hf.get("sdc_checks") != INTEGRITY_PLANT_STEPS // 2 or hit["losses"] != plain["losses"][:INTEGRITY_PLANT_STEPS]:
+        raise AssertionError(f"19a planted: {planted}, detects {detects}, faults {hf}, losses {hit['losses']}")
+    out = {
+        "steps": steps, "shadow_runs": shadows, "shadow_digests_equal": True, "losses_bitwise_unarmed": True,
+        "losses": armed["losses"], "attention_launches": launches, "sync_debug_step": INTEGRITY_SYNC_STEP,
+        "step_ms_cadence": cadence_ms, "step_ms_off_cadence": off_ms, "shadow_ms": shadow_ms,
+        "step_ms_summary": {"armed": armed["step_time_s"] * 1e3, "plain": plain["step_time_s"] * 1e3},
+        "copy_bytes": max(record["copies"]), **cost,  # the largest: a copy with the moments
+        "peak_memory_bytes": {"armed": armed["peak_memory_bytes"], "plain": plain["peak_memory_bytes"]},
+        "planted": {"step": INTEGRITY_PLANT_STEP, "detects": [{k: r[k] for k in ("step", "method", "rank")}
+                                                             for r in detects], "faults": hf},
+    }
+    log(f"    19a: 8 steps, 4 shadow re-runs each bit for bit the live step, losses bitwise the unarmed run's, "
+        f"K1-K3 {launches}; step {cadence_ms:.2f} ms on cadence vs {off_ms:.2f} off, shadow {shadow_ms:.1f} ms, "
+        f"digest {cost.get('digest_ms', float('nan')):.3f} ms over {cost['columns']} columns, copy "
+        f"{cost.get('copy_ms', float('nan')):.3f} ms of {out['copy_bytes']} bytes; planted transient at step "
+        f"{INTEGRITY_PLANT_STEP}: one sdc_detect by shadow on {smi}")
+    return out
+
+
+def integrity_entry(torch, smi) -> dict:
+    """[19b] Only with 4 GPUs (fewer: not run, said so).  Each run
+    supervised.  GPT-2 (INTEGRITY_GPT2_ARGS) with the flip and the join
+    goes 4 -> 3 -> 4, the vote naming rank 2 at step 4, with no restart and
+    no checkpoint read; its epoch 1 (losses and checkpoint) is bitwise a
+    4-card ``--resume`` of its own epoch-0 checkpoint, written on 3 cards;
+    the join's seconds split into the process start, the group and the
+    state transfer, and the bytes sent.  The MLP flip-and-join run
+    (INTEGRITY_ENTRY_ARGS) goes the same way, and its checkpoints are
+    bitwise its control's (INTEGRITY_ENTRY_CHAOS)."""
+    import shutil
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        log(f"    19b: not run ({n} GPU visible; it needs 4)")
+        return {"ran": False, "gpus": n}
+    dirs = {name: tempfile.mkdtemp(prefix=f"chip_smoke_19b_{name}_") for name in ("flip", "control", "gpt2", "resume")}
+    sup = ["--num-processes", "4", "--max-restarts", "1"]
+
+    def faulted(base, name, chaos):
+        d = dirs[name]
+        return run_entry(base + sup + ["--chaos", chaos, "--checkpoint-dir", os.path.join(d, "ck"),
+                                       "--events-dir", os.path.join(d, "ev")], f"19b {name}")
+
+    def hashes(name):
+        ck = os.path.join(dirs[name], "ck")
+        return {f: json.load(open(os.path.join(ck, f)))["sha256"] for f in sorted(os.listdir(ck))
+                if f.startswith("hash_")}
+
+    def grown(name, summary):
+        """The flip run's timeline: the vote, the sizes, no restart."""
+        recs = timeline(os.path.join(dirs[name], "ev"))
+        detects = [r for r in recs if r["kind"] == "sdc_detect"]
+        sizes = [(r["old_size"], r["new_size"]) for r in recs if r["kind"] == "gang_resize" and r["proc"] == 0]
+        restarts = sum(r["kind"] == "restart_attempt" for r in recs)
+        if {(r["rank"], r["step"], r["method"]) for r in detects} != {(2, 4, "vote")} or sizes != [(4, 3), (3, 4)] \
+                or restarts or summary["world_size"] != 4:
+            raise AssertionError(f"19b {name}: detects {detects}, sizes {sizes}, {restarts} restarts, world "
+                                 f"{summary['world_size']}")
+        join = json.load(open(os.path.join(dirs[name], "ev", "gang", "blobs", "join-proc2")))
+        return {"sizes": sizes, "leaves": sorted({x for r in detects for x in r["leaves"]}), "join": join,
+                "resizes": summary["elastic"]["resizes"], "losses": summary["losses"]}
+
+    g = faulted(INTEGRITY_GPT2_ARGS, "gpt2", INTEGRITY_ENTRY_CHAOS["flip"])
+    res_ck = os.path.join(dirs["resume"], "ck")
+    os.makedirs(res_ck)
+    for f in ("epoch_0.pt", "hash_0.json"):
+        os.link(os.path.join(dirs["gpt2"], "ck", f), os.path.join(res_ck, f))
+    resumed = run_entry(INTEGRITY_GPT2_ARGS + ["--num-processes", "4", "--checkpoint-dir", res_ck, "--resume",
+                                               "--elastic-dir", os.path.join(dirs["resume"], "gang")],
+                        "19b GPT-2 4-card resume")
+    gpt2 = grown("gpt2", g)
+    if resumed["start_epoch"] != 1 or resumed["losses"] != g["losses"][6:] \
+            or hashes("resume").get("hash_1.json") != hashes("gpt2").get("hash_1.json"):
+        raise AssertionError(f"19b GPT-2: epoch 1 {g['losses'][6:]} against the 4-card resume's "
+                             f"{resumed['losses']} (start epoch {resumed['start_epoch']}); checkpoints "
+                             f"{hashes('gpt2')} / {hashes('resume')}")
+    gpt2.update(resume_losses=resumed["losses"], grow_bitwise_resume=True, attention_launches=g["attention_launches"])
+    runs = {name: faulted(INTEGRITY_ENTRY_ARGS, name, chaos) for name, chaos in INTEGRITY_ENTRY_CHAOS.items()}
+    mlp = grown("flip", runs["flip"])
+    if hashes("flip") != hashes("control"):
+        raise AssertionError(f"19b MLP: checkpoints {hashes('flip')} != the control's {hashes('control')}")
+    mlp.update(control_losses=runs["control"]["losses"], checkpoints_bitwise_control=True)
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    j = gpt2["join"]
+    log(f"    19b: GPT-2 124M 4 -> 3 -> 4, rank 2 voted out at step 4 ({gpt2['leaves']}), epoch 1 bitwise a "
+        f"4-card resume of its epoch-0 checkpoint (written on 3); the join: process start "
+        f"{j['process_start_s']:.2f} s, group {j['group_s']:.2f} s, state transfer {j['transfer_s']:.2f} s (the "
+        f"trainer's build with the grown group's first collective {j['transfer_build_s']:.2f} s, the receipt "
+        f"{j['transfer_recv_s']:.2f} s; {j['bytes']} bytes); MLP: checkpoints bitwise the control's, the join's "
+        f"transfer {mlp['join']['transfer_s']:.2f} s for {mlp['join']['bytes']} bytes; on {smi}")
+    return {"ran": True, "gpus": n, "gpt2": gpt2, "mlp": mlp}
+
+
 def release(torch) -> None:
     """Free what earlier runs left (a model held by a reference cycle, say,
     the reducer's hooks) before the next run's peak is measured."""
@@ -4238,7 +4520,7 @@ def main() -> int:
         # 15c+, 18c, or those named after the flag): what a one-card run
         # skips.
         entries = {"12c": cp_tp_entry, "13c": fsdp_entry, "14c": moe_entry, "15c": pp_entry, "15c+": pp_entry_16b,
-                   "18c": elastic_entry}
+                   "18c": elastic_entry, "19b": integrity_entry}
         picked = [a for a in sys.argv[sys.argv.index("--multi-gpu") + 1:] if a in entries] or list(entries)
         out = {name: entries[name](torch, smi) for name in picked}
         log(json.dumps({"multi_gpu": out, "card": smi, "seconds": time.perf_counter() - t_all}))
@@ -4323,6 +4605,8 @@ def main() -> int:
     finally:
         gang.stop()
     log("    18c: only with --multi-gpu on 2+ GPUs (not run on this one-card call)")
+    integrity_path = timed("19", integrity_phase, torch, dpp, fa, smi)
+    log("    19b: only with --multi-gpu on 4 GPUs (not run on this one-card call)")
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -4344,6 +4628,7 @@ def main() -> int:
             "launches_warm_start_path": warm_path["attention_launches"][name],
             "launches_fleet_path": fleet_path["attention_launches"][name],
             "launches_elastic_path": elastic_path["attention_launches"][name],
+            "launches_integrity_path": integrity_path["attention_launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -4381,6 +4666,7 @@ def main() -> int:
     log(json.dumps({"warm_start_path": warm_path, "card": smi}))
     log(json.dumps({"fleet_path": fleet_path, "card": smi}))
     log(json.dumps({"elastic_path": elastic_path, "card": smi}))
+    log(json.dumps({"integrity_path": integrity_path, "card": smi}))
     log(json.dumps({"phase_seconds": seconds, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")

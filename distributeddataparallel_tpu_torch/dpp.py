@@ -103,10 +103,24 @@ kernels' builds at ``DIR/build/``, inherited by spawned and restarted
 processes; the ``warm_start`` event says ``cold``, ``cache-hit`` or
 ``eager``.
 
-The reference's flags whose feature is not ported yet (``--integrity-*``,
-...) parse with its defaults and checks; a value off the
-default raises ``NotImplementedError`` naming its ROADMAP item
-(``UNPORTED_FLAGS``).
+The elastic gang on one host (``--elastic``; ``runtime.elastic_gang``):
+a member lost at a step boundary (chaos ``worker-kill``, an SDC eviction)
+is resized around in place with the live state, and a chaos ``worker-join``
+takes a new process for a member back before its step (the launcher's join
+rung starts it; the survivors wait for it, reshard and send it the live
+state; it reads no checkpoint).  The silent-data-corruption defence
+(``training.integrity``): ``--integrity-every N`` digests the step's input
+state every N steps and all-gathers the digests; a mismatch discards the
+step's update, the vote names the corrupt rank, and under ``--elastic`` it
+is evicted in place (else the run stops); ``--integrity-shadow`` runs each
+cadence step a second time on a copy of its inputs and compares the
+digests (a transient fault, even at world 1).  Cadence steps are drain
+points.
+
+The reference's flags whose feature is not ported yet (``--bw-probe``,
+``--lint-step``, ``--autotune`` and ``--tune-*``) parse with its defaults
+and checks; a value off the default raises ``NotImplementedError`` naming
+its ROADMAP item (``UNPORTED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -165,7 +179,7 @@ from distributeddataparallel_tpu_torch.parallel.expert_parallel import shard_mod
 from distributeddataparallel_tpu_torch.parallel.zero import zero_state
 from distributeddataparallel_tpu_torch.runtime import distributed as rt
 from distributeddataparallel_tpu_torch.runtime import launcher
-from distributeddataparallel_tpu_torch.training import warm_start
+from distributeddataparallel_tpu_torch.training import integrity, warm_start
 from distributeddataparallel_tpu_torch.training.fault_tolerance import (
     NonFiniteBreaker,
     ResilientCheckpointer,
@@ -436,9 +450,16 @@ def parse_args(argv=None):
                    help="rendezvous store root for --elastic (env: DDP_ELASTIC_DIR); defaults to "
                         "EVENTS_DIR/gang or CHECKPOINT_DIR/.gang")
     p.add_argument("--integrity-every", type=int, default=0, metavar="N",
-                   help="state digests every N steps: not ported yet (ROADMAP item 20)")
+                   help="silent-data-corruption defence (training.integrity): every N steps the train step "
+                        "digests its input state's bit patterns per data rank and all-gathers the digests; a "
+                        "mismatch skips that step's update, names the corrupt rank by majority vote (2-rank "
+                        "gangs fall back to a replay tiebreak), and with --elastic evicts it in place: no "
+                        "restart, no checkpoint read.  0 disables.  Plain DP and --zero 1 only")
     p.add_argument("--integrity-shadow", action="store_true",
-                   help="shadow re-run on the digest cadence: not ported yet (ROADMAP item 20)")
+                   help="with --integrity-every: on cadence, re-run the step on a copy of the same inputs and "
+                        "compare the result digests: catches a transient compute fault even at world 1 (two "
+                        "runs of one deterministic step must agree bitwise).  Detections are reported "
+                        "(sdc_detect, rank=-1); nothing is evicted")
     p.add_argument("--bw-probe", action="store_true",
                    help="all-reduce bandwidth probe: not ported yet (ROADMAP item 10's remainder)")
     p.add_argument("--lint-step", action="store_true",
@@ -518,7 +539,6 @@ def parse_args(argv=None):
 #: raises ``NotImplementedError`` naming the item (after the reference's own
 #: checks of the value, ``_validate_reference_rules``).
 UNPORTED_FLAGS = {
-    "20": ("integrity_every", "integrity_shadow"),
     "10's remainder": ("bw_probe",),
     "21": ("lint_step",),
     "22": ("autotune", "tune_dir", "tune_trials", "tune_steps"),
@@ -599,7 +619,7 @@ def _validate_reference_rules(args) -> None:
                              "--events-dir/--checkpoint-dir to derive one")
         if args.coordinator:
             raise NotImplementedError("--elastic across hosts (--coordinator) is hostgang's: ROADMAP.md "
-                                      "Queue 1, item 20")
+                                      "Queue 1, item 20b")
     if args.integrity_every:
         if args.integrity_every < 0:
             raise SystemExit("--integrity-every must be >= 0")
@@ -941,12 +961,19 @@ def run(args, *, local_rank: int = 0, nprocs: int = 1, store_address: str | None
     if device.type == "cuda":
         torch.cuda.synchronize(device)  # the CUDA context, made here and timed
     context_s = time.perf_counter() - t0
-    rank, world_size = rt.init_process_group(
-        store_address=store_address, world_size=nprocs, rank=local_rank, device=device,
-        coordinator_address=args.coordinator, num_processes=args.num_processes,
-        process_id=args.process_id)
+    member = os.environ.get("DDP_ELASTIC_JOIN")
+    join = None
+    if member:  # a grow's joiner: enters the gang's re-formed group with its live state
+        join = join_gang(args, device, member, store_address)
+        rank, world_size = join.gang.rank, join.gang.world
+    else:
+        rank, world_size = rt.init_process_group(
+            store_address=store_address, world_size=nprocs, rank=local_rank, device=device,
+            coordinator_address=args.coordinator, num_processes=args.num_processes,
+            process_id=args.process_id)
     try:
-        summary = train(args, build_trainer(args, device, rank, world_size), device, rank, world_size)
+        trainer = join.trainer if join is not None else build_trainer(args, device, rank, world_size)
+        summary = train(args, trainer, device, rank, world_size, join=join)
         # Where a (re)start's time went, up to the first step (the restart
         # path's split): the process's start and this function's entry on
         # the wall clock, the CUDA context, the checkpoint read, the kernel
@@ -1098,6 +1125,7 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
             nonfinite_guard=args.nan_guard, overlap=args.overlap, zero=args.zero,
             grad_compress=args.grad_compress, cp_axis=cfg.cp_axis if lm else None,
             tp_axis=cfg.tp_axis if lm else None, ep_axis=cfg.ep_axis if lm else None,
+            integrity_every=args.integrity_every or None,
         )
     trainer = Trainer(state=state, step_fn=step_fn, loader=loader, steps_per_epoch=spe)
     if args.eval:
@@ -1118,13 +1146,14 @@ def build_trainer(args, device: torch.device, rank: int = 0, world_size: int = 1
 
 
 def build_telemetry(args, trainer: Trainer, device: torch.device, rank: int,
-                    world_size: int) -> Telemetry:
+                    world_size: int, proc: int | None = None) -> Telemetry:
     """The telemetry these flags ask for (``training.telemetry``), with the
     analytic FLOP count of a step for ``--mfu`` (the reference's cost model,
-    ``dpp.py:2126-2186``)."""
+    ``dpp.py:2126-2186``).  ``proc``: the event file's writer when it is
+    not the rank (a grow's joiner writes as its member)."""
     rows = args.batch_size * data_coords(rt.current_mesh(), rank, world_size)[1]
     lm = is_lm(args)
-    tel = Telemetry(args, rank=rank, world_size=world_size,
+    tel = Telemetry(args, rank=rank, world_size=world_size, proc=proc,
                     items_per_step=rows * args.seq_len if lm else rows,
                     unit="tok" if lm else "img", sync=lambda: _sync(device), layout=layout_name(args))
     if args.mfu:
@@ -1184,6 +1213,17 @@ class Gang:
     world: int
     left: bool = False
     resizes: list = dataclasses.field(default_factory=list)  # (old world, new world, seconds) of each
+    spe: int = 0  # the run's steps an epoch, which number its global steps at every size
+
+
+def gang_coordinator(args, member: str, events=None):
+    """This process's coordinator of the elastic gang, as ``member``."""
+    from distributeddataparallel_tpu_torch.runtime.elastic_gang import ElasticGangCoordinator
+
+    hb, sus = os.environ.get("DDP_HEARTBEAT_TIMEOUT"), os.environ.get("DDP_SUSPECT_AFTER")
+    return ElasticGangCoordinator(elastic_store_dir(args), world=[member], min_size=args.min_procs, events=events,
+                                  heartbeat_timeout_s=float(hb) if hb else None,
+                                  suspect_after_s=float(sus) if sus else None)
 
 
 def build_gang(args, injector: FaultInjector, events, rank: int, world_size: int) -> Gang:
@@ -1191,22 +1231,89 @@ def build_gang(args, injector: FaultInjector, events, rank: int, world_size: int
     the chaos worker-kill tombstones members through it, and every fired
     chaos entry leaves a breadcrumb in the store for the supervisor's
     verdict."""
-    from distributeddataparallel_tpu_torch.runtime.elastic_gang import ElasticGangCoordinator
-
-    root = elastic_store_dir(args)
-    hb, sus = os.environ.get("DDP_HEARTBEAT_TIMEOUT"), os.environ.get("DDP_SUSPECT_AFTER")
     member = f"proc{rank}"
-    coordinator = ElasticGangCoordinator(root, world=[member], min_size=args.min_procs, events=events,
-                                         heartbeat_timeout_s=float(hb) if hb else None,
-                                         suspect_after_s=float(sus) if sus else None)
+    coordinator = gang_coordinator(args, member, events)
     coordinator.store.join(member)
     rt.barrier()  # every member has joined before the first epoch is proposed over the live set
     coordinator.start()
-    injector.gang = coordinator
-    injector.hosts = {str(r): f"proc{r}" for r in range(world_size)}
+    gang = Gang(coordinator, member, [f"proc{r}" for r in range(world_size)], rank, world_size)
+    wire_gang(args, injector, gang)
+    return gang
+
+
+def wire_gang(args, injector: FaultInjector, gang: Gang) -> None:
+    """The chaos kinds that act on the gang act through its coordinator;
+    chaos rank R is member ``proc{R}``."""
+    from distributeddataparallel_tpu_torch.runtime.elastic_gang import member_index
+
+    injector.gang = gang.coordinator
+    injector.hosts = {str(r): f"proc{r}" for r in range(max(member_index(m) for m in gang.order) + 1)}
     if injector.fault_log is None:
-        injector.fault_log = os.path.join(root, "faults.jsonl")
-    return Gang(coordinator, member, [f"proc{r}" for r in range(world_size)], rank, world_size)
+        injector.fault_log = os.path.join(elastic_store_dir(args), "faults.jsonl")
+
+
+@dataclasses.dataclass
+class Join:
+    """A grow's joiner once it is in the gang (``join_gang``): its
+    membership, its trainer holding the live state, and where in the run it
+    starts (``epoch``, batch ``consumed`` of ``tail``)."""
+    gang: Gang
+    trainer: Trainer
+    epoch: int
+    consumed: int
+    tail: DataLoader
+
+
+def join_gang(args, device: torch.device, member: str, store_address: str | None) -> Join:
+    """The start-up of a process the launcher's join rung started for
+    ``member`` (``DDP_ELASTIC_JOIN``): it joins the elastic store and the
+    transition the waiting survivors run, enters their re-formed process
+    group as rank ``roster.index(member)`` (``rt.enter_process_group``),
+    builds the trainer at the grown world (whose seeded init is then
+    overwritten), and receives from the first survivor the live
+    parameters, optimizer state, schedule, step and the loader's position
+    (``runtime.elastic_gang.recv_live_state``).  No checkpoint is read.
+    Its seconds (process start, group, state transfer) go into the store's
+    ``join-<member>`` blob (the transfer's: the trainer's build, with the
+    grown group's first collective, and the receipt)."""
+    from distributeddataparallel_tpu_torch.runtime.elastic_gang import recv_live_state
+    from distributeddataparallel_tpu_torch.training.optim import load_optimizer_state
+
+    t_store = time.time()
+    coordinator = gang_coordinator(args, member)
+    coordinator.start()  # in the store: the waiting survivors see it alive
+    decision = coordinator.poll()
+    if decision is None or member not in decision.joined:
+        raise RuntimeError(f"elastic join: {member} was not taken into the gang ({decision})")
+    order = _roster_order(decision)
+    rank, world = order.index(member), len(order)
+    rt.enter_process_group(rank, world, decision.epoch, store_address=store_address, device=device)
+    t_group = time.time()
+    trainer = build_trainer(args, device, rank, world)  # its broadcast is the new group's first collective
+    t_built = time.time()
+    live, nbytes = recv_live_state(_grow_source(order, decision.prev_roster), device)
+    state = trainer.state
+    with torch.no_grad(), state.full_params():
+        for k, v in state.model.state_dict().items():
+            v.copy_(live["model"][k])
+    load_optimizer_state(state.optimizer, live["optimizer"])
+    if state.scheduler is not None:
+        state.scheduler.load_state_dict(live["scheduler"])
+    state.step = live["step"]
+    _sync(device)
+    t_ready = time.time()
+    tail = tail_loader(args, trainer, device, rank, world, len(decision.prev_roster), decision, live["epoch"],
+                       live["consumed"])
+    requested = float(os.environ.get("DDP_ELASTIC_JOIN_REQUESTED", "nan"))
+    started = _process_started()
+    coordinator.store.put_blob(f"join-{member}", json.dumps({
+        "member": member, "epoch": decision.epoch, "rank": rank, "world": world, "step": live["step"],
+        "process_start_s": t_store - requested, "process_started_s": (started - requested) if started else None,
+        "group_s": t_group - t_store, "transfer_s": t_ready - t_group,
+        "transfer_build_s": t_built - t_group, "transfer_recv_s": t_ready - t_built,
+        "bytes": nbytes}))
+    return Join(Gang(coordinator, member, order, rank, world, spe=live["spe"]), trainer, live["epoch"],
+                live["consumed"], tail)
 
 
 class _SwappableStream:
@@ -1227,11 +1334,49 @@ class _SwappableStream:
         self._idx += 1
         return self._idx, batch
 
-    def swap(self, loader) -> None:
+    def swap(self, loader, at: int | None = None) -> None:
+        """Take the rest of the batches from ``loader``; with ``at`` the
+        next one has index ``at`` (a grow before that step takes its batch
+        from the new gang's deal)."""
         close = getattr(self._it, "close", None)
         if close is not None:
             close()
         self._it = iter(loader)
+        if at is not None:
+            self._idx = at - 1
+
+
+def _roster_order(decision) -> list[str]:
+    """The agreed roster in rank order (members by index)."""
+    from distributeddataparallel_tpu_torch.runtime.elastic_gang import member_index
+
+    return sorted(decision.roster, key=member_index)
+
+
+def _grow_source(order: list[str], previous) -> int:
+    """The new rank that sends a grow's joiners their state: the first
+    member that was in the gang before it (after an SDC eviction every such
+    member is one the vote found healthy)."""
+    return min(order.index(m) for m in order if m in set(previous))
+
+
+def tail_loader(args, trainer: Trainer, device: torch.device, rank: int, world: int, old_world: int,
+                decision, epoch: int, consumed: int) -> DataLoader:
+    """The rest of epoch ``epoch`` after a resize at its batch ``consumed``,
+    dealt to ``world`` replicas: ``resize_index_plan``'s exactly-once tail;
+    before the epoch's first batch (a grow at an epoch's edge), the epoch's
+    own deal at the new world, which a ``--resume`` at that world reads."""
+    from distributeddataparallel_tpu_torch.data.sharded import resize_index_plan
+
+    if consumed == 0:
+        trainer.loader.set_epoch(epoch)
+        return trainer.loader
+    plan = resize_index_plan(len(trainer.loader.dataset), per_replica_batch=args.batch_size, old_world=old_world,
+                             new_world=world, consumed_steps=consumed, seed=args.seed, epoch=epoch,
+                             membership_epoch=decision.epoch)
+    return DataLoader(trainer.loader.dataset, per_replica_batch=args.batch_size, rank=rank, num_replicas=world,
+                      device=device, shuffle=True, seed=args.seed, drop_last=True, workers=args.workers > 0,
+                      augment=CifarAugment() if args.augment else None, index_shards=plan)
 
 
 def elastic_resize(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, gang: Gang, decision,
@@ -1239,29 +1384,37 @@ def elastic_resize(args, trainer: Trainer, device: torch.device, tel: Telemetry,
     """The in-place resize after an agreed membership change (ref
     ``dpp.py:2799-2925``), every step in flight drained: the live ZeRO-1
     state resharded over the OLD group (the leaving member takes part), the
-    process group re-formed over the survivors in rank order, the trainer
-    rebuilt at the new world with the live parameters, optimizer state,
-    schedule and step, and the rest of this epoch dealt to the new gang
-    (``resize_index_plan``; ``consumed`` batches were trained).  Returns
-    the tail loader, or None on the member that left.  No checkpoint is
-    read."""
-    from distributeddataparallel_tpu_torch.data.sharded import resize_index_plan
-    from distributeddataparallel_tpu_torch.runtime.elastic_gang import measure_downtime, reshard_live_state
+    process group re-formed over the new roster in rank order (a joiner
+    enters it from outside), the trainer rebuilt at the new world with the
+    live parameters, optimizer state, schedule and step, a grow's joiners
+    sent that state by the first survivor (``runtime.elastic_gang.
+    send_live_state``), and the rest of this epoch dealt to the new gang
+    (``tail_loader``; ``consumed`` batches were trained).  Returns the tail
+    loader, or None on the member that left.  No checkpoint is read."""
+    from distributeddataparallel_tpu_torch.runtime.elastic_gang import (
+        measure_downtime,
+        reshard_live_state,
+        send_live_state,
+    )
     from distributeddataparallel_tpu_torch.training.elastic import saved_groups
     from distributeddataparallel_tpu_torch.training.optim import load_optimizer_state, optimizer_state_dict
 
     t_rs = time.perf_counter()
     state, old_world = trainer.state, gang.world
-    survivors = [m for m in gang.order if m in set(decision.roster)]
-    new_rank = survivors.index(gang.member) if gang.member in survivors else None
-    zero = reshard_live_state(state, new_rank, len(survivors))  # a collective of the old group
+    order = _roster_order(decision)
+    joiners = [order.index(m) for m in order if m not in set(gang.order)]
+    new_rank = order.index(gang.member) if gang.member in order else None
+    source = _grow_source(order, gang.order)
+    zero = reshard_live_state(state, new_rank, len(order),  # a collective of the old group
+                              extra_ranks=joiners if new_rank is not None and new_rank == source else ())
     live = None
     if new_rank is not None:
         live = {"model": state.model.state_dict(), "step": state.step,
                 "optimizer": None if zero else optimizer_state_dict(state.optimizer),
                 "scheduler": state.scheduler.state_dict() if state.scheduler is not None else None}
-    got = rt.rebuild_process_group([gang.order.index(m) for m in survivors], decision.epoch)
-    gang.order = survivors
+    got = rt.rebuild_process_group([gang.order.index(m) if m in gang.order else None for m in order],
+                                   decision.epoch)
+    gang.order = order
     if got is None:
         gang.left = True
         tel.rank, tel.world_size = None, 1  # no barrier with the gang it left, no timeline merge
@@ -1277,13 +1430,17 @@ def elastic_resize(args, trainer: Trainer, device: torch.device, tel: Telemetry,
         new.state.scheduler.load_state_dict(live["scheduler"])
     new.state.step = live["step"]
     del live, state
-    plan = resize_index_plan(len(new.loader.dataset), per_replica_batch=args.batch_size, old_world=old_world,
-                             new_world=gang.world, consumed_steps=consumed, seed=args.seed, epoch=epoch,
-                             membership_epoch=decision.epoch)
-    tail = DataLoader(new.loader.dataset, per_replica_batch=args.batch_size, rank=gang.rank,
-                      num_replicas=gang.world, device=device, shuffle=True, seed=args.seed, drop_last=True,
-                      workers=args.workers > 0, augment=CifarAugment() if args.augment else None,
-                      index_shards=plan)
+    sent = 0
+    if gang.rank == source:
+        for r in joiners:  # the joiner's own chunk of the flats; the rest is every rank's
+            sent += send_live_state({
+                "model": new.state.model.state_dict(), "step": new.state.step, "epoch": epoch,
+                "consumed": consumed, "spe": gang.spe,
+                "optimizer": optimizer_state_dict(new.state.optimizer) if zero is None else layout.optimizer_state(
+                    zero["extra"][r], zero["scalars"], saved_groups(zero, new.state.optimizer)),
+                "scheduler": new.state.scheduler.state_dict() if new.state.scheduler is not None else None,
+            }, r, device)
+    tail = tail_loader(args, new, device, gang.rank, gang.world, old_world, decision, epoch, consumed)
     for f in dataclasses.fields(Trainer):
         setattr(trainer, f.name, getattr(new, f.name))
     tel.rank, tel.world_size = gang.rank, gang.world
@@ -1298,9 +1455,10 @@ def elastic_resize(args, trainer: Trainer, device: torch.device, tel: Telemetry,
         tel.events.emit("resize_downtime", epoch=decision.epoch, seconds=round(downtime, 3))
     tel.add_goodput("resize", downtime)
     gang.resizes.append({"old_size": old_world, "new_size": gang.world, "epoch": decision.epoch,
-                         "seconds": downtime})
+                         "seconds": downtime, "left": list(decision.left), "joined": list(decision.joined),
+                         **({"bytes_sent": sent} if sent else {})})
     log(f"elastic resize: {old_world} -> {gang.world} replicas (membership epoch {decision.epoch}, left: "
-        f"{list(decision.left)}) in {downtime:.2f}s — no checkpoint read")
+        f"{list(decision.left)}, joined: {list(decision.joined)}) in {downtime:.2f}s — no checkpoint read")
     tel.reset_window()
     return tail
 
@@ -1366,23 +1524,58 @@ def _dispatched(metrics: dict, where: tuple, t0: float, device: torch.device, de
     return _InFlight(*where, keys, host, events=(start, end))
 
 
+class IntegrityLoop:
+    """``--integrity-every``'s host side (ref ``dpp.py:2320-2610``): the
+    checker, the 2-rank replay arbiter and the shadow's digest function,
+    re-armed at every resize (``rearm``: the arbiter only at world 2
+    without ``--integrity-shadow``, which needs the step's input copy for
+    itself)."""
+
+    def __init__(self, args, tel: Telemetry, step_fn, world: int):
+        self.args = args
+        self.checker = integrity.IntegrityChecker(every=args.integrity_every, events=tel.events,
+                                                  counters=tel.counters)
+        self.rearm(step_fn, world)
+
+    def rearm(self, step_fn, world: int) -> None:
+        self.step_fn = step_fn
+        self.digest_fn = integrity.make_digest_fn(None, self.args.zero)
+        self.checker.arbiter = (integrity.ShadowArbiter(step_fn, self.digest_fn)
+                                if world == 2 and not self.args.integrity_shadow else None)
+
+    def wants_copy(self, state) -> bool:
+        return self.checker.due(state.step) and (self.checker.arbiter is not None or self.args.integrity_shadow)
+
+    def shadow(self, state, pend, batch, seed) -> bool:
+        """The step run again on ``pend`` (a copy of its input) in the live
+        state's tensors, the live values put back after: do the two runs'
+        digests agree?"""
+        live_d = self.digest_fn(state)
+        shadow_d = integrity.replay_digest(state, pend, [(batch, seed)], self.step_fn, self.digest_fn)
+        return bool(torch.equal(live_d, shadow_d))
+
+
 def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, faults: Faults,
-          start_epoch: int, rank: int, world_size: int):
+          start_epoch: int, rank: int, world_size: int, start_at: tuple | None = None):
     """The epochs: train steps, eval and checkpoint, under telemetry and the
     fault-tolerance wiring.  Returns early, with the epoch, when a SIGTERM
-    was agreed and its checkpoint saved.
+    was agreed and its checkpoint saved.  ``start_at=(batch, loader)``: a
+    grow's joiner starts ``start_epoch`` at that batch of that loader.
 
     Up to ``--dispatch-depth`` steps are in flight (``BoundedDispatch``):
     a step is settled (its loss, ``moe_aux`` and guard flag read on the
     host, the breaker fed, ``nan_skip`` emitted with its epoch and batch,
     its time read) when it leaves the window, and every step in flight at
     a drain: the telemetry's device sync (its throughput windows and the
-    first step), a log line, a checkpoint and the epoch's edge.  The
-    device is synchronised only there.  Depth 0 settles each step right
-    after it, as a synchronous loop."""
+    first step), a log line, a checkpoint, an integrity cadence step (its
+    digest matrix is read before the next step is dispatched) and the
+    epoch's edge.  The device is synchronised only there.  Depth 0 settles
+    each step right after it, as a synchronous loop."""
     state, step_fn, loader, spe = trainer.state, trainer.step_fn, trainer.loader, trainer.steps_per_epoch
     eval_step, eval_loader, model = trainer.eval_step, trainer.eval_loader, trainer.state.model
     injector, ckpt, watchdog, gang = faults.injector, faults.checkpointer, faults.watchdog, faults.gang
+    if gang is not None:
+        spe = gang.spe = gang.spe or spe
     losses, step_times, eval_batches, evals, moe_aux = [], [], 0, [], []
     wall, wall_steps, preempted = 0.0, 0, None
     depth = args.dispatch_depth
@@ -1416,10 +1609,12 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
 
     tel.sync = drain  # the telemetry's device syncs (windows, first step, traces) are drains
     if gang is not None:
-        # Every rank fires the same worker-kill@S: its tombstone waits for
-        # this barrier, so no rank whose host ran ahead by the dispatch
-        # depth shows it to a rank still polling an earlier step.
+        # Every rank fires the same worker-kill@S / worker-join@S: its
+        # tombstone or request waits for this barrier, so no rank whose host
+        # ran ahead by the dispatch depth shows it to a rank still polling
+        # an earlier step.
         injector.sync = lambda: (drain(), rt.barrier())
+    integ = IntegrityLoop(args, tel, step_fn, world_size) if args.integrity_every else None
     counts = None  # the first pipeline step's unit counts (on the device)
     for epoch in range(start_epoch, args.epochs):
         loader.set_epoch(epoch)
@@ -1428,26 +1623,66 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
         ends = []
         with tel.span("epoch", epoch=epoch), tel.epoch_trace(epoch == start_epoch):
             stream = _SwappableStream(loader, trainer.steps_per_epoch)
+            if start_at is not None and epoch == start_epoch:
+                stream.swap(start_at[1], at=start_at[0])
             for i, batch in stream:
                 # Stable across restarts: (epoch, batch)-derived.
                 gstep = epoch * spe + i
                 tel.step_start(gstep)
                 if injector.enabled:
-                    injector.before_step(gstep)  # slow-step / preempt
+                    injector.before_step(gstep)  # slow-step / worker-join / preempt
+                    if gang is not None and injector.joins:
+                        # The grow lands before this step: the survivors
+                        # wait here for the joiner, resize, and take this
+                        # step's batch from the grown gang's deal.
+                        members, injector.joins = injector.joins, []
+                        injector.sync()
+                        c = gang.coordinator
+                        if gang.rank == 0:
+                            for m in members:
+                                c.rejoin(m)
+                        c.await_members(members)
+                        decision = c.poll()
+                        if decision is None:
+                            raise RuntimeError(f"elastic join of {members}: the gang agreed no new epoch")
+                        tail = elastic_resize(args, trainer, device, tel, log, gang, decision, epoch, i)
+                        stream.swap(tail, at=i)
+                        state, step_fn, loader = trainer.state, trainer.step_fn, trainer.loader
+                        eval_step, eval_loader, model = trainer.eval_step, trainer.eval_loader, state.model
+                        rank, world_size = gang.rank, gang.world
+                        if integ is not None:
+                            integ.rearm(step_fn, world_size)
+                        i, batch = next(stream)
                     if rank == 0:
                         # The reference poisons row 0 of the global batch,
                         # which is data rank 0's.
                         batch = injector.corrupt_batch(batch, gstep)
+                    # A silent bit flip in one rank's parameters (bitflip).
+                    injector.corrupt_state(state, gstep)
+                on_cadence = integ is not None and integ.checker.due(state.step)
+                pend = None
+                if on_cadence:
+                    integ.checker.leaf_names = integrity.digest_leaf_names(integrity.digest_parts(state, args.zero))
+                    if integ.wants_copy(state):
+                        # The replay base / the shadow's input: this step's
+                        # input state, copied before the step updates it.
+                        pend = integrity.copy_tree(state)
+                seed = step_seed(args, epoch, i)
                 t0 = time.perf_counter()
                 with tel.span("step", step=gstep):
                     start = None
                     if on_events:
                         start = torch.cuda.Event(enable_timing=True)
                         start.record()
-                    metrics = step_fn(state, batch, step_seed(args, epoch, i))
+                    metrics = step_fn(state, batch, seed)
                     rec = _dispatched(metrics, (epoch, i, gstep), t0, device, depth, start)
                 for old, _ in dispatch.push(rec):
                     settle(old)
+                if on_cadence:
+                    drain()  # the verdict is read before the next step is dispatched
+                    _integrity_check(args, integ, metrics, state, pend, batch, seed, gstep, gang, log)
+                if integ is not None and integ.checker.arbiter is not None:
+                    integ.checker.arbiter.hold(batch, seed)
                 if watchdog is not None and watchdog.running:
                     watchdog.beat(epoch=epoch, batch=i, gstep=gstep)
                 if counts is None and "pp_phase_counts" in metrics:
@@ -1495,6 +1730,8 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
                     state, step_fn, loader = trainer.state, trainer.step_fn, trainer.loader
                     eval_step, eval_loader, model = trainer.eval_step, trainer.eval_loader, state.model
                     rank, world_size = gang.rank, gang.world
+                    if integ is not None:
+                        integ.rearm(step_fn, world_size)
         drain()  # the epoch's edge: eval and checkpoint see every step settled
         ends[-1] = time.perf_counter()
         # Steps 2.. of the epoch on the wall clock, the loader's time included.
@@ -1523,9 +1760,46 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
     return losses, step_times, eval_batches, evals, wall, wall_steps, preempted, moe_aux
 
 
-def build_faults(args, state: TrainState, tel: Telemetry, rank: int, world_size: int) -> Faults:
+def _integrity_check(args, integ: IntegrityLoop, metrics: dict, state, pend, batch, seed, gstep: int,
+                     gang: Gang | None, log) -> None:
+    """One cadence step's verdict (ref ``dpp.py:2531-2607``), everything in
+    flight drained: the digest matrix read (the only integrity host read),
+    the vote; on a clean check the replay base committed and the shadow
+    run; on a mismatch the corrupt ranks tombstoned for the gang's poll at
+    this boundary (the step already discarded its update), or, without an
+    eviction path, the run stopped."""
+    checker = integ.checker
+    verdict = checker.check(metrics["sdc_digest"].cpu().numpy(), step=gstep)
+    if verdict.ok:
+        if checker.arbiter is not None:
+            checker.arbiter.commit(pend, state)
+        if args.integrity_shadow and pend is not None and not integ.shadow(state, pend, batch, seed):
+            # Same step, same inputs, second run: a disagreement is a
+            # transient compute fault, caught even at world 1.
+            checker.note_shadow_mismatch(step=gstep)
+            log(f"integrity: shadow re-run of step {gstep} disagrees with the live run (transient fault)")
+    elif verdict.corrupt and gang is not None:
+        # Closed loop: the corrupt ranks are tombstoned and this boundary's
+        # poll lands the shrink over the survivors' verified live state;
+        # nothing the liar sent reached their parameters.  No restart
+        # budget, no checkpoint read.
+        for bad in verdict.corrupt:
+            gang.coordinator.kill(gang.order[bad])
+            checker.note_eviction(bad, step=gstep)
+        log(f"integrity: digest mismatch at step {gstep} — rank(s) {list(verdict.corrupt)} corrupt "
+            f"({verdict.method}, leaves {list(verdict.leaves)}); evicting via elastic resize")
+    else:
+        raise SystemExit(f"integrity: replica digest mismatch at step {gstep} (corrupt={list(verdict.corrupt)}, "
+                         f"tie={verdict.tie}) and no eviction path — rerun with --elastic, or restore from a "
+                         f"verified checkpoint")
+
+
+def build_faults(args, state: TrainState, tel: Telemetry, rank: int, world_size: int,
+                 gang: Gang | None = None) -> Faults:
     """The injector, the breaker, the resilient checkpointer and the step
-    watchdog these flags ask for, reporting into ``tel``."""
+    watchdog these flags ask for, reporting into ``tel``; under
+    ``--elastic`` this process's gang membership (``gang``: a joiner's,
+    already in the gang)."""
     faults = Faults(injector=build_injector(args, rank, world_size, tel.events))
     if args.nan_guard:
         faults.breaker = NonFiniteBreaker(args.max_bad_steps)
@@ -1549,7 +1823,12 @@ def build_faults(args, state: TrainState, tel: Telemetry, rank: int, world_size:
 
         faults.watchdog = StepWatchdog(args.step_timeout, on_timeout=on_wedge)
     if args.elastic:
-        faults.gang = build_gang(args, faults.injector, tel.events, rank, world_size)
+        if gang is None:
+            faults.gang = build_gang(args, faults.injector, tel.events, rank, world_size)
+        else:
+            faults.gang = gang
+            gang.coordinator.events = tel.events
+            wire_gang(args, faults.injector, gang)
     return faults
 
 
@@ -1575,11 +1854,13 @@ def _sigterm_sets(faults: Faults, enabled: bool):
             signal.signal(signal.SIGTERM, prev if prev is not None else signal.SIG_DFL)
 
 
-def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_size: int = 1) -> dict:
+def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_size: int = 1,
+          join: Join | None = None) -> dict:
     """Run ``trainer`` for these flags on this rank, from the newest
     checkpoint with ``--resume``; returns the run summary (under
     ``--elastic``, of this rank after every resize; a member that left the
-    gang returns ``{"left_gang": True}`` with its losses)."""
+    gang returns ``{"left_gang": True}`` with its losses).  A grow's joiner
+    (``join``) reads no checkpoint: it starts where the survivors are."""
     def log(*a):
         gang = faults.gang if faults is not None else None
         if (rank if gang is None else -1 if gang.left else gang.rank) == 0:
@@ -1588,29 +1869,33 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
     state, model = trainer.state, trainer.state.model
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    tel = build_telemetry(args, trainer, device, rank, world_size)
+    tel = build_telemetry(args, trainer, device, rank, world_size,
+                          proc=None if join is None else int(join.gang.member.removeprefix("proc")))
     launches0 = dict(flash_attention.LAUNCHES)
     builds0 = (warm_start.STATS.hits, warm_start.STATS.misses)
     buckets0 = dict(overlap.COUNTS)
     fsdp0 = dict(fsdp.COUNTS)
     status, faults = "ok", None
     try:
-        faults = build_faults(args, state, tel, rank, world_size)
+        faults = build_faults(args, state, tel, rank, world_size, gang=None if join is None else join.gang)
         start_epoch, t_restore = 0, time.perf_counter()
-        if args.resume:
+        if join is not None:
+            start_epoch = join.epoch
+            faults.injector.fast_forward(join.epoch * join.gang.spe + join.consumed)
+        elif args.resume:
             _, start_epoch = faults.checkpointer.restore_latest(state)
         restore_s = time.perf_counter() - t_restore
         if start_epoch >= args.epochs:
             raise SystemExit(f"the newest checkpoint is of epoch {start_epoch - 1}: "
                              f"nothing left to train for --epochs {args.epochs}")
-        if start_epoch:
+        if start_epoch and join is None:
             log(f"resumed at epoch {start_epoch} (step {state.step})")
         with _sigterm_sets(faults, enabled=faults.checkpointer is not None):
             losses, step_times, eval_batches, evals, wall, wall_steps, preempted, moe_aux = _loop(
-                args, trainer, device, tel, log, faults, start_epoch, rank, world_size)
-        if faults.gang is not None:
-            if not faults.gang.left:
-                rt.barrier()  # no survivor is still polling when the first one leaves the store
+                args, trainer, device, tel, log, faults, start_epoch, rank, world_size,
+                start_at=None if join is None else (join.consumed, join.tail))
+        if faults.gang is not None and not faults.gang.left:  # a member that left is tombstoned already
+            rt.barrier()  # no survivor is still polling when the first one leaves the store
             faults.gang.coordinator.stop()  # a later run in this store starts from an empty gang
     except BaseException as e:
         status = type(e).__name__
@@ -1799,7 +2084,8 @@ def main(argv=None) -> dict | None:
             # record: only its view spans every incarnation.
             events_dir=args.events_dir if supervised else None,
             runs_dir=args.runs_dir if supervised else None,
-            elastic_store=elastic_store_dir(args) if supervised and args.elastic else None,
+            # The resize rung (supervised) and the join rung read it.
+            elastic_store=elastic_store_dir(args) if args.elastic else None,
             min_procs=args.min_procs,
         )
         if not os.path.exists(result):

@@ -13,7 +13,9 @@ is hosts x local devices and a process's global rank is
 A gang formed on a launcher's store can be re-formed at another size in
 the same processes (``rebuild_process_group``, the elastic resize): every
 group is destroyed and the surviving members join a new one on the same
-store, under a prefix of the membership epoch, ranked in roster order.
+store, under a prefix of the membership epoch, ranked in roster order.  A
+process that was not in the current group (an elastic grow's joiner) enters
+the re-formed one there too (``enter_process_group``).
 """
 
 from __future__ import annotations
@@ -108,9 +110,14 @@ def init_process_group(
 _STORE_ADDRESS: str | None = None
 
 
-def rebuild_process_group(members: list[int], epoch: int) -> tuple[int, int] | None:
+_NO_STORE = ("needs a group formed on a launcher's store (store_address): a --coordinator gang resizes "
+             "through hostgang (ROADMAP item 20b)")
+
+
+def rebuild_process_group(members: list[int | None], epoch: int) -> tuple[int, int] | None:
     """Re-form the process group over ``members`` (global ranks of the
-    current group, in the new roster's order) after a membership change:
+    current group, in the new roster's order; None for a member that joins
+    from outside it, ``enter_process_group``) after a membership change:
     the mesh and every group (NCCL's communicators with them) are
     destroyed, and each member joins a new group on the launcher's store
     under the prefix ``gang{epoch}/``, as rank ``members.index(rank)`` of
@@ -118,18 +125,37 @@ def rebuild_process_group(members: list[int], epoch: int) -> tuple[int, int] | N
     current group calls it; one that is not a member leaves (the store
     stays the launcher's) and gets None, a member its ``(rank, world
     size)``.  The caller builds the mesh again (``make_mesh``)."""
-    global _STORE_ADDRESS
     if not dist.is_initialized():
         raise RuntimeError("rebuild_process_group: no process group to rebuild")
     if _STORE_ADDRESS is None:
-        raise RuntimeError("rebuild_process_group needs a group formed on a launcher's store "
-                           "(store_address): a --coordinator gang resizes through hostgang (ROADMAP item 20)")
+        raise RuntimeError(f"rebuild_process_group {_NO_STORE}")
     old, backend = dist.get_rank(), dist.get_backend()
     address = _STORE_ADDRESS
     destroy_process_group()
     if old not in members:
         return None
-    rank, world = members.index(old), len(members)
+    return _enter(address, backend, members.index(old), len(members), epoch)
+
+
+def enter_process_group(rank: int, world: int, epoch: int, *, store_address: str | None,
+                        device: torch.device | str = "cpu") -> tuple[int, int]:
+    """Enter the group the current members re-form at membership epoch
+    ``epoch`` (``rebuild_process_group``) from outside it: an elastic grow's
+    joiner, as rank ``rank`` of ``world``, on the launcher's store under
+    the same ``gang{epoch}/`` prefix, on the backend its device takes (the
+    gang's: a CUDA device is made current first)."""
+    if dist.is_initialized():
+        raise RuntimeError("enter_process_group: this process is already in a group")
+    if store_address is None:
+        raise RuntimeError(f"enter_process_group {_NO_STORE}")
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return _enter(store_address, "nccl" if device.type == "cuda" else "gloo", rank, world, epoch)
+
+
+def _enter(address: str, backend: str, rank: int, world: int, epoch: int) -> tuple[int, int]:
+    global _STORE_ADDRESS
     host, port = address.rsplit(":", 1)
     store = dist.PrefixStore(f"gang{epoch}/", dist.TCPStore(host, int(port), world, is_master=False))
     dist.init_process_group(backend, store=store, world_size=world, rank=rank)

@@ -19,6 +19,20 @@ process is one member, ``proc{rank}``.
 4. the data is re-dealt deterministically (``data.sharded.
    resize_index_plan``, the loader's ``index_shards``).
 
+The grow (a chaos ``worker-join``, an evicted member repaired): ``rejoin``
+writes a join request into the store, the launcher starts a new process
+for the member, which joins the store and takes part in the next
+transition (``poll``) while the survivors wait for it at the boundary
+(``await_members``).  The survivors reshard the ZeRO-1 flats over the OLD
+group as for a shrink, the group is re-formed with the joiner in it
+(``runtime.distributed.rebuild_process_group`` on the survivors,
+``enter_process_group`` on the joiner), and one healthy survivor sends the
+joiner its re-padded chunk, the scalars, the parameter groups, the
+replicated parameters, the schedule and the loader's position
+(``send_live_state`` / ``recv_live_state``).  A gang's rank order is its
+members' indices (``member_index``), so a member that comes back takes its
+old place.
+
 ``state_template_for`` / ``batch_template_for`` serve the reference's
 background pre-compile of XLA executables and have no counterpart here.
 """
@@ -167,6 +181,33 @@ class ElasticGangCoordinator:
                 and int(member) < len(self.world):
             member = self.world[int(member)]
         self.store.mark_dead(member)
+
+    def rejoin(self, member: str | int) -> None:
+        """Ask for a previously-killed member back (the chaos ``worker-join``
+        hook / a repaired process): one process per member here, so the
+        member returns as a new process, which the launcher watching the
+        store starts on this request; its joining the store makes the next
+        ``poll()`` see a larger live set and resize up."""
+        member = str(member)
+        if member not in self.world and member.isdigit() \
+                and int(member) < len(self.world):
+            member = self.world[int(member)]
+        self.store.request_join(member)
+
+    def await_members(self, members, timeout_s: float | None = None, poll_s: float = 0.02) -> None:
+        """Wait, beating this process's heartbeats, until every member of
+        ``members`` is alive in the store (a joiner has started and joined);
+        bounded by the heartbeat timeout.  A joiner that does not come is an
+        error, not a silent restart."""
+        timeout_s = self.store.heartbeat_timeout_s if timeout_s is None else timeout_s
+        deadline = time.monotonic() + timeout_s
+        while not set(members) <= set(self.store.alive()):
+            for m in self._hosted_live():
+                self.store.heartbeat(m)
+            if time.monotonic() >= deadline:
+                raise RuntimeError(f"elastic join: {sorted(set(members) - set(self.store.alive()))} did not "
+                                   f"join the gang's store within {timeout_s:.0f}s")
+            time.sleep(poll_s)
 
     def _hosted_live(self) -> list[str]:
         dead = set(self.store.dead())
@@ -324,7 +365,13 @@ class ElasticGangCoordinator:
 # -- in-memory (checkpoint-free) state reshard ---------------------------
 
 
-def reshard_live_state(state, new_rank: int | None, new_world: int) -> dict | None:
+def member_index(member: str) -> int:
+    """``proc{r}`` -> r: a gang's rank order (the start's ranks; a member
+    that comes back takes its old place)."""
+    return int(str(member).removeprefix("proc"))
+
+
+def reshard_live_state(state, new_rank: int | None, new_world: int, extra_ranks=()) -> dict | None:
     """Checkpoint-free reshard of a live ZeRO-1 state to ``new_world``
     data ranks: a collective over the current (old) group, which every old
     member joins, the leaving ones too.  Each per-element optimizer state
@@ -336,9 +383,11 @@ def reshard_live_state(state, new_rank: int | None, new_world: int) -> dict | No
     ``{"flats": {key: chunk}, "scalars": {key: value}, "param_groups":
     [...]}`` for a survivor, None for a leaving member (``new_rank`` None)
     and for a state with no sharded optimizer state (plain DP: every rank
-    keeps its whole copy).  Supported layouts match the ``--elastic`` gate:
-    plain DP and ZeRO-1 over the data axis (no model axes, no low-bit
-    moments)."""
+    keeps its whole copy).  In a grow the survivor that sends the joiners
+    their state passes their new ranks as ``extra_ranks`` and gets their
+    chunks too (``"extra": {rank: {key: chunk}}``).  Supported layouts match
+    the ``--elastic`` gate: plain DP and ZeRO-1 over the data axis (no model
+    axes, no low-bit moments)."""
     import torch
     import torch.distributed as dist
 
@@ -357,7 +406,7 @@ def reshard_live_state(state, new_rank: int | None, new_world: int) -> dict | No
     true = sum(layout.sizes)
     padded_new, chunk = flat_size(layout.sizes, new_world)
     first = state.optimizer.state.get(layout.shard_params[0], {})
-    flats, scalars = {}, {}
+    flats, scalars, extra = {}, {}, {r: {} for r in extra_ranks}
     for key, v in sorted(first.items()):
         if v.dim() == 0:
             scalars[key] = v.detach().cpu().clone()
@@ -369,11 +418,88 @@ def reshard_live_state(state, new_rank: int | None, new_world: int) -> dict | No
         else:
             full.copy_(local)
         if new_rank is not None:
-            flats[key] = repad_flat(full.cpu(), true, padded_new)[new_rank * chunk : (new_rank + 1) * chunk].clone()
+            new = repad_flat(full.cpu(), true, padded_new)
+            flats[key] = new[new_rank * chunk : (new_rank + 1) * chunk].clone()
+            for r in extra_ranks:
+                extra[r][key] = new[r * chunk : (r + 1) * chunk].clone()
     if new_rank is None:
         return None
     groups = optimizer_state_dict(state.optimizer)["param_groups"]
-    return {"flats": flats, "scalars": scalars, "param_groups": groups}
+    return {"flats": flats, "scalars": scalars, "param_groups": groups, "extra": extra}
+
+
+# -- the grow: live state to a joiner -------------------------------------
+
+
+_TENSOR = "__tensor__"
+
+
+def _strip(obj, tensors: list):
+    """``obj`` with every tensor replaced by ``(_TENSOR, its place in
+    tensors)``, the tensor appended there."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        tensors.append(obj.detach())
+        return (_TENSOR, len(tensors) - 1)
+    if isinstance(obj, dict):
+        return {k: _strip(v, tensors) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_strip(v, tensors) for v in obj]
+    return obj
+
+
+def _fill(obj, tensors: list):
+    if isinstance(obj, tuple) and len(obj) == 2 and obj[0] == _TENSOR:
+        return tensors[obj[1]]
+    if isinstance(obj, dict):
+        return {k: _fill(v, tensors) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_fill(v, tensors) for v in obj]
+    return obj
+
+
+def send_live_state(payload: dict, dst: int, device) -> int:
+    """Send ``payload`` (nested dicts and lists of tensors and plain values:
+    the live state a joiner needs) to rank ``dst`` of the current group:
+    its structure and the tensors' shapes and dtypes as one object, every
+    tensor's bytes as one flat buffer on ``device``.  Returns the bytes
+    sent."""
+    import torch
+    import torch.distributed as dist
+
+    tensors: list = []
+    meta = _strip(payload, tensors)
+    specs = [(tuple(t.shape), str(t.dtype).removeprefix("torch.")) for t in tensors]
+    flat = (torch.cat([t.reshape(-1).contiguous().view(torch.uint8).to(device) for t in tensors])
+            if tensors else torch.empty(0, dtype=torch.uint8, device=device))
+    dist.send_object_list([meta, specs, flat.numel()], dst=dst, device=device)
+    if flat.numel():
+        dist.send(flat, dst=dst)
+    return flat.numel()
+
+
+def recv_live_state(src: int, device) -> tuple[dict, int]:
+    """The ``payload`` rank ``src`` sends with ``send_live_state``, its
+    tensors on ``device``, and its tensors' bytes."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    got = [None, None, None]
+    dist.recv_object_list(got, src=src, device=device)
+    meta, specs, nbytes = got
+    flat = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    if nbytes:
+        dist.recv(flat, src=src)
+    tensors, o = [], 0
+    for shape, dtype in specs:
+        dt = getattr(torch, dtype)
+        n = math.prod(shape) * dt.itemsize
+        tensors.append(flat[o : o + n].clone().view(dt).reshape(shape))
+        o += n
+    return _fill(meta, tensors), nbytes
 
 
 def measure_downtime(t_start: float) -> float:

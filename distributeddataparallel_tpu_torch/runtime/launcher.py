@@ -1,9 +1,9 @@
 """Launcher: one process per local device, optionally supervised.
 
 Counterpart of the spawn-and-supervise part of the JAX package's
-``runtime/launcher.py``, with its resize rung (not the multi-host in-place
-absorption, ``_absorbed_resize``, which needs hostgang's rank bindings:
-ROADMAP item 20).  ``spawn(fn, args, nprocs)`` starts ``nprocs`` child processes through
+``runtime/launcher.py``, with its resize rung and a join rung (not the
+multi-host in-place absorption, ``_absorbed_resize``, which needs
+hostgang's rank bindings: ROADMAP item 20b).  ``spawn(fn, args, nprocs)`` starts ``nprocs`` child processes through
 the ``spawn`` start method (a fresh interpreter each: a forked CUDA context
 is unusable, and this process never initialises CUDA) and calls
 ``fn(i, nprocs, store_address, *args)`` in child ``i``, after enabling an
@@ -33,6 +33,18 @@ the gang at the surviving size (``DDP_ELASTIC_WORLD``) without spending the
 restart budget, and records ``gang_resize`` and ``resize_downtime``; a
 death with the roster intact takes the restart rung.  ``min_procs`` floors
 the resize.
+
+The join rung (``elastic_store``, supervised or not): while a gang runs,
+the launcher watches the store's join requests (a chaos ``worker-join``,
+``runtime.elastic_gang.ElasticGangCoordinator.rejoin``) and starts a
+process for each requested member ``proc<R>`` as child ``R`` (the device
+its member had) with ``DDP_ELASTIC_JOIN=proc<R>``, running the same
+function with the same arguments and the inherited build cache; the
+running gang takes it in place.  It spends no restart budget, and records
+``gang_resize`` with ``joined`` (the ``gang_verdict`` then names the
+``worker-join`` entry).  A failure while a join is open (the joiner's
+own, or a survivor's that timed out waiting for it or broke off the state
+transfer) is an error that ends the gang, never a silent restart of it.
 
 ``events_dir`` writes the supervisor's records (``restart_attempt``,
 ``restart_exhausted``, ``gang_resize``, ``resize_downtime``,
@@ -73,32 +85,67 @@ def _child(fn, i, nprocs, store_address, env, args):
     fn(i, nprocs, store_address, *args)
 
 
-def _start(fn, args, nprocs, env, store_address) -> list:
+#: Seconds between the join rung's looks at the elastic store.
+JOIN_POLL_S = 0.1
+
+
+def _start(fn, args, nprocs, env, store_address, ranks=None) -> list:
     ctx = mp.get_context("spawn")
     procs = []
-    for i in range(nprocs):
+    for i in range(nprocs) if ranks is None else ranks:
         p = ctx.Process(target=_child, args=(fn, i, nprocs, store_address, dict(env or {}), tuple(args)))
         p.start()
         procs.append(p)
     return procs
 
 
-def _run_gang(fn, args, nprocs, env) -> list[tuple[int, int]]:
+def _run_gang(fn, args, nprocs, env, elastic_store: str | None = None, on_join=None) -> list[tuple[int, int]]:
     """Run one gang to its end; returns [(rank, exitcode)] of the members
     that failed.  Once one fails, the others are killed and not listed.
     The gang's store (a fresh one per gang: a restarted gang must not read
-    the dead one's keys) lives until the gang has ended."""
-    store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False) if nprocs > 1 else None
+    the dead one's keys) lives until the gang has ended.  With
+    ``elastic_store`` the join rung starts a process for every join request
+    there (module docstring) and calls ``on_join(member)``.  A join is open
+    from its request until its joiner has written its ``join-<member>``
+    blob (after the state transfer); any failure while a join is open (the
+    joiner's, or a survivor's that timed out waiting for it or broke off
+    the transfer) raises ``RuntimeError`` once the gang is down."""
+    store = (dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
+             if nprocs > 1 or elastic_store else None)
     store_address = f"127.0.0.1:{store.port}" if store is not None else None
     procs = _start(fn, args, nprocs, env, store_address)
     live = {p.sentinel: (i, p) for i, p in enumerate(procs)}
-    failed = []
+    joins = None
+    if elastic_store is not None:
+        from distributeddataparallel_tpu_torch.runtime.elastic_gang import member_index
+        from distributeddataparallel_tpu_torch.runtime.rendezvous import RendezvousStore
+
+        joins = RendezvousStore(elastic_store)
+    opened, failed = {}, []  # open joins: member -> the membership epoch when its process started
+
+    def joined(member: str) -> bool:
+        blob = joins.get_blob(f"join-{member}")
+        return blob is not None and json.loads(blob)["epoch"] > opened[member]
+
     while live and not failed:
-        for s in wait(list(live)):
+        for s in wait(list(live), timeout=JOIN_POLL_S if joins is not None else None):
             i, p = live.pop(s)
             p.join()
             if p.exitcode != 0:
                 failed.append((i, p.exitcode))
+        if joins is None:
+            continue
+        opened = {m: e for m, e in opened.items() if not joined(m)}
+        for member, asked in ({} if failed else joins.join_requests()).items():
+            joins.clear_join(member)
+            opened[member] = joins.epoch()["epoch"]
+            i = member_index(member)
+            (p,) = _start(fn, args, nprocs, {**dict(env or {}), "DDP_ELASTIC_JOIN": member,
+                                             "DDP_ELASTIC_JOIN_REQUESTED": repr(asked)}, store_address, [i])
+            live[p.sentinel] = (i, p)
+            get_logger().warning("[launcher] join request for %s: started a process for it (child %d)", member, i)
+            if on_join is not None:
+                on_join(member)
     for _, p in live.values():
         # SIGKILL, not SIGTERM: SIGTERM is the trainer's preemption signal,
         # which would have a survivor save mid-epoch state as a finished
@@ -106,6 +153,11 @@ def _run_gang(fn, args, nprocs, env) -> list[tuple[int, int]]:
         p.kill()
     for _, p in live.values():
         p.join()
+    if failed and joins is not None:
+        pending = sorted({m for m in opened if not joined(m)} | set(joins.join_requests()))
+        if pending:
+            raise RuntimeError(f"elastic join failed (rank, exitcode): {failed} while the join of {pending} was "
+                               f"open — the gang is not restarted for a failed join")
     return failed
 
 
@@ -178,7 +230,7 @@ def spawn(
                              "join-and-respawn loop, there is no handle to return")
         return _start(fn, args, nprocs, env, None)
     if max_restarts == 0:
-        failed = _run_gang(fn, args, nprocs, env)
+        failed = _run_gang(fn, args, nprocs, env, elastic_store)
         if failed:
             raise RuntimeError(f"spawned processes failed (rank, exitcode): {failed}")
         return
@@ -195,6 +247,18 @@ def spawn(
             fault = _last_fault(elastic_store) or {}
             sup_events.emit("gang_verdict", rung=rung, fault=fault.get("entry"), fault_kind=fault.get("kind"),
                             **detail)
+
+    joins = 0
+
+    def joined(member: str) -> None:
+        nonlocal joins
+        joins += 1
+        if sup_events is not None:
+            from distributeddataparallel_tpu_torch.runtime.rendezvous import RendezvousStore
+
+            rdzv = RendezvousStore(elastic_store)
+            sup_events.emit("gang_resize", epoch=rdzv.epoch()["epoch"] + 1, old_size=len(rdzv.roster()),
+                            new_size=len(rdzv.roster()) + 1, left=[], joined=[member])
 
     try:
         attempt = resizes = 0
@@ -213,12 +277,12 @@ def spawn(
                 gang_env.setdefault("DDP_EVENTS_DIR", events_dir)
             if runs_dir:
                 gang_env.setdefault("DDP_RUNS_DIR", runs_dir)
-            failed = _run_gang(fn, args, world, gang_env)
+            failed = _run_gang(fn, args, world, gang_env, elastic_store, joined)
             if not failed:
                 if attempt > 0:
                     verdict("restart", attempts=attempt)
-                elif resizes > 0 or _last_fault(elastic_store) is not None:
-                    verdict("resize", respawns=resizes)
+                elif resizes > 0 or joins > 0 or _last_fault(elastic_store) is not None:
+                    verdict("resize", respawns=resizes, joins=joins)
                 return
             t_died = time.perf_counter()
             info = _elastic_survivors(elastic_store) if elastic_store is not None else None

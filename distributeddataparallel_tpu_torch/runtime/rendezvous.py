@@ -130,6 +130,7 @@ class RendezvousStore:
 
         members/<name>.json   heartbeat file; mtime = last beat
         dead/<name>           tombstone (clean leave or observed death)
+        joins/<name>          a grow's request for a new process (launcher)
         epoch.json            {"epoch": k, "roster": [...], "ts": ...}
         epochs.jsonl          append-only transition log (one line/epoch)
         acks/<epoch>/<name>   barrier acknowledgements for epoch k
@@ -252,6 +253,37 @@ class RendezvousStore:
         return {
             n: round(age, 3) for n, age in self._heartbeat_ages().items()
         }
+
+    # -- join requests --------------------------------------------------
+
+    def request_join(self, name: str) -> None:
+        """Ask the launcher that watches this store for a new process for
+        member ``name`` (the grow: ``joins/<name>`` holds the request's
+        time)."""
+        os.makedirs(os.path.join(self.root, "joins"), exist_ok=True)
+        self._member_path(name)  # validates the name
+        _atomic_write(os.path.join(self.root, "joins", str(name)), repr(time.time()))
+
+    def join_requests(self) -> dict[str, float]:
+        """The pending join requests: member -> request time (unix)."""
+        d = os.path.join(self.root, "joins")
+        out = {}
+        for name in sorted(os.listdir(d)) if os.path.isdir(d) else ():
+            if name.startswith("."):
+                continue
+            try:
+                with open(os.path.join(d, name)) as fh:
+                    out[name] = float(fh.read() or 0.0)
+            except (OSError, ValueError):
+                continue
+        return out
+
+    def clear_join(self, name: str) -> None:
+        """The request for ``name`` is served."""
+        try:
+            os.remove(os.path.join(self.root, "joins", str(name)))
+        except FileNotFoundError:
+            pass
 
     # -- blobs ----------------------------------------------------------
 

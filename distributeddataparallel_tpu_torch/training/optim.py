@@ -77,11 +77,13 @@ def build_optimizer(args, params: Iterable[torch.nn.Parameter], total_steps: int
                     fused: bool | None = None):
     """``(optimizer, scheduler)`` for ``args.optimizer`` and the schedule.
     The update is torch's fused one, guarded or not; with ``args.nan_guard``
-    the scheduler is a ``DeviceSchedule``, else ``LambdaLR`` (module
+    or ``args.integrity_every`` the scheduler is a ``DeviceSchedule``, else
+    ``LambdaLR`` (module
     docstring).  ``fused=False`` asks for the foreach update (a guarded
     step refuses it)."""
     params = list(params)
-    guard = bool(getattr(args, "nan_guard", False))
+    # The replica digest's verdict skips the same way (``training.integrity``).
+    guard = bool(getattr(args, "nan_guard", False) or getattr(args, "integrity_every", 0))
     kw = {"fused": True} if fused is None or fused else {}
     if args.optimizer == "sgd":
         opt = torch.optim.SGD(params, lr=args.lr, momentum=args.momentum or 0.0, **kw)

@@ -71,14 +71,16 @@ from distributeddataparallel_tpu_torch.utils.metrics import FaultCounters, StepT
 
 class Telemetry:
     def __init__(self, args, *, rank: int, world_size: int, items_per_step: int,
-                 unit: str, sync=None, layout: str | None = None):
+                 unit: str, sync=None, layout: str | None = None, proc: int | None = None):
         self.args, self.rank, self.world_size, self.sync = args, rank, world_size, sync
         self.items_per_step, self.unit = items_per_step, unit
         self.counters = FaultCounters()
         self.counters.restarts = int(os.environ.get("DDP_RESTART_ATTEMPT", "0") or 0)
         self.events = self.registry = self.tracer = self.prof = None
         if args.events_dir:
-            self.events = EventLog(events_path(args.events_dir, rank), rank)
+            # ``proc``: the writer, when it is not the rank (a grow's joiner).
+            proc = rank if proc is None else proc
+            self.events = EventLog(events_path(args.events_dir, proc), proc)
             self.events.emit("run_start", argv=sys.argv[1:], attempt=self.counters.restarts,
                              devices=world_size, layout=layout)
             self.registry = MetricsRegistry()

@@ -45,6 +45,22 @@ loop reads when the step leaves its dispatch window;
 ``training.fault_tolerance.NonFiniteBreaker`` turns a run of them into a
 hard stop.
 
+``integrity_every=N`` arms the silent-data-corruption probe
+(``training.integrity``, the reference's ``train_step.py:298-330`` and
+``:743-806``): on a step whose ``state.step`` is a multiple of N (the host's
+count: no device read) the step digests its INPUT state before the forward
+and all-gathers the ``(n_ranks, n_leaves)`` digest matrix over the data
+group, and decides on the device whether every row is equal.  That verdict
+joins the guard's: keep = finite AND agree, through the same ``found_inf``,
+buffer select and schedule count, so a mismatching step discards its update
+and ``state.step`` advances.  Under ZeRO-1 the parameters' all-gather would
+spread a corrupt rank's own shard into every rank, so on a cadence step
+each rank keeps its own input parameters on a rejected verdict (a select
+after the gather).  The step reports ``metrics["sdc_mismatch"]`` (0.0 or
+1.0) and ``metrics["sdc_digest"]``; off cadence it computes no digest and
+reports neither.  The state needs ``build_optimizer``'s fused update and
+``DeviceSchedule`` (built under ``--integrity-every``, as under the guard).
+
 ``step(state, batch, seed)`` with an integer ``seed`` (the trainer's per-step
 seed, a function of the run's seed, the epoch and the step) calls
 ``loss_fn(model, microbatch, seed=...)`` with the seed folded with this
@@ -113,6 +129,7 @@ from distributeddataparallel_tpu_torch.runtime.distributed import (
     get_rank,
     get_world_size,
 )
+from distributeddataparallel_tpu_torch.training.integrity import make_digest_fn
 from distributeddataparallel_tpu_torch.training.optim import DeviceSchedule, is_fused
 from distributeddataparallel_tpu_torch.training.state import TrainState
 
@@ -302,6 +319,7 @@ def make_train_step(
     tp_axis: str | None = None,
     fsdp: bool = False,
     ep_axis: str | None = None,
+    integrity_every: int | None = None,
 ):
     """Build ``step(state, batch[, seed]) -> metrics`` for data parallelism
     (over the mesh's ``data`` group when a mesh is bound), composed
@@ -332,11 +350,24 @@ def make_train_step(
     ``overlap`` (``ValueError``).  Under ``nonfinite_guard`` the verdict
     comes before any gradient leaves the rank: the hooks launch nothing,
     and a bad step's gradients are zeros before the wire, PowerSGD's error
-    feedback or ZeRO's reduce-scatter see them.
+    feedback or ZeRO's reduce-scatter see them.  ``integrity_every``: the
+    replica digest (module docstring), with the reference's gates.
     """
     zero_level = int(zero)
     _check_layout(zero_level, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync, cp_axis, tp_axis,
                   fsdp, nonfinite_guard, ep_axis)
+    if integrity_every is not None:
+        # The reference's gates (train_step.py:298-330): the digest compares
+        # state that is bitwise replicated over the data axis.
+        if integrity_every < 1:
+            raise ValueError(f"integrity_every must be >= 1, got {integrity_every}")
+        if zero_level >= 2 or fsdp:
+            raise ValueError("integrity_every needs bitwise-replicated state to compare; zero=2/3 shard it "
+                             "— use zero<=1")
+        if tp_axis is not None or ep_axis is not None or cp_axis is not None:
+            raise ValueError("integrity_every composes with the data axis only; tp/ep/cp-sharded layouts "
+                             "have no replicated digest domain over 'data' alone")
+    digests: list = []  # the digest function over the data group, made on the first cadence step
     hooks = {}  # the model's reducer hooks, made on the first step
     resolved: list[_Axes] = []
 
@@ -375,10 +406,19 @@ def make_train_step(
                              "the config and the factory")
         if grad_compress == "powersgd" and state.comm_state is None:
             raise ValueError("grad_compress='powersgd' needs state.comm_state (parallel.powersgd.powersgd_state)")
-        if nonfinite_guard and not (is_fused(state.optimizer)
-                                    and isinstance(state.scheduler, (DeviceSchedule, type(None)))):
+        if (nonfinite_guard or integrity_every) and not (
+                is_fused(state.optimizer) and isinstance(state.scheduler, (DeviceSchedule, type(None)))):
             raise ValueError("nonfinite_guard=True skips inside the fused optimizer: build the state with "
                              "training.optim.build_optimizer under --nan-guard (fused=True, a DeviceSchedule)")
+        sdc_ok = None
+        if integrity_every is not None and state.step % integrity_every == 0:
+            # The INPUT state's fingerprint, before this step's reduction
+            # could spread a corrupt rank's gradients.
+            if not digests:
+                digests.append(make_digest_fn(ax.data, zero_level))
+            matrix = digests[0](state)
+            sdc_ok = (matrix == matrix[0:1]).all()
+        guarded = nonfinite_guard or sdc_ok is not None
         if zero_level == 3:
             layout.gather_params()
         params = [p for p in model.parameters() if p.requires_grad]
@@ -387,7 +427,7 @@ def make_train_step(
         else:
             for p in params:
                 p.grad = None
-        if nonfinite_guard:
+        if guarded:
             # The forward updates the BatchNorm running buffers; a skipped
             # step puts them back.
             buffers = model_buffers(model)
@@ -437,15 +477,30 @@ def make_train_step(
             with torch.no_grad():
                 for g in ([layout.grad] if layout is not None else grads):
                     g.masked_fill_(bad, 0.0)
-        _reduce_and_update(state, grads, red, ax, armed, ok)
+        finite, keep = ok, ok
+        if sdc_ok is not None:
+            agree = sdc_ok.to(torch.float32)
+            keep = agree if ok is None else ok * agree
+        # Under ZeRO-1 the parameters' all-gather would copy a corrupt rank's
+        # own shard into every rank: on a rejected verdict each rank keeps
+        # its own input parameters, a select on cadence steps only.
+        own = state.zero.flat.clone() if sdc_ok is not None and zero_level == 1 else None
+        _reduce_and_update(state, grads, red, ax, armed, keep)
+        if own is not None:
+            with torch.no_grad():
+                state.zero.flat.copy_(torch.where(keep.reshape(()) > 0, state.zero.flat, own))
         if get_world_size() > 1:  # one rank's buffers are already its own
             sync_buffers(model_buffers(model), buffer_sync)
         metrics = _mean_over_ranks(totals, ax.metric_groups)
-        if nonfinite_guard:
+        if guarded:
             with torch.no_grad():
                 for b, old in zip(buffers, saved):
-                    b.copy_(torch.where(bad, old, b))
-            metrics["nonfinite_grad"] = 1.0 - ok
+                    b.copy_(torch.where(keep == 0, old, b))
+        if nonfinite_guard:
+            metrics["nonfinite_grad"] = 1.0 - finite
+        if sdc_ok is not None:
+            metrics["sdc_mismatch"] = 1.0 - agree
+            metrics["sdc_digest"] = matrix
         return metrics
 
     def _reduce_and_update(state: TrainState, grads: list[torch.Tensor], red, ax: _Axes, armed: bool,

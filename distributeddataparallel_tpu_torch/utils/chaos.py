@@ -36,14 +36,29 @@ Spec grammar (comma-separated entries, all steps 0-based)::
                        each, sees it at the same step boundary: a rank
                        whose host runs ahead (``--dispatch-depth``) cannot
                        show it to one still polling after S - 1
+    worker-join@S[:R]  take gang member R (default 1), killed or evicted
+                       earlier, back before step S: the gang's ``rejoin``
+                       writes a join request into the elastic store after
+                       the injector's ``sync``, the launcher starts a new
+                       process for R, and the survivors wait at that
+                       boundary for it and grow in place (``dpp``);
+                       without a gang coordinator the entry warns and
+                       does nothing
+    bitflip@S[:R][:leaf]
+                       XOR one low mantissa bit of one parameter leaf on
+                       data rank R (default 1) before step S
+                       (``corrupt_state``, ``training.integrity.
+                       apply_bitflip``): a silent device-memory bit flip
+                       whose values stay finite, so only the replica
+                       digest (``--integrity-every``) can catch it.
+                       ``leaf`` selects the first leaf whose reference
+                       name contains it (default: the first leaf)
 
-The parser also accepts the reference's other elastic-gang and
-replica-digest kinds (``worker-join``, ``host-kill``, ``proposer-kill``,
-``rdzv-kill``, ``slow-heartbeat``, ``partition``, ``torn-epoch``,
-``bitflip``), with the reference's argument rules.  Their runtimes are not
-ported (``NOT_PORTED`` names the ROADMAP item of each: a grow needs a new
-process holding live state, which is hostgang's work), and an injector
-refuses them rather than skipping them.
+The parser also accepts the reference's multi-host gang kinds
+(``host-kill``, ``proposer-kill``, ``rdzv-kill``, ``slow-heartbeat``,
+``partition``, ``torn-epoch``), with the reference's argument rules.  Their
+runtime (``runtime/hostgang.py``) is not ported (``NOT_PORTED`` names its
+ROADMAP item), and an injector refuses them rather than skipping them.
 
 With ``fault_log`` (or ``DDP_FAULT_LOG``) every entry that fires is
 appended to a JSONL breadcrumb file, from which the supervisor names the
@@ -83,15 +98,12 @@ KINDS = (
     "slow-heartbeat", "partition", "torn-epoch",
 )
 
-_GANG = ("ROADMAP.md Queue 1 item 20: runtime/hostgang.py, the grow path and "
-         "the other gang chaos kinds")
+_GANG = ("ROADMAP.md Queue 1 item 20b: runtime/hostgang.py and the multi-host "
+         "gang chaos kinds")
 #: Kinds the parser accepts but this port cannot inject yet, each with the
 #: ROADMAP item that ports its runtime.
-NOT_PORTED = {
-    **{k: _GANG for k in ("worker-join", "host-kill", "proposer-kill",
-                          "rdzv-kill", "slow-heartbeat", "partition", "torn-epoch")},
-    "bitflip": "ROADMAP.md Queue 1 item 20: training/integrity.py (the replica digest)",
-}
+NOT_PORTED = {k: _GANG for k in ("host-kill", "proposer-kill", "rdzv-kill", "slow-heartbeat", "partition",
+                                 "torn-epoch")}
 
 
 class SimulatedPreemption(RuntimeError):
@@ -202,8 +214,12 @@ class FaultInjector:
         self.hosts: dict[str, str] = {}
         self.fault_log = os.environ.get("DDP_FAULT_LOG") or None
         self._kills: list[str] = []  # members to tombstone after the step
-        # Called on every rank before a worker-kill's tombstones are
-        # written: ``dpp`` sets it to a drain and a barrier of the gang.
+        #: members a worker-join of this step takes back (``dpp`` grows the
+        #: gang before the step and empties it)
+        self.joins: list[str] = []
+        # Called on every rank before a worker-kill's tombstones or a
+        # worker-join's request are written: ``dpp`` sets it to a drain and
+        # a barrier of the gang.
         self.sync = None
         self._fired_local: set[str] = set()
         # Entries this PROCESS started firing (a multi-attempt ckpt-io entry
@@ -268,6 +284,14 @@ class FaultInjector:
                 return e
         return None
 
+    def fast_forward(self, step: int) -> None:
+        """Count as fired, without a record, every entry before ``step``
+        and a ``worker-join`` at it: a process that joins the gang at the
+        boundary of ``step`` continues the survivors' schedule there."""
+        for e in self._entries:
+            if e.kind != "ckpt-io" and (e.step < step or (e.step == step and e.kind == "worker-join")):
+                self._fired_local.add(e.key)
+
     def _breadcrumb(self, e: _Entry, step: int) -> None:
         if not self.fault_log:
             return
@@ -282,7 +306,8 @@ class FaultInjector:
     def before_step(self, step: int) -> None:
         """Call at the top of each train-loop iteration with the global step
         index.  May sleep (slow-step), tombstone a gang member
-        (worker-kill) or raise SimulatedPreemption."""
+        (worker-kill), ask for one back (worker-join, into ``joins``) or
+        raise SimulatedPreemption."""
         e = self._take("slow-step", step)
         if e is not None:
             time.sleep(float(e.arg or 30.0))
@@ -294,6 +319,15 @@ class FaultInjector:
                 from distributeddataparallel_tpu_torch.utils.logging import warn0
 
                 warn0("chaos %s: no elastic gang coordinator wired (--elastic not set?) — kill not injected",
+                      e.key)
+        e = self._take("worker-join", step)
+        if e is not None:
+            if self.gang is not None:
+                self.joins.append(self.hosts.get(e.arg or "1", e.arg or "1"))
+            else:
+                from distributeddataparallel_tpu_torch.utils.logging import warn0
+
+                warn0("chaos %s: no elastic gang coordinator wired (--elastic not set?) — rejoin not injected",
                       e.key)
         e = self._take("preempt", step)
         if e is not None:
@@ -326,6 +360,19 @@ class FaultInjector:
             "chaos nan-grad needs a float leaf in the batch to poison "
             "(integer-token LM batches cannot carry a NaN input)"
         )
+
+    def corrupt_state(self, state, step: int, *, group=None):
+        """``state`` with one bit XOR'd in one parameter leaf on one data
+        rank when a ``bitflip`` entry fires at ``step`` (identity
+        otherwise): the silent corruption behind the ``--integrity-every``
+        closed loop.  ``group``: the data group (None: the world)."""
+        e = self._take("bitflip", step)
+        if e is None:
+            return state
+        rank_s, _, leaf = (e.arg or "1").partition(":")
+        from distributeddataparallel_tpu_torch.training.integrity import apply_bitflip
+
+        return apply_bitflip(state, rank=int(rank_s), leaf=leaf or None, group=group)
 
     def fail_io(self, ordinal: int, attempt: int) -> None:
         """Call from inside the checkpoint retry loop with the save-call

@@ -10,8 +10,10 @@ on the CPU.
 - ``corrupt_batch`` plants one NaN where the reference's does, and raises
   the reference's ``ValueError`` on a token batch and on a uint8 image
   batch.
-- The gang and digest kinds are refused, naming their ROADMAP item: by the
-  injector, and by ``dpp.parse_args`` for ``--chaos`` and ``DDP_CHAOS``;
+- ``NOT_PORTED`` holds exactly the six multi-host gang kinds, each refused
+  naming ROADMAP item 20b: by the injector, and by ``dpp.parse_args`` for
+  ``--chaos`` and ``DDP_CHAOS``; ``bitflip`` and ``worker-join`` inject
+  (item 20a), and without a gang ``worker-join`` warns as the reference's;
   the fault-tolerance and multi-host flags are validated as the
   reference validates them.
 """
@@ -118,15 +120,23 @@ def test_corrupt_batch_needs_a_float_tensor(batch):
 
 
 def test_gang_and_digest_kinds_are_refused_naming_their_item(monkeypatch):
+    assert set(chaos.NOT_PORTED) == {"host-kill", "proposer-kill", "rdzv-kill", "slow-heartbeat", "partition",
+                                     "torn-epoch"}
     chaos.FaultInjector("preempt@3,worker-kill@5")  # ported: the elastic gang's kill
-    with pytest.raises(NotImplementedError, match="item 20: runtime/hostgang.py"):
-        chaos.FaultInjector("preempt@3,worker-join@5")
-    with pytest.raises(SystemExit, match=r"--chaos: .*bitflip.*item 20: training/integrity.py"):
-        dpp.parse_args(["--device", "cpu", "--chaos", "bitflip@4:1"])
+    joins = chaos.FaultInjector("worker-join@5:2,bitflip@4:1")  # ported: item 20a
+    joins.before_step(5)  # no gang coordinator: warns, injects nothing
+    assert joins.joins == []
+    dpp.parse_args(["--device", "cpu", "--chaos", "bitflip@4:1"])
+    for kind in sorted(chaos.NOT_PORTED):
+        spec = f"{kind}@2" if kind not in ("slow-heartbeat", "partition", "host-kill") else f"{kind}@2:1"
+        with pytest.raises(NotImplementedError, match=f"{kind} is not ported yet .*item 20b: runtime/hostgang.py"):
+            chaos.FaultInjector(spec)
+        with pytest.raises(SystemExit, match=f"--chaos: .*{kind}.*item 20b"):
+            dpp.parse_args(["--device", "cpu", "--chaos", spec])
     with pytest.raises(SystemExit, match="--chaos: bad chaos entry 'bogus@2'"):
         dpp.parse_args(["--device", "cpu", "--chaos", "bogus@2"])
     monkeypatch.setenv("DDP_CHAOS", "host-kill@2")
-    with pytest.raises(SystemExit, match="DDP_CHAOS: .*host-kill.*item 20"):
+    with pytest.raises(SystemExit, match="DDP_CHAOS: .*host-kill.*item 20b"):
         dpp.parse_args(["--device", "cpu"])
 
 

@@ -79,7 +79,6 @@ def test_both_parsers_have_the_same_flags_defaults_and_choices():
 
 # Each unported flag at a value the reference accepts, and its item.
 UNPORTED = [
-    (["--integrity-every", "2", "--integrity-shadow"], "20"),
     (["--bw-probe"], "10's remainder"),
     (["--lint-step"], "21"),
     (["--autotune", "search", "--tune-dir", "t", "--tune-trials", "5", "--tune-steps", "2"], "22"),
@@ -91,6 +90,9 @@ UNPORTED = [
 # validates as the reference's does, with its values, and builds the MoE or
 # pipeline config.
 PORTED = [
+    # item 20a's --integrity-every and --integrity-shadow
+    ["--integrity-every", "2", "--integrity-shadow"],
+    ["--integrity-every", "3", "--zero", "1", "--elastic", "--elastic-dir", "gang"],
     # item 13's --elastic, --elastic-dir and --min-procs
     ["--elastic", "--checkpoint-dir", "ck"],
     ["--elastic-dir", "gang"],
@@ -128,7 +130,7 @@ def test_unported_flags_raise_naming_their_item(tmp_path):
         args = tdpp.parse_args(argv)
         for dest in ("ep", "moe_experts", "moe_top_k", "moe_aux_weight", "moe_capacity_factor", "pp",
                      "pp_microbatches", "pp_schedule", "pp_virtual", "cp", "compile_cache", "dispatch_depth",
-                     "elastic", "elastic_dir", "min_procs"):
+                     "elastic", "elastic_dir", "min_procs", "integrity_every", "integrity_shadow"):
             assert getattr(args, dest) == getattr(jargs, dest), dest
         if args.pp > 1:
             cfg = tdpp.build_config(args)
@@ -142,16 +144,26 @@ def test_unported_flags_raise_naming_their_item(tmp_path):
     seen = {d for dests in tdpp.UNPORTED_FLAGS.values() for d in dests}
     # the 21 flags the parser lacked, less --fsdp-gather, item 17's four,
     # item 16a's --pp, --pp-microbatches, --pp-schedule, 16b's --pp-virtual,
-    # 11b's --compile-cache and --dispatch-depth and item 13's --elastic,
-    # --elastic-dir and --min-procs
-    assert len(seen) == 8
-    assert not {"17", "16", "16b", "11b", "13"} & set(tdpp.UNPORTED_FLAGS)
+    # 11b's --compile-cache and --dispatch-depth, item 13's --elastic,
+    # --elastic-dir and --min-procs and item 20a's --integrity-every and
+    # --integrity-shadow
+    assert len(seen) == 6
+    assert not {"17", "16", "16b", "11b", "13", "20", "20a"} & set(tdpp.UNPORTED_FLAGS)
     # Item 13's flags run: a gang of one joins its store, trains, and leaves it.
     summary = tdpp.main(["--device", "cpu", "--model", "mlp", "--epochs", "1", "--steps-per-epoch", "2",
                          "--num-examples", "32", "--batch-size", "4", "--elastic", "--elastic-dir",
                          str(tmp_path / "gang"), "--min-procs", "1"])
     assert summary["train_steps"] == 2 and summary["world_size"] == 1
     assert json.loads((tmp_path / "gang" / "epoch.json").read_text())["roster"] == ["proc0"]
+    # Item 20a's flags run: two cadence checks, each step run again by the shadow.
+    summary = tdpp.main(["--device", "cpu", "--model", "mlp", "--epochs", "1", "--steps-per-epoch", "4",
+                         "--num-examples", "32", "--batch-size", "4", "--integrity-every", "2",
+                         "--integrity-shadow"])
+    assert summary["faults"]["sdc_checks"] == 2 and summary["faults"]["sdc_detects"] == 0
+    # --elastic across hosts stays hostgang's (item 20b).
+    with pytest.raises(NotImplementedError, match=r"--coordinator\) is hostgang's: ROADMAP.md Queue 1, item 20b$"):
+        tdpp.parse_args(["--device", "cpu", "--elastic", "--elastic-dir", "g", "--coordinator", "127.0.0.1:1",
+                         "--num-processes", "2", "--process-id", "0"])
 
 
 REFERENCE_CHECKS = [
@@ -161,6 +173,11 @@ REFERENCE_CHECKS = [
     (["--model", "gpt2", "--moe-experts", "2", "--moe-capacity-factor", "-1"], "--moe-capacity-factor must be >= 0"),
     (["--model", "gpt2", "--ep", "2"], "--ep requires --moe-experts"),
     (["--integrity-shadow"], "--integrity-shadow needs a cadence"),
+    (["--integrity-every", "-1"], "--integrity-every must be >= 0"),
+    (["--model", "gpt2", "--integrity-every", "2", "--tp", "2", "--cp", "2", "--seq-len", "16"],
+     r"--integrity-every compares replicated data-axis state; drop --tp, --cp$"),
+    (["--integrity-every", "2", "--zero", "2"],
+     "--integrity-every supports plain DP and --zero 1; ZeRO-2/3 shard the comparable state away"),
     (["--elastic"], "--elastic needs a rendezvous root"),
     (["--model", "gpt2", "--autotune", "search", "--tp", "2"], "--autotune searches the DP/ZeRO space only; drop --tp"),
     (["--model", "gpt2", "--pp", "2", "--accum-steps", "2"], "IS the accumulation"),
