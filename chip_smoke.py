@@ -6,8 +6,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --multi-gpu [12c] [13c] [14c] [15c] [15c+] [18c]
-[19b]`` on a machine with four runs only the entry-point runs over several
-GPUs (all of them, or those named) after the build.
+[19b] [20c]`` on a machine with four runs only the entry-point runs over
+several GPUs (all of them, or those named) after the build.
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -64,21 +64,24 @@ Phases (any failure exits non-zero; nothing is caught):
    their numpy versions; and phase 4 once more with ``--mfu``, its MFU and
    HFU beside this script's own share of the bound;
 9. the fault path at GPT-2 124M's full width (phase 4's model and batch, so
-   K1-K3 run on it) and with phase 6's ResNet-18, each check but 9c and
-   the costs in a fresh process of the port's entry point
-   (``python -m distributeddataparallel_tpu_torch.dpp``); 9b's resumed run,
-   9c's two runs (``dpp.main`` in this process) and 9e, which time
-   nothing, run side by side:
+   K1-K3 run on it) and with phase 6's ResNet-18.  9a runs in a fresh
+   process of the port's entry point (``python -m
+   distributeddataparallel_tpu_torch.dpp``), 9c and 9e in this process
+   (``dpp.main``) beside its first incarnation, and its restart alone;
+   then, beside 9a's tail, 9b's stop and 9d run in fresh processes and 9b's
+   resume in this process; the checkpoint costs run alone at the end:
    a. supervised chaos replay: ``--max-restarts 1`` with
-      ``DDP_CHAOS=ckpt-io@0,preempt@6``, 3 epochs of 4 steps, beside the
-      same run uninterrupted: it exits 0 after one restart and one IO
-      retry, its merged timeline validates against the port's schema, its
-      final loss is within ``REPLAY_ATOL`` of the uninterrupted run's, and
-      the last incarnation's K1-K3 launches are those of its 8 steps; the
-      seconds from the injected death to the next incarnation's first step;
+      ``DDP_CHAOS=ckpt-io@0,preempt@6``, 3 epochs of 4 steps, against the
+      same run uninterrupted (9e's): it exits 0 after one restart and one
+      IO retry, its merged timeline validates against the port's schema,
+      its final loss is within ``REPLAY_ATOL`` of the uninterrupted run's,
+      and the last incarnation's K1-K3 launches are those of its 8 steps;
+      the seconds from the injected death to the next incarnation's first
+      step, with nothing else running;
    b. a real SIGTERM once the events show step 3: exit 0 with
-      ``epoch_0.pt`` and its hash sidecar, then ``--resume`` starts at
-      epoch 1 and ends with a finite loss;
+      ``epoch_0.pt`` and its hash sidecar (the seconds from the signal to
+      the exit, beside the others), then ``--resume`` starts at epoch 1
+      and ends with a finite loss;
    c. the guard: ResNet-18 with ``--nan-guard --chaos nan-grad@2``, 3
       one-step epochs with checkpoints, then ``--resume`` to 5: one step
       skipped, the state after step 2 bitwise the state after step 1, the
@@ -88,8 +91,9 @@ Phases (any failure exits non-zero; nothing is caught):
       --chaos slow-step@3:30``: the worker exits 75 after ``watchdog_fire``
       and the restart completes the run; the seconds from the fire to the
       next incarnation's first step;
-   e. ``--coordinator 127.0.0.1:PORT --num-processes 1 --process-id 0`` on
-      NCCL: 2 steps whose losses equal phase 4's first two.
+   e. 9a's uninterrupted run with ``--coordinator 127.0.0.1:PORT
+      --num-processes 1 --process-id 0`` on NCCL: its first two losses
+      equal phase 4's first two.
 10. the serving path:
    a. ``dpp.main`` on phase 4's GPT-2 for 2 steps with ``--generate 64``,
       then again with ``--decode-quant int8``: every generated token's
@@ -238,6 +242,20 @@ Phases (any failure exits non-zero; nothing is caught):
       on 3; the join's seconds split and its bytes; the same flip and join
       on ``--model mlp``, whose checkpoints are bitwise those of its
       control (``nan-grad@4,worker-kill@4:2,worker-join@6:2``).
+20. the autotuner and the probes (``tuning/``, ``utils/metrics.py``):
+   a. phase 4's GPT-2 124M under ``--autotune search`` (the reference's
+      default LM space, 3 trials of 4 measured steps, the CLI's B=8 the
+      baseline): the measured trials are the top 3 by predicted score and
+      the baseline, each measured (or refused by the step factory, as the
+      reference records it), the winner's record on disk, the run trains
+      with its knobs, K1-K3 launched as the trials' steps and the run
+      imply; then ``--autotune apply`` over the same store: no trial, the
+      winner's knobs, its step beside the winner's measured one;
+   b. the apply run's ``--bw-probe`` at world 1: the reference's keys, one
+      device, utilization 0.0;
+   c. only with ``--multi-gpu`` on 2+ GPUs: ``--bw-probe`` over every GPU
+      (bus GB/s at 64 MB against the 450 GB/s link peak) and
+      ``overlap_probe`` at GPT-2 124M's width, plain and ``--overlap``.
 
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
 ``llama_path`` line (phase 7), one ``reference_workload`` line (phase 8),
@@ -247,7 +265,7 @@ each replay's max errors, launches and times, the GPU count), one
 ``fsdp_path`` line (phase 13), one ``moe_path`` line (phase 14), one ``pp_path`` line (phase 15),
 one ``warm_start_path`` line (phase 16), one ``fleet_path`` line (phase 17),
 one ``elastic_path`` line (phase 18), one ``integrity_path`` line (phase
-19), one ``phase_seconds`` line, one
+19), one ``tuning_path`` line (phase 20), one ``phase_seconds`` line, one
 ``serving_path`` line (phase 10,
 each run's TTFT p50/p99, tokens/s, per-token latency, decode-step ms,
 preemptions, evictions, prefix hits, acceptance, pool bytes against the
@@ -313,10 +331,12 @@ CHECK_CASES = [
 # worth one bf16 ulp of ds times |k| in dq.  lse is f32 in every case.
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-3, 1e-2)}
 
+# 256 examples, so 32 eval batches; the most any GPT-2 run derived from these
+# takes is phase 8's 25 steps of 8.
 MAIN_ARGS = [
     "--model", "gpt2", "--dataset", "synthetic-lm", "--seq-len", "1024",
     "--vocab-size", "50257", "--batch-size", "8", "--optimizer", "adamw",
-    "--lr", "3e-4", "--steps-per-epoch", "10", "--epochs", "1", "--eval",
+    "--lr", "3e-4", "--steps-per-epoch", "10", "--epochs", "1", "--eval", "--num-examples", "256",
 ]
 
 # Phase 5: ResNet-50 at the ImageNet shape, SGD with momentum 0.9.  Over 10
@@ -777,6 +797,28 @@ INTEGRITY_GPT2_ARGS = _set(_set(FAULT_LM_ARGS, "--steps-per-epoch", "6"), "--epo
 INTEGRITY_ENTRY_ARGS = ["--model", "mlp", "--batch-size", "32", "--optimizer", "adamw", "--lr", "1e-3",
                         "--epochs", "2", "--steps-per-epoch", "6", "--num-examples", "1024"] + INTEGRITY_ENTRY_FLAGS
 INTEGRITY_ENTRY_CHAOS = {"flip": "bitflip@4:2,worker-join@6:2", "control": "nan-grad@4,worker-kill@4:2,worker-join@6:2"}
+
+# Phase 20: the autotuner and the probes.  20a: phase 4's GPT-2 124M (S=1024,
+# f32, AdamW, B=8 the CLI's baseline) under --autotune search over the
+# reference's default LM space (batch 1/2/4 x accum 1/2 x remat x ZeRO 0/1/2
+# x f32/bf16 moments x bucket None/4 MB), the top 3 by predicted throughput
+# and the baseline measured for 4 steps each after one accounted apart; then
+# 4 training steps with the winner and the eval of 64 examples; then the same
+# run under --autotune apply with --bw-probe (20b) over the same store.
+TUNE_ARGS = _set(FAULT_LM_ARGS, "--steps-per-epoch", "4") + [
+    "--num-examples", "64", "--eval", "--tune-trials", "3", "--tune-steps", "4"]
+TUNE_LAYERS = 12
+TUNE_TRIAL_STEPS = 1 + 4  # each measured trial's steps: the first, then the window
+# The reference's space holds trials its step factory refuses (zero=1 with a
+# bucket size; its problems() does not foresee it): they are recorded with
+# the reference's own status, and launch nothing.
+TUNE_REFUSED = "error: ValueError: zero=1 does its own reduction"
+# 20c (2+ GPUs): --bw-probe over every GPU (a short MLP run), and
+# overlap_probe at GPT-2 124M's width (B=8 a rank, S=1024, AdamW), its plain
+# step and its --overlap step, with a 64 MB all-reduce beside.
+TUNE_ENTRY_ARGS = ["--model", "mlp", "--dataset", "synthetic", "--batch-size", "8", "--num-examples", "256",
+                   "--epochs", "1", "--steps-per-epoch", "2", "--bw-probe"]
+OVERLAP_PROBE = dict(B=8, S=1024, iters=5, cfg={})  # cfg: overrides of gpt2_124m (none on the card)
 
 DEVICE = "cuda"  # phases 10, 12, 15, 16 and 17's device
 
@@ -1520,15 +1562,44 @@ def expect_launches(summary: dict, what: str, layers: int = 12) -> dict:
     return got
 
 
-def fault_replay(smi) -> tuple[dict, list[dict]]:
-    """[9a] The supervised chaos replay, alone on the card (its restart is
-    timed); its summary and merged timeline."""
-    with tempfile.TemporaryDirectory(prefix="fault_9a_") as d:
-        sup = REPLAY_ARGS + ["--checkpoint-dir", os.path.join(d, "ck"), "--events-dir", os.path.join(d, "ev"),
-                             "--max-restarts", "1"]
-        chaotic = run_entry(sup, "9a supervised, DDP_CHAOS=ckpt-io@0,preempt@6",
-                            env={"DDP_CHAOS": "ckpt-io@0,preempt@6"})
-        return chaotic, timeline(os.path.join(d, "ev"))
+def live_event(path: str, pred) -> bool:
+    """Does a live events file hold a record ``pred`` accepts?  (A line
+    still being written is skipped.)"""
+    if not os.path.exists(path):
+        return False
+    with open(path) as fh:
+        for line in fh:
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if pred(rec):
+                return True
+    return False
+
+
+def await_event(proc: subprocess.Popen, path: str, pred, what: str, timeout: float = 300) -> None:
+    """Wait until the events file of the running ``proc`` shows a record
+    ``pred`` accepts; fail if the process ends first or the time runs out."""
+    deadline = time.monotonic() + timeout
+    while not live_event(path, pred):
+        if proc.poll() is not None:
+            out, err = proc.communicate()
+            raise AssertionError(f"{what}: exit {proc.returncode} before the awaited event\n{err[-4000:]}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: no awaited event in {timeout} s")
+        time.sleep(0.05)
+
+
+def start_replay() -> tuple[subprocess.Popen, str]:
+    """[9a] The supervised chaos replay in a fresh process (its directory
+    is the caller's to remove)."""
+    d = tempfile.mkdtemp(prefix="fault_9a_")
+    sup = REPLAY_ARGS + ["--checkpoint-dir", os.path.join(d, "ck"), "--events-dir", os.path.join(d, "ev"),
+                         "--max-restarts", "1"]
+    log("    9a supervised, DDP_CHAOS=ckpt-io@0,preempt@6: python -m distributeddataparallel_tpu_torch.dpp "
+        + " ".join(sup))
+    return start_entry(sup, env={"DDP_CHAOS": "ckpt-io@0,preempt@6"}), d
 
 
 def restart_record(summary: dict, records: list[dict]) -> dict:
@@ -1562,8 +1633,8 @@ def restart_record(summary: dict, records: list[dict]) -> dict:
 
 
 def check_replay(chaotic, records, straight, smi) -> dict:
-    """[9a] The replay against the uninterrupted run (which ran beside 9b's
-    resume, 9c and 9e)."""
+    """[9a] The replay against the uninterrupted run (9e's, which ran beside
+    9a's first incarnation)."""
     kinds = [r["kind"] for r in records]
     diff = abs(chaotic["losses"][-1] - straight["losses"][-1])
     death = [r["ts"] for r in records if r["kind"] == "chaos_inject" and r["entry"] == "preempt@6"]
@@ -1588,49 +1659,46 @@ def check_replay(chaotic, records, straight, smi) -> dict:
     return out
 
 
-def fault_sigterm(smi, beside) -> tuple[dict, object]:
-    """[9b] A real SIGTERM once the events show step 3, then --resume; the
-    checks that time nothing (``beside()``) run while the resumed run
-    trains.  Returns this check's result and ``beside()``'s."""
+def sigterm_stop(d: str) -> dict:
+    """[9b] A real SIGTERM once the events show step 3 (beside 9a's tail and
+    9d): exit 0 with ``epoch_0.pt`` and its hash sidecar in ``d``."""
     import signal
 
-    from distributeddataparallel_tpu_torch.observability import read_events
+    run = FAULT_LM_ARGS + ["--epochs", "2", "--checkpoint-dir", os.path.join(d, "ck")]
+    args = run + ["--events-dir", os.path.join(d, "ev")]
+    log("    9b: python -m distributeddataparallel_tpu_torch.dpp " + " ".join(args))
+    proc = start_entry(args)
+    await_event(proc, os.path.join(d, "ev", "events-p0.jsonl"),
+                lambda r: r.get("kind") == "span" and r.get("name") == "step" and r.get("step") == 3, "9b")
+    t_sig = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    stopped = finish_entry(proc, "9b SIGTERM")
+    t_exit = time.perf_counter()
+    files = sorted(f for f in os.listdir(os.path.join(d, "ck")) if not f.startswith("."))
+    if stopped["preempted_epoch"] != 0 or files != ["epoch_0.pt", "hash_0.json"]:
+        raise AssertionError(f"9b: preempted epoch {stopped['preempted_epoch']}, files {files}")
+    return {"run": run, "stopped": stopped, "signal_to_exit_s": t_exit - t_sig}
 
-    with tempfile.TemporaryDirectory(prefix="fault_9b_") as d:
-        run = FAULT_LM_ARGS + ["--epochs", "2", "--checkpoint-dir", os.path.join(d, "ck")]
-        args = run + ["--events-dir", os.path.join(d, "ev")]
-        log("    9b: python -m distributeddataparallel_tpu_torch.dpp " + " ".join(args))
-        proc, events = start_entry(args), os.path.join(d, "ev", "events-p0.jsonl")
-        deadline = time.monotonic() + 300
-        while proc.poll() is None and time.monotonic() < deadline:
-            if os.path.exists(events) and any(r["kind"] == "span" and r["name"] == "step" and r["step"] == 3
-                                              for r in read_events(events)):
-                break
-            time.sleep(0.02)
-        t_sig = time.perf_counter()
-        proc.send_signal(signal.SIGTERM)
-        stopped = finish_entry(proc, "9b SIGTERM")
-        t_exit = time.perf_counter()
-        files = sorted(f for f in os.listdir(os.path.join(d, "ck")) if not f.startswith("."))
-        if stopped["preempted_epoch"] != 0 or files != ["epoch_0.pt", "hash_0.json"]:
-            raise AssertionError(f"9b: preempted epoch {stopped['preempted_epoch']}, files {files}")
-        log("    9b --resume: " + " ".join(run + ["--resume"]))
-        resumed = start_entry(run + ["--resume"])
-        others = beside()
-        resumed = finish_entry(resumed, "9b --resume")
+
+def sigterm_resume(dpp, stop: dict, smi) -> dict:
+    """[9b] ``--resume`` of the stopped run, in this process: it starts at
+    epoch 1 and ends with a finite loss."""
+    run, stopped = stop["run"], stop["stopped"]
+    log("    9b --resume: dpp.main " + " ".join(run + ["--resume"]))
+    resumed = dpp.main(run + ["--resume"])
     if resumed["start_epoch"] != 1 or resumed["train_steps"] != 10 or not math.isfinite(resumed["losses"][-1]):
         raise AssertionError(f"9b resume: epoch {resumed['start_epoch']}, {resumed['train_steps']} steps, "
                              f"losses {resumed['losses']}")
     out = {
-        "steps_before_stop": stopped["train_steps"], "signal_to_exit_s": t_exit - t_sig,
+        "steps_before_stop": stopped["train_steps"], "signal_to_exit_s_beside_others": stop["signal_to_exit_s"],
         "resumed_start_epoch": 1, "resumed_final_loss": resumed["losses"][-1],
         "launches": {"preempted": expect_launches(stopped, "9b preempted run"),
                      "resumed": expect_launches(resumed, "9b resumed run")},
     }
-    log(f"    9b: stopped after {stopped['train_steps']} steps, exit 0 {out['signal_to_exit_s']:.2f} s after "
-        f"the signal with epoch_0.pt + hash_0.json; --resume from epoch 1, final loss "
-        f"{resumed['losses'][-1]:.4f} on {smi}")
-    return out, others
+    log(f"    9b: stopped after {stopped['train_steps']} steps, exit 0 {stop['signal_to_exit_s']:.2f} s after "
+        f"the signal (beside 9a's tail and 9d) with epoch_0.pt + hash_0.json; --resume from epoch 1, "
+        f"final loss {resumed['losses'][-1]:.4f} on {smi}")
+    return out
 
 
 def fault_guard(torch, dpp) -> dict:
@@ -1708,7 +1776,7 @@ def checkpoint_cost(torch, dpp, smi) -> dict:
 
 def start_watchdog():
     """[9d] The step watchdog under supervision, in a fresh process started
-    beside 9b's resumed run: it checks and times nothing alone (9a's
+    once 9a's restart is timed: it checks and times nothing alone (9a's
     restart is the phase's restart latency)."""
     d = tempfile.mkdtemp(prefix="fault_9d_")
     args = FAULT_R18_ARGS + ["--epochs", "2", "--steps-per-epoch", "5", "--step-timeout", "5", "--max-restarts", "1",
@@ -1737,62 +1805,74 @@ def finish_watchdog(started, smi) -> dict:
            "resumed_start_epoch": summary["start_epoch"]}
     log(f"    9d: watchdog fired {out['seconds_since_heartbeat']:.2f} s after the last heartbeat, exit 75, "
         f"the restart completed (fire to the next incarnation's first step "
-        f"{out['fire_to_first_step_s_beside_others']:.2f} s, beside 9b, 9c, 9e and 9a's uninterrupted run) on {smi}")
+        f"{out['fire_to_first_step_s_beside_others']:.2f} s, beside 9a's tail and 9b) on {smi}")
     return out
 
 
-def start_coordinator() -> subprocess.Popen:
-    """[9e] The multi-host flags on one host of one card: 2 steps, on a
-    port outside the ephemeral ranges (``free_port``)."""
+def coordinated_replay(dpp, phase4_losses, smi) -> tuple[dict, dict]:
+    """[9e] 9a's uninterrupted run, in this process (beside 9a's first
+    incarnation), with the multi-host
+    flags on one host of one card (``--coordinator`` on a port outside the
+    ephemeral ranges, ``free_port``): its first two losses against phase
+    4's.  Returns its summary (9a's reference) and 9e's record."""
     from distributeddataparallel_tpu_torch.runtime.distributed import free_port
 
-    port = free_port()
-    args = FAULT_LM_ARGS + ["--steps-per-epoch", "2", "--coordinator", f"127.0.0.1:{port}", "--num-processes",
-                            "1", "--process-id", "0"]
-    log("    9e coordinator: python -m distributeddataparallel_tpu_torch.dpp " + " ".join(args))
-    return start_entry(args)
-
-
-def finish_coordinator(proc, phase4_losses, smi) -> dict:
-    summary = finish_entry(proc, "9e coordinator")
-    diff = max(abs(a - b) for a, b in zip(summary["losses"], phase4_losses[:2]))
-    if summary["train_steps"] != 2 or not diff <= COORDINATOR_ATOL:
-        raise AssertionError(f"9e: losses {summary['losses']} vs phase 4's {phase4_losses[:2]}")
+    args = REPLAY_ARGS + ["--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1",
+                          "--process-id", "0"]
+    log("    9a uninterrupted, over --coordinator (9e): dpp.main " + " ".join(args))
+    summary = dpp.main(args)
+    diff = max(abs(a - b) for a, b in zip(summary["losses"][:2], phase4_losses[:2]))
+    if summary["train_steps"] != 12 or not diff <= COORDINATOR_ATOL:
+        raise AssertionError(f"9e: losses {summary['losses'][:2]} vs phase 4's {phase4_losses[:2]}")
     launches = expect_launches(summary, "9e")
-    log(f"    9e: losses {summary['losses']} vs phase 4's first two {phase4_losses[:2]} (|diff| {diff:.1e}) "
+    log(f"    9e: losses {summary['losses'][:2]} vs phase 4's first two {phase4_losses[:2]} (|diff| {diff:.1e}) "
         f"on {smi}")
-    return {"losses": summary["losses"], "phase4_losses": phase4_losses[:2], "max_abs_diff": diff,
-            "atol": COORDINATOR_ATOL, "launches": launches}
+    return summary, {"losses": summary["losses"][:2], "phase4_losses": phase4_losses[:2], "max_abs_diff": diff,
+                     "atol": COORDINATOR_ATOL, "launches": launches}
 
 
 def fault_path_phase(torch, dpp, phase4_losses, smi) -> dict:
-    """[9] The fault path.  Checks that time something (9a's restart, 9b's
-    stop, the guard's and the hash's cost) run alone; 9b's resumed run, 9c,
-    9d, 9e and 9a's uninterrupted run, which only check, run side by
-    side."""
+    """[9] The fault path.  9a starts first; 9c and 9e (with 9a's
+    uninterrupted run) run in this process while its first incarnation
+    trains, and its restart (from the injected death to the next
+    incarnation's first step) runs alone.  Then, beside 9a's tail: 9d and
+    9b's stop (fresh processes), then 9b's resume in this process.  The
+    checkpoint costs run alone at the end."""
     import gc
+    import shutil
 
     gc.collect()
     torch.cuda.empty_cache()  # the entry-point processes need the card's memory
     t0 = time.perf_counter()
     log("[9] fault path")
     out, seconds = {}, {}
-
-    def beside():
-        coordinator = start_coordinator()
-        log("    9a uninterrupted: python -m distributeddataparallel_tpu_torch.dpp " + " ".join(REPLAY_ARGS))
-        straight = start_entry(REPLAY_ARGS)
+    replay, d9a = start_replay()
+    events9a = os.path.join(d9a, "ev", "events-p0.jsonl")
+    d9b = tempfile.mkdtemp(prefix="fault_9b_")
+    try:
+        out["guard"] = fault_guard(torch, dpp)
+        straight, out["coordinator"] = coordinated_replay(dpp, phase4_losses, smi)
+        # Did 9c and 9e end before 9a's injected death?  Then its restart ran
+        # alone.
+        out["restart_alone"] = not live_event(
+            events9a, lambda r: r.get("kind") == "chaos_inject" and str(r.get("entry", "")).startswith("preempt"))
+        seconds["9c_9e_beside_9a"] = time.perf_counter() - t0
+        await_event(replay, events9a, lambda r: r.get("kind") == "warm_start" and r.get("attempt") == 1, "9a")
+        seconds["9a_to_restart"] = time.perf_counter() - t0
+        if not out["restart_alone"]:
+            log("    9a's restart was timed beside 9c or 9e (they ended after its injected death)")
+        t = time.perf_counter()
         watchdog = start_watchdog()
-        guard = fault_guard(torch, dpp)
-        coordinated = finish_coordinator(coordinator, phase4_losses, smi)
-        return guard, coordinated, finish_entry(straight, "9a uninterrupted"), finish_watchdog(watchdog, smi)
-
-    t = time.perf_counter()
-    chaotic, records = fault_replay(smi)
-    seconds["9a"] = time.perf_counter() - t
-    out["sigterm"], (out["guard"], out["coordinator"], straight, out["watchdog"]) = fault_sigterm(smi, beside)
-    out["replay"] = check_replay(chaotic, records, straight, smi)
-    seconds["9b_9c_9d_9e_9a_uninterrupted"] = time.perf_counter() - t - seconds["9a"]
+        out["sigterm"] = sigterm_resume(dpp, sigterm_stop(d9b), smi)
+        chaotic = finish_entry(replay, "9a supervised")
+        out["replay"] = check_replay(chaotic, timeline(os.path.join(d9a, "ev")), straight, smi)
+        out["watchdog"] = finish_watchdog(watchdog, smi)
+        seconds["9a_tail_9b_9d"] = time.perf_counter() - t
+    finally:
+        if replay.poll() is None:
+            replay.kill()
+        shutil.rmtree(d9a, ignore_errors=True)
+        shutil.rmtree(d9b, ignore_errors=True)
     t = time.perf_counter()
     out["guard"]["checkpoint_cost"] = checkpoint_cost(torch, dpp, smi)
     seconds["costs"] = time.perf_counter() - t
@@ -4449,6 +4529,223 @@ def integrity_entry(torch, smi) -> dict:
     return {"ran": True, "gpus": n, "gpt2": gpt2, "mlp": mlp}
 
 
+def tune_launches(layers: int, steps: int, accum: int, remat: bool, evals: int = 0) -> dict:
+    """K1-K3 launches of ``steps`` GPT-2 steps of ``accum`` microbatches:
+    K1 once a layer a microbatch (twice under remat: the recompute), K2 and
+    K3 once, K1 once a layer an eval batch."""
+    return {"flash_fwd": layers * (steps * accum * (2 if remat else 1) + evals),
+            "flash_bwd_dq": layers * steps * accum, "flash_bwd_dkv": layers * steps * accum}
+
+
+def trial_knobs(config: dict, lm: bool) -> dict:
+    """The dpp flags a tuned config sets (``dpp._apply_trial_to_args``)."""
+    out = {"batch_size": config["batch_per_chip"], "accum_steps": config["accum_steps"], "zero": config["zero"],
+           "moment_dtype": None if config["moment_dtype"] == "f32" else config["moment_dtype"],
+           "bucket_mb": config["bucket_mb"], "dispatch_depth": config["dispatch_depth"]}
+    if lm:
+        out["remat"] = "on" if config["remat"] else "off"
+    return out
+
+
+def run_launches(s: dict, layers: int) -> dict:
+    """A run's K1-K3 launches as its steps, its knobs and its eval imply;
+    fails unless the run's own count is that."""
+    knobs = s["autotune"]["knobs"]
+    want = tune_launches(layers, s["train_steps"], knobs["accum_steps"], knobs["remat"] == "on", s["eval_batches"])
+    if s["attention_launches"] != want:
+        raise AssertionError(f"20a: the run's launches {s['attention_launches']} != {want}")
+    return want
+
+
+def tuning_phase(torch, dpp, fa, smi) -> dict:
+    """[20] 20a: ``--autotune search`` at GPT-2 124M (TUNE_ARGS): the
+    measured trials are the top ``--tune-trials`` by predicted score and
+    the baseline, each measured or baseline (or refused by the step
+    factory, TUNE_REFUSED), the winner's record on disk, the run trains
+    with its knobs, K1-K3 launched as the trials' steps and the run imply;
+    then ``--autotune apply`` over the same store: no trial, ``applied``,
+    the winner's knobs, its step beside the winner's measured one.  20b:
+    the apply run's ``--bw-probe`` at world 1 (the reference's keys, 1
+    device, utilization 0.0)."""
+    import shutil
+
+    log("[20] the autotuner and the probes")
+    lm = TUNE_ARGS[TUNE_ARGS.index("--model") + 1] in dpp.LM_MODELS
+    layers = TUNE_LAYERS if lm else 0
+    d = tempfile.mkdtemp(prefix="tune_20_")
+    try:
+        common = TUNE_ARGS + ["--tune-dir", os.path.join(d, "tuned"), "--device", DEVICE]
+        argv = common + ["--autotune", "search", "--events-dir", os.path.join(d, "ev_search")]
+        log("    20a search: dpp.main " + " ".join(argv))
+        fa.reset_launches()
+        searched = dpp.main(argv)
+        search_launches = dict(fa.LAUNCHES)
+        events = [r for r in timeline(os.path.join(d, "ev_search")) if r["kind"].startswith("tune_")]
+        tuned = searched["autotune"]
+        records = tuned["records"]
+        chosen = [r for r in records if r["status"] not in ("pruned-cost", "pruned-memory")]
+        picks = [r for r in chosen if r["status"] != "baseline"]
+        feasible = [r for r in records if r["status"] != "pruned-memory"]
+        worst_pick = min((r["predicted_score"] or 0.0) for r in picks)
+        if (len(picks) != min(3, len(feasible) - 1) or [r["status"] for r in chosen].count("baseline") != 1
+                or any((r["predicted_score"] or 0.0) > worst_pick for r in records if r["status"] == "pruned-cost")):
+            raise AssertionError(f"20a: measured {[(r['trial'], r['status']) for r in chosen]} are not the top 3 "
+                                 f"by predicted score and the baseline")
+        measured = [r for r in chosen if r["status"] in ("measured", "baseline")]
+        refused = [r for r in chosen if r["status"].startswith(TUNE_REFUSED)]
+        if len(measured) + len(refused) != len(chosen) or not all(r["measured_step_s"] for r in measured):
+            raise AssertionError(f"20a: trial statuses {[(r['trial'], r['status']) for r in chosen]}")
+        kinds = [r["kind"] for r in events]
+        result = [r for r in events if r["kind"] == "tune_result"]
+        if kinds.count("tune_trial") != len(records) or [r["mode"] for r in result] != ["search"] \
+                or result[0]["winner"] != tuned["winner"]:
+            raise AssertionError(f"20a: tune events {kinds}, result {result}")
+        with open(tuned["store_path"]) as fh:
+            stored = json.load(fh)
+        if stored["config"] != tuned["config"] or tuned["knobs"] != trial_knobs(tuned["config"], lm) | (
+                {} if lm else {"remat": tuned["knobs"]["remat"]}):
+            raise AssertionError(f"20a: stored {stored['config']}, run knobs {tuned['knobs']} vs {tuned['config']}")
+        want = tune_launches(0, 0, 1, False)
+        for r in measured:
+            c = r["config"]
+            for k, v in tune_launches(layers, TUNE_TRIAL_STEPS, c["accum_steps"], c["remat"]).items():
+                want[k] += v
+        run = run_launches(searched, layers)
+        want = {k: want[k] + run[k] for k in want}
+        if search_launches != want:
+            raise AssertionError(f"20a: launches {search_launches} != {want} (trials and run)")
+        trials = []
+        for r in chosen:
+            rec = {"trial": r["trial"], "status": r["status"]}
+            if r in measured:
+                rec.update(step_ms=r["measured_step_s"] * 1e3, mfu=r["mfu"], first_step_s=r["first_step_s"],
+                           predicted_step_ms=r["predicted_step_s"] * 1e3 if r["predicted_step_s"] else None,
+                           drift_frac=r["drift_frac"], required_gib=r["required_bytes"] / 2**30,
+                           peak_gib=r["peak_bytes"] / 2**30 if r["peak_bytes"] else None)
+                log(f"    20a trial {r['trial']} ({r['status']}): {rec['step_ms']:.2f} ms a step, MFU "
+                    f"{r['mfu'] if r['mfu'] is None else round(r['mfu'], 4)}, predicted "
+                    f"{rec['predicted_step_ms'] if rec['predicted_step_ms'] is None else round(rec['predicted_step_ms'], 2)}"
+                    f" ms (drift {r['drift_frac'] if r['drift_frac'] is None else round(r['drift_frac'], 3)}), "
+                    f"first step {r['first_step_s']:.2f} s, peak "
+                    f"{rec['peak_gib'] if rec['peak_gib'] is None else round(rec['peak_gib'], 2)} GiB "
+                    f"(analytic {rec['required_gib']:.2f})")
+            else:
+                log(f"    20a trial {r['trial']}: {r['status']}")
+            trials.append(rec)
+        winner = next(r for r in measured if r["trial"] == tuned["winner"])
+        log(f"    20a: winner {tuned['winner']} (gain {tuned['gain_frac']:+.3f} over the baseline), "
+            f"{len(records)} trials priced, {len(measured)} measured, {len(refused)} refused; the run: "
+            f"{searched['train_steps']} steps at {searched['step_time_s'] * 1e3:.2f} ms, {searched['eval_batches']} "
+            f"eval batches; launches {search_launches} on {smi}")
+
+        argv = common + ["--autotune", "apply", "--bw-probe", "--events-dir", os.path.join(d, "ev_apply")]
+        log("    20a apply + 20b: dpp.main " + " ".join(argv))
+        fa.reset_launches()
+        applied = dpp.main(argv)
+        apply_launches = dict(fa.LAUNCHES)
+        events = [r for r in timeline(os.path.join(d, "ev_apply")) if r["kind"].startswith("tune_")]
+        if [r["kind"] for r in events] != ["tune_result"] or events[0]["mode"] != "apply" \
+                or events[0]["applied"] is not True or events[0]["winner"] != tuned["config"]:
+            raise AssertionError(f"20a apply: tune events {events}")
+        if applied["autotune"]["knobs"] != tuned["knobs"]:
+            raise AssertionError(f"20a apply: knobs {applied['autotune']['knobs']} != {tuned['knobs']}")
+        if apply_launches != run_launches(applied, layers):
+            raise AssertionError(f"20a apply: launches {apply_launches}")
+        probe = applied["bw_probe"]
+        if set(probe) != {"devices", "payload_mb", "time_s", "bus_bw_gb_s", "peak_gb_s", "utilization"} or \
+                (probe["devices"], probe["bus_bw_gb_s"], probe["utilization"]) != (1, 0.0, 0.0):
+            raise AssertionError(f"20b: probe {probe}")
+        log(f"    20a apply: no trial, the winner's knobs {applied['autotune']['knobs']}; step "
+            f"{applied['step_time_s'] * 1e3:.2f} ms against the winner's measured {winner['measured_step_s'] * 1e3:.2f} "
+            f"ms on {smi}")
+        log(f"    20b: --bw-probe at world 1: {probe}")
+        launches = {k: search_launches[k] + apply_launches[k] for k in search_launches}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return {
+        "winner": tuned["winner"], "config": tuned["config"], "gain_frac": tuned["gain_frac"],
+        "knobs": tuned["knobs"], "trials": trials, "n_priced": len(records), "refused": len(refused),
+        "run": {"steps": searched["train_steps"], "step_ms": searched["step_time_s"] * 1e3,
+                "eval_batches": searched["eval_batches"], "losses": searched["losses"],
+                "peak_gib": searched["peak_memory_bytes"] / 2**30 if searched["peak_memory_bytes"] else None},
+        "apply": {"step_ms": applied["step_time_s"] * 1e3, "winner_measured_step_ms": winner["measured_step_s"] * 1e3,
+                  "losses": applied["losses"]},
+        "bw_probe": probe, "attention_launches": launches,
+        "launches": {"search": search_launches, "apply": apply_launches},
+    }
+
+
+def overlap_worker(rank: int, nprocs: int, store_address: str, out_path: str, device_type: str,
+                   c: dict) -> None:
+    """[20c] One rank of ``overlap_probe`` at GPT-2 124M's width over NCCL
+    (a ``runtime.launcher.spawn`` member): the plain step and the
+    ``--overlap`` step, and a 64 MB all-reduce; rank 0 writes the result."""
+    import numpy as np
+    import torch
+
+    from distributeddataparallel_tpu_torch.models import transformer as tfm
+    from distributeddataparallel_tpu_torch.ops.losses import lm_cross_entropy
+    from distributeddataparallel_tpu_torch.runtime import distributed as rt
+    from distributeddataparallel_tpu_torch.training.state import TrainState
+    from distributeddataparallel_tpu_torch.utils.metrics import allreduce_bandwidth, overlap_probe
+
+    device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rt.init_process_group(store_address=store_address, world_size=nprocs, rank=rank, device=device)
+    try:
+        cfg = tfm.gpt2_124m(**c["cfg"])
+        model = tfm.TransformerLM(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
+        state = TrainState(model, torch.optim.AdamW(model.parameters(), lr=3e-4, fused=True))
+        tokens = np.random.default_rng(rank).integers(0, cfg.vocab_size, size=(c["B"], c["S"] + 1), dtype=np.int32)
+        batch = {"tokens": torch.from_numpy(tokens).to(device)}
+
+        def loss(m, b):
+            return lm_cross_entropy(m(b["tokens"][:, :-1]), b["tokens"][:, 1:]), {}
+
+        out = {"plain": overlap_probe(loss, state, batch, iters=c["iters"]),
+               "overlap": overlap_probe(loss, state, batch, iters=c["iters"], overlap=True),
+               "bw_64mb": allreduce_bandwidth(size_mb=64.0, iters=10)}
+        if rank == 0:
+            with open(out_path, "w") as fh:
+                json.dump(out, fh)
+    finally:
+        rt.destroy_process_group()
+
+
+def tuning_entry(torch, smi) -> dict:
+    """[20c] With 2+ GPUs: ``--bw-probe`` over every GPU (bus GB/s at 64 MB
+    against the 450 GB/s link peak) and ``overlap_probe`` at GPT-2 124M's
+    width (``step_ms``, ``compute_ms``, ``comm_ms``, ``overlap_frac``)."""
+    from distributeddataparallel_tpu_torch import dpp
+    from distributeddataparallel_tpu_torch.runtime import launcher
+
+    n = torch.cuda.device_count() if DEVICE == "cuda" else 4
+    if n < 2:
+        log(f"    20c: needs 2+ GPUs ({n} visible): not run")
+        return {"ran": False, "gpus": n}
+    argv = TUNE_ENTRY_ARGS + ["--num-processes", str(n), "--device", DEVICE]
+    log("[20c] dpp.main " + " ".join(argv))
+    probe = dpp.main(argv)["bw_probe"]
+    if probe["devices"] != n or not probe["bus_bw_gb_s"] > 0 or (DEVICE == "cuda" and not probe["utilization"] > 0):
+        raise AssertionError(f"20c: probe {probe}")
+    log(f"    20c --bw-probe: {n} ranks, {probe['payload_mb']:.0f} MB -> {probe['bus_bw_gb_s']:.1f} GB/s bus, "
+        f"{100 * probe['utilization']:.1f}% of {probe['peak_gb_s']} GB/s on {smi}")
+    with tempfile.TemporaryDirectory(prefix="overlap_20c_") as d:
+        path = os.path.join(d, "overlap.json")
+        launcher.spawn(overlap_worker, args=(path, DEVICE, OVERLAP_PROBE), nprocs=n)
+        with open(path) as fh:
+            overlap = json.load(fh)
+    for name in ("plain", "overlap"):
+        o = overlap[name]
+        if o["devices"] != n or o["overlap_frac"] is None or not 0.0 <= o["overlap_frac"] <= 1.0:
+            raise AssertionError(f"20c: overlap_probe {name} {o}")
+        log(f"    20c overlap_probe {name}: step {o['step_ms']:.2f} ms, compute {o['compute_ms']:.2f} ms, comm "
+            f"{o['comm_ms']:.2f} ms, overlap_frac {o['overlap_frac']} ({o['grad_mb']} MB of gradients) on {smi}")
+    return {"ran": True, "gpus": n, "bw_probe": probe, "overlap_probe": overlap}
+
+
 def release(torch) -> None:
     """Free what earlier runs left (a model held by a reference cycle, say,
     the reducer's hooks) before the next run's peak is measured."""
@@ -4520,7 +4817,7 @@ def main() -> int:
         # 15c+, 18c, or those named after the flag): what a one-card run
         # skips.
         entries = {"12c": cp_tp_entry, "13c": fsdp_entry, "14c": moe_entry, "15c": pp_entry, "15c+": pp_entry_16b,
-                   "18c": elastic_entry, "19b": integrity_entry}
+                   "18c": elastic_entry, "19b": integrity_entry, "20c": tuning_entry}
         picked = [a for a in sys.argv[sys.argv.index("--multi-gpu") + 1:] if a in entries] or list(entries)
         out = {name: entries[name](torch, smi) for name in picked}
         log(json.dumps({"multi_gpu": out, "card": smi, "seconds": time.perf_counter() - t_all}))
@@ -4607,6 +4904,8 @@ def main() -> int:
     log("    18c: only with --multi-gpu on 2+ GPUs (not run on this one-card call)")
     integrity_path = timed("19", integrity_phase, torch, dpp, fa, smi)
     log("    19b: only with --multi-gpu on 4 GPUs (not run on this one-card call)")
+    tuning_path = timed("20", tuning_phase, torch, dpp, fa, smi)
+    log("    20c: only with --multi-gpu on 2+ GPUs (not run on this one-card call)")
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -4629,6 +4928,7 @@ def main() -> int:
             "launches_fleet_path": fleet_path["attention_launches"][name],
             "launches_elastic_path": elastic_path["attention_launches"][name],
             "launches_integrity_path": integrity_path["attention_launches"][name],
+            "launches_tuning_path": tuning_path["attention_launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -4667,6 +4967,7 @@ def main() -> int:
     log(json.dumps({"fleet_path": fleet_path, "card": smi}))
     log(json.dumps({"elastic_path": elastic_path, "card": smi}))
     log(json.dumps({"integrity_path": integrity_path, "card": smi}))
+    log(json.dumps({"tuning_path": tuning_path, "card": smi}))
     log(json.dumps({"phase_seconds": seconds, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -117,10 +117,22 @@ cadence step a second time on a copy of its inputs and compares the
 digests (a transient fault, even at world 1).  Cadence steps are drain
 points.
 
-The reference's flags whose feature is not ported yet (``--bw-probe``,
-``--lint-step``, ``--autotune`` and ``--tune-*``) parse with its defaults
-and checks; a value off the default raises ``NotImplementedError`` naming
-its ROADMAP item (``UNPORTED_FLAGS``).
+The autotuner and the probes, with the reference's flags and checks:
+``--autotune search`` (``tuning``) prices the DP/ZeRO knob space
+(``--batch-size``, ``--accum-steps``, ``--remat``, ``--zero``,
+``--moment-dtype``, ``--bucket-mb``, ``--dispatch-depth``) analytically,
+measures the top ``--tune-trials`` and the CLI's own values for
+``--tune-steps`` steps each, persists the winner under ``--tune-dir``, and
+trains with it; ``--autotune apply`` replays a persisted winner with no
+trial (the CLI's values, loudly, when none matches).  ``tune_trial`` and
+``tune_result`` events go to the run's event log and the outcome to the
+summary's ``autotune``.  ``--bw-probe`` measures the gradient all-reduce's
+bus bandwidth over the data axis before training (the summary's
+``bw_probe``).
+
+The reference's flag whose feature is not ported yet (``--lint-step``)
+parses with its default; a value off it raises ``NotImplementedError``
+naming its ROADMAP item (``UNPORTED_FLAGS``).
 """
 
 from __future__ import annotations
@@ -198,7 +210,8 @@ from distributeddataparallel_tpu_torch.utils.chaos import (
     check_ported,
     parse_chaos_spec,
 )
-from distributeddataparallel_tpu_torch.utils.logging import log0, warn_all
+from distributeddataparallel_tpu_torch.utils.logging import log0, warn0, warn_all
+from distributeddataparallel_tpu_torch.utils.metrics import allreduce_bandwidth
 
 
 LM_MODELS = ("gpt2", "llama")
@@ -461,17 +474,24 @@ def parse_args(argv=None):
                         "runs of one deterministic step must agree bitwise).  Detections are reported "
                         "(sdc_detect, rank=-1); nothing is evicted")
     p.add_argument("--bw-probe", action="store_true",
-                   help="all-reduce bandwidth probe: not ported yet (ROADMAP item 10's remainder)")
+                   help="measure grad all-reduce bandwidth utilization over the data axis before training "
+                        "(bus GB/s against the card's link peak; the summary's bw_probe)")
     p.add_argument("--lint-step", action="store_true",
                    help="graph-lint the train step: not ported yet (ROADMAP item 21)")
     p.add_argument("--autotune", choices=["search", "apply", "off"], default="off",
-                   help="autotuning: not ported yet (ROADMAP item 22)")
+                   help="attribution-driven autotuning (tuning/): 'search' runs a cost-model-pruned, "
+                        "measured search before training and applies + persists the winner; 'apply' loads a "
+                        "previously-persisted TunedConfig for this toolchain/devices/model fingerprint "
+                        "(falling back LOUDLY to the CLI values on any mismatch) and starts training with "
+                        "zero search trials")
     p.add_argument("--tune-dir", default=None, metavar="DIR",
-                   help="tuned-config store: not ported yet (ROADMAP item 22)")
+                   help="TunedConfig store directory (default: <--compile-cache>/tuned when a compile "
+                        "cache is set, else .ddp_tune)")
     p.add_argument("--tune-trials", type=int, default=3,
-                   help="measured candidates per search: not ported yet (ROADMAP item 22)")
+                   help="--autotune search: candidates measured after analytic pruning (top-K by "
+                        "predicted throughput; the CLI baseline is always measured too)")
     p.add_argument("--tune-steps", type=int, default=4,
-                   help="measured steps per candidate: not ported yet (ROADMAP item 22)")
+                   help="--autotune search: measured steps per candidate (after one step accounted apart)")
     args = p.parse_args(argv)
     if args.events_dir is None:
         args.events_dir = os.environ.get("DDP_EVENTS_DIR") or None
@@ -539,9 +559,7 @@ def parse_args(argv=None):
 #: raises ``NotImplementedError`` naming the item (after the reference's own
 #: checks of the value, ``_validate_reference_rules``).
 UNPORTED_FLAGS = {
-    "10's remainder": ("bw_probe",),
     "21": ("lint_step",),
-    "22": ("autotune", "tune_dir", "tune_trials", "tune_steps"),
 }
 
 
@@ -972,7 +990,14 @@ def run(args, *, local_rank: int = 0, nprocs: int = 1, store_address: str | None
             coordinator_address=args.coordinator, num_processes=args.num_processes,
             process_id=args.process_id)
     try:
+        # Autotune BEFORE anything batch-shaped exists: apply replays a
+        # persisted winner (zero trials), search measures on the live gang
+        # and persists one.  Either way the tuned knobs land on ``args`` and
+        # the trainer below is built from them.
+        tuned = (_run_autotune(args, device, rank, world_size)
+                 if args.autotune != "off" and join is None else None)
         trainer = join.trainer if join is not None else build_trainer(args, device, rank, world_size)
+        trainer.tune = tuned
         summary = train(args, trainer, device, rank, world_size, join=join)
         # Where a (re)start's time went, up to the first step (the restart
         # path's split): the process's start and this function's entry on
@@ -1000,6 +1025,9 @@ class Trainer:
     steps_per_epoch: int
     eval_step: object = None
     eval_loader: DataLoader | None = None
+    # --autotune's outcome (``_run_autotune``): its summary, and its events
+    # for the run's event log, which ``train`` opens.
+    tune: dict | None = None
 
 
 def build_mesh(args, world_size: int):
@@ -1854,6 +1882,152 @@ def _sigterm_sets(faults: Faults, enabled: bool):
             signal.signal(signal.SIGTERM, prev if prev is not None else signal.SIG_DFL)
 
 
+def _apply_trial_to_args(args, config: dict, *, n_chips: int = 0) -> None:
+    """Overwrite the tunable knobs on ``args`` with a TunedConfig (ref
+    ``dpp.py:1083-1121``).
+
+    Only the knobs the tuner owns are touched — everything else
+    (model, dataset, steps, parallelism axes) keeps its CLI value, so
+    an applied record can never change WHAT trains, only how fast.
+    A persisted batch that would starve the dataset (global batch >
+    examples, possible when a record tuned against one --num-examples
+    is replayed against a smaller one) keeps the CLI batch/accum
+    instead of training zero steps.
+    """
+    from distributeddataparallel_tpu_torch.tuning import TrialConfig
+
+    trial = TrialConfig.from_dict(config)
+    cap = (args.num_examples // n_chips
+           if n_chips and getattr(args, "num_examples", None) else None)
+    if cap is not None and trial.batch_per_chip > cap:
+        warn0("tuned batch %d/chip needs %d examples but --num-examples is %d — keeping --batch-size %d "
+              "(re-run --autotune search against this dataset)",
+              trial.batch_per_chip, trial.batch_per_chip * n_chips, args.num_examples, args.batch_size)
+    else:
+        args.batch_size = trial.batch_per_chip
+        args.accum_steps = trial.accum_steps
+    args.zero = trial.zero
+    # dpp stores "no override" as None; the tuner's explicit "f32" is
+    # the same thing (and would trip the --moment-dtype-needs---zero
+    # gate at zero=0 if kept literal).
+    args.moment_dtype = None if trial.moment_dtype == "f32" else trial.moment_dtype
+    args.bucket_mb = trial.bucket_mb
+    args.dispatch_depth = trial.dispatch_depth
+    if is_lm(args):
+        args.remat = "on" if trial.remat else "off"
+
+
+def _tune_dir_for(args) -> str:
+    if args.tune_dir:
+        return args.tune_dir
+    if args.compile_cache:
+        return os.path.join(args.compile_cache, "tuned")
+    return ".ddp_tune"
+
+
+class _EventBuffer:
+    """The tune events, kept until ``train`` opens the run's event log."""
+
+    def __init__(self):
+        self.records: list[tuple[str, dict]] = []
+
+    def emit(self, kind: str, **fields) -> None:
+        self.records.append((kind, fields))
+
+
+def _tuned_knobs(args) -> dict:
+    return {k: getattr(args, k) for k in ("batch_size", "accum_steps", "remat", "zero", "moment_dtype",
+                                          "bucket_mb", "dispatch_depth")}
+
+
+def _run_autotune(args, device: torch.device, rank: int, world_size: int) -> dict:
+    """``--autotune`` (ref ``dpp.py:1132-1250``): mutate ``args`` in place
+    before anything model-shaped is built; returns ``{"summary",
+    "events"}`` (the tune events, for the run's event log).
+
+    ``apply`` loads the persisted TunedConfig for this (toolchain, devices,
+    model) fingerprint and replays it — zero search trials, loud fallback
+    to the CLI values on any key mismatch.  ``search`` runs the full
+    prune→measure pipeline on the live gang first (every rank in step,
+    ``tuning.harness``), persists the winner (rank 0), then applies it;
+    the next run can use ``apply``."""
+    import dataclasses as dc
+
+    from distributeddataparallel_tpu_torch.tuning import (
+        TrialConfig,
+        TuningStore,
+        default_space_for,
+        default_tuned_key,
+        search_model,
+    )
+
+    rt.clear_mesh()  # plain DP over the world: the tuner refuses the model axes
+    events = _EventBuffer()
+    model = "gpt2-small" if args.model == "gpt2" else args.model
+    n_chips = world_size
+    name = f"{model}@d{n_chips}"
+    seq = args.seq_len if is_lm(args) else 128
+    store = TuningStore(_tune_dir_for(args))
+    device_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    key = default_tuned_key(model, n_devices=n_chips, device_name=device_name, seq=seq)
+
+    if args.autotune == "apply":
+        record = store.load(name, key)
+        applied = record is not None
+        if applied:
+            _apply_trial_to_args(args, record["config"], n_chips=n_chips)
+            log0("autotune apply: %r -> %s (score %s, tuned %s)", name, record["config"],
+                 record.get("score"), os.path.join(store.root, name))
+        else:
+            warn0("autotune apply: no matching TunedConfig %r under %s — running with the CLI defaults "
+                  "(use --autotune search to create one)", name, store.root)
+        events.emit("tune_result", mode="apply", winner=record["config"] if applied else None,
+                    applied=applied, score=record.get("score") if applied else None, store_path=store.root)
+        summary = {"mode": "apply", "applied": applied, "config": record["config"] if applied else None,
+                   "score": record.get("score") if applied else None,
+                   "measured_step_s": record.get("measured_step_s") if applied else None,
+                   "store_path": store.root, "knobs": _tuned_knobs(args)}
+        return {"summary": summary, "events": events.records}
+
+    # Cap the space by what the dataset can feed: a winner whose global
+    # batch exceeds --num-examples would train zero steps when applied.
+    space = default_space_for(model)
+    if getattr(args, "num_examples", None):
+        cap = max(1, args.num_examples // n_chips)
+        fit = tuple(b for b in space.batch_per_chip if b <= cap)
+        space = dc.replace(space, batch_per_chip=fit or (min(cap, args.batch_size),))
+    # The CLI flags as given ARE the hand-picked baseline: it is always
+    # measured and always eligible to win, so the reported gain_frac is
+    # an honest "what did tuning buy over what I typed".
+    baseline = TrialConfig(
+        batch_per_chip=args.batch_size,
+        accum_steps=args.accum_steps,
+        remat=(args.remat == "on" if args.remat != "auto" else is_lm(args) and args.model == "gpt2"),
+        zero=args.zero,
+        moment_dtype=args.moment_dtype or "f32",
+        bucket_mb=args.bucket_mb,
+        dispatch_depth=args.dispatch_depth,
+    )
+    result = search_model(
+        model, n_data=n_chips, rank=rank, device=device, seq=seq, space=space, top_k=args.tune_trials,
+        measure_steps=args.tune_steps, seed=args.seed, baseline=baseline, tune_store=store,
+        store_name=name, key=key, events=events,
+    )
+    winner = result["winner"]
+    summary = {"mode": "search", "applied": winner is not None,
+               "winner": winner["trial"] if winner is not None else None,
+               "config": winner["config"] if winner is not None else None, "gain_frac": result["gain_frac"],
+               "store_path": result["store_path"], "records": result["records"]}
+    if winner is None:
+        warn0("autotune search measured no viable trial — keeping the CLI defaults")
+    else:
+        _apply_trial_to_args(args, winner["config"], n_chips=n_chips)
+        log0("autotune search: winner %s (gain %+.1f%% vs baseline), persisted to %s", winner["trial"],
+             100.0 * (result.get("gain_frac") or 0.0), result.get("store_path"))
+    summary["knobs"] = _tuned_knobs(args)
+    return {"summary": summary, "events": events.records}
+
+
 def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_size: int = 1,
           join: Join | None = None) -> dict:
     """Run ``trainer`` for these flags on this rank, from the newest
@@ -1871,6 +2045,15 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         torch.cuda.reset_peak_memory_stats(device)
     tel = build_telemetry(args, trainer, device, rank, world_size,
                           proc=None if join is None else int(join.gang.member.removeprefix("proc")))
+    if trainer.tune is not None and tel.events is not None:
+        for kind, fields in trainer.tune["events"]:
+            tel.events.emit(kind, **fields)
+    probe = None
+    if args.bw_probe and join is None:  # a joiner's gang ran it at its start
+        probe = allreduce_bandwidth(rt.current_mesh())
+        log0("all-reduce probe: %d dev, %.0f MB -> %.1f GB/s bus BW, %.1f%% of %s GB/s link peak",
+             probe["devices"], probe["payload_mb"], probe["bus_bw_gb_s"], 100 * probe["utilization"],
+             f"{probe['peak_gb_s']:.0f}" if probe["peak_gb_s"] else "unknown")
     launches0 = dict(flash_attention.LAUNCHES)
     builds0 = (warm_start.STATS.hits, warm_start.STATS.misses)
     buckets0 = dict(overlap.COUNTS)
@@ -1963,6 +2146,10 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
                           "misses": warm_start.STATS.misses - builds0[1]},
         "startup": {"restore_s": restore_s, "first_step_s": tel.counters.compile_s,
                     "kernel_build_s": sum(r["seconds"] for r in warm_start.STATS.records[sum(builds0):])},
+        # --autotune's outcome (its mode, the winner or the applied record,
+        # the knobs this run trained with); --bw-probe's reading.
+        "autotune": trainer.tune["summary"] if trainer.tune is not None else None,
+        "bw_probe": probe,
     }
     log(f"train: {len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
         f"{step_time * 1e3:.1f} ms/step, {summary[rate[0]]:.0f} {rate[0]}")

@@ -6,8 +6,9 @@ on the main path, writing the same schema-versioned records, so the repo's
 readers (``scripts/check_events.py``, ``scripts/ddp_report.py``,
 ``scripts/perf_gate.py``) read the port's files as they read the
 reference's.  ``schema``, ``events``, ``registry``, ``trace``,
-``tracecontext``, ``goodput``, ``baseline`` and ``alerts`` are verbatim
-(stdlib only), as are ``trace_export`` (less ``write_trace``),
+``tracecontext``, ``goodput``, ``baseline``, ``alerts`` and ``straggler``
+(the gang's per-rank step skew over a merged timeline) are verbatim
+(stdlib only), as are ``trace_export``,
 ``critical_path`` (the lineage check and the TTFT decomposition, which the
 serving CLI's ``--smoke`` reads) and ``httpmetrics`` (the fleet's loopback
 ``/metrics`` endpoints); ``cost_model`` takes the card's peaks,

@@ -2,7 +2,8 @@
 
 A copy of the JAX package's ``observability/cost_model.py``: the FLOP counts
 (``transformer_fwd_flops``, ``simple_cnn_fwd_flops``, ``mlp_fwd_flops``,
-``train_step_flops``) and ``MFUMeter`` are the reference's, so both packages
+``train_step_flops``), ``MFUMeter`` and the autotuner's ``predict_step_s``
+are the reference's, so both packages
 report the same numerator for the same configuration.  Only the
 denominator differs: ``peak_flops_for`` reads the card.
 
@@ -155,6 +156,34 @@ def train_step_flops(
         "model_flops": mult * fwd_flops,
         "hardware_flops": (mult + 1 if remat else mult) * fwd_flops,
     }
+
+
+#: Assumed achieved fraction of peak for the autotuner's analytic step-time
+#: prediction — deliberately a single scalar, not a tuned model: the
+#: autotuner uses predictions only to RANK candidates (a shared
+#: efficiency factor cancels in the ranking), and ddp_report's
+#: predicted-vs-measured drift table shows how wrong it was.
+DEFAULT_EFFICIENCY = 0.35
+
+
+def predict_step_s(
+    hardware_flops: float,
+    *,
+    n_chips: int,
+    peak_flops_per_chip: float | None,
+    efficiency: float = DEFAULT_EFFICIENCY,
+) -> float | None:
+    """Analytic step-time prediction: hardware FLOPs over assumed
+    achieved throughput.  None when the peak is unknown (better no
+    prediction than one against a made-up denominator — same policy as
+    ``peak_flops_for``).  This is the autotuner's pruning/ranking
+    signal; measured windows are the ground truth it drifts against.
+    """
+    if not peak_flops_per_chip or hardware_flops <= 0:
+        return None
+    return float(hardware_flops) / (
+        peak_flops_per_chip * max(1, n_chips) * efficiency
+    )
 
 
 class MFUMeter:

@@ -11,6 +11,9 @@ card the allocator keeps the same numbers itself:
   from CUDA, its peak and the allocator's limit) and
   ``torch.cuda.max_memory_allocated``.
 
+``hbm_budget_bytes`` is the autotuner's memory budget: the card's total
+memory, the reference's 32 GiB default off the card.
+
 Each is a host read of the allocator's counters, never a device value, and
 ``MemoryTelemetry.sample`` runs only where the StepTimer's window closes.
 On the CPU there is no allocator to ask: the byte fields are ``None``.
@@ -55,6 +58,28 @@ def device_memory_stats(device=None) -> dict | None:
         "peak_allocated_bytes": int(torch.cuda.max_memory_allocated(device)),
         "bytes_limit": int(torch.cuda.get_device_properties(device).total_memory),
     }
+
+
+#: Fallback per-device budget when no CUDA device is visible (the CPU): the
+#: reference's default (one TPU v4 chip's 32 GiB), so the autotuner's
+#: analytic memory pruning prices against the same number on the CPU.
+DEFAULT_HBM_BUDGET_BYTES = 32 * 1024**3
+
+
+def hbm_budget_bytes(devices=None) -> int:
+    """Per-device memory budget: the smallest total memory over ``devices``
+    (default: every visible CUDA device) — the tightest card is the one
+    that runs out, as the reference takes the minimum of its allocators'
+    ``bytes_limit`` — else ``DEFAULT_HBM_BUDGET_BYTES``.  The total is the
+    device's property (the total ``torch.cuda.mem_get_info`` reports),
+    read without making a CUDA context on every visible card."""
+    import torch
+
+    if devices is None:
+        devices = range(torch.cuda.device_count()) if torch.cuda.is_available() else ()
+    devices = [torch.device("cuda", d) if isinstance(d, int) else torch.device(d) for d in devices]
+    limits = [int(torch.cuda.get_device_properties(d).total_memory) for d in devices if d.type == "cuda"]
+    return min(limits) if limits else DEFAULT_HBM_BUDGET_BYTES
 
 
 class MemoryTelemetry:

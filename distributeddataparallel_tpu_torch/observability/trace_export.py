@@ -31,12 +31,14 @@ Mapping:
 Timestamps are microseconds relative to the earliest instant in the
 run (trace viewers want small numbers, not epoch µs).
 
-Copy of the JAX package's ``observability/trace_export.py`` without
-``write_trace`` (the port's serving CLI validates the trace and writes
-none).  Module-import rule: stdlib only.
+Copy of the JAX package's ``observability/trace_export.py``;
+``write_trace`` writes a trace as one JSON document.  Module-import rule:
+stdlib only.
 """
 
 from __future__ import annotations
+
+import json
 
 #: kind -> counter-track name, value field
 _COUNTER_KINDS = {
@@ -348,3 +350,10 @@ def validate_trace(trace: dict) -> list[str]:
                 f"flow {fid}: step outside its start/finish window"
             )
     return problems
+
+
+def write_trace(trace: dict, out_path: str) -> str:
+    with open(out_path, "w") as fh:
+        json.dump(trace, fh)
+        fh.write("\n")
+    return out_path

@@ -320,6 +320,7 @@ def make_train_step(
     fsdp: bool = False,
     ep_axis: str | None = None,
     integrity_every: int | None = None,
+    grad_sync: bool = True,
 ):
     """Build ``step(state, batch[, seed]) -> metrics`` for data parallelism
     (over the mesh's ``data`` group when a mesh is bound), composed
@@ -352,8 +353,28 @@ def make_train_step(
     and a bad step's gradients are zeros before the wire, PowerSGD's error
     feedback or ZeRO's reduce-scatter see them.  ``integrity_every``: the
     replica digest (module docstring), with the reference's gates.
+
+    ``grad_sync=False`` is the reference's ``DDP.no_sync()`` analog: the
+    same compute with no gradient collective (the sequence mean under
+    ``cp_axis`` is model math and stays); each rank applies its local
+    gradients and the replicas diverge.  ``utils.metrics.overlap_probe``
+    times it against the full step.  The reference's gates: it refuses
+    ``zero``, ``bucket_bytes``, ``overlap``, ``grad_compress``,
+    ``grad_clip`` and ``integrity_every`` (and the port's ``fsdp``).
     """
     zero_level = int(zero)
+    if not grad_sync:
+        # The reference's gates (train_step.py:254-287, :312-316).
+        if zero_level or bucket_bytes is not None or overlap or fsdp:
+            raise ValueError("grad_sync=False skips the reduction entirely; it does not compose with "
+                             "zero/bucket_bytes/overlap (nor the fsdp path's own reduction)")
+        if grad_compress is not None:
+            raise ValueError("grad_compress requires grad_sync=True and zero=False")
+        if grad_clip is not None:
+            raise ValueError("grad_clip requires grad_sync=True")
+        if integrity_every is not None:
+            raise ValueError("integrity_every requires grad_sync=True: unsynced replicas legitimately "
+                             "diverge, so a digest mismatch means nothing")
     _check_layout(zero_level, bucket_bytes, overlap, grad_compress, accum_steps, buffer_sync, cp_axis, tp_axis,
                   fsdp, nonfinite_guard, ep_axis)
     if integrity_every is not None:
@@ -536,7 +557,7 @@ def make_train_step(
         elif grad_compress == "powersgd":
             new = sync_model_grads(jax_leaf_pieces(state.model), state.comm_state, ax.data)
             state.comm_state = new if ok is None else select_state(ok, new, state.comm_state)
-        else:
+        elif grad_sync:
             all_reduce_gradients(grads, bucket_bytes=bucket_bytes, compress=grad_compress, group=ax.data)
         if grad_clip is not None:
             # Grads are complete per rank after the sync (and the seq

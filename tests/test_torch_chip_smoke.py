@@ -26,6 +26,7 @@
 """
 
 import importlib.util
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -231,7 +232,7 @@ def test_phase15_replays_hold_on_the_cpu(monkeypatch):
 def test_phase16_runs_on_the_cpu(monkeypatch, tmp_path):
     """Phase 16 at tiny widths on the CPU: 16a's depths bit for bit, 16b's
     poisoned step skipped exactly (sync debug mode is the card's alone);
-    16c's record of 9a's supervised replay (``fault_replay``: a worker dead
+    16c's record of 9a's supervised replay (``start_replay``: a worker dead
     at step 6 of 12, one restart) under a fresh compile cache, both
     incarnations' ``warm_start`` read from the merged timeline (no kernel
     is built on the CPU, so both say ``cache-hit``) and the restart split."""
@@ -258,7 +259,12 @@ def test_phase16_runs_on_the_cpu(monkeypatch, tmp_path):
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
-        chaotic, records = chip_smoke.fault_replay("cpu")
+        replay, d = chip_smoke.start_replay()
+        try:
+            chaotic = chip_smoke.finish_entry(replay, "9a")
+            records = chip_smoke.timeline(str(Path(d) / "ev"))
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
         restart = chip_smoke.restart_record(chaotic, records)
         out = chip_smoke.warm_start_phase(torch, dpp, {"warm_start": "cold"}, restart, "cpu")
     finally:
@@ -271,3 +277,33 @@ def test_phase16_runs_on_the_cpu(monkeypatch, tmp_path):
     assert r["modes"] == {0: "cache-hit", 1: "cache-hit"} and chaotic["start_epoch"] == 1
     split = r["split"]
     assert split["checkpoint_read_s"] > 0 and split["death_to_first_step_s"] > split["first_step_s"] > 0
+
+
+def test_phase20_runs_on_the_cpu(monkeypatch):
+    """Phase 20's search and apply at the MLP on the CPU (20a's checks: the
+    measured trials, their statuses, the store, the run's knobs and
+    launches, none for the MLP; 20b's probe at world 1), and 20c's runs
+    parse."""
+    import torch
+
+    from distributeddataparallel_tpu_torch import dpp
+    from distributeddataparallel_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TUNE_ARGS", [
+        "--model", "mlp", "--dataset", "synthetic", "--batch-size", "8", "--epochs", "1", "--steps-per-epoch", "4",
+        "--num-examples", "64", "--eval", "--tune-trials", "3", "--tune-steps", "2"])
+    monkeypatch.setattr(chip_smoke, "TUNE_TRIAL_STEPS", 3)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        out = chip_smoke.tuning_phase(torch, dpp, fa, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert out["attention_launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert len(out["trials"]) == 4 and out["refused"] == 0 and out["knobs"]["batch_size"] in (8, 16, 32, 64)
+    assert out["bw_probe"]["devices"] == 1 and out["bw_probe"]["utilization"] == 0.0
+    args = dpp.parse_args(chip_smoke.TUNE_ENTRY_ARGS + ["--num-processes", "4", "--device", "cpu"])
+    assert args.bw_probe and args.num_processes == 4
+    lm = dpp.parse_args(chip_smoke.TUNE_ARGS + ["--autotune", "search"])
+    assert lm.autotune == "search" and lm.tune_trials == 3

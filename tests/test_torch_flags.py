@@ -79,10 +79,7 @@ def test_both_parsers_have_the_same_flags_defaults_and_choices():
 
 # Each unported flag at a value the reference accepts, and its item.
 UNPORTED = [
-    (["--bw-probe"], "10's remainder"),
     (["--lint-step"], "21"),
-    (["--autotune", "search", "--tune-dir", "t", "--tune-trials", "5", "--tune-steps", "2"], "22"),
-    (["--tune-steps", "2"], "22"),
 ]
 
 
@@ -90,6 +87,11 @@ UNPORTED = [
 # validates as the reference's does, with its values, and builds the MoE or
 # pipeline config.
 PORTED = [
+    # item 22's --autotune and --tune-*, item 10's --bw-probe
+    ["--autotune", "search", "--tune-dir", "t", "--tune-trials", "5", "--tune-steps", "2"],
+    ["--tune-steps", "2"],
+    ["--model", "gpt2", "--autotune", "apply", "--zero", "1"],
+    ["--bw-probe"],
     # item 20a's --integrity-every and --integrity-shadow
     ["--integrity-every", "2", "--integrity-shadow"],
     ["--integrity-every", "3", "--zero", "1", "--elastic", "--elastic-dir", "gang"],
@@ -130,7 +132,8 @@ def test_unported_flags_raise_naming_their_item(tmp_path):
         args = tdpp.parse_args(argv)
         for dest in ("ep", "moe_experts", "moe_top_k", "moe_aux_weight", "moe_capacity_factor", "pp",
                      "pp_microbatches", "pp_schedule", "pp_virtual", "cp", "compile_cache", "dispatch_depth",
-                     "elastic", "elastic_dir", "min_procs", "integrity_every", "integrity_shadow"):
+                     "elastic", "elastic_dir", "min_procs", "integrity_every", "integrity_shadow",
+                     "autotune", "tune_dir", "tune_trials", "tune_steps", "bw_probe"):
             assert getattr(args, dest) == getattr(jargs, dest), dest
         if args.pp > 1:
             cfg = tdpp.build_config(args)
@@ -146,9 +149,10 @@ def test_unported_flags_raise_naming_their_item(tmp_path):
     # item 16a's --pp, --pp-microbatches, --pp-schedule, 16b's --pp-virtual,
     # 11b's --compile-cache and --dispatch-depth, item 13's --elastic,
     # --elastic-dir and --min-procs and item 20a's --integrity-every and
-    # --integrity-shadow
-    assert len(seen) == 6
-    assert not {"17", "16", "16b", "11b", "13", "20", "20a"} & set(tdpp.UNPORTED_FLAGS)
+    # --integrity-shadow, item 22's --autotune and --tune-* and item 10's
+    # --bw-probe
+    assert len(seen) == 1
+    assert not {"17", "16", "16b", "11b", "13", "20", "20a", "22", "10's remainder"} & set(tdpp.UNPORTED_FLAGS)
     # Item 13's flags run: a gang of one joins its store, trains, and leaves it.
     summary = tdpp.main(["--device", "cpu", "--model", "mlp", "--epochs", "1", "--steps-per-epoch", "2",
                          "--num-examples", "32", "--batch-size", "4", "--elastic", "--elastic-dir",
