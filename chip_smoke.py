@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --multi-gpu [12c] [13c] [14c] [15c] [15c+] [18c]
-[19b] [20c]`` on a machine with four runs only the entry-point runs over
+[19b] [20c] [21c]`` on a machine with four runs only the entry-point runs over
 several GPUs (all of them, or those named) after the build.
 
 Phases (any failure exits non-zero; nothing is caught):
@@ -256,6 +256,21 @@ Phases (any failure exits non-zero; nothing is caught):
    c. only with ``--multi-gpu`` on 2+ GPUs: ``--bw-probe`` over every GPU
       (bus GB/s at 64 MB against the 450 GB/s link peak) and
       ``overlap_probe`` at GPT-2 124M's width, plain and ``--overlap``.
+21. the lint (``analysis/``):
+   a. phase 4's GPT-2 124M for 4 steps with ``--lint-step`` (its first step
+      recorded and linted as it runs, under sync debug "error") and
+      without: one clean ``lint-step`` line, the summary's
+      ``collective_fp`` the lint's, the losses bitwise equal, K1-K3
+      launched 4 steps x 12 layers in each;
+   b. three planted faults, each failing with its rule id: a step with one
+      gradient leaf's reduction dropped (GL001), a step that reads its
+      loss on the host (GL005), a malformed 1F1B table (SL301);
+   c. only with ``--multi-gpu`` on 2+ GPUs: ``--lint-step`` at GPT-2 124M
+      under ``--zero 1``, ``--fsdp``, ``--tp 2`` and ``--pp 2``, with the
+      collectives counted per mesh axis;
+   d. the timelines phases 8, 17b, 18a and 19a read, replayed against the
+      protocol specs; ``protocol.explore_all``; the AST layer over the
+      port's source: no finding.
 
 It prints one ``image_paths`` JSON line (phases 5 and 6), one
 ``llama_path`` line (phase 7), one ``reference_workload`` line (phase 8),
@@ -265,7 +280,8 @@ each replay's max errors, launches and times, the GPU count), one
 ``fsdp_path`` line (phase 13), one ``moe_path`` line (phase 14), one ``pp_path`` line (phase 15),
 one ``warm_start_path`` line (phase 16), one ``fleet_path`` line (phase 17),
 one ``elastic_path`` line (phase 18), one ``integrity_path`` line (phase
-19), one ``tuning_path`` line (phase 20), one ``phase_seconds`` line, one
+19), one ``tuning_path`` line (phase 20), one ``lint_path`` line (phase
+21), one ``phase_seconds`` line, one
 ``serving_path`` line (phase 10,
 each run's TTFT p50/p99, tokens/s, per-token latency, decode-step ms,
 preemptions, evictions, prefix hits, acceptance, pool bytes against the
@@ -819,6 +835,23 @@ TUNE_REFUSED = "error: ValueError: zero=1 does its own reduction"
 TUNE_ENTRY_ARGS = ["--model", "mlp", "--dataset", "synthetic", "--batch-size", "8", "--num-examples", "256",
                    "--epochs", "1", "--steps-per-epoch", "2", "--bw-probe"]
 OVERLAP_PROBE = dict(B=8, S=1024, iters=5, cfg={})  # cfg: overrides of gpt2_124m (none on the card)
+
+# Phase 21 (the lint): 21a phase 4's GPT-2 124M (f32, B=8, S=1024, AdamW) for
+# 4 steps with --lint-step and without; 21b's planted faults on GPT-2's width
+# cut to 2 layers (K1-K3 on the card at D=64, in a group of one); 21c (2+ GPUs) --lint-step
+# at GPT-2 124M under each sharded layout, 2 steps.
+LINT_ARGS = _set(FAULT_LM_ARGS, "--steps-per-epoch", "4")
+LINT_STEPS = 4
+LINT_PLANT_ARGS = ["--model", "gpt2", "--layers", "2", "--seq-len", "128", "--vocab-size", "512", "--batch-size",
+                   "4", "--num-examples", "32"]
+LINT_ENTRY_ARGS = _set(LINT_ARGS, "--steps-per-epoch", "2")
+# 21e: the layouts whose gradient collectives autograd issues, each with the
+# collective the recorder must hear (linted at LINT_PLANT_ARGS in a group of one).
+LINT_BACKWARD = {"fsdp": ("--fsdp", "data:reduce_scatter_tensor"), "overlap": ("--overlap", "data:all_reduce")}
+LINT_LAYOUTS = {"zero1": ["--zero", "1"], "fsdp": ["--fsdp"], "tp2": ["--tp", "2"], "pp2": ["--pp", "2"]}
+# The merged timelines phases 8, 17b, 18a and 19a read, by phase: 21d replays
+# them against the protocol specs (analysis.conformance).
+TIMELINES: dict[str, list] = {}
 
 DEVICE = "cuda"  # phases 10, 12, 15, 16 and 17's device
 
@@ -1460,7 +1493,7 @@ def reference_workload_phase(torch, dpp, fa, smi) -> dict:
         problems = {f: validate_file(f) for f in files}
         if len(files) != 2 or any(problems.values()):
             raise AssertionError(f"events: {problems}")
-        records = [json.loads(x) for x in open(os.path.join(events, "timeline.jsonl"))]
+        records = TIMELINES["8"] = [json.loads(x) for x in open(os.path.join(events, "timeline.jsonl"))]
         kinds = [r["kind"] for r in records]
         periodic = [r for r in records if r["kind"] == "metrics" and "step" in r]
         if len(periodic) != steps // 5:
@@ -4081,7 +4114,7 @@ def fleet_service(smi) -> dict:
             raise AssertionError(f"17b: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
         text = proc.stdout
         summary = json.loads(text[text.index("{"):text.rindex("}") + 1])
-        records = timeline(d)
+        records = TIMELINES["17b"] = timeline(d)
     tiers = {r["tier"]: {k: r[k] for k in ("completed", "p50_ttft_s", "p99_ttft_s")}
              for r in records if r["kind"] == "tier_summary"}
     verdicts = [{k: r[k] for k in ("engine", "rung", "requeued", "reason")}
@@ -4137,7 +4170,7 @@ class ElasticGang:
         cores = self.cores
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "distributeddataparallel_tpu_torch.dpp", *ELASTIC_CPU_ARGS, "--checkpoint-dir",
-             self.ck], cwd=HERE, env=_entry_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+             self.ck, "--events-dir", os.path.join(self.ck, "ev")], cwd=HERE, env=_entry_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             preexec_fn=lambda: os.sched_setaffinity(0, cores))
         if self.all - self.cores:
             _pin(self.all - self.cores)
@@ -4170,6 +4203,7 @@ def elastic_phase(torch, dpp, fa, gang: ElasticGang, smi) -> dict:
     from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles
 
     cpu, ck = gang.finish(), gang.ck
+    TIMELINES["18a"] = timeline(os.path.join(ck, "ev"))
     d = tempfile.mkdtemp(prefix="chip_smoke_resume_")
     for f in ("epoch_0.pt", "hash_0.json"):  # epoch 0 alone: --resume takes the newest
         os.link(os.path.join(ck, f), os.path.join(d, f))
@@ -4430,7 +4464,8 @@ def integrity_phase(torch, dpp, fa, smi) -> dict:
         hit = run(_set(INTEGRITY_ARGS, "--steps-per-epoch", str(INTEGRITY_PLANT_STEPS)) + ["--events-dir", ev])
     finally:
         integrity.copy_tree = real_copy
-    detects = [r for r in timeline(ev) if r["kind"] == "sdc_detect"]
+    TIMELINES["19a"] = timeline(ev)
+    detects = [r for r in TIMELINES["19a"] if r["kind"] == "sdc_detect"]
     hf = hit["faults"]
     if planted["n"] != 1 or [(r["step"], r["method"], r["rank"]) for r in detects] != [
             (INTEGRITY_PLANT_STEP, "shadow", -1)] or hf.get("sdc_detects") != 1 or hf.get("sdc_evictions", 0) != 0 \
@@ -4746,6 +4781,192 @@ def tuning_entry(torch, smi) -> dict:
     return {"ran": True, "gpus": n, "bw_probe": probe, "overlap_probe": overlap}
 
 
+class _Tee:
+    """Writes go to ``out`` and are kept (``text``)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, x):
+        self.parts.append(x)
+        return self.out.write(x)
+
+    def flush(self):
+        self.out.flush()
+
+    @property
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def planted_lint(torch, dpp) -> dict:
+    """[21b] Three planted faults, each of which must fail with its rule id:
+    a GPT-2 step with its first gradient leaf's reduction dropped (GL001),
+    one that reads its loss on the host (GL005: on the card the step runs
+    under sync debug "error", and the read raises), both in a group of one
+    on the card; a 1F1B table with a unit duplicated in place of another
+    (SL301)."""
+    from distributeddataparallel_tpu_torch.analysis import graph_lint, schedule_lint
+    from distributeddataparallel_tpu_torch.training import train_step as tts
+
+    args = dpp.parse_args(LINT_PLANT_ARGS + ["--device", DEVICE])
+    device = dpp.device_for(args)
+    seed = dpp.step_seed(args, 0, 0)
+
+    def steps():
+        found = {}
+        trainer = dpp.build_trainer(args, device)
+        batch = next(iter(trainer.loader))
+        real = tts.all_reduce_gradients
+        tts.all_reduce_gradients = lambda grads, **kw: real(grads[1:], **kw)
+        try:
+            found["GL001"] = graph_lint.lint_train_step(trainer.step_fn, trainer.state, batch, seed,
+                                                        check_order=False).findings
+        finally:
+            tts.all_reduce_gradients = real
+        trainer = dpp.build_trainer(args, device)
+        inner = trainer.step_fn
+
+        def reads(state, batch, seed=None):
+            metrics = inner(state, batch, seed)
+            metrics["loss"].item()  # the planted host read
+            return metrics
+
+        reads.collective_manifest = inner.collective_manifest
+        found["GL005"] = graph_lint.lint_train_step(reads, trainer.state, batch, seed, check_order=False).findings
+        return found
+
+    found = _in_group(torch, dpp, steps)
+    table = schedule_lint.one_f_one_b_schedule_ir(4, 8)
+    found["SL301"] = schedule_lint.lint_schedule(
+        dataclasses.replace(table, units=table.units[:-1] + table.units[:1]))
+    for rule, fs in found.items():
+        if not fs or {f.rule for f in fs} != {rule}:
+            raise AssertionError(f"21b: the planted {rule} fault gave {[str(f) for f in fs]}")
+        log(f"    21b planted {rule}: {fs[0]}")
+    return {rule: [str(f) for f in fs] for rule, fs in found.items()}
+
+
+def backward_collectives(torch, dpp) -> dict:
+    """[21e] The recorder hears the collectives autograd issues: on CUDA
+    backward nodes and gradient hooks run on autograd's device thread, so
+    ``--fsdp``'s reduce-scatter and ``--overlap``'s bucket all-reduces come
+    from there.  Each layout's first step is linted in a group of one on
+    the card and on the CPU (where backward runs on the caller's thread):
+    each clean, the counts per axis equal, and the layout's own collective
+    (LINT_BACKWARD) recorded at least once."""
+    from distributeddataparallel_tpu_torch.analysis import graph_lint
+    from distributeddataparallel_tpu_torch.runtime import distributed as rt
+
+    out = {}
+    for layout, (flag, key) in LINT_BACKWARD.items():
+        seen = {}
+        for where in (DEVICE, "cpu"):
+            args = dpp.parse_args(LINT_PLANT_ARGS + [flag, "--device", where])
+            device = dpp.device_for(args)
+            rt.init_process_group(device=device)
+            try:
+                trainer = dpp.build_trainer(args, device)
+                rep = graph_lint.lint_train_step(trainer.step_fn, trainer.state, next(iter(trainer.loader)),
+                                                 dpp.step_seed(args, 0, 0), check_order=False)
+            finally:
+                rt.destroy_process_group()
+            seen[where] = {"counts": rep.collective_counts, "findings": [str(f) for f in rep.findings]}
+        card, cpu = seen[DEVICE], seen["cpu"]
+        if card["findings"] or cpu["findings"] or card["counts"] != cpu["counts"] or not card["counts"].get(key):
+            raise AssertionError(f"21e {layout}: {DEVICE} {card}, cpu {cpu} (want {key} > 0, the same on both)")
+        log(f"    21e {layout}: {key} x{card['counts'][key]} recorded on {DEVICE} as on the cpu; counts "
+            f"{card['counts']}")
+        out[layout] = card["counts"]
+    return out
+
+
+def lint_phase(torch, dpp, fa, smi) -> dict:
+    """[21] 21a: phase 4's GPT-2 124M for LINT_STEPS steps with
+    ``--lint-step`` (its first step linted as it runs: the clean line, the
+    summary's ``collective_fp`` the lint's) and without, losses bitwise
+    equal, K1-K3 launched as the steps imply in each; 21b: the planted
+    faults; 21e: the collectives autograd's thread issues recorded;
+    21d: the timelines phases 8, 17b, 18a and 19a wrote replayed
+    against the protocol specs, ``protocol.explore_all`` and the AST layer
+    over the port's source, each with no finding."""
+    from distributeddataparallel_tpu_torch.analysis import ast_rules, conformance, protocol, sync_lint
+
+    log("[21] the lint")
+    argv = LINT_ARGS + ["--device", DEVICE]
+    log("    21a: dpp.main " + " ".join(argv) + " [--lint-step]")
+    fa.reset_launches()
+    plain = dpp.main(argv)
+    torch.cuda.synchronize()
+    expect_launches(dict(plain, attention_launches=dict(fa.LAUNCHES)), "21a without the flag")
+    fa.reset_launches()
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        linted = dpp.main(argv + ["--lint-step"])
+    torch.cuda.synchronize()
+    launches = expect_launches(dict(linted, attention_launches=dict(fa.LAUNCHES)), "21a --lint-step")
+    rep = linted["lint_step"]
+    lines = [x for x in tee.text.splitlines() if x.startswith("lint-step [")]
+    if (len(lines) != 1 or not lines[0].startswith(f"lint-step [{rep['mode']}] clean: collective fp={rep['fingerprint']}")
+            or linted["collective_fp"] != rep["fingerprint"] or plain["collective_fp"] != rep["fingerprint"]):
+        raise AssertionError(f"21a: lint lines {lines}, report {rep}, fps {plain['collective_fp']} "
+                             f"{linted['collective_fp']}")
+    if linted["losses"] != plain["losses"] or linted["train_steps"] != LINT_STEPS:
+        raise AssertionError(f"21a: losses {linted['losses']} with --lint-step, {plain['losses']} without")
+    log(f"    21a: {lines[0]}; losses bitwise the unlinted run's; launches {launches}; step "
+        f"{linted['step_time_s'] * 1e3:.1f} ms (unlinted {plain['step_time_s'] * 1e3:.1f}), first step "
+        f"{linted['first_step_time_s']:.2f} s (unlinted {plain['first_step_time_s']:.2f}) on {smi}")
+    planted = planted_lint(torch, dpp)
+    backward = backward_collectives(torch, dpp)
+
+    missing = {"8", "17b", "18a", "19a"} - set(TIMELINES)
+    replayed = {name: [str(f) for f in conformance.check_timeline(records, where=f"timeline:{name}")]
+                for name, records in TIMELINES.items()}
+    explored = protocol.explore_all()
+    targets = ast_rules.default_targets(HERE)
+    ast = ast_rules.lint_paths(targets, HERE) + sync_lint.lint_paths(targets, HERE)
+    findings = [f for fs in replayed.values() for f in fs] + [str(f) for r in explored for f in r.findings] \
+        + [str(f) for f in ast]
+    if missing or findings:
+        raise AssertionError(f"21d: timelines missing {missing}; findings {findings}")
+    log(f"    21d: timelines {', '.join(f'{k} ({len(v)} records)' for k, v in TIMELINES.items())} conform; "
+        f"{' '.join(f'{r.spec}={r.n_states}' for r in explored)} states explored clean; {len(targets)} source "
+        "files lint clean")
+    return {
+        "lint": rep, "collective_fp": linted["collective_fp"], "losses": linted["losses"],
+        "losses_bitwise_unlinted": True, "step_ms": linted["step_time_s"] * 1e3,
+        "unlinted_step_ms": plain["step_time_s"] * 1e3, "first_step_s": linted["first_step_time_s"],
+        "unlinted_first_step_s": plain["first_step_time_s"], "planted": planted, "backward": backward,
+        "timelines": {k: len(v) for k, v in TIMELINES.items()},
+        "protocol_states": {r.spec: r.n_states for r in explored}, "source_files": len(targets),
+        "attention_launches": launches,
+    }
+
+
+def lint_entry(torch, smi) -> dict:
+    """[21c] With 2+ GPUs: ``--lint-step`` at GPT-2 124M under ``--zero
+    1``, ``--fsdp``, ``--tp 2`` and ``--pp 2`` over every GPU, each clean,
+    with its gradient-sized collectives counted per mesh axis."""
+    from distributeddataparallel_tpu_torch import dpp
+
+    n = torch.cuda.device_count() if DEVICE == "cuda" else 4
+    if n < 2:
+        log(f"    21c: needs 2+ GPUs ({n} visible): not run")
+        return {"ran": False, "gpus": n}
+    out = {"ran": True, "gpus": n}
+    for name, extra in LINT_LAYOUTS.items():
+        argv = LINT_ENTRY_ARGS + extra + ["--lint-step", "--num-processes", str(n), "--device", DEVICE]
+        log("[21c] dpp.main " + " ".join(argv))
+        s = dpp.main(argv)
+        rep = s["lint_step"]
+        if rep is None or rep["fingerprint"] != s["collective_fp"] or not all(math.isfinite(x) for x in s["losses"]):
+            raise AssertionError(f"21c {name}: lint {rep}, losses {s['losses']}")
+        log(f"    21c {name}: [{rep['mode']}] fp={rep['fingerprint']} counts {rep['counts']}"
+            + (f" schedule={rep['schedule']}" if rep["schedule"] else "") + f" on {smi}")
+        out[name] = {**rep, "losses": s["losses"], "step_ms": s["step_time_s"] * 1e3}
+    return out
+
+
 def release(torch) -> None:
     """Free what earlier runs left (a model held by a reference cycle, say,
     the reducer's hooks) before the next run's peak is measured."""
@@ -4817,7 +5038,7 @@ def main() -> int:
         # 15c+, 18c, or those named after the flag): what a one-card run
         # skips.
         entries = {"12c": cp_tp_entry, "13c": fsdp_entry, "14c": moe_entry, "15c": pp_entry, "15c+": pp_entry_16b,
-                   "18c": elastic_entry, "19b": integrity_entry, "20c": tuning_entry}
+                   "18c": elastic_entry, "19b": integrity_entry, "20c": tuning_entry, "21c": lint_entry}
         picked = [a for a in sys.argv[sys.argv.index("--multi-gpu") + 1:] if a in entries] or list(entries)
         out = {name: entries[name](torch, smi) for name in picked}
         log(json.dumps({"multi_gpu": out, "card": smi, "seconds": time.perf_counter() - t_all}))
@@ -4906,6 +5127,8 @@ def main() -> int:
     log("    19b: only with --multi-gpu on 4 GPUs (not run on this one-card call)")
     tuning_path = timed("20", tuning_phase, torch, dpp, fa, smi)
     log("    20c: only with --multi-gpu on 2+ GPUs (not run on this one-card call)")
+    lint_path = timed("21", lint_phase, torch, dpp, fa, smi)
+    log("    21c: only with --multi-gpu on 2+ GPUs (not run on this one-card call)")
 
     kernels = []
     for name, replaces, _ in KERNELS:
@@ -4929,6 +5152,7 @@ def main() -> int:
             "launches_elastic_path": elastic_path["attention_launches"][name],
             "launches_integrity_path": integrity_path["attention_launches"][name],
             "launches_tuning_path": tuning_path["attention_launches"][name],
+            "launches_lint_path": lint_path["attention_launches"][name],
             "max_abs_err": max(errs["gpt2_f32_causal"][k] for k in outputs),
             "ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -4968,6 +5192,7 @@ def main() -> int:
     log(json.dumps({"elastic_path": elastic_path, "card": smi}))
     log(json.dumps({"integrity_path": integrity_path, "card": smi}))
     log(json.dumps({"tuning_path": tuning_path, "card": smi}))
+    log(json.dumps({"lint_path": lint_path, "card": smi}))
     log(json.dumps({"phase_seconds": seconds, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_all:.1f} s")

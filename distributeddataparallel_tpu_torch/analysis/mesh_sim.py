@@ -4,7 +4,8 @@ autotuner's first pruning stage, pure arithmetic over the ZeRO ladder.
 
 The reference's compile-only simulation (``simulate``: AOT lowering on
 abstract state and the compiler's ``memory_analysis()``) has no eager
-PyTorch counterpart here; it waits for ROADMAP.md Queue 1's item 21.
+PyTorch counterpart and is kept out: an eager step has no lowered program
+to analyse before it runs.
 
 Module-import rule: stdlib only.
 """

@@ -249,6 +249,7 @@ def _background(items: Iterator, loader: DataLoader | None = None) -> Iterator:
             for item in items:
                 if not put(item):
                     return
+        # ddplint: allow[broad-except] — the producer thread hands any failure to the consumer, which raises it
         except Exception as e:  # raised again by the consumer
             end = e
         finally:

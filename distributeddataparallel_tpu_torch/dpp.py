@@ -130,9 +130,14 @@ summary's ``autotune``.  ``--bw-probe`` measures the gradient all-reduce's
 bus bandwidth over the data axis before training (the summary's
 ``bw_probe``).
 
-The reference's flag whose feature is not ported yet (``--lint-step``)
-parses with its default; a value off it raises ``NotImplementedError``
-naming its ROADMAP item (``UNPORTED_FLAGS``).
+The run's first step is recorded (``analysis.graph_lint``): the
+fingerprint of the collectives it issued is the summary's
+``collective_fp``.  ``--lint-step`` lints that step as it runs (its
+manifest, a device-to-host sync inside it, the schedule its factory
+attaches) and stops the run on a finding; the step is the run's own, so
+the losses are those of the run without the flag.
+
+Every flag of the reference runs (``UNPORTED_FLAGS`` is empty).
 """
 
 from __future__ import annotations
@@ -477,7 +482,9 @@ def parse_args(argv=None):
                    help="measure grad all-reduce bandwidth utilization over the data axis before training "
                         "(bus GB/s against the card's link peak; the summary's bw_probe)")
     p.add_argument("--lint-step", action="store_true",
-                   help="graph-lint the train step: not ported yet (ROADMAP item 21)")
+                   help="graph-lint the train step (analysis.graph_lint) on the first batch and abort on "
+                        "violations: the collectives the run's first step issues are recorded as it runs and "
+                        "held to the step factory's manifest and schedule")
     p.add_argument("--autotune", choices=["search", "apply", "off"], default="off",
                    help="attribution-driven autotuning (tuning/): 'search' runs a cost-model-pruned, "
                         "measured search before training and applies + persists the winner; 'apply' loads a "
@@ -558,9 +565,7 @@ def parse_args(argv=None):
 #: ROADMAP.md Queue 1 item that ports them: a value off the flag's default
 #: raises ``NotImplementedError`` naming the item (after the reference's own
 #: checks of the value, ``_validate_reference_rules``).
-UNPORTED_FLAGS = {
-    "21": ("lint_step",),
-}
+UNPORTED_FLAGS: dict[str, tuple[str, ...]] = {}
 
 
 def _refuse_unported(p, args) -> None:
@@ -1028,6 +1033,10 @@ class Trainer:
     # --autotune's outcome (``_run_autotune``): its summary, and its events
     # for the run's event log, which ``train`` opens.
     tune: dict | None = None
+    # The fingerprint of the collectives of the run's first step, and under
+    # --lint-step its lint (the summary's ``lint_step``).
+    collective_fp: str | None = None
+    lint_report: dict | None = None
 
 
 def build_mesh(args, world_size: int):
@@ -1644,6 +1653,7 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
         injector.sync = lambda: (drain(), rt.barrier())
     integ = IntegrityLoop(args, tel, step_fn, world_size) if args.integrity_every else None
     counts = None  # the first pipeline step's unit counts (on the device)
+    first = True  # the run's first step is recorded (and linted under --lint-step)
     for epoch in range(start_epoch, args.epochs):
         loader.set_epoch(epoch)
         if tel.loader is not loader:
@@ -1702,7 +1712,11 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
                     if on_events:
                         start = torch.cuda.Event(enable_timing=True)
                         start.record()
-                    metrics = step_fn(state, batch, seed)
+                    if first:
+                        metrics = _first_step(args, trainer, step_fn, state, batch, seed, tel, log)
+                        first = False
+                    else:
+                        metrics = step_fn(state, batch, seed)
                     rec = _dispatched(metrics, (epoch, i, gstep), t0, device, depth, start)
                 for old, _ in dispatch.push(rec):
                     settle(old)
@@ -1788,6 +1802,42 @@ def _loop(args, trainer: Trainer, device: torch.device, tel: Telemetry, log, fau
     return losses, step_times, eval_batches, evals, wall, wall_steps, preempted, moe_aux
 
 
+def _first_step(args, trainer: Trainer, step_fn, state, batch, seed, tel: Telemetry, log) -> dict:
+    """The run's first step, under the collective recorder
+    (``analysis.graph_lint``): the fingerprint of what it issued is the
+    summary's ``collective_fp`` (the reference's ``fp_target``, a trace of
+    the step; here the step itself).  Under ``--lint-step`` the step is
+    linted as it runs (the reference's ``dpp.py:2408-2470``): the factory's
+    manifest, a device-to-host sync inside it (on CUDA the step runs under
+    the sync debug mode "error"), the schedule the step carries; findings
+    stop the run, else one ``lint-step`` line.  No second step is run, so
+    GL002's two-step comparison is left to the lint CLI."""
+    from distributeddataparallel_tpu_torch.analysis import graph_lint
+    from distributeddataparallel_tpu_torch.observability.memory import hbm_budget_bytes
+
+    if args.lint_step:
+        rep = graph_lint.lint_train_step(step_fn, state, batch, seed, check_order=False,
+                                         hbm_budget_bytes=hbm_budget_bytes())
+        ir, sched = graph_lint.lint_step_schedule(step_fn, state, rep)
+        findings = rep.findings + sched
+        if findings:
+            raise SystemExit("--lint-step: train step violates its SPMD invariants:\n"
+                             + "\n".join(str(f) for f in findings))
+        log(f"lint-step [{rep.mode}] clean: collective fp={rep.fingerprint} counts {rep.collective_counts}"
+            f" collectives={len(rep.collectives)}" + (f" schedule={ir.kind}" if ir is not None else ""))
+        trainer.lint_report = {"mode": rep.mode, "fingerprint": rep.fingerprint, "counts": rep.collective_counts,
+                               "collectives": len(rep.collectives), "schedule": ir.kind if ir is not None else None}
+        metrics, fp = rep.metrics, rep.fingerprint
+    else:
+        with graph_lint.CollectiveRecorder() as rec:
+            metrics = step_fn(state, batch, seed)
+        fp = graph_lint.collective_fingerprint(rec.collectives)
+    trainer.collective_fp = fp
+    if tel.summary_builder is not None:
+        tel.summary_builder.sample(collective_fp=fp)
+    return metrics
+
+
 def _integrity_check(args, integ: IntegrityLoop, metrics: dict, state, pend, batch, seed, gstep: int,
                      gang: Gang | None, log) -> None:
     """One cadence step's verdict (ref ``dpp.py:2531-2607``), everything in
@@ -1846,6 +1896,7 @@ def build_faults(args, state: TrainState, tel: Telemetry, rank: int, world_size:
             # even if the save itself wedges.
             try:
                 ckpt.write(state, int(diag["last_known_state"].get("epoch", 0)))
+            # ddplint: allow[broad-except] — a parting save while the process exits must not mask the hang report
             except Exception:  # noqa: BLE001 — the process is exiting
                 warn_all("watchdog: emergency checkpoint failed")
 
@@ -2080,6 +2131,7 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         if faults.gang is not None and not faults.gang.left:  # a member that left is tombstoned already
             rt.barrier()  # no survivor is still polling when the first one leaves the store
             faults.gang.coordinator.stop()  # a later run in this store starts from an empty gang
+    # ddplint: allow[broad-except] — records the run's end status for telemetry, then re-raises
     except BaseException as e:
         status = type(e).__name__
         raise
@@ -2114,6 +2166,8 @@ def train(args, trainer: Trainer, device: torch.device, rank: int = 0, world_siz
         "world_size": world_size,
         "layout": layout_name(args),
         "num_params": state.num_params(),
+        "collective_fp": trainer.collective_fp,
+        "lint_step": trainer.lint_report,
         "start_epoch": start_epoch,
         "preempted_epoch": preempted,
         "train_steps": len(losses),
@@ -2213,8 +2267,9 @@ def _worker(local_rank: int, nprocs: int, store_address: str | None, argv: list[
     args = parse_args(argv)
     if args.device == "cpu":
         # Share the cores this process may run on between the ranks
-        # instead of oversubscribing them.
-        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // nprocs))
+        # instead of oversubscribing them; OMP_NUM_THREADS caps the share.
+        share = max(1, len(os.sched_getaffinity(0)) // nprocs)
+        torch.set_num_threads(min(share, int(os.environ.get("OMP_NUM_THREADS") or share)))
     run(args, local_rank=local_rank, nprocs=nprocs, store_address=store_address, result_file=result_file)
 
 

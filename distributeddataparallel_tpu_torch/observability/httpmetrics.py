@@ -118,6 +118,7 @@ class MetricsHTTPServer:
                     ).encode()
                 # HTTP boundary: any render failure becomes a 500, never a
                 # dead socket
+                # ddplint: allow[broad-except] — HTTP boundary: a render failure becomes a 500
                 except Exception as exc:  # noqa: BLE001
                     self.send_error(500, str(exc))
                     return

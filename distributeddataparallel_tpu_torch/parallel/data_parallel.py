@@ -80,6 +80,21 @@ def group_active(group) -> bool:
     return dist.is_initialized() and (group is None or dist.get_world_size(group) > 1)
 
 
+def metric_pack(t: torch.Tensor) -> torch.Tensor:
+    """Mark ``t`` as a step's scalar metrics stacked for one reduction: the
+    collective recorder (``analysis.graph_lint``) counts it as scalar
+    reductions, as the reference's per-metric means are.
+
+    The recorder sees only the tensor handed to ``dist.all_reduce``, and
+    nothing there tells this vector from a gradient: a bias or a norm's
+    scale at a small width is as short and as f32, and the order does not
+    tell either (the pipe's loop reduces it among the gradients; under
+    ``--overlap`` the buckets go out during backward).  So the step names
+    it, with a Python attribute that costs nothing."""
+    t.ddp_metric_pack = True
+    return t
+
+
 def _sum(t: torch.Tensor, group=None) -> None:
     if group_active(group):
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)

@@ -368,6 +368,7 @@ class FsdpLM(nn.Module):
 
     @torch.no_grad()
     def param_norm(self) -> float:
+        # ddplint: allow[host-sync] — a diagnostic norm, never called inside a step
         return math.sqrt(float(self._sumsq(list(self.layer_shards), self.rest_shard, torch.float64)))
 
     @torch.no_grad()
@@ -414,6 +415,7 @@ def fsdp_gather_params(model: FsdpLM, *, host: bool = False) -> dict:
     meta, group = model.meta, model.group
     n = group_size(group)
     tp_group = axis_group(meta.tp_axis) if meta.n_tp > 1 else None
+    # ddplint: allow[host-sync] — host consolidation for a checkpoint, off the step path
     move = (lambda t: t.cpu()) if host else (lambda t: t)
 
     def whole(shard):  # (n_tp, padded): every model position's whole flat

@@ -190,6 +190,7 @@ def trace_kernels(trace) -> list[dict]:
             args = ev.get("args", {})
             stream = args.get("stream", ev.get("tid"))
             out.append({"name": ev.get("name", ""), "stream": stream,
+                        # ddplint: allow[host-sync] — parses a trace's JSON numbers, no tensor
                         "start": float(ev["ts"]), "end": float(ev["ts"]) + float(ev.get("dur", 0.0))})
     return out
 
@@ -251,6 +252,21 @@ def kernel_time_by_name(kernels: list[dict], buckets: dict[str, str]) -> dict:
     total = sum(out.values())
     return {"total_ms": total, "by_name": out,
             "frac": {k: (v / total if total else 0.0) for k, v in out.items()}}
+
+
+def comm_schedule_ir(params, *, bucket_bytes: int | None = None, axis: str = "data",
+                     prim: str = "all_reduce"):
+    """The bucketed gradient sync's order as schedule IR (the reference's
+    ``comm_schedule_ir``, ``parallel/overlap.py:553``): one tick a bucket,
+    planned from ``params`` (the trainable parameters, in the model's
+    order) by the planner the step uses (``plan_buckets``), so the SL302
+    recorded-count check catches the step and the plan diverging.
+    ``bucket_bytes=None``: one bucket a leaf."""
+    from distributeddataparallel_tpu_torch.analysis.schedule_lint import grad_sync_schedule_ir
+
+    sizes = [p.numel() * p.element_size() for p in params]
+    n = len(sizes) if bucket_bytes is None else len(plan_buckets(sizes, bucket_bytes))
+    return grad_sync_schedule_ir(n, axis=axis, prim=prim)
 
 
 def zero_bucket_params(layout) -> list[list[nn.Parameter]]:

@@ -90,6 +90,12 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from distributeddataparallel_tpu_torch.analysis.rules import ANY_COLLECTIVE, collective_manifest
+from distributeddataparallel_tpu_torch.analysis.schedule_lint import (
+    gpipe_schedule_ir,
+    one_f_one_b_schedule_ir,
+    zb_schedule_ir,
+)
 from distributeddataparallel_tpu_torch.models import transformer as tfm
 from distributeddataparallel_tpu_torch.ops.losses import (
     accuracy,
@@ -102,6 +108,7 @@ from distributeddataparallel_tpu_torch.parallel.data_parallel import (
     all_reduce_gradients,
     clip_scale,
     group_active,
+    metric_pack,
     sumsq_f32,
 )
 from distributeddataparallel_tpu_torch.parallel.expert_parallel import ep_dim
@@ -682,7 +689,6 @@ def make_pp_train_step(cfg, *, microbatches: int, schedule: str = "gpipe", zero:
     M = microbatches
     resolved: list[_Groups] = []
     exchanges: dict = {}
-    count_rows: dict = {}
 
     def step(state, batch: dict, seed=None) -> dict:
         if not resolved:
@@ -711,14 +717,12 @@ def make_pp_train_step(cfg, *, microbatches: int, schedule: str = "gpipe", zero:
                 p.grad = torch.zeros_like(p)
         # The metrics and the unit counts in one pipe sum: the loss and the
         # accuracy from the last stage, every stage's aux terms and counts.
-        vec = torch.zeros(3 + 3 * g.n, device=inputs.device)
+        vec = metric_pack(torch.zeros(3 + 3 * g.n, device=inputs.device))
         vec[0], vec[1], vec[2] = run.loss_sum, run.acc_sum, run.aux_sum
-        # The schedule's unit counts are the same every step: copied to the
-        # device once, not each step from pageable host memory (a sync).
-        row = count_rows.get(tuple(run.counts))
-        if row is None:
-            row = count_rows[tuple(run.counts)] = torch.tensor(run.counts, dtype=torch.float32).to(inputs.device)
-        vec[3 + 3 * g.stage : 6 + 3 * g.stage] = row
+        # The schedule's unit counts, filled from Python numbers: a copy from
+        # host memory would wait for the device (the first step's too).
+        for i, c in enumerate(run.counts):
+            vec[3 + 3 * g.stage + i].fill_(c)
         if group_active(g.pipe):
             dist.all_reduce(vec, group=g.pipe)
         _pipe_complete(state, g)
@@ -726,7 +730,7 @@ def make_pp_train_step(cfg, *, microbatches: int, schedule: str = "gpipe", zero:
             # Each seq rank's loss saw its chunk: the seq mean completes the
             # gradients (model math, ref pmean over cp_axis), and the metrics.
             grads = [state.zero.grad] if state.zero is not None else [p.grad for p in model.parameters()]
-            for t in grads + [vec[:3]]:
+            for t in grads + [metric_pack(vec[:3])]:
                 dist.all_reduce(t, group=g.seq)
                 t.div_(g.n_seq)
         if state.zero is not None:
@@ -746,7 +750,7 @@ def make_pp_train_step(cfg, *, microbatches: int, schedule: str = "gpipe", zero:
             metrics["loss"] = metrics["loss"] + moe_aux_weight * metrics["moe_aux"]
         if group_active(g.data):
             keys = list(metrics)
-            means = torch.stack([metrics[k] for k in keys])
+            means = metric_pack(torch.stack([metrics[k] for k in keys]))
             dist.all_reduce(means, group=g.data)
             metrics = dict(zip(keys, (means / dist.get_world_size(g.data)).unbind()))
         if schedule != "gpipe":
@@ -755,8 +759,27 @@ def make_pp_train_step(cfg, *, microbatches: int, schedule: str = "gpipe", zero:
         return metrics
 
     step.last = None
+    n_stages = axis_size(PIPE_AXIS)
     step.bubble_accounting = (None if schedule == "gpipe"
-                              else pp_bubble_fraction(axis_size(PIPE_AXIS), M, virtual, schedule))
+                              else pp_bubble_fraction(n_stages, M, virtual, schedule))
+    # The manifest for the graph linter (the reference's,
+    # ``pipeline_parallel.py:1255-1277``, in torch's names): the stage
+    # boundary's sends on the pipe axis, the data-parallel reduction (ZeRO-1's
+    # reduce-scatter and gather), anything inside a stage on its own axes.
+    data = ({"reduce_scatter_tensor": (1, None), "all_gather_into_tensor": (1, None), "all_reduce": (0, None)}
+            if zero_level else {"all_reduce": (1, None)})
+    reduce = {DATA_AXIS: data, PIPE_AXIS: {"batch_isend_irecv": (1, None), "all_reduce": (0, None)}}
+    for ax in (cfg.cp_axis, cfg.tp_axis, cfg.ep_axis):
+        if ax is not None:
+            reduce.setdefault(ax, ANY_COLLECTIVE)
+    step.collective_manifest = collective_manifest("pp-zero" if zero_level else "pp", grad_reduce=reduce,
+                                                   allow_f32_reduce=True)
+    # Schedule-as-data for the SL3xx linter: the tick table this step claims
+    # to run, rebuilt from the schedule's definition (not from the tick
+    # arithmetic above; ``bubble_accounting`` is what SL304 compares).
+    step.schedule_ir = (gpipe_schedule_ir(n_stages, M, hop_axis=PIPE_AXIS) if schedule == "gpipe" else
+                        {"1f1b": one_f_one_b_schedule_ir, "zb": zb_schedule_ir}[schedule](
+                            n_stages, M, virtual, hop_axis=PIPE_AXIS))
     return step
 
 

@@ -74,6 +74,7 @@ class DistributedSampler:
         return self._global_indices()[self.rank :: self.num_replicas]
 
     def __iter__(self) -> Iterator[int]:
+        # ddplint: allow[host-sync] — numpy indices, already on the host
         return iter(self.local_indices().tolist())
 
     def __len__(self) -> int:

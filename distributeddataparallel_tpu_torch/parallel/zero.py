@@ -530,6 +530,7 @@ class LowBitMoments:
     def state_dict(self) -> dict:
         def host(v):
             if isinstance(v, quant.Q8Moment):
+                # ddplint: allow[host-sync] — the checkpoint's host copy of the moments, off the step path
                 return {"q": v.q.cpu(), "scale": v.scale.cpu(), "n": v.n}
             return v.cpu()
 

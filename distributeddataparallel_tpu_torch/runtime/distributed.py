@@ -42,6 +42,7 @@ def free_port() -> int:
     rng = random.SystemRandom()
     for _ in range(100):
         port = rng.randint(*_FIXED_PORTS)
+        # ddplint: allow[blocking-socket] — a free-port probe's bind, not a dial
         with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
             try:
                 s.bind(("127.0.0.1", port))

@@ -2,8 +2,8 @@
 
 The port's copy of the JAX package's ``runtime/rendezvous.py`` (stdlib
 only, so it runs unchanged): ``RetryPolicy`` / ``retry_call`` come from
-the port's ``runtime/retry.py`` and ``elect_rehost`` applies the
-smallest-name rule itself.
+the port's ``runtime/retry.py`` and ``elect_rehost`` delegates to the
+port's ``analysis.protocol.elect_rehost_owner``.
 
 The store is the gang's source of truth about *who is in the gang*: every
 member maintains a heartbeat file, deliberate departures (clean leave,
@@ -827,11 +827,14 @@ del _op
 def elect_rehost(survivors: list[str]) -> str:
     """The deterministic re-host owner: the lexicographically smallest
     survivor — same rule as the epoch proposer, so no election protocol
-    is needed on top of the membership the gang already agrees on."""
-    names = sorted(str(s) for s in survivors)
-    if not names:
-        raise ValueError("no survivors to elect a re-host owner from")
-    return names[0]
+    is needed on top of the membership the gang already agrees on.
+
+    Delegates to ``analysis.protocol.elect_rehost_owner`` (both stdlib
+    only), so the rule the model checker explores is the rule the gang
+    executes."""
+    from distributeddataparallel_tpu_torch.analysis.protocol import elect_rehost_owner
+
+    return elect_rehost_owner(survivors)
 
 
 def rehost_store(

@@ -597,6 +597,7 @@ def fleet_worker(process_id: int, nprocs: int, store_address, cfg_json: str) -> 
     listener = None
     handoff_addr = None
     if tier == "decode":
+        # ddplint: allow[blocking-socket] — loopback listener bind, not a dial
         listener = socket.socket()
         listener.bind(("127.0.0.1", 0))
         listener.listen(8)
@@ -624,6 +625,7 @@ def fleet_worker(process_id: int, nprocs: int, store_address, cfg_json: str) -> 
     running = True
     handoffs_out = 0
     tokens_done = 0
+    # ddplint: allow[wallclock] — a worker process: host clock by design (ServingFleet replays in-process)
     t_start = time.time()
 
     def _fail_handoff(fid) -> None:
@@ -673,6 +675,7 @@ def fleet_worker(process_id: int, nprocs: int, store_address, cfg_json: str) -> 
                     fid = done["meta"]["fid"]
                     handoffs_out += 1
                     hctx = _req_root(fid).child("handoff", name, target, handoffs_out)
+                    # ddplint: allow[wallclock] — a worker process: host clock by design
                     end = time.time()
                     engine.emit("kv_handoff", req=fid, blocks=done["blocks"], bytes=done["bytes"],
                                 attempts=done["attempts"], handoff_s=done["handoff_s"], dst=target,
@@ -719,6 +722,7 @@ def fleet_worker(process_id: int, nprocs: int, store_address, cfg_json: str) -> 
                 if fid is None:
                     continue
                 tokens_done += len(req.generated)
+                # ddplint: allow[wallclock] — live throughput gauge of a worker process
                 registry.gauge("serve_tok_s").set(tokens_done / max(time.time() - t_start, 1e-9))
                 _send_line(psock, {
                     "op": "done",
@@ -734,6 +738,7 @@ def fleet_worker(process_id: int, nprocs: int, store_address, cfg_json: str) -> 
         # Heartbeats pace a real socket on the host clock (the engine runs
         # on time.time too); only the in-process fleet replays under a
         # VirtualClock.
+        # ddplint: allow[wallclock] — heartbeats pace a real socket
         now = time.time()
         if now - last_beat >= hb_s:
             try:
@@ -819,6 +824,7 @@ class FleetService:
                                "--device cpu to run the fleet on the CPU")
         fc = self.fleet_config
         nprocs = fc.prefill + fc.decode
+        # ddplint: allow[blocking-socket] — loopback listener bind, not a dial
         server = socket.socket()
         server.bind(("127.0.0.1", 0))
         server.listen(nprocs)
@@ -883,9 +889,11 @@ class FleetService:
         proc_of: dict[str, int] = {}
         handoff_addrs: dict[str, list] = {}
         metrics_addrs: dict[str, str] = {}
+        # ddplint: allow[wallclock] — the subprocess fleet's start-up deadline on the host clock
         deadline = time.monotonic() + 300.0
         unnamed: list[_LineReader] = []
         while len(conns) < len(procs):
+            # ddplint: allow[wallclock] — the subprocess fleet's start-up deadline on the host clock
             if time.monotonic() > deadline:
                 raise RuntimeError(f"fleet handshake: {len(conns)}/{len(procs)} workers reported")
             try:
@@ -970,13 +978,16 @@ class FleetService:
         # A real multi-process run: arrivals, the stall watchdog and the
         # summary's elapsed time live on the host clock by design (the
         # in-process VirtualClock path is ServingFleet).
+        # ddplint: allow[wallclock] — a real multi-process run lives on the host clock by design
         t0 = time.time()
         i = 0
         kill_pending = self.kill_after_s is not None
-        last_progress = time.monotonic()
+        last_progress = time.monotonic()  # ddplint: allow[wallclock]
         while i < len(trace) or pending:
+            # ddplint: allow[wallclock] — the stall watchdog of a real multi-process run
             if time.monotonic() - last_progress > self.deadline_s:
                 break
+            # ddplint: allow[wallclock] — a real multi-process run lives on the host clock by design
             now_rel = time.time() - t0
             while i < len(trace) and trace[i]["arrival_s"] <= now_rel:
                 r = trace[i]
@@ -1008,6 +1019,7 @@ class FleetService:
                         completed[fid] = msg
                         router.complete(fid)
                         pending.pop(fid, None)
+                        # ddplint: allow[wallclock] — the stall watchdog of a real multi-process run
                         last_progress = time.monotonic()
                         tier = "prefill" if msg.get("handoff") else "decode"
                         tier_ttft[tier].append(msg["ttft_s"])
@@ -1028,6 +1040,7 @@ class FleetService:
                             self._scrape_fleet(router, metrics_addrs)
                     elif op == "handoff_done":
                         self.handoffs += 1
+                        # ddplint: allow[wallclock] — the stall watchdog of a real multi-process run
                         last_progress = time.monotonic()
                         try:
                             record = router.handoff_done(msg["fid"])
@@ -1058,6 +1071,7 @@ class FleetService:
                     _send_line(reader.sock, {"op": "shutdown"})
                 except OSError:
                     pass
+        # ddplint: allow[wallclock] — a real multi-process run lives on the host clock by design
         elapsed = time.time() - t0
         return self._summary(completed, dropped, elapsed, events, trace)
 

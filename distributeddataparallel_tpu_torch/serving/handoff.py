@@ -54,26 +54,20 @@ from typing import Callable
 import numpy as np
 import torch
 
+# The redelivery budget and the verdict rungs are the protocol checker's
+# own objects (``analysis.protocol``): the plan it explores is the plan
+# that runs (``serving.router.Router.mark_dead`` consults the rungs).
+from distributeddataparallel_tpu_torch.analysis.protocol import (  # noqa: F401
+    HANDOFF_MAX_ATTEMPTS,
+    VERDICT_RUNGS,
+    verdict_rung,
+)
 from distributeddataparallel_tpu_torch.runtime.retry import RetryPolicy, retry_call
 from distributeddataparallel_tpu_torch.serving.kv_cache import _is_qkv
 
-#: Digest-mismatch redelivery budget per handoff before the sender gives up:
-#: a link that corrupts four attempts in a row is dead, not noisy (the
-#: reference's ``analysis.protocol.HANDOFF_MAX_ATTEMPTS``).
-HANDOFF_MAX_ATTEMPTS = 4
 MAX_ATTEMPTS = HANDOFF_MAX_ATTEMPTS
 
-#: Degradation rungs an ``engine_verdict`` may record: ``drain`` while the
-#: tier has live survivors (requests requeue), ``fail`` when it does not
-#: (``serving.router.Router.mark_dead`` consults these).
-VERDICT_RUNGS = ("drain", "fail")
-
 _LEN = struct.Struct(">I")
-
-
-def verdict_rung(tier_has_survivors: bool) -> str:
-    """drain while the tier has live engines, fail when it does not."""
-    return VERDICT_RUNGS[0] if tier_has_survivors else VERDICT_RUNGS[1]
 
 
 class HandoffError(RuntimeError):

@@ -291,6 +291,7 @@ class CheckpointFiles:
         _atomic_write(self._hash_path(epoch), lambda p: _dump_json(p, {"sha256": digest}))
         try:
             _atomic_write(self._path(epoch), lambda p: torch.save(payload, p))
+        # ddplint: allow[broad-except] — removes the partial hash sidecar, then re-raises
         except BaseException:
             os.remove(self._hash_path(epoch))
             raise

@@ -130,6 +130,7 @@ class ResilientCheckpointer(CheckpointFiles):
                 if self._events is not None:
                     self._events.emit("ckpt_save", epoch=epoch, attempts=attempt + 1)
                 return None
+            # ddplint: allow[broad-except] — the retrying IO boundary (the last failure is raised)
             except Exception as e:  # noqa: BLE001 — the retrying IO boundary
                 err = e
                 if attempt >= self._policy.retries:
@@ -167,6 +168,7 @@ class ResilientCheckpointer(CheckpointFiles):
                 try:
                     payload = self.read(epoch)
                     break
+                # ddplint: allow[broad-except] — the corrupt-checkpoint boundary: quarantine and fall back
                 except Exception as e:  # noqa: BLE001 — the corrupt-checkpoint boundary
                     if self._counters is not None:
                         self._counters.ckpt_fallbacks += 1

@@ -104,15 +104,18 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from distributeddataparallel_tpu_torch.analysis.rules import ANY_COLLECTIVE, collective_manifest
 from distributeddataparallel_tpu_torch.models.io import jax_leaf_pieces
 from distributeddataparallel_tpu_torch.parallel import overlap as ov
 from distributeddataparallel_tpu_torch.parallel import zero as z
 from distributeddataparallel_tpu_torch.parallel.data_parallel import (
+    OVERLAP_BUCKET_BYTES,
     all_reduce_gradients,
     clip_scale,
     group_active,
     group_size,
     masked_tree_mean,
+    metric_pack,
     sumsq_f32,
 )
 from distributeddataparallel_tpu_torch.parallel.expert_parallel import ep_dim
@@ -142,11 +145,11 @@ def _mean_over_ranks(values: dict[str, torch.Tensor], groups=(None,)) -> dict[st
     default; over a mesh the ``seq`` group, then the ``data`` group: the
     ``model`` ranks hold the same values)."""
     keys = list(values)
-    vec = torch.stack([values[k].detach().float() for k in keys])
+    vec = metric_pack(torch.stack([values[k].detach().float() for k in keys]))
     for g in groups:
         if group_active(g):
             dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=g)
-            vec = vec / group_size(g)
+            vec = metric_pack(vec / group_size(g))
     return dict(zip(keys, vec.unbind()))
 
 
@@ -570,6 +573,48 @@ def make_train_step(
                 g.mul_(scale.to(g.dtype))
         state.apply_gradients(ok)
 
+    def manifest(state: TrainState) -> dict:
+        """The gradient-sized collectives this configuration issues, per
+        mesh axis (the reference's manifest, ``train_step.py:370-433``, in
+        torch's names; ``analysis.graph_lint`` holds a recorded step to it).
+        A builder of the state: the model's buffers (BatchNorm) add their
+        own reduction."""
+        with_buffers = bool(model_buffers(state.model))
+        if fsdp:
+            # The gathers and the reduce-scatters of every flat, the
+            # replicated reduction only where a TP activation needs one.
+            reduce = {DATA_AXIS: {"all_gather_into_tensor": (1, None), "reduce_scatter_tensor": (1, None),
+                                  "all_reduce": (0, None)}}
+        elif zero_level:
+            # Levels 2/3 reduce no gradient-sized tensor but the buffers.
+            dense = (0, None) if (with_buffers or zero_level == 1) else (0, 0)
+            reduce = {DATA_AXIS: {"reduce_scatter_tensor": (1, None), "all_gather_into_tensor": (1, None),
+                                  "all_reduce": dense}}
+        else:
+            reduce = {DATA_AXIS: {"all_reduce": (1, None) if grad_sync else (0, None)}}
+        if integrity_every is not None:
+            # The digest matrix's one gather on a cadence step.
+            # (ZeRO-1 gathers its updated parameters anyway.)
+            reduce[DATA_AXIS]["all_gather_into_tensor"] = (1, None) if zero_level else (0, 1)
+        for ax in (cp_axis, tp_axis, ep_axis):
+            if ax is not None:
+                reduce.setdefault(ax, ANY_COLLECTIVE)
+        exact = (grad_sync and not zero_level and not fsdp and bucket_bytes is None and not overlap
+                 and grad_compress is None and not with_buffers and not nonfinite_guard and grad_clip is None)
+        mode = "fsdp" if fsdp else ("zero" if zero_level == 1 else f"zero{zero_level}") if zero_level else "dp"
+        return collective_manifest(mode, grad_reduce=reduce,
+                                   allow_f32_reduce=bool(bucket_bytes or overlap or zero_level or fsdp
+                                                         or grad_compress),
+                                   per_leaf_axes=(DATA_AXIS,) if exact else ())
+
+    step.collective_manifest = manifest
+    if grad_sync and not zero_level and not fsdp and grad_compress in (None, "bf16") and (
+            bucket_bytes is not None or overlap):
+        # The bucketed sync's order as schedule IR (the reference's
+        # comm_schedule, ``train_step.py:868-881``): one all_reduce a bucket,
+        # planned by the same planner the step uses.
+        step.comm_schedule = lambda params: ov.comm_schedule_ir(
+            params, bucket_bytes=bucket_bytes or OVERLAP_BUCKET_BYTES)
     return step
 
 

@@ -168,6 +168,7 @@ class Autotuner:
                     self.prepare(nxt.trial)
                 # A background build is an optimization; the candidate
                 # builds cold on failure.
+                # ddplint: allow[broad-except] — a failed background build only means the candidate builds cold
                 except Exception as exc:  # noqa: BLE001
                     log.warning(
                         "background prepare of trial %s failed (%s: %s)",
@@ -199,6 +200,7 @@ class Autotuner:
             pred = self.predict(trial)
         # One unpredictable trial must not kill the search; it is recorded
         # and skipped (prediction touches no device).
+        # ddplint: allow[broad-except] — one unpredictable trial is recorded and skipped
         except Exception as exc:  # noqa: BLE001
             rec.status = f"error: {type(exc).__name__}: {exc}"
             return rec

@@ -19,6 +19,7 @@ import torch
 
 from distributeddataparallel_tpu_torch.ops import attention as tatt
 from distributeddataparallel_tpu_torch.ops import flash_attention as tfa
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 # The JAX package's ops/__init__ re-exports the function ``attention`` under
 # the module's name.

@@ -23,6 +23,7 @@ sys.path.insert(0, str(ROOT))
 import dpp as jdpp  # noqa: E402  (the reference entry point)
 
 from distributeddataparallel_tpu_torch import dpp as tdpp  # noqa: E402
+from torch_cores import share_of_the_cores  # noqa: E402,F401 -- an autouse fixture
 
 
 def _argv(tmp_path, mode, events_sub):

@@ -29,6 +29,7 @@ from distributeddataparallel_tpu.utils import chaos as jchaos
 from distributeddataparallel_tpu_torch import dpp
 from distributeddataparallel_tpu_torch.observability import EventLog, read_events
 from distributeddataparallel_tpu_torch.utils import chaos
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 SPECS = [
     "", "ckpt-io@0", "ckpt-io@0:2", " nan-grad@3 ", "slow-step@5", "slow-step@5:2.5", "preempt@12",

@@ -28,6 +28,7 @@ from distributeddataparallel_tpu_torch.models.simple_cnn import TinyMLP
 from distributeddataparallel_tpu_torch.training import checkpoint as ck
 from distributeddataparallel_tpu_torch.training import fault_tolerance as ft
 from distributeddataparallel_tpu_torch.training.state import TrainState
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 FLAGS = ["--device", "cpu", "--model", "resnet18", "--num-examples", "24", "--batch-size", "8",
          "--augment", "--optimizer", "sgd", "--momentum", "0.9", "--lr", "0.05",

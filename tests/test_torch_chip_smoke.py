@@ -31,6 +31,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")

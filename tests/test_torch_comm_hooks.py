@@ -29,6 +29,7 @@ from distributeddataparallel_tpu_torch.parallel import powersgd as tps  # noqa: 
 from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa: E402
 from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa: E402
 from distributeddataparallel_tpu_torch.training.train_step import make_train_step  # noqa: E402
+from torch_cores import share_of_the_cores  # noqa: E402,F401 -- an autouse fixture
 
 WORLD = 2
 

@@ -69,6 +69,7 @@ from distributeddataparallel_tpu_torch.parallel.tensor_parallel import merge_tp_
 from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa: E402
 from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa: E402
 from distributeddataparallel_tpu_torch.training.train_step import make_train_step  # noqa: E402
+from torch_cores import one_thread  # noqa: E402,F401 -- an autouse fixture
 
 
 @functools.cache
@@ -112,14 +113,6 @@ F32_ATOL = 2e-5
 WHOLE_WORLD_LR = 0.1
 BF16_TOL = dict(atol=1e-3, rtol=1e-2)
 LOSS_ATOL, UPDATE_RTOL = 2e-3, 5e-2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def ring_inputs(name):

@@ -46,6 +46,7 @@ from distributeddataparallel_tpu_torch.parallel import overlap as tov  # noqa: E
 from distributeddataparallel_tpu_torch.parallel.powersgd import PowerSGDLeaf  # noqa: E402
 from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa: E402
 from distributeddataparallel_tpu_torch.training.train_step import make_train_step  # noqa: E402
+from torch_cores import one_thread  # noqa: E402,F401 -- an autouse fixture
 
 
 @functools.cache
@@ -73,14 +74,6 @@ RUNS = {"overlap": LM + ["--overlap", "--bucket-mb", "0.01"],
         "powersgd": LM + ["--grad-compress", "powersgd", "--powersgd-rank", "2"]}
 F32_ATOL = 1e-5
 PSGD_TOL = dict(atol=2e-5, rtol=1e-4)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------- rank side --

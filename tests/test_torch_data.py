@@ -15,6 +15,7 @@ from distributeddataparallel_tpu_torch.data.datasets import SyntheticLM
 from distributeddataparallel_tpu_torch.data.loader import DataLoader
 from distributeddataparallel_tpu_torch.parallel import data_parallel as tdp
 from distributeddataparallel_tpu_torch.parallel.sampler import DistributedSampler
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 
 def test_synthetic_lm_tokens_identical():

@@ -51,6 +51,7 @@ from distributeddataparallel_tpu_torch.models.io import from_jax_params, to_jax_
 from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa: E402
 from distributeddataparallel_tpu_torch.training import elastic as tel  # noqa: E402
 from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles, host_payload  # noqa: E402
+from torch_cores import one_thread  # noqa: E402,F401 -- an autouse fixture
 
 
 def ref():
@@ -104,14 +105,6 @@ REFUSE = {  # name: (flags at 4 ranks, flags of the resume at 2 ranks, how the p
 # rounding's size (AdamW turns a near-zero gradient's rounding into a
 # visible fraction of a step).
 E2E = ["--zero", "1", "--optimizer", "sgd", "--momentum", "0.9", "--lr", "0.1"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------- the ranks --

@@ -45,6 +45,7 @@ from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa:
 from distributeddataparallel_tpu_torch.runtime import elastic_gang as tgang  # noqa: E402
 from distributeddataparallel_tpu_torch.runtime import rendezvous as trdzv  # noqa: E402
 from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFiles, host_payload  # noqa: E402
+from torch_cores import share_of_the_cores  # noqa: E402,F401 -- an autouse fixture
 
 LM = ["--model", "gpt2", "--d-model", "32", "--layers", "2", "--seq-len", "16", "--vocab-size", "64",
       "--num-examples", "64", "--batch-size", "3", "--epochs", "1", "--optimizer", "adamw", "--lr", "1e-2"]

@@ -62,6 +62,7 @@ from distributeddataparallel_tpu_torch.parallel.zero import zero_state  # noqa: 
 from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa: E402
 from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa: E402
 from distributeddataparallel_tpu_torch.training.train_step import make_train_step  # noqa: E402
+from torch_cores import one_thread  # noqa: E402,F401 -- an autouse fixture
 
 SMALL = dict(num_layers=2, num_heads=2, d_model=32, d_ff=64, max_seq_len=32, moe_experts=4)
 # name -> (mesh axes, shape, config overrides, optimizer, lr, token seed, batch shape, steps, extra)
@@ -88,14 +89,6 @@ GPT2 = ["--model", "gpt2", "--layers", "2", "--d-model", "32", "--seq-len", "16"
 CLI_FLAGS = GPT2 + ["--moe-experts", "4", "--ep", "2", "--eval", "--lr", "0.1"]
 CKPT_FLAGS = GPT2 + ["--moe-experts", "4", "--moe-top-k", "2", "--ep", "2", "--optimizer", "adamw",
                      "--lr", "1e-2"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.cache

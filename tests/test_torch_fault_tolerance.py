@@ -56,6 +56,7 @@ from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa:
 from distributeddataparallel_tpu_torch.training.train_step import make_train_step  # noqa: E402
 from distributeddataparallel_tpu_torch.utils.chaos import FaultInjector  # noqa: E402
 from distributeddataparallel_tpu_torch.utils.metrics import FaultCounters  # noqa: E402
+from torch_cores import share_of_the_cores  # noqa: E402,F401 -- an autouse fixture
 
 ADAMW = ["--device", "cpu", "--optimizer", "adamw", "--lr", "0.01", "--weight-decay", "0.01",
          "--lr-schedule", "cosine", "--warmup-steps", "2"]

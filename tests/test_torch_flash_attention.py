@@ -19,6 +19,7 @@ import torch
 
 from distributeddataparallel_tpu.ops import pallas_attention as jpa
 from distributeddataparallel_tpu_torch.ops import flash_attention as tfa
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 

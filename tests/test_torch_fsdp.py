@@ -52,6 +52,7 @@ from distributeddataparallel_tpu_torch.training.checkpoint import CheckpointFile
 from distributeddataparallel_tpu_torch.training.optim import build_optimizer  # noqa: E402
 from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa: E402
 from distributeddataparallel_tpu_torch.training.train_step import make_train_step  # noqa: E402
+from torch_cores import one_thread  # noqa: E402,F401 -- an autouse fixture
 
 
 @functools.cache
@@ -82,14 +83,6 @@ VALID = np.array([1] * 13 + [0] * 3, np.float32)
 CLI = ["--device", "cpu", "--model", "llama", "--layers", "2", "--d-model", "128", "--seq-len", "16",
        "--vocab-size", "64", "--num-examples", "32", "--batch-size", "2", "--epochs", "1",
        "--steps-per-epoch", "2", "--eval", "--optimizer", "adamw", "--lr", "1e-2", "--tp", "2"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def tokens(seed: int, rows: int = 16) -> np.ndarray:

@@ -37,6 +37,7 @@ from distributeddataparallel_tpu.models import transformer as jtfm
 from distributeddataparallel_tpu_torch.models import io as tio
 from distributeddataparallel_tpu_torch.models import transformer as ttfm
 from distributeddataparallel_tpu_torch.models.resnet import ResNet18
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 LLAMA = dict(vocab_size=128, max_seq_len=32, d_model=64, num_layers=2, num_heads=4, num_kv_heads=2,

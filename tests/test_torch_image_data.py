@@ -31,6 +31,7 @@ from distributeddataparallel_tpu_torch.data import sharded as tsh
 from distributeddataparallel_tpu_torch.data import transforms as ttr
 from distributeddataparallel_tpu_torch.data.loader import DataLoader
 from distributeddataparallel_tpu_torch.ops.preprocess import normalize_u8_images
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 
 

@@ -20,6 +20,7 @@ from PIL import Image
 from distributeddataparallel_tpu.data import ingest as jingest
 from distributeddataparallel_tpu_torch.data import ingest as tingest
 from distributeddataparallel_tpu_torch.data.sharded import ShardedImageDataset
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 ROOT = Path(__file__).resolve().parents[1]
 SIZES = [(40, 30), (17, 23), (64, 64), (9, 50)]

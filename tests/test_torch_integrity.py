@@ -54,6 +54,7 @@ from distributeddataparallel_tpu_torch.training.optim import build_optimizer  # 
 from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa: E402
 from distributeddataparallel_tpu_torch.training.train_step import make_train_step  # noqa: E402
 from distributeddataparallel_tpu_torch.utils.metrics import FaultCounters  # noqa: E402
+from torch_cores import share_of_the_cores  # noqa: E402,F401 -- an autouse fixture
 
 WORLD = 3
 ROWS = 12  # the global batch: 4 rows a rank

@@ -51,6 +51,7 @@ from distributeddataparallel_tpu_torch import dpp as tdpp  # noqa: E402
 from distributeddataparallel_tpu_torch.data.sharded import resize_index_plan  # noqa: E402
 from distributeddataparallel_tpu_torch.runtime import elastic_gang as tgang  # noqa: E402
 from distributeddataparallel_tpu_torch.runtime import launcher  # noqa: E402
+from torch_cores import share_of_the_cores  # noqa: E402,F401 -- an autouse fixture
 
 DPP = [sys.executable, "-m", "distributeddataparallel_tpu_torch.dpp"]
 COMMON = ["--device", "cpu", "--model", "mlp", "--fake-devices", "3", "--zero", "1", "--optimizer", "adamw",

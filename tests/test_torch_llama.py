@@ -47,6 +47,7 @@ from distributeddataparallel_tpu_torch.models import transformer as ttfm  # noqa
 from distributeddataparallel_tpu_torch.models.io import from_jax_params, to_jax_params  # noqa: E402
 from distributeddataparallel_tpu_torch.ops.losses import lm_cross_entropy  # noqa: E402
 from distributeddataparallel_tpu_torch.parallel.data_parallel import plan_buckets  # noqa: E402
+from torch_cores import share_of_the_cores  # noqa: E402,F401 -- an autouse fixture
 
 KW = dict(vocab_size=96, num_layers=2, num_heads=4, num_kv_heads=2, d_model=64, d_ff=128, max_seq_len=24)
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -9,6 +9,7 @@ import torch
 
 from distributeddataparallel_tpu.models import transformer as jtfm
 from distributeddataparallel_tpu_torch.models import transformer as ttfm
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 
 def test_gpt2_124m_is_full_width():

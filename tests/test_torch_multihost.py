@@ -21,6 +21,7 @@ import pytest
 from distributeddataparallel_tpu_torch import dpp
 from distributeddataparallel_tpu_torch.observability import read_events
 from distributeddataparallel_tpu_torch.runtime import distributed as rt
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 ROOT = Path(__file__).resolve().parents[1]
 FLAGS = ["--device", "cpu", "--model", "mlp", "--dataset", "synthetic", "--num-examples", "128",

@@ -27,6 +27,7 @@ from distributeddataparallel_tpu_torch.data import sharded as tsh
 from distributeddataparallel_tpu_torch.data import transforms as ttr
 from distributeddataparallel_tpu_torch.data.loader import DataLoader
 from distributeddataparallel_tpu_torch.training import warm_start
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 IDX = {
     "rows": np.array([3, 0, 7, 7, 11]),

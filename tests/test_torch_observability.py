@@ -36,6 +36,7 @@ import dpp as jdpp  # noqa: E402  the reference entry point
 
 from distributeddataparallel_tpu.observability import cost_model as jcost  # noqa: E402
 from distributeddataparallel_tpu_torch import dpp as tdpp  # noqa: E402
+from torch_cores import share_of_the_cores  # noqa: E402,F401 -- an autouse fixture
 
 ROOT = Path(__file__).resolve().parents[1]
 RUN = ["--model", "cnn", "--epochs", "2", "--num-examples", "96", "--batch-size", "4",

@@ -65,6 +65,7 @@ from distributeddataparallel_tpu_torch.parallel.tensor_parallel import merge_tp_
 from distributeddataparallel_tpu_torch.parallel.zero import zero_state  # noqa: E402
 from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa: E402
 from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa: E402
+from torch_cores import one_thread  # noqa: E402,F401 -- an autouse fixture
 
 SMALL = dict(num_layers=4, num_heads=2, d_model=32, d_ff=64, max_seq_len=32, scan_layers=True)
 GPT2_STYLE = dict(norm="layernorm", activation="gelu", positional="learned", use_bias=True)
@@ -86,14 +87,6 @@ LOSS_REL, PARAM_ATOL, ZERO_ATOL = 1e-5, 2e-5, 2e-6
 ADAM_EPS = 1e-4
 EVAL_ROWS, EVAL_M = 6, 2
 HELD_M = (4, 8, 16)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.cache

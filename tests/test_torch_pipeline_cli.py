@@ -57,6 +57,7 @@ from distributeddataparallel_tpu_torch.parallel.pipeline_parallel import (  # no
     merge_pp_shards,
 )
 from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa: E402
+from torch_cores import one_thread  # noqa: E402,F401 -- an autouse fixture
 
 COMMON = ["--layers", "4", "--seq-len", "16", "--vocab-size", "64", "--num-examples", "64", "--batch-size", "2",
           "--epochs", "1", "--steps-per-epoch", "3", "--pp", "2"]
@@ -70,14 +71,6 @@ CKPT_FLAGS = ["--model", "gpt2", "--d-model", "32", "--optimizer", "adamw", "--l
               *COMMON]
 EVENT_FLAGS = CKPT_FLAGS + ["--pp-microbatches", "2", "--log-every", "1"]
 BAD_BATCH = RUNS["gpipe_gpt2"] + ["--batch-size", "3"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.cache

@@ -55,6 +55,7 @@ from distributeddataparallel_tpu_torch.parallel.tensor_parallel import merge_tp_
 from distributeddataparallel_tpu_torch.parallel.zero import zero_state  # noqa: E402
 from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa: E402
 from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa: E402
+from torch_cores import one_thread  # noqa: E402,F401 -- an autouse fixture
 
 SMALL = dict(num_layers=4, num_heads=2, d_model=32, d_ff=64, max_seq_len=32, scan_layers=True)
 MESH = (("data", "seq", "pipe"), (2, 2, 2))
@@ -76,14 +77,6 @@ DPP_COMMON = ["--model", "gpt2", "--d-model", "32", "--layers", "4", "--seq-len"
               "--num-examples", "64", "--batch-size", "2", "--epochs", "1", "--steps-per-epoch", "3", "--lr", "0.1",
               "--pp", "2", "--cp", "2"]
 DPP_RUNS = {impl: DPP_COMMON + ["--cp-impl", impl] for impl in ("ring", "ulysses")}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def case_cfg(name, **kw):

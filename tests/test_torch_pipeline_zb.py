@@ -68,6 +68,7 @@ from distributeddataparallel_tpu_torch.models.io import from_jax_params, to_jax_
 from distributeddataparallel_tpu_torch.parallel import pipeline_parallel as tpp  # noqa: E402
 from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa: E402
 from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa: E402
+from torch_cores import one_thread  # noqa: E402,F401 -- an autouse fixture
 
 SMALL = dict(num_heads=2, d_model=32, d_ff=64, max_seq_len=32, scan_layers=True)
 # name -> ((data, pipe), layers, M, virtual, port schedules, reference schedule, optimizer, lr, seed, rows, steps)
@@ -92,14 +93,6 @@ DPP_RUNS = {
 CKPT_FLAGS = ["--model", "gpt2", "--d-model", "32", "--layers", "4", "--seq-len", "16", "--vocab-size", "64",
               "--num-examples", "64", "--batch-size", "2", "--epochs", "1", "--steps-per-epoch", "3",
               "--optimizer", "adamw", "--lr", "1e-2", "--pp", "2", "--pp-schedule", "1f1b", "--pp-virtual", "2"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.cache

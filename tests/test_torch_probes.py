@@ -40,6 +40,7 @@ from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa:
 from distributeddataparallel_tpu_torch.training.train_step import make_train_step  # noqa: E402
 from distributeddataparallel_tpu_torch.utils import metrics  # noqa: E402
 from distributeddataparallel_tpu_torch.utils.logging import get_logger  # noqa: E402
+from torch_cores import share_of_the_cores  # noqa: E402,F401 -- an autouse fixture
 
 #: the reference's result keys (utils/metrics.py:262-269, :323-330)
 BW_KEYS = {"devices", "payload_mb", "time_s", "bus_bw_gb_s", "peak_gb_s", "utilization"}

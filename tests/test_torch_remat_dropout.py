@@ -38,6 +38,7 @@ from distributeddataparallel_tpu_torch.models import transformer as ttfm
 from distributeddataparallel_tpu_torch.ops.dropout import dropout, fold_seed
 from distributeddataparallel_tpu_torch.training import train_step as ts
 from distributeddataparallel_tpu_torch.training.state import TrainState
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 ROOT = Path(__file__).resolve().parents[1]
 KW = dict(vocab_size=64, num_layers=2, num_heads=4, num_kv_heads=1, d_model=64, d_ff=128, max_seq_len=16)

@@ -20,6 +20,7 @@ at most 6e-7) and gradients by a few ulps of their scale: atol 2e-5 /
 rtol 1e-4, as the transformer's parity tests use.
 """
 
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +35,7 @@ from distributeddataparallel_tpu_torch.models import simple_cnn as tcnn
 from distributeddataparallel_tpu_torch.models.io import from_jax_params, to_jax_params
 from distributeddataparallel_tpu_torch.models.layers import same_pads
 from distributeddataparallel_tpu_torch.ops.losses import cross_entropy_loss
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 CLASSES = 5

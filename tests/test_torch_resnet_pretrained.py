@@ -33,6 +33,7 @@ from distributeddataparallel_tpu.models import resnet as jresnet
 from distributeddataparallel_tpu_torch import dpp as tdpp
 from distributeddataparallel_tpu_torch.models import io as tio
 from distributeddataparallel_tpu_torch.models import resnet as tresnet
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 ROOT = Path(__file__).resolve().parents[1]
 

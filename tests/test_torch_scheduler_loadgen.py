@@ -27,6 +27,7 @@ from distributeddataparallel_tpu.serving import scheduler as jsch
 from distributeddataparallel_tpu_torch.serving import kv_cache as tkv
 from distributeddataparallel_tpu_torch.serving import loadgen as tlg
 from distributeddataparallel_tpu_torch.serving import scheduler as tsch
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 TRACES = {
     "poisson": dict(rate_rps=40.0, duration_s=1.0, prompt_len=(4, 40), output_len=(2, 30), seed=3),

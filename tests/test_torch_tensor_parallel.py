@@ -58,6 +58,7 @@ from distributeddataparallel_tpu_torch.parallel.tensor_parallel import merge_tp_
 from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa: E402
 from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa: E402
 from distributeddataparallel_tpu_torch.training.train_step import make_train_step  # noqa: E402
+from torch_cores import one_thread  # noqa: E402,F401 -- an autouse fixture
 
 GPT2 = ["--model", "gpt2", *LM[2:]]
 DPP_RUNS = {
@@ -71,14 +72,6 @@ CKPT_FLAGS = LM + ["--cp", "2", "--tp", "2", "--optimizer", "adamw", "--lr", "1e
 XP_CFG = dict(num_heads=4, num_kv_heads=2, d_model=32, d_ff=64, max_seq_len=32)
 XP_STEPS, XP_LR = 3, 0.1
 FWD_CFG = dict(num_heads=4, d_model=32, d_ff=64, max_seq_len=16)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def xp_batches():

@@ -36,6 +36,7 @@ from distributeddataparallel_tpu.parallel.sampler import DistributedSampler as J
 from distributeddataparallel_tpu_torch import dpp as tdpp  # noqa: E402
 from distributeddataparallel_tpu_torch.data import tokens as ttok  # noqa: E402
 from distributeddataparallel_tpu_torch.data.loader import DataLoader  # noqa: E402
+from torch_cores import share_of_the_cores  # noqa: E402,F401 -- an autouse fixture
 
 SEQ = 16
 

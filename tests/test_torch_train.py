@@ -43,6 +43,7 @@ from distributeddataparallel_tpu_torch.training.train_step import (  # noqa: E40
     make_eval_step,
     make_train_step,
 )
+from torch_cores import share_of_the_cores  # noqa: E402,F401 -- an autouse fixture
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 TINY = ["--model", "gpt2", "--layers", "2", "--d-model", "32", "--seq-len", "16", "--vocab-size", "64",

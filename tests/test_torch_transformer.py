@@ -20,6 +20,7 @@ from distributeddataparallel_tpu.ops import lm_cross_entropy as j_lm_ce
 from distributeddataparallel_tpu_torch.models import transformer as ttfm
 from distributeddataparallel_tpu_torch.models.io import from_jax_params, to_jax_params
 from distributeddataparallel_tpu_torch.ops.losses import lm_cross_entropy
+from torch_cores import share_of_the_cores  # noqa: F401 -- an autouse fixture
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 

@@ -39,6 +39,7 @@ from distributeddataparallel_tpu_torch.analysis import mesh_sim as tmesh  # noqa
 from distributeddataparallel_tpu_torch.observability import cost_model as tcost  # noqa: E402
 from distributeddataparallel_tpu_torch.tuning import harness as tharness  # noqa: E402
 from distributeddataparallel_tpu_torch.utils.logging import get_logger  # noqa: E402
+from torch_cores import share_of_the_cores  # noqa: E402,F401 -- an autouse fixture
 
 SPACE = dict(batch_per_chip=(8, 16, 32), accum_steps=(1, 2, 3), remat=(False, True), zero=(0, 1, 2, 3),
              moment_dtype=("f32", "bf16", "int8"), bucket_mb=(None, 4.0), dispatch_depth=(0, 2))

@@ -42,20 +42,13 @@ from test_torch_context_parallel import (  # noqa: E402
 
 from distributeddataparallel_tpu_torch.parallel import context_parallel as tcp  # noqa: E402
 from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa: E402
+from torch_cores import one_thread  # noqa: E402,F401 -- an autouse fixture
 
 B, SL, D = 2, 8, 16
 # (axis size, heads, kv heads)
 CASES = {"native-n4": (4, 8, 4), "expand-n4": (4, 8, 2), "expand-n8": (8, 8, 2)}
 DPP_RUNS = {"ulysses-zero1-accum-eval": LM + ["--cp", "2", "--cp-impl", "ulysses", "--zero", "1",
                                               "--accum-steps", "2", "--eval"]}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def inputs(name):

@@ -55,6 +55,7 @@ from distributeddataparallel_tpu_torch.training import warm_start as ws  # noqa:
 from distributeddataparallel_tpu_torch.training.optim import build_optimizer  # noqa: E402
 from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa: E402
 from distributeddataparallel_tpu_torch.training.train_step import make_train_step  # noqa: E402
+from torch_cores import share_of_the_cores  # noqa: E402,F401 -- an autouse fixture
 
 LM = ["--device", "cpu", "--model", "gpt2", "--layers", "2", "--d-model", "32", "--seq-len", "16",
       "--vocab-size", "64", "--num-examples", "32", "--batch-size", "4", "--optimizer", "adamw",

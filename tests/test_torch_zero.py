@@ -44,6 +44,7 @@ from distributeddataparallel_tpu_torch.runtime import distributed as rt  # noqa:
 from distributeddataparallel_tpu_torch.training.optim import build_optimizer  # noqa: E402
 from distributeddataparallel_tpu_torch.training.state import TrainState  # noqa: E402
 from distributeddataparallel_tpu_torch.training.train_step import make_train_step  # noqa: E402
+from torch_cores import one_thread  # noqa: E402,F401 -- an autouse fixture
 
 @functools.cache
 def ref():
@@ -74,14 +75,6 @@ BUCKET = 4096  # bytes: several buckets at this size, big leaves alone
 WORLD, STEPS = 2, 3
 # (level, accum_steps, grad_clip): the clip (0.5) binds at these weights.
 CASES = [(1, 1, None), (2, 2, 0.5), (3, 2, 0.5)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_init(family, kw):
